@@ -1,0 +1,129 @@
+"""uurg_torch kernels' plain versions vs the JAX ops they port (CPU, fp32),
+and the dispatchers' refusal paths."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from uurg_torch.core.device import resolve_device  # noqa: E402
+from uurg_torch.ops import _build  # noqa: E402
+from uurg_torch.ops.flash_attention import attention  # noqa: E402
+from uurg_torch.ops.group_norm import group_norm  # noqa: E402
+from uurg_tpu.ops.flash_attention import (  # noqa: E402
+    _reference_attention,
+    fused_attention,
+)
+from uurg_tpu.ops.group_norm import _fwd_impl, _gn_reference  # noqa: E402
+
+# fp32 on both sides; only the summation order differs
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+GN_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("T", [16, 128, 256])
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_matches_jax(T, D):
+    rng = np.random.default_rng(T * 1000 + D)
+    q, k, v = (rng.standard_normal((2, 1, T, D), dtype=np.float32)
+               for _ in range(3))
+    launches = attention.launches
+    got = attention(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v)).numpy()
+    assert attention.launches == launches     # CPU tensors: plain version
+    ref = np.asarray(_reference_attention(q, k, v))
+    pallas = np.asarray(fused_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), min(256, T), True))
+    np.testing.assert_allclose(got, ref, **ATTN_TOL)
+    np.testing.assert_allclose(got, pallas, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("C", [64, 128, 384])
+def test_group_norm_matches_jax(C):
+    rng = np.random.default_rng(C)
+    x = (rng.standard_normal((3, 8, 8, C), dtype=np.float32) * 2 + 0.3)
+    scale = rng.standard_normal(C, dtype=np.float32) * 0.1 + 1.0
+    bias = rng.standard_normal(C, dtype=np.float32) * 0.1
+    launches = group_norm.launches
+    got, mean, rstd = group_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                                 torch.from_numpy(bias), groups=32,
+                                 return_stats=True)
+    assert group_norm.launches == launches
+    ref = np.asarray(_gn_reference(x, scale, bias, 32, 1e-6))
+    y_p, mean_p, rstd_p = _fwd_impl(jnp.asarray(x), jnp.asarray(scale),
+                                    jnp.asarray(bias), 32, 1e-6, True)
+    np.testing.assert_allclose(got.numpy(), ref, **GN_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(y_p), **GN_TOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mean_p), **GN_TOL)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(rstd_p), rtol=1e-4)
+
+
+def test_group_norm_constant_input_uses_variance_clamp():
+    # for a constant 0.01, fp32 E[x^2] - mean^2 rounds below zero; the clamp
+    # takes it to 0, so rstd = 1/sqrt(eps) and y is the bias, as in
+    # _gn_reference (the mean of the constant is exact, so x - mean = 0)
+    C = 128
+    x = np.full((2, 4, 4, C), 0.01, np.float32)
+    xt = torch.from_numpy(x).reshape(2, -1, 32, C // 32)
+    raw_var = xt.square().mean(dim=(1, 3)) - xt.mean(dim=(1, 3)) ** 2
+    assert (raw_var < 0).all()
+    scale = np.linspace(0.5, 1.5, C, dtype=np.float32)
+    bias = np.linspace(-1.0, 1.0, C, dtype=np.float32)
+    got, _, rstd = group_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                              torch.from_numpy(bias), groups=32,
+                              return_stats=True)
+    ref = np.asarray(_gn_reference(x, scale, bias, 32, 1e-6))
+    np.testing.assert_allclose(rstd.numpy(), 1e3, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, **GN_TOL)
+    np.testing.assert_allclose(got.numpy(), np.broadcast_to(bias, x.shape),
+                               **GN_TOL)
+
+
+def test_group_norm_halves_groups_for_narrow_channels():
+    x = torch.randn(2, 4, 4, 24)
+    scale, bias = torch.ones(24), torch.zeros(24)
+    y = group_norm(x, scale, bias, groups=32)
+    ref = np.asarray(_gn_reference(x.numpy(), scale.numpy(), bias.numpy(),
+                                   8, 1e-6))
+    np.testing.assert_allclose(y.numpy(), ref, **GN_TOL)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_other_devices_and_bad_inputs():
+    meta = torch.empty(2, 1, 16, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        attention(meta, meta, meta)
+    xm = torch.empty(2, 4, 4, 64, device="meta")
+    wm = torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        group_norm(xm, wm, wm)
+    q = torch.randn(2, 1, 16, 64)
+    with pytest.raises(ValueError, match="one shape"):
+        attention(q, q[:, :, :8], q)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    x = torch.randn(2, 4, 4, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_norm(x.transpose(1, 2), torch.ones(64), torch.zeros(64))
+    with pytest.raises(TypeError, match="float32"):
+        group_norm(x, torch.ones(64, dtype=torch.float64), torch.zeros(64))
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("group_norm")
+    assert {p.name for p in _build.sources()} == {
+        "group_norm.cu", "flash_attention_fwd.cu"}

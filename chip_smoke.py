@@ -16,11 +16,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time), and the kernel also launched eagerly from Python.
 4. One forward at batch 8 with the kernels against the same model on its
    plain path.
-5. The main path: ``ddpm_runner.sample_images`` on the full-width
+5. The sampling path: ``ddpm_runner.sample_images`` on the full-width
    ``configs/cifar10_sfron.yml`` CondUNet (seeded random init), DDIM-50 with
    classifier-free guidance 2.0, 128 labels over 10 classes. The kernel
    launch counters are zeroed just before and read just after; every
    attention and GroupNorm site must have gone through its kernel.
+6. The backward kernels against their plain versions at every backward
+   site shape of the training path (batch 128), timed as in phase 3: the
+   kernel, its plain version, and the PyTorch library's backward alone
+   (SDPA, ``F.group_norm``, forward graph retained).
+7. One eps-loss backward at batch 8 with the kernels against the same model
+   on its plain path: relative L2 error of all parameter gradients.
+8. The training path: ``ddpm_runner.sfron_forget`` (adaga, ron, a packed
+   random mask of ~50% density) on the full-width config at batch 128 + 128
+   on the synthetic CIFAR-10 stand-in: 2 warm-up steps, then 20 counted and
+   timed steps that resume from the warm-up's ``ckpt.pth``. Losses must be
+   finite, parameters and EMA must move, and every attention and GroupNorm
+   site of both phases must have gone through its forward and backward
+   kernels. The written ``ckpt.pth`` is then sampled (EMA) through
+   ``sample_images``.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -29,10 +43,13 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -44,22 +61,31 @@ BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 SAMPLING_BATCH = 128     # configs/cifar10_sfron.yml sampling.batch_size
+TRAIN_BATCH = 128        # configs/cifar10_sfron.yml training.batch_size
 DDIM_STEPS = 50
 COND_SCALE = 2.0
 SEED = 0
+WARMUP_STEPS, TRAIN_STEPS = 2, 20
+FORGET_ALPHA = 10.0      # cli/train.py --forget_alpha default
 
-# configs/cifar10_sfron.yml, the sections the sampling path reads (held equal
-# to the YAML by tests/test_torch_sampling.py; PyYAML is not needed here)
+# configs/cifar10_sfron.yml, the sections the sampling and training paths
+# read (held equal to the YAML by tests/test_torch_sampling.py; PyYAML is
+# not needed here)
 SFRON_CONFIG = {
-    "data": {"dataset": "CIFAR10", "image_size": 32, "channels": 3,
-             "n_classes": 10, "rescaled": True},
+    "data": {"dataset": "CIFAR10", "path": "./data", "image_size": 32,
+             "channels": 3, "n_classes": 10, "rescaled": True,
+             "random_flip": True},
     "model": {"in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2, 2, 2],
               "num_res_blocks": 2, "attn_resolutions": [16], "dropout": 0.1,
               "var_type": "fixedlarge", "resamp_with_conv": True,
-              "cond_drop_prob": 0.1},
+              "cond_drop_prob": 0.1, "ema": True, "ema_rate": 0.0001},
     "diffusion": {"beta_schedule": "linear", "beta_start": 0.0001,
                   "beta_end": 0.02, "num_diffusion_timesteps": 1000},
+    "training": {"batch_size": TRAIN_BATCH, "n_iters": 150,
+                 "snapshot_freq": 10, "log_freq": 10, "lambd": 0.5},
     "sampling": {"batch_size": SAMPLING_BATCH},
+    "optim": {"optimizer": "Adam", "lr": 0.0001, "beta1": 0.9, "eps": 1e-08,
+              "weight_decay": 0.0, "amsgrad": False, "grad_clip": 1.0},
 }
 
 # kernel tolerances against the plain version in bf16:
@@ -72,6 +98,22 @@ ATOL, RTOL = 1e-2, 1e-2
 # whole-model check at batch 8 (kernels vs plain path, both bf16): relative
 # L2 error of the eps output. bf16 roundings at ~150 layers compound.
 MODEL_REL_L2 = 2e-2
+# backward kernels vs plain versions in bf16, relative L2 error per output:
+# dk and dv are sums over T (dq over the keys), so an elementwise bound
+# would fail on entries that cancel. Both sides round P and dS to bf16
+# before the products and round each gradient once (2**-8 each); the kernel
+# takes delta from the bf16 forward output where the plain version sums
+# P * dP in fp32.
+BWD_REL_L2 = 2e-2
+# GroupNorm's dscale and dbias: fp32 sums over batch and space of the same
+# fp32 products in another order (up to 131072 terms)
+GN_SUM_REL_L2 = 1e-4
+# whole-model gradients at batch 8, kernels vs plain path, both bf16,
+# relative L2 of all parameter gradients concatenated (not per leaf: the
+# leaves whose exact gradient is zero hold only rounding noise). The forward
+# alone differs at ~1.1e-2 (phase 4); the backward runs a second chain of
+# bf16 roundings of the same depth.
+MODEL_GRAD_REL_L2 = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -100,22 +142,24 @@ def _events_ms(run, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int = 20) -> tuple[float, float]:
+def time_ms(fn, iters: int = 20, stream=None) -> tuple[float, float]:
     """(device ms, eager ms) per call of ``fn``, back to back on the same
     inputs. Device time replays the calls captured in a CUDA graph, so the
     host's launch cost is not in it; eager time launches from Python as the
     sampling path does, and exceeds the device time wherever a call's
-    kernels finish faster than the host can launch them."""
+    kernels finish faster than the host can launch them. ``stream`` is the
+    capture stream: a library backward must be captured on the stream its
+    forward ran on, where autograd replays it."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -239,13 +283,15 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
 
 
 def summarise(rows: list[dict], launches: dict, meta: dict) -> list[dict]:
-    """One entry per kernel; times are per UNet forward: the sum over the
-    forward's sites of the per-launch time at that site's shape."""
+    """One entry per kernel. Times are per UNet pass (a forward at batch
+    256 for the forward kernels, a backward at batch 128 for the backward
+    kernels): the sum over the pass's sites of the per-launch time at that
+    site's shape. ``launches`` counts the main paths' runs."""
     out = []
     for name, info in meta.items():
         mine = [r for r in rows if r["name"] == name]
         if not mine:
-            fail(f"{name}: no site of the sampling path reached it")
+            fail(f"{name}: no site of the main paths reached it")
 
         def total(key):
             return sum(r[key] * r["sites_per_forward"] for r in mine)
@@ -253,16 +299,17 @@ def summarise(rows: list[dict], launches: dict, meta: dict) -> list[dict]:
         bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
         out.append({
             "name": name, "route": "cuda", "source": info["source"],
-            "replaces": info["replaces"], "launches": launches[name],
+            "replaces": info["replaces"],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "eager_ms": total("eager_ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": total("library_ms"),
-            "per": ("UNet forward at batch 256: sum over its sites of the "
-                    "device ms per launch (CUDA-graph replay); eager_ms "
-                    "launches from Python"),
+            "per": info["per"] + ": sum over its sites of the device ms per "
+                   "launch (CUDA-graph replay); eager_ms launches from Python",
         })
     return out
 
@@ -298,6 +345,329 @@ def model_check(model, gen) -> float:
     if rel > MODEL_REL_L2:
         fail("the model with kernels disagrees with its plain path")
     return rel
+
+def rel_l2(name: str, got, want, tol: float) -> float:
+    """Relative L2 error of ``got`` against ``want``; fails above ``tol``.
+    Returns the max abs error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output is not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    max_abs = (got - want).abs().max().item()
+    print(f"  {name}: rel L2 err {rel:.3e} (tolerance {tol:g}), max_abs_err "
+          f"{max_abs:.3e}", flush=True)
+    if not rel <= tol:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def sdpa_backend_names(q, k, v, g) -> list[str]:
+    """Device kernels of one SDPA forward + backward, to say which backend
+    PyTorch picked at this shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = F.scaled_dot_product_attention(ql, kl, vl)
+        torch.autograd.grad(out, (ql, kl, vl), g)
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def library_bwd(fwd, inputs, g):
+    """(fn, stream): the PyTorch library's backward alone, from a forward
+    recorded on ``stream`` with its graph retained."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    with torch.cuda.stream(stream):
+        out = fwd(*leaves)
+    torch.cuda.current_stream().wait_stream(stream)
+    return (lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+            stream)
+
+
+def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+    from uurg_torch.ops.group_norm import (group_norm, group_norm_bwd,
+                                           group_norm_bwd_plain)
+
+    dev = torch.device("cuda")
+    rows = []
+    shapes = sorted({(k, s, g) for k, s, g in sites})
+    for kind, (C, H, W), groups in shapes:
+        count = sum(1 for s in sites if s == (kind, (C, H, W), groups))
+        if kind == "attn":
+            T, D = H * W, C
+            q, k, v, g = (torch.randn(batch, 1, T, D, generator=gen,
+                                      device=dev, dtype=torch.bfloat16)
+                          for _ in range(4))
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            got = FA.attention_bwd(q, k, v, o, lse, g)
+            torch.cuda.synchronize()
+            want = FA.attention_bwd_plain(q, k, v, g)
+            max_abs = max(rel_l2(f"attention bwd d{n} B={batch} T={T} D={D}",
+                                 a, b, BWD_REL_L2)
+                          for n, a, b in zip("qkv", got, want))
+            print(f"  SDPA kernels at this shape: "
+                  f"{sdpa_backend_names(q, k, v, g)}", flush=True)
+            lib, stream = library_bwd(F.scaled_dot_product_attention,
+                                      (q, k, v), g)
+            run = (lambda: FA.attention_bwd(q, k, v, o, lse, g),
+                   lambda: FA.attention_bwd_plain(q, k, v, g))
+            # what the function must move: q, k, v, g read, dq, dk, dv
+            # written; o and the LSE are inputs of this design only
+            nbytes = 7 * batch * T * D * 2
+            ops, peak = 10 * batch * T * T * D, BF16_TC_FLOPS
+            shape = {"B": batch, "H": 1, "T": T, "D": D}
+            name = "attention_bwd"
+        else:
+            x = (torch.randn(batch, H, W, C, generator=gen, device=dev) * 2
+                 + 0.5).to(torch.bfloat16)
+            g = torch.randn(batch, H, W, C, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            scale = torch.randn(C, generator=gen, device=dev) * 0.2 + 1.0
+            bias = torch.randn(C, generator=gen, device=dev) * 0.2
+            _, mean, rstd = group_norm(x, scale, bias, groups=groups,
+                                       return_stats=True)
+            got = group_norm_bwd(x, scale, mean, rstd, g)
+            torch.cuda.synchronize()
+            want = group_norm_bwd_plain(x, scale, mean, rstd, g)
+            tag = f"B={batch} H={H} W={W} C={C}"
+            max_abs = max(compare(f"group_norm bwd dx {tag}", got[0], want[0]),
+                          rel_l2(f"group_norm bwd dscale {tag}", got[1],
+                                 want[1], GN_SUM_REL_L2),
+                          rel_l2(f"group_norm bwd dbias {tag}", got[2],
+                                 want[2], GN_SUM_REL_L2))
+            s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+            lib, stream = library_bwd(
+                lambda a, w, b: F.group_norm(a, groups, w, b, 1e-6),
+                (x.permute(0, 3, 1, 2), s16, b16), g.permute(0, 3, 1, 2))
+            run = (lambda: group_norm_bwd(x, scale, mean, rstd, g),
+                   lambda: group_norm_bwd_plain(x, scale, mean, rstd, g))
+            numel = batch * H * W * C
+            nbytes = 3 * numel * 2 + 3 * C * 4 + 2 * batch * groups * 4
+            ops, peak = 10 * numel, FP32_FLOPS
+            shape = {"B": batch, "H": H, "W": W, "C": C, "G": groups}
+            name = "group_norm_bwd"
+        ms, eager_ms = time_ms(run[0])
+        plain_ms = time_ms(run[1])[0]
+        lib_ms = time_ms(lib, stream=stream)[0]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        rows.append({
+            "name": name, "shape": shape, "sites_per_forward": count,
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max_abs,
+        })
+        print(f"  {name} {shape} x{count}/backward: kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
+              f"ms ({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
+def grad_check(model, wl, gen) -> float:
+    """One eps-loss backward at batch 8 with the kernels against the same
+    model on its plain path (dropout off, the same t, noise and labels)."""
+    import torch
+
+    from uurg_torch.models import layers
+    from uurg_torch.ops.flash_attention import attention_bwd, attention_plain
+    from uurg_torch.ops.group_norm import group_norm_bwd, group_norm_plain
+
+    dev = torch.device("cuda")
+    x = torch.rand(8, 32, 32, 3, generator=gen, device=dev) * 2 - 1
+    noise = torch.randn(8, 32, 32, 3, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (8,), generator=gen, device=dev)
+    c = torch.randint(0, 10, (8,), generator=gen, device=dev)
+    keep = torch.arange(8, device=dev) % 2 == 0
+    model.eval()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        wl.per_sample_eps_loss(model, x, c, t, noise, keep).mean().backward()
+        out = torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        return out
+
+    bwd = (attention_bwd.launches, group_norm_bwd.launches)
+    got = grads()
+    if (attention_bwd.launches - bwd[0], group_norm_bwd.launches - bwd[1]) \
+            == (0, 0):
+        fail("the batch-8 backward did not go through the backward kernels")
+    kernels = (layers.attention, layers.group_norm)
+    layers.attention = attention_plain
+    layers.group_norm = (lambda x, s, b, *, groups, eps:
+                         group_norm_plain(x, s, b, groups, eps))
+    try:
+        want = grads()
+    finally:
+        layers.attention, layers.group_norm = kernels
+    if not torch.isfinite(got).all():
+        fail("batch-8 gradients with kernels are not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"  batch-8 parameter gradients ({got.numel()} values), kernels vs "
+          f"plain path: rel L2 err {rel:.3e} (tolerance "
+          f"{MODEL_GRAD_REL_L2:g})", flush=True)
+    if rel > MODEL_GRAD_REL_L2:
+        fail("the model's gradients with kernels disagree with its plain path")
+    return rel
+
+
+@contextlib.contextmanager
+def step_clock(runner):
+    """Wrap the runner's SFR-on step: after each step, wait for the device
+    and read the clock, and keep the step's metrics. The run still goes
+    through the runner's own entry point and step."""
+    import torch
+
+    record = {"t": [], "metrics": []}
+    make = runner.make_sfron_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a, **k):
+            metrics = step(*a, **k)
+            torch.cuda.synchronize()
+            record["t"].append(time.perf_counter())
+            record["metrics"].append(metrics)
+            return metrics
+
+        return timed
+
+    runner.make_sfron_step = timed_make
+    try:
+        yield record
+    finally:
+        runner.make_sfron_step = make
+
+
+def train_path(config, card: str, n_attn: int, n_gn: int) -> dict:
+    """Phase 8: sfron_forget on the full-width config; returns its numbers
+    and the kernels' launch counts of the counted run."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.core.tree import pack_mask, sparsity
+    from uurg_torch.io.jax_interop import load_reference_checkpoint
+    from uurg_torch.models.unet_cond import CondUNet
+    from uurg_torch.ops.flash_attention import attention, attention_bwd
+    from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
+    from uurg_torch.workloads import ddpm_runner as R
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    class Args:
+        seed = SEED
+        ckpt_folder = None             # a seeded init through load_params
+        label_to_forget = 0
+        forget_alpha = FORGET_ALPHA
+        method = "ron"
+        unlearn_loss = "adaga"
+
+    wl = DDPMWorkload.from_config(config)
+    init = R.load_params(Args, config, wl)
+    gen = torch.Generator().manual_seed(SEED)
+    mask = pack_mask({k: torch.rand(p.shape, generator=gen) < 0.5
+                      for k, p in init.named_parameters()})
+    print(f"  mask: packed, density {1 - sparsity(mask):.4f}", flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="uurg_sfron_")
+    try:
+        warm = config.merged({"training": {"n_iters": WARMUP_STEPS,
+                                           "snapshot_freq": 10 ** 6}})
+        R.sfron_forget(Args, warm, ckpt_dir, mask=mask)   # warm-up
+        timed_cfg = config.merged({"training": {
+            "n_iters": WARMUP_STEPS + TRAIN_STEPS, "snapshot_freq": 10 ** 6,
+            "log_freq": 10 ** 6}})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_clock(R) as rec:
+            attention.launches = attention_bwd.launches = 0
+            group_norm.launches = group_norm_bwd.launches = 0
+            t0 = time.time()
+            state = R.sfron_forget(Args, timed_cfg, ckpt_dir, mask=mask)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {"attention_fwd": attention.launches,
+                        "attention_bwd": attention_bwd.launches,
+                        "group_norm_fwd": group_norm.launches,
+                        "group_norm_bwd": group_norm_bwd.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != WARMUP_STEPS + TRAIN_STEPS or \
+                len(rec["metrics"]) != TRAIN_STEPS:
+            fail(f"sfron_forget ran {len(rec['metrics'])} counted steps to "
+                 f"step {state.step}, not {TRAIN_STEPS} from "
+                 f"{WARMUP_STEPS}")
+        losses = [(float(m["forget_loss"]), float(m["remain_loss"]))
+                  for m in rec["metrics"]]
+        if not np.isfinite(losses).all():
+            fail(f"a forget or remain loss is not finite: {losses}")
+        moved = sum(not torch.equal(p, q) for p, q in
+                    zip(state.model.parameters(), init.parameters()))
+        ema_moved = sum(not torch.equal(p, q) for p, q in
+                        zip(state.ema_model.parameters(), init.parameters()))
+        n_leaves = len(list(init.parameters()))
+        print(f"  {moved}/{n_leaves} parameter tensors and {ema_moved} EMA "
+              f"tensors moved", flush=True)
+        if moved < n_leaves // 2 or ema_moved < n_leaves // 2:
+            fail("the parameters or the EMA did not move")
+        want = {"attention_fwd": n_attn * 2 * TRAIN_STEPS,
+                "attention_bwd": n_attn * 2 * TRAIN_STEPS,
+                "group_norm_fwd": n_gn * 2 * TRAIN_STEPS,
+                "group_norm_bwd": n_gn * 2 * TRAIN_STEPS}
+        print(f"  launches: {launches} (expected {want})", flush=True)
+        if launches != want:
+            fail("not every attention/GroupNorm site of the training step "
+                 "went through its forward and backward kernels")
+        step_s = np.diff(rec["t"])          # TRAIN_STEPS - 1 step times
+        print(f"  {TRAIN_STEPS} steps (batch {TRAIN_BATCH} forget + "
+              f"{TRAIN_BATCH} remain): median {np.median(step_s) * 1e3:.3f} "
+              f"ms/step ({1 / np.median(step_s):.3f} steps/s), min "
+              f"{step_s.min() * 1e3:.3f}, max {step_s.max() * 1e3:.3f} ms; "
+              f"call {wall:.3f} s with init, resume and checkpoint; peak "
+              f"device memory {peak_gib:.3f} GiB; on {card}", flush=True)
+        print(f"  losses: forget {losses[0][0]:.4f} -> {losses[-1][0]:.4f}, "
+              f"remain {losses[0][1]:.4f} -> {losses[-1][1]:.4f}", flush=True)
+
+        path = os.path.join(ckpt_dir, "ckpt.pth")
+        shadow = CondUNet(wl.unet_cfg)
+        step = load_reference_checkpoint(path, shadow, use_ema=True)
+        shadow = shadow.to(wl.device).eval()
+        for a, b in zip(shadow.parameters(), state.ema_model.parameters()):
+            if not torch.equal(a, b):
+                fail("ckpt.pth does not hold the run's EMA shadow")
+        imgs = R.sample_images(Args, config, shadow, np.arange(8),
+                               num_steps=DDIM_STEPS, cond_scale=COND_SCALE,
+                               batch_size=8, seed=SEED)
+        if imgs.shape != (8, 32, 32, 3) or imgs.dtype != np.uint8 or \
+                imgs.std() == 0:
+            fail(f"sampling the unlearned ckpt.pth gave {imgs.shape} "
+                 f"{imgs.dtype} std {imgs.std()}")
+        print(f"  ckpt.pth (step {step}, EMA) sampled: 8 images, mean "
+              f"{imgs.mean():.2f} std {imgs.std():.2f}", flush=True)
+    finally:
+        for name in os.listdir(ckpt_dir):
+            os.remove(os.path.join(ckpt_dir, name))
+        os.rmdir(ckpt_dir)
+    return {"launches": launches, "steps": TRAIN_STEPS,
+            "step_ms": (step_s * 1e3).tolist(),
+            "median_step_ms": float(np.median(step_s) * 1e3),
+            "steps_per_s": float(1 / np.median(step_s)),
+            "call_seconds": wall, "peak_gib": peak_gib, "losses": losses}
 
 
 def main() -> int:
@@ -338,6 +708,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
+                fail(f"ptxas reports register spills in {name}")
 
     config = Config(SFRON_CONFIG)
     wl = DDPMWorkload.from_config(config)          # CUDA, bf16 compute
@@ -402,24 +774,50 @@ def main() -> int:
           f"output finite; image mean {imgs.mean():.2f} std "
           f"{imgs.std():.2f}", flush=True)
 
+    print(f"== backward kernels vs plain versions (bf16, training batch "
+          f"{TRAIN_BATCH})", flush=True)
+    rows += check_bwd_kernels(sites, TRAIN_BATCH, gen)
+
+    print("== whole model gradients, kernels vs plain path", flush=True)
+    grad_rel = grad_check(model, wl, gen)
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"== main path: sfron_forget, full width, batch {TRAIN_BATCH} "
+          f"forget + {TRAIN_BATCH} remain, {WARMUP_STEPS} warm-up + "
+          f"{TRAIN_STEPS} counted steps", flush=True)
+    train = train_path(config, card, n_attn, n_gn)
+
+    fwd_per = "UNet forward at batch 256 (sampling)"
+    bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
         "attention_fwd": {
             "source": "uurg_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "uurg_tpu/ops/flash_attention.py:49"},
+            "replaces": "uurg_tpu/ops/flash_attention.py:49", "per": fwd_per},
+        "attention_bwd": {
+            "source": "uurg_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "uurg_tpu/ops/flash_attention.py:113", "per": bwd_per},
         "group_norm_fwd": {
             "source": "uurg_torch/csrc/group_norm.cu",
-            "replaces": "uurg_tpu/ops/group_norm.py:38"},
+            "replaces": "uurg_tpu/ops/group_norm.py:38", "per": fwd_per},
+        "group_norm_bwd": {
+            "source": "uurg_torch/csrc/group_norm.cu",
+            "replaces": "uurg_tpu/ops/group_norm.py:60", "per": bwd_per},
     }
-    kernels = summarise(rows, launches, meta)
+    by_path = {name: {"sampling": launches.get(name, 0),
+                      "training": train["launches"][name]} for name in meta}
+    kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "per_shape": rows,
                    "kernels": kernels, "model_rel_l2": model_rel,
+                   "model_grad_rel_l2": grad_rel,
                    "sampling": {"images": SAMPLING_BATCH,
                                 "steps": DDIM_STEPS, "seconds": elapsed,
                                 "imgs_per_s": SAMPLING_BATCH / elapsed},
+                   "training": train,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

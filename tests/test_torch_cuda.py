@@ -7,14 +7,30 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from uurg_torch.ops.flash_attention import attention, attention_plain  # noqa: E402
-from uurg_torch.ops.group_norm import group_norm, group_norm_plain  # noqa: E402
+from uurg_torch.ops import flash_attention as FA  # noqa: E402
+from uurg_torch.ops.flash_attention import (  # noqa: E402
+    attention,
+    attention_bwd,
+    attention_bwd_plain,
+    attention_plain,
+)
+from uurg_torch.ops.group_norm import (  # noqa: E402
+    group_norm,
+    group_norm_bwd,
+    group_norm_bwd_plain,
+    group_norm_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
 # both sides round their output to bf16 after fp32 arithmetic in another
 # order: one to two output roundings (relative 2**-8 each)
 ATOL, RTOL = 1e-2, 1e-2
+# backward kernels in bf16: dk and dv are sums over T and dq over the keys,
+# so they are held to their norm. Both sides round P and dS to bf16 before
+# the products and round each gradient once; the kernel takes delta from
+# the bf16 forward output where the plain version sums P * dP in fp32.
+BWD_REL_L2 = 2e-2
 
 
 @pytest.fixture
@@ -51,3 +67,94 @@ def test_group_norm_kernel_matches_plain(gen, dtype, H, C):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.testing.assert_close(mean, mean_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, rstd_p, atol=1e-4, rtol=1e-4)
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("T,D", [(16, 256), (256, 256), (100, 64), (77, 40),
+                                 (130, 192)])
+def test_attention_bwd_kernel_matches_plain(gen, T, D):
+    q, k, v, g = (torch.randn(4, 2, T, D, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    o = o.contiguous()                               # a column slice at D = 40
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(-1, T),
+                               atol=1e-4, rtol=1e-4)
+    before = attention_bwd.launches
+    got = attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    for name, a, b in zip("qkv", got, attention_bwd_plain(q, k, v, g)):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _rel_l2(a, b) < BWD_REL_L2, name
+    again = attention_bwd(q, k, v, o, lse, g)        # no atomics: same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_autograd_uses_both_kernels(gen):
+    q, k, v = (torch.randn(2, 1, 256, 256, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    fwd, bwd = attention.launches, attention_bwd.launches
+    out = attention(q, k, v)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = attention_bwd_plain(q.detach(), k.detach(), v.detach(), g)
+    for t, w in zip((q, k, v), want):
+        assert _rel_l2(t.grad, w) < BWD_REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,C", [(32, 128), (16, 384), (4, 512), (8, 24)])
+def test_group_norm_bwd_kernel_matches_plain(gen, dtype, H, C):
+    x = (torch.randn(3, H, H, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(3, H, H, C, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+    bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+    _, mean, rstd = group_norm(x, scale, bias, return_stats=True)
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, scale, mean, rstd, g)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 1
+    dx, dscale, dbias = group_norm_bwd_plain(x, scale, mean, rstd, g)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
+        dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[0].float(), dx.float(), **tol)
+    # fp32 sums over batch and space of identical products, in another order
+    torch.testing.assert_close(got[1], dscale, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(got[2], dbias, atol=1e-3, rtol=1e-4)
+    again = group_norm_bwd(x, scale, mean, rstd, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_group_norm_autograd_uses_both_kernels(gen):
+    x = torch.randn(2, 16, 16, 256, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    scale = torch.ones(256, device="cuda", requires_grad=True)
+    bias = torch.zeros(256, device="cuda", requires_grad=True)
+    fwd, bwd = group_norm.launches, group_norm_bwd.launches
+    y = group_norm(x, scale, bias)
+    g = torch.randn_like(y)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (group_norm.launches, group_norm_bwd.launches) == (fwd + 1, bwd + 1)
+    _, mean, rstd = group_norm_plain(x.detach(), scale.detach(), bias.detach(),
+                                     32, 1e-6, True)
+    want = group_norm_bwd_plain(x.detach(), scale.detach(), mean, rstd, g)
+    for t, w in zip((x, scale, bias), want):
+        assert _rel_l2(t.grad, w) < BWD_REL_L2
+
+
+def test_sampling_path_saves_nothing_for_backward(gen):
+    q = torch.randn(2, 1, 16, 256, generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    with torch.inference_mode():
+        out = attention(q, q, q)
+    assert out.grad_fn is None

@@ -126,4 +126,4 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("group_norm")
     assert {p.name for p in _build.sources()} == {
-        "group_norm.cu", "flash_attention_fwd.cu"}
+        "group_norm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu"}

@@ -26,6 +26,11 @@
 // 64 registers). S is converted in registers straight into the A fragments of
 // the PV product. Rows past T (ragged q tiles, T = 16) are zero-filled and not
 // stored; keys past T are masked to -inf.
+//
+// When a gradient is wanted the caller passes an lse buffer: the kernel then
+// also writes each row's natural log-sum-exp of the scaled scores, fp32
+// (B*H, T), from which the backward kernel rebuilds P tile by tile. The
+// sampling path passes none and runs the same instructions as without it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -70,7 +75,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int T, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
+                float scale_log2) {
   constexpr int QS = D + kPad;   // row stride of Qs and Ks (elements)
   constexpr int VS = kBK + kPad; // row stride of Vt
   constexpr int NT = D / 8;      // output n-tiles per warp
@@ -212,6 +218,12 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     inv[r] = 1.f / l_run[r];
   }
   const int row0 = q0 + qr + g, row1 = row0 + 8;
+  if (lse != nullptr && tq == 0) {
+    // log2-domain max plus log2 of the sum, back to the natural log
+    float* lh = lse + static_cast<size_t>(blockIdx.y) * T;
+    if (row0 < T) lh[row0] = (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
+    if (row1 < T) lh[row1] = (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int col = n * 8 + tq * 2;
@@ -225,8 +237,8 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int T,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int BH, int T, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -239,8 +251,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int T,
   const dim3 grid((T + kBQ - 1) / kBQ, BH);
   attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T,
-      scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      T, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,16 +260,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int T,
 
 // q, k, v, o: contiguous (BH, T, D) bf16, 16-byte aligned, D in
 // {64, 128, 192, 256} (the caller zero-pads other head widths and passes the
-// true scale). Returns cudaGetLastError() after the launch.
+// true scale). lse: fp32 (BH, T), or null when no gradient is wanted.
+// Returns cudaGetLastError() after the launch.
 extern "C" int uurg_attention_fwd(const void* q, const void* k, const void* v,
-                                  void* o, int BH, int T, int D, float scale,
-                                  void* stream) {
+                                  void* o, void* lse, int BH, int T, int D,
+                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
-    case 64: return launch<64>(q, k, v, o, BH, T, scale, s);
-    case 128: return launch<128>(q, k, v, o, BH, T, scale, s);
-    case 192: return launch<192>(q, k, v, o, BH, T, scale, s);
-    case 256: return launch<256>(q, k, v, o, BH, T, scale, s);
+    case 64: return launch<64>(q, k, v, o, l, BH, T, scale, s);
+    case 128: return launch<128>(q, k, v, o, l, BH, T, scale, s);
+    case 192: return launch<192>(q, k, v, o, l, BH, T, scale, s);
+    case 256: return launch<256>(q, k, v, o, l, BH, T, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,19 @@
-"""Class-list parsing (port of ``uurg_tpu/data/splits.py::create_class_labels``)."""
+"""Forget/remain splitting and class-list parsing (port of
+``uurg_tpu/data/splits.py``: ``class_forget_split``, ``create_class_labels``)."""
 from __future__ import annotations
+
+import numpy as np
+
+from uurg_torch.data.arrays import ArrayDataset
+
+
+def class_forget_split(ds: ArrayDataset, label_to_forget: int
+                       ) -> tuple[ArrayDataset, ArrayDataset]:
+    """(remain, forget), each in dataset order (DDPM/dataset/__init__.py
+    :120-177 get_forget_dataset)."""
+    forget_idx = np.where(ds.labels == label_to_forget)[0]
+    remain_idx = np.where(ds.labels != label_to_forget)[0]
+    return ds.subset(remain_idx), ds.subset(forget_idx)
 
 
 def create_class_labels(spec: str, n_classes: int = 10):

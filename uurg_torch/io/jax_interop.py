@@ -8,10 +8,14 @@ It takes a nested dict of numpy arrays, so no JAX is needed to call it.
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
-which :func:`load_reference_checkpoint` reads.
+which :func:`load_reference_checkpoint` reads. The port's trainer writes
+the same format (:func:`save_reference_checkpoint`), optimizer state
+included, so a model it unlearned samples through the sampling CLI and a
+run resumes from the file (:func:`load_training_checkpoint`).
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Mapping
 
@@ -115,4 +119,45 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     sd.pop("logvar", None)          # bayesian variant only; not a UNet weight
     model.load_state_dict(sd, strict=True)
+    return int(states[2])
+
+
+def _prefixed(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {f"module.{k}": v.detach().cpu()
+            for k, v in model.state_dict().items()}
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer, step: int,
+                              ema_model: torch.nn.Module | None = None) -> None:
+    """Write the reference list format ``[model_sd, opt_sd, step, ema_sd]``
+    (``module.``-prefixed keys, as the reference's DataParallel model saves
+    them; ``ema_sd`` left out without an EMA model). The file is written
+    beside ``path`` and renamed over it, so a reader never sees half of
+    it."""
+    states = [_prefixed(model), optimizer.state_dict(), int(step)]
+    if ema_model is not None:
+        states.append(_prefixed(ema_model))
+    tmp = f"{path}.tmp"
+    torch.save(states, tmp)
+    os.replace(tmp, path)
+
+
+def load_training_checkpoint(path: str, model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer,
+                             ema_model: torch.nn.Module | None = None) -> int:
+    """Read back what :func:`save_reference_checkpoint` wrote: the model,
+    the optimizer state and, when given an EMA model, its shadow (which the
+    file must hold). Returns the step."""
+    states = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(
+        {k.removeprefix("module."): v for k, v in states[0].items()},
+        strict=True)
+    optimizer.load_state_dict(states[1])
+    if ema_model is not None:
+        if len(states) < 4:
+            raise ValueError(f"{path} holds no EMA shadow")
+        ema_model.load_state_dict(
+            {k.removeprefix("module."): v for k, v in states[3].items()},
+            strict=True)
     return int(states[2])

@@ -103,13 +103,29 @@ class SelfAttention2D(nn.Module):
         return x + self.proj_out(out)
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale the kept ones by 1 / (1 - p). The keep mask is drawn in fp32 from
+    ``generator`` (``F.dropout`` takes none), in x's memory order."""
+    if x.is_contiguous(memory_format=_CL):
+        u = torch.rand(x.permute(0, 2, 3, 1).shape, generator=generator,
+                       device=x.device).permute(0, 3, 1, 2)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * ((u >= p).to(x.dtype) * (1.0 / (1.0 - p)))
+
+
 class ResnetBlockDDPM(nn.Module):
     """DDPM residual block conditioned on [time-emb | class-emb] through one
-    projection (``temb_cemb_proj``). Dropout is the identity at inference,
-    the only mode of this module."""
+    projection (``temb_cemb_proj``). Dropout sits after swish(norm2(h)) and
+    before conv2; it is active only in training mode, where the call must
+    pass the generator it draws from."""
 
-    def __init__(self, in_channels: int, out_channels: int, emb_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.drop_prob = dropout
         self.norm1 = GroupNorm32(in_channels)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.temb_cemb_proj = Linear(emb_channels, out_channels)
@@ -118,10 +134,16 @@ class ResnetBlockDDPM(nn.Module):
         if in_channels != out_channels:
             self.nin_shortcut = Conv2d(in_channels, out_channels, 1)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.conv1(swish(self.norm1(x)))
         h = h + self.temb_cemb_proj(swish(emb))[:, :, None, None]
-        h = self.conv2(swish(self.norm2(h)))
+        h = swish(self.norm2(h))
+        if self.training and self.drop_prob > 0.0:
+            if generator is None:
+                raise ValueError("training-mode dropout needs a generator")
+            h = dropout(h, self.drop_prob, generator)
+        h = self.conv2(h)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h

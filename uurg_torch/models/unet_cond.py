@@ -4,7 +4,9 @@ Port of ``uurg_tpu/models/unet_cond.py``. The public ``forward`` takes and
 returns NHWC tensors like the JAX model; inside, activations are NCHW in
 ``torch.channels_last`` memory. Compute runs in ``UNetConfig.dtype``
 (bfloat16 by default) with float32 parameters; GroupNorm statistics, the
-attention softmax and ``conv_out`` are float32. Submodule names follow the
+attention softmax and ``conv_out`` are float32. ``model.train()`` turns on dropout, drawn from
+the generator the call passes; gradients reach the float32 parameters
+through the casts. Submodule names follow the
 reference torch state dict, so a reference ``ckpt.pth`` loads with
 ``strict=True`` once the ``module.`` prefix is stripped.
 """
@@ -75,7 +77,8 @@ class CondUNet(nn.Module):
 
     Call: ``model(x, t, c, cond_keep)`` with NHWC ``x``; ``cond_keep`` is a
     per-sample bool mask, False selecting the learned null class embedding
-    (classifier-free guidance). Forward only: dropout is the identity.
+    (classifier-free guidance). In training mode (``model.train()``) the
+    call also passes ``generator``, from which dropout draws its masks.
     """
 
     def __init__(self, cfg: UNetConfig):
@@ -95,7 +98,7 @@ class CondUNet(nn.Module):
             [Linear(ch, emb_ch), Linear(emb_ch, emb_ch)]))
 
         def block(cin, cout):
-            return ResnetBlockDDPM(cin, cout, 2 * emb_ch)
+            return ResnetBlockDDPM(cin, cout, 2 * emb_ch, cfg.dropout)
 
         self.conv_in = Conv2d(cfg.in_channels, ch, 3, padding=1)
         hs_ch = [ch]
@@ -140,7 +143,8 @@ class CondUNet(nn.Module):
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
-                cond_keep: torch.Tensor | None = None) -> torch.Tensor:
+                cond_keep: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = cfg.dtype
         x = x.permute(0, 3, 1, 2).to(dtype).contiguous(
@@ -158,20 +162,20 @@ class CondUNet(nn.Module):
         hs = [self.conv_in(x)]
         for level in self.down:
             for i_block, blk in enumerate(level.block):
-                h = blk(hs[-1], emb)
+                h = blk(hs[-1], emb, generator)
                 if len(level.attn):
                     h = level.attn[i_block](h)
                 hs.append(h)
             if hasattr(level, "downsample"):
                 hs.append(level.downsample(hs[-1]))
 
-        h = self.mid.block_1(hs[-1], emb)
+        h = self.mid.block_1(hs[-1], emb, generator)
         h = self.mid.attn_1(h)
-        h = self.mid.block_2(h, emb)
+        h = self.mid.block_2(h, emb, generator)
 
         for level in reversed(self.up):
             for i_block, blk in enumerate(level.block):
-                h = blk(torch.cat([h, hs.pop()], dim=1), emb)
+                h = blk(torch.cat([h, hs.pop()], dim=1), emb, generator)
                 if len(level.attn):
                     h = level.attn[i_block](h)
             if hasattr(level, "upsample"):

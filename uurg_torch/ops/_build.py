@@ -23,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 build_logs: dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 
 
@@ -82,3 +83,15 @@ def load(name: str) -> ctypes.CDLL:
         build_all()
         lib = _libs[name] = ctypes.CDLL(str(_target(src)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu`` with its argument types declared and
+    an int (the CUDA error code) as its result; bound once per process."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn

@@ -1,4 +1,4 @@
-"""GroupNorm forward over NHWC activations with fp32 statistics.
+"""GroupNorm over NHWC activations with fp32 statistics, and its gradient.
 
 Port of ``uurg_tpu/ops/group_norm.py``. ``group_norm`` is the dispatcher:
 for a CUDA tensor it launches the hand-written kernel in
@@ -7,6 +7,12 @@ for a CUDA tensor it launches the hand-written kernel in
 never falls back from one to the other. Both compute ``_gn_reference``:
 ``var = max(E[x^2] - mean^2, 0)``, ``y = x * a + b`` with
 ``a = rstd * scale``, ``b = bias - mean * a``, all in fp32, y in x's dtype.
+
+When a gradient is wanted the op goes through one
+``torch.autograd.Function``. It saves x, scale and the forward's (B, G)
+mean and rstd, and its backward is :func:`group_norm_bwd`: the backward
+kernels of the same source (which replace the Pallas ``_gn_bwd_kernel``)
+for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -38,6 +44,32 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def group_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
+                         mean: torch.Tensor, rstd: torch.Tensor,
+                         g: torch.Tensor):
+    """Plain version of the Pallas ``_gn_bwd_kernel``'s analytic formula
+    (not autograd of :func:`group_norm_plain`): with x_hat = (x - mean) rstd
+    and gs = g scale, ``dx = (gs - mean_group(gs) - x_hat
+    mean_group(gs x_hat)) rstd`` in x's dtype, ``dscale = sum g x_hat`` and
+    ``dbias = sum g`` over batch and space, fp32. The groups are those of
+    the (B, G) statistics."""
+    b, c = x.shape[0], x.shape[-1]
+    groups = mean.shape[1]
+    cg = c // groups
+    xr = x.reshape(b, -1, groups, cg).float()
+    gr = g.reshape(b, -1, groups, cg).float()
+    rstd_r = rstd.reshape(b, 1, groups, 1)
+    xhat = (xr - mean.reshape(b, 1, groups, 1)) * rstd_r
+    dbias = gr.sum(dim=(0, 1)).reshape(c)
+    dscale = (gr * xhat).sum(dim=(0, 1)).reshape(c)
+    gs = gr * scale.float().reshape(1, 1, groups, cg)
+    n = xr.shape[1] * cg
+    s1 = gs.sum(dim=(1, 3), keepdim=True) / n
+    s2 = (gs * xhat).sum(dim=(1, 3), keepdim=True) / n
+    dx = ((gs - s1 - xhat * s2) * rstd_r).reshape(x.shape).to(x.dtype)
+    return dx, dscale, dbias
+
+
 def _check(x, scale, bias, groups):
     if x.ndim != 4:
         raise ValueError(f"group_norm wants NHWC x, got shape {tuple(x.shape)}")
@@ -56,14 +88,112 @@ def _check(x, scale, bias, groups):
         raise ValueError("x, scale and bias must be on one device")
     if c % groups != 0:
         raise ValueError(f"{c} channels do not split into {groups} groups")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
 
 
-def _launch_fn():
-    fn = _build.load("group_norm").uurg_group_norm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _check_kernel(x):
+    """The constraints of both kernels on a CUDA x."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the GroupNorm kernels take bfloat16 or float32, "
+                        f"not {x.dtype}")
+    c = x.shape[-1]
+    per_chunk = _CHUNK_BYTES // x.element_size()
+    if c % per_chunk != 0 or c // per_chunk > _MAX_CHUNKS:
+        raise ValueError(f"the GroupNorm kernels need C a multiple of "
+                         f"{per_chunk} and at most {per_chunk * _MAX_CHUNKS}, "
+                         f"got {c}")
+    if x.data_ptr() % _CHUNK_BYTES:
+        raise ValueError("the GroupNorm kernels need 16-byte aligned tensors")
+
+
+def _load(symbol: str, n_ptr: int, n_int: int, with_eps: bool):
+    return _build.function(
+        "group_norm", symbol,
+        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+        + ([ctypes.c_float] if with_eps else []) + [ctypes.c_int,
+                                                    ctypes.c_void_p])
+
+
+def _group_norm_kernel(x, scale, bias, groups, eps):
+    """Launch the forward kernel: (y, mean, rstd)."""
+    _check_kernel(x)
+    b, h, w, c = x.shape
+    y = torch.empty_like(x)
+    mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    err = _load("uurg_group_norm_fwd", 6, 4, True)(
+        x.data_ptr(), scale.contiguous().data_ptr(),
+        bias.contiguous().data_ptr(), y.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), b, h * w, c, groups, eps, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"GroupNorm kernel launch failed: CUDA error {err}")
+    group_norm.launches += 1
+    return y, mean, rstd
+
+
+def group_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, g: torch.Tensor):
+    """(dx, dscale, dbias) of GroupNorm at x for the output gradient g,
+    from the forward's fp32 (B, G) mean and rstd. g must match x in shape,
+    dtype, device and contiguity. CPU tensors: :func:`group_norm_bwd_plain`;
+    CUDA tensors: the backward kernels."""
+    b, c = x.shape[0], x.shape[-1]
+    groups = mean.shape[-1]
+    _check(x, scale, scale, groups)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError("g must be a contiguous NHWC tensor of x's shape, "
+                         "dtype and device")
+    for t in (mean, rstd):
+        if t.shape != (b, groups) or t.dtype != torch.float32 \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError("mean and rstd must be the forward's contiguous "
+                             "fp32 (B, G) statistics")
+    if x.device.type == "cpu":
+        return group_norm_bwd_plain(x, scale, mean, rstd, g)
+    _check_kernel(x)
+    dx = torch.empty_like(x)
+    part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale)
+    err = _load("uurg_group_norm_bwd", 10, 4, False)(
+        x.data_ptr(), g.data_ptr(), scale.contiguous().data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), b,
+        x.shape[1] * x.shape[2], c, groups, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"GroupNorm backward kernel launch failed: CUDA error {err}")
+    group_norm_bwd.launches += 1
+    return dx, dscale, dbias
+
+
+class _GroupNorm(torch.autograd.Function):
+    """The op with a gradient: the kernels on CUDA, the plain versions on
+    the CPU (the same saved tensors either way). mean and rstd are outputs
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps):
+        if x.device.type == "cpu":
+            y, mean, rstd = group_norm_plain(x, scale, bias, groups, eps, True)
+        else:
+            y, mean, rstd = _group_norm_kernel(x, scale, bias, groups, eps)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _grstd):
+        x, scale, mean, rstd = ctx.saved_tensors
+        # the gradient may arrive in any stride order (the convolution's
+        # backward); the kernel takes contiguous NHWC
+        dx, dscale, dbias = group_norm_bwd(x, scale, mean, rstd,
+                                           gy.contiguous())
+        return dx, dscale, dbias, None, None
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -73,38 +203,22 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
 
     Returns y, or ``(y, mean, rstd)`` with (B, G) fp32 statistics when
     ``return_stats``. The group count is halved until it divides C, as the
-    JAX dispatcher does for narrow test configs."""
+    JAX dispatcher does for narrow test configs. Differentiable in x, scale
+    and bias when grad mode is on and one of them requires grad; otherwise
+    (sampling, ``torch.inference_mode``) one forward launch."""
     c = x.shape[-1]
     while c % groups != 0:
         groups //= 2
     _check(x, scale, bias, groups)
-    if x.device.type == "cpu":
-        return group_norm_plain(x, scale, bias, groups, eps, return_stats)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the GroupNorm kernel takes bfloat16 or float32, "
-                        f"not {x.dtype}")
-    per_chunk = _CHUNK_BYTES // x.element_size()
-    if c % per_chunk != 0 or c // per_chunk > _MAX_CHUNKS:
-        raise ValueError(f"the GroupNorm kernel needs C a multiple of "
-                         f"{per_chunk} and at most {per_chunk * _MAX_CHUNKS}, "
-                         f"got {c}")
-    if x.data_ptr() % _CHUNK_BYTES:
-        raise ValueError("the GroupNorm kernel needs a 16-byte aligned x")
-    b, h, w, _ = x.shape
-    y = torch.empty_like(x)
-    mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    err = _launch_fn()(
-        x.data_ptr(), scale.contiguous().data_ptr(),
-        bias.contiguous().data_ptr(), y.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), b, h * w, c, groups, eps, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"GroupNorm kernel launch failed: CUDA error {err}")
-    group_norm.launches += 1
-    return (y, mean, rstd) if return_stats else y
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        out = _GroupNorm.apply(x, scale, bias, groups, eps)
+    elif x.device.type == "cpu":
+        out = group_norm_plain(x, scale, bias, groups, eps, True)
+    else:
+        out = _group_norm_kernel(x, scale, bias, groups, eps)
+    return out if return_stats else out[0]
 
 
 group_norm.launches = 0
+group_norm_bwd.launches = 0

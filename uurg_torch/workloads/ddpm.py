@@ -1,7 +1,11 @@
 """DDPM workload: the conditional CIFAR-10 UNet with its schedule.
 
-Port of ``uurg_tpu/workloads/ddpm.py`` (serving part: config, init and the
-sampler). The loss functions arrive with the training slice.
+Port of ``uurg_tpu/workloads/ddpm.py``: config, init, the training and
+forgetting losses, and the sampler. Loss functions have the signature
+``loss_fn(model, batch, generator) -> scalar`` with ``batch = (x, c)``: x
+float32 NHWC in model range, c int64 labels, both on the workload's device.
+Every random draw (timesteps, noise, label dropout, dropout masks) comes
+from ``generator``. The Fisher and SA losses arrive with their slices.
 """
 from __future__ import annotations
 
@@ -11,18 +15,23 @@ from typing import Callable
 import torch
 
 from uurg_torch.core.device import resolve_device
+from uurg_torch.core.rng import antithetic_timesteps, cond_keep_mask
 from uurg_torch.diffusion import sampling as S
+from uurg_torch.diffusion.losses import adaptive_loss, noise_estimation_loss
 from uurg_torch.diffusion.schedules import DiffusionSchedule, make_schedule
 from uurg_torch.models.unet_cond import CondUNet, UNetConfig, init_unet
 
 
 @dataclasses.dataclass
 class DDPMWorkload:
-    """Model config, schedule and device for one reference config."""
+    """Model config, schedule, loss settings and device for one reference
+    config."""
 
     unet_cfg: UNetConfig
     schedule: DiffusionSchedule
     device: torch.device
+    lambd: float = 0.5
+    cond_drop_prob: float = 0.1
 
     @classmethod
     def from_config(cls, cfg, dtype: torch.dtype = torch.bfloat16,
@@ -41,11 +50,109 @@ class DDPMWorkload:
             unet_cfg=UNetConfig.from_config(cfg, dtype=dtype),
             schedule=schedule,
             device=dev,
+            lambd=cfg.training.get("lambd", 0.5),
+            cond_drop_prob=cfg.model.get("cond_drop_prob", 0.1),
         )
 
     def init_params(self, seed: int) -> CondUNet:
         """A seeded fresh model on this workload's device."""
         return init_unet(seed, self.unet_cfg, self.device)
+
+    # -- loss builders -----------------------------------------------------
+
+    def per_sample_eps_loss(self, model: CondUNet, x: torch.Tensor,
+                            c: torch.Tensor, t: torch.Tensor,
+                            noise: torch.Tensor, keep: torch.Tensor,
+                            generator: torch.Generator | None = None
+                            ) -> torch.Tensor:
+        """Per-sample conditional eps loss at GIVEN timesteps, noise and
+        label-keep mask (DDPM/functions/losses.py:22-38). ``generator``
+        feeds dropout when the model is in training mode."""
+
+        def apply_fn(x_t, t_vec):
+            return model(x_t, t_vec, c, keep, generator)
+
+        return noise_estimation_loss(apply_fn, self.schedule, x, t, noise,
+                                     keepdim=True)
+
+    def _per_sample_eps_loss(self, model, batch, generator, *, train: bool):
+        """The same loss with antithetic t, noise and the label-keep mask
+        drawn from ``generator`` (DDPM/runners/diffusion.py:1091-1094)."""
+        x, c = batch
+        n = x.shape[0]
+        t = antithetic_timesteps(generator, n, self.schedule.num_timesteps)
+        noise = torch.randn(x.shape, generator=generator, device=x.device)
+        keep = cond_keep_mask(generator, n,
+                              self.cond_drop_prob if train else 0.0)
+        return self.per_sample_eps_loss(model, x, c, t, noise, keep,
+                                        generator)
+
+    def train_loss_fn(self) -> Callable:
+        """Mean eps-loss: the pretrain/retrain/remain objective."""
+
+        def fn(model, batch, generator):
+            return self._per_sample_eps_loss(model, batch, generator,
+                                             train=True).mean()
+
+        return fn
+
+    def adaga_forget_loss_fn(self) -> Callable:
+        """Negated adaptive gradient-ascent loss (``unlearn_loss=adaga``,
+        DDPM/runners/diffusion.py:1115-1119)."""
+
+        def fn(model, batch, generator):
+            per = self._per_sample_eps_loss(model, batch, generator,
+                                            train=True)
+            return -adaptive_loss(per, self.lambd, eps=1e-8)
+
+        return fn
+
+    def ga_forget_loss_fn(self) -> Callable:
+        """Plain negated eps-loss (``unlearn_loss=ga``)."""
+
+        def fn(model, batch, generator):
+            return -self._per_sample_eps_loss(model, batch, generator,
+                                              train=True).mean()
+
+        return fn
+
+    def rl_forget_loss_fn(self, label_to_forget: int,
+                          n_classes: int = 10) -> Callable:
+        """Random/pseudo-label forgetting (``unlearn_loss=rl``,
+        DDPM/runners/diffusion.py:1101-1113): match the forget-class output
+        to the detached prediction under a pseudo class. Both forwards see
+        the same dropout masks, as the JAX version passes both one key."""
+        pseudo_label = (label_to_forget + 1) % n_classes
+
+        def fn(model, batch, generator):
+            x, c = batch
+            n = x.shape[0]
+            t = antithetic_timesteps(generator, n,
+                                     self.schedule.num_timesteps)
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            x_t = self.schedule.q_sample(x, t, noise)
+            keep = torch.ones((n,), dtype=torch.bool, device=x.device)
+            state = generator.get_state()
+            out = model(x_t, t, c, keep, generator)
+            generator.set_state(state)
+            with torch.no_grad():
+                pseudo = model(x_t, t, torch.full_like(c, pseudo_label), keep,
+                               generator)
+            return torch.mean(torch.square(pseudo - out))
+
+        return fn
+
+    def forget_loss_fn(self, unlearn_loss: str, label_to_forget: int = 0,
+                       n_classes: int = 10) -> Callable:
+        if unlearn_loss == "adaga":
+            return self.adaga_forget_loss_fn()
+        if unlearn_loss == "ga":
+            return self.ga_forget_loss_fn()
+        if unlearn_loss == "rl":
+            return self.rl_forget_loss_fn(label_to_forget, n_classes)
+        raise NotImplementedError(unlearn_loss)
+
+    # -- sampling ----------------------------------------------------------
 
     def make_sampler(self, *, num_steps: int = 50, cond_scale: float = 2.0,
                      method: str = "ddim", eta: float = 0.0) -> Callable:

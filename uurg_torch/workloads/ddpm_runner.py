@@ -1,23 +1,194 @@
-"""Host-side DDPM runner: weights in, images out.
+"""Host-side DDPM runner: training, SFR-on unlearning and sampling.
 
-Port of ``uurg_tpu/workloads/ddpm_runner.py`` (serving part:
-``load_params`` and ``sample_images``). One device; the multi-device
-sampler arrives with the multi-device slice.
+Port of ``uurg_tpu/workloads/ddpm_runner.py``: ``pretrain`` (also the
+retrain mode), ``sfron_forget``, ``load_params`` and ``sample_images``, on
+one device; the multi-device paths arrive with the multi-device slice, the
+Fisher, mask and SA modes with theirs. Checkpoints are the reference
+``<ckpt_dir>/ckpt.pth`` list format with the optimizer state, written at
+every ``snapshot_freq`` and at the end, and read back on resume.
 """
 from __future__ import annotations
 
 import logging
 import os
+import time
+from typing import Callable
 
 import numpy as np
 import torch
 
-from uurg_torch.data.transforms import inverse_data_transform
-from uurg_torch.io.jax_interop import load_reference_checkpoint
+from uurg_torch.core.tree import PackedMask
+from uurg_torch.data.arrays import (ArrayDataset, infinite_batches,
+                                    random_flip_batch)
+from uurg_torch.data.datasets import load_cifar10, synthetic_dataset
+from uurg_torch.data.splits import class_forget_split
+from uurg_torch.data.transforms import data_transform, inverse_data_transform
+from uurg_torch.io.jax_interop import (load_reference_checkpoint,
+                                       load_training_checkpoint,
+                                       save_reference_checkpoint)
 from uurg_torch.models.unet_cond import CondUNet
+from uurg_torch.train.optim import build_reference_optimizer
+from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
+                                      make_sfron_step)
 from uurg_torch.workloads.ddpm import DDPMWorkload
 
 log = logging.getLogger("uurg_torch.ddpm")
+
+
+def _load_train_dataset(args, config) -> ArrayDataset:
+    """CIFAR-10 from ``data.path``, or the synthetic stand-in when it is not
+    there (the same arrays as the JAX runner's: ``synthetic_n`` samples,
+    ``base_seed=0`` so every fallback shares one class-pattern set)."""
+    if config.data.dataset == "CIFAR10":
+        try:
+            return load_cifar10(config.data.get("path", "./data"), train=True)
+        except FileNotFoundError:
+            log.warning("CIFAR-10 not found under %s — synthetic fallback",
+                        config.data.get("path"))
+    return synthetic_dataset(config.data.get("synthetic_n", 2048),
+                             config.data.image_size,
+                             config.data.channels, config.data.n_classes,
+                             base_seed=0)
+
+
+def _flip(config):
+    if config.data.get("random_flip", False):
+        return random_flip_batch
+    return None
+
+
+def _device_batch(config, x: np.ndarray, c: np.ndarray,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A host batch on the device: float32 images in model range, int64
+    labels."""
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    c = torch.from_numpy(np.asarray(c, np.int64)).to(device)
+    return data_transform(config, x), c
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The generator seed of one step: a function of (seed, step) alone, so
+    a resumed run draws what the uninterrupted one would have (the JAX step
+    folds the step into its key)."""
+    return (seed % 2**31) * 2**32 + step
+
+
+def _save(ckpt_dir: str, state: SFRonState) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_reference_checkpoint(os.path.join(ckpt_dir, "ckpt.pth"), state.model,
+                              state.optimizer, state.step, state.ema_model)
+
+
+def _try_resume(ckpt_dir: str, state: SFRonState) -> tuple[SFRonState, int]:
+    """Restore model, optimizer, EMA and step from ``<ckpt_dir>/ckpt.pth``
+    if the run wrote one; returns (state, step)."""
+    path = os.path.join(ckpt_dir, "ckpt.pth")
+    if not os.path.exists(path):
+        return state, 0
+    state.step = load_training_checkpoint(path, state.model, state.optimizer,
+                                          state.ema_model)
+    log.info("resumed from %s at step %d", path, state.step)
+    return state, state.step
+
+
+def _train(args, config, ckpt_dir: str, wl: DDPMWorkload, state: SFRonState,
+           step_fn, forget: ArrayDataset | None, remain: ArrayDataset,
+           sample_hook: Callable | None = None) -> SFRonState:
+    """The host loop shared by pretrain and sfron_forget."""
+    state, start_step = _try_resume(ckpt_dir, state)
+    bs = config.training.batch_size
+    # the JAX runner's streams: pretrain draws from seed, sfron_forget its
+    # forget split from seed and its remain split from seed + 1
+    r_seed = args.seed if forget is None else args.seed + 1
+    r_it = infinite_batches(remain, bs, seed=r_seed, transform=_flip(config))
+    f_it = (infinite_batches(forget, bs, seed=args.seed,
+                             transform=_flip(config))
+            if forget is not None else None)
+    gen = torch.Generator(device=wl.device)
+    state.model.train()
+    start = time.time()
+    for i in range(start_step, config.training.n_iters):
+        rb = _device_batch(config, *next(r_it), wl.device)
+        fb = _device_batch(config, *next(f_it), wl.device) if f_it else rb
+        gen.manual_seed(_step_seed(args.seed, i))
+        metrics = step_fn(state, fb, rb, gen)
+        if (i + 1) % config.training.log_freq == 0:
+            log.info("step:%04d remain L:%.4f forget L:%.4f forget a:%.6f "
+                     "time:%.2f", i, float(metrics["remain_loss"]),
+                     float(metrics["forget_loss"]), metrics["forget_alpha"],
+                     time.time() - start)
+            start = time.time()
+        if (i + 1) % config.training.snapshot_freq == 0:
+            _save(ckpt_dir, state)
+            if sample_hook is not None:
+                sample_hook(state, i)
+    _save(ckpt_dir, state)
+    return state
+
+
+def pretrain(args, config, ckpt_dir: str, dataset: ArrayDataset | None = None,
+             device: str | torch.device | None = None) -> SFRonState:
+    """Conditional DDPM pretraining (DDPM/runners/diffusion.py:101-177):
+    the SFR-on engine with forgetting off (remain-only descent plus the EMA
+    shadow). ``dataset`` overrides the config's (retrain passes the remain
+    split). Runs on ``device``, CUDA unless "cpu" is asked for."""
+    wl = DDPMWorkload.from_config(config, device=device)
+    model = wl.init_params(args.seed)
+    opt = build_reference_optimizer(config, model.parameters())
+    cfg = SFRonConfig(
+        n_iters=config.training.n_iters, forget_alpha=0.0,
+        alpha_sched="const", forget_freq=1,
+        forget_clip=None, remain_clip=config.optim.get("grad_clip", None),
+        ema_mu=config.model.ema_rate if config.model.get("ema") else None,
+    )
+    step = make_sfron_step(cfg, None, wl.train_loss_fn())
+    state = init_state(model, opt, ema=bool(config.model.get("ema")))
+    ds = dataset if dataset is not None else _load_train_dataset(args, config)
+    return _train(args, config, ckpt_dir, wl, state, step, None, ds)
+
+
+def _device_mask(mask: dict, device: torch.device) -> dict:
+    """Packed leaves stay packed; 0/1 leaves become bool (1 byte/element)."""
+    return {k: v.to(device) if isinstance(v, PackedMask)
+            else torch.as_tensor(v).to(device=device, dtype=torch.bool)
+            for k, v in mask.items()}
+
+
+def sfron_forget(args, config, ckpt_dir: str, mask: dict | None = None,
+                 sample_hook: Callable | None = None,
+                 device: str | torch.device | None = None) -> SFRonState:
+    """SFR-on unlearning (DDPM/runners/diffusion.py:1038-1208): forget step
+    (adaga/ga/rl, masked, clipped), remain step, EMA, from the model
+    ``load_params`` gives. ``mask`` is the saliency mask, ``dict[str,
+    Tensor]`` of 0/1 or bool tensors or of PackedMask, keyed by parameter
+    name (None: no mask). Runs on ``device``, CUDA unless "cpu" is asked
+    for."""
+    wl = DDPMWorkload.from_config(config, device=device)
+    model = load_params(args, config, wl)
+    opt = build_reference_optimizer(config, model.parameters())
+    sf_cfg = SFRonConfig(
+        n_iters=config.training.n_iters,
+        forget_alpha=args.forget_alpha,
+        remain_alpha=getattr(args, "remain_alpha", 1.0),
+        alpha_sched="cosine" if getattr(args, "decay_forget_alpha", False)
+        else "const",
+        forget_freq=1,
+        forget_clip=config.optim.get("grad_clip"),
+        remain_clip=config.optim.get("grad_clip"),
+        method=getattr(args, "method", "ron"),
+        ema_mu=config.model.ema_rate if config.model.get("ema") else None,
+    )
+    forget_loss = wl.forget_loss_fn(
+        getattr(args, "unlearn_loss", "adaga"), args.label_to_forget,
+        config.data.n_classes)
+    step = make_sfron_step(sf_cfg, forget_loss, wl.train_loss_fn())
+    state = init_state(model, opt, ema=bool(config.model.get("ema")),
+                       mask=None if mask is None
+                       else _device_mask(mask, wl.device))
+    remain, forget = class_forget_split(_load_train_dataset(args, config),
+                                        args.label_to_forget)
+    return _train(args, config, ckpt_dir, wl, state, step, forget, remain,
+                  sample_hook)
 
 
 def load_params(args, config, wl: DDPMWorkload,

@@ -24,7 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. The backward kernels against their plain versions at every backward
    site shape of the training path (batch 128), timed as in phase 3: the
    kernel, its plain version, and the PyTorch library's backward alone
-   (SDPA, ``F.group_norm``, forward graph retained).
+   (SDPA, ``F.group_norm``, forward graph retained). The attention forward
+   with its log-sum-exp output, as the training path runs it, is held
+   against the plain version and ``logsumexp`` and timed at the same shapes.
 7. One eps-loss backward at batch 8 with the kernels against the same model
    on its plain path: relative L2 error of all parameter gradients.
 8. The training path: ``ddpm_runner.sfron_forget`` (adaga, ron, a packed
@@ -35,6 +37,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    site of both phases must have gone through its forward and backward
    kernels. The written ``ckpt.pth`` is then sampled (EMA) through
    ``sample_images``.
+9. The attention kernels off the main path: ragged T (not a multiple of any
+   tile, so TMA zero fill and key masking decide the result) and head
+   widths that the wrapper pads, forward, log-sum-exp and backward against
+   the plain versions, each run three times with equal bits.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -114,6 +120,15 @@ GN_SUM_REL_L2 = 1e-4
 # alone differs at ~1.1e-2 (phase 4); the backward runs a second chain of
 # bf16 roundings of the same depth.
 MODEL_GRAD_REL_L2 = 5e-2
+# the forward's log-sum-exp (fp32) against torch.logsumexp of fp32 scores:
+# both sum exp in fp32, in another order
+LSE_ATOL = 1e-4
+# (T, D) off the main path, at batch 4 x 2 heads: T below, across and far
+# above one tile, not a multiple of 8; D padded by the wrapper to 64, 128,
+# 192 and unpadded
+RAGGED_SHAPES = ((16, 72), (77, 40), (100, 72), (130, 160), (256, 192),
+                 (1024, 64), (1024, 256))
+RAGGED_REPEATS = 3
 
 
 def fail(msg: str) -> None:
@@ -413,6 +428,33 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
                                       device=dev, dtype=torch.bfloat16)
                           for _ in range(4))
             o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            torch.cuda.synchronize()
+            # the forward as the training path runs it: with the LSE output
+            tag = f"attention fwd+lse B={batch} T={T} D={D}"
+            fwd_abs = compare(tag, o, FA.attention_plain(q, k, v))
+            check_lse(tag, lse, q, k)
+            ms, eager_ms = time_ms(
+                lambda: FA._attention_kernel(q, k, v, with_lse=True))
+            plain_ms = time_ms(lambda: FA.attention_plain(q, k, v))[0]
+            lib_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v))[0]
+            # q, k, v read, o written (the LSE is this design's output only)
+            bytes_ms = 4 * batch * T * D * 2 / HBM_BYTES_PER_S * 1e3
+            ops_ms = 4 * batch * T * T * D / BF16_TC_FLOPS * 1e3
+            rows.append({
+                "name": "attention_fwd_train",
+                "shape": {"B": batch, "H": 1, "T": T, "D": D},
+                "sites_per_forward": count, "ms": ms, "eager_ms": eager_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "max_abs_err": fwd_abs})
+            print(f"  attention_fwd_train {rows[-1]['shape']} x{count}/forward:"
+                  f" kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms ({rows[-1]['bound_by']})",
+                  flush=True)
             got = FA.attention_bwd(q, k, v, o, lse, g)
             torch.cuda.synchronize()
             want = FA.attention_bwd_plain(q, k, v, g)
@@ -477,6 +519,55 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
               f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
               f"ms ({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
+def check_lse(name: str, lse, q, k) -> float:
+    """The forward kernel's fp32 (B*H, T) log-sum-exp against
+    ``torch.logsumexp`` of the scaled fp32 scores."""
+    import torch
+
+    T, D = q.shape[-2:]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
+    err = (lse - torch.logsumexp(s, -1).reshape(-1, T)).abs().max().item()
+    print(f"  {name}: lse max_abs_err {err:.3e} (tolerance {LSE_ATOL:g})",
+          flush=True)
+    if not err <= LSE_ATOL:
+        fail(f"{name}: the log-sum-exp disagrees with torch.logsumexp")
+    return err
+
+
+def check_ragged(gen) -> list[dict]:
+    """Phase 9: both attention kernels at shapes off the main path."""
+    import torch
+
+    from uurg_torch.ops import flash_attention as FA
+
+    rows = []
+    for T, D in RAGGED_SHAPES:
+        q, k, v, g = (torch.randn(4, 2, T, D, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        tag = f"B=4 H=2 T={T} D={D}"
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        o = o.contiguous()             # a column slice where D was padded
+        torch.cuda.synchronize()
+        fwd_err = compare(f"attention {tag}", o, FA.attention_plain(q, k, v))
+        lse_err = check_lse(f"attention {tag}", lse, q, k)
+        got = FA.attention_bwd(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        want = FA.attention_bwd_plain(q, k, v, g)
+        bwd_err = max(rel_l2(f"attention bwd d{n} {tag}", a, b, BWD_REL_L2)
+                      for n, a, b in zip("qkv", got, want))
+        for _ in range(RAGGED_REPEATS - 1):
+            o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
+            again = FA.attention_bwd(q, k, v, o, lse, g)
+            if not (torch.equal(o2.contiguous(), o) and torch.equal(lse2, lse)
+                    and all(torch.equal(a, b) for a, b in zip(got, again))):
+                fail(f"attention {tag}: repeated runs differ in their bits")
+        rows.append({"T": T, "D": D, "fwd_max_abs_err": fwd_err,
+                     "lse_max_abs_err": lse_err, "bwd_max_abs_err": bwd_err})
+    print(f"  {len(rows)} shapes, {RAGGED_REPEATS} runs each with equal bits",
+          flush=True)
     return rows
 
 
@@ -706,8 +797,8 @@ def main() -> int:
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}")
+            if "registers" in line or "spill" in line or "(C75" in line:
+                print(f"  [{name}] {line.strip()[:200]}")
             if re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
                 fail(f"ptxas reports register spills in {name}")
 
@@ -788,6 +879,10 @@ def main() -> int:
           f"{TRAIN_STEPS} counted steps", flush=True)
     train = train_path(config, card, n_attn, n_gn)
 
+    print("== attention kernels off the main path (ragged T, padded D)",
+          flush=True)
+    ragged = check_ragged(gen)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -817,7 +912,7 @@ def main() -> int:
                    "sampling": {"images": SAMPLING_BATCH,
                                 "steps": DDIM_STEPS, "seconds": elapsed,
                                 "imgs_per_s": SAMPLING_BATCH / elapsed},
-                   "training": train,
+                   "training": train, "ragged_attention": ragged,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

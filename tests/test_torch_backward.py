@@ -61,6 +61,28 @@ def test_attention_bwd_matches_jax(T, D):
         np.testing.assert_array_equal(t.grad.numpy(), p.numpy())
 
 
+@pytest.mark.parametrize("T,D", [(77, 40), (100, 72), (130, 160), (256, 192)])
+def test_attention_bwd_matches_jax_at_ragged_shapes(T, D):
+    """T that no tile size divides and head widths that the CUDA wrapper
+    pads: the plain backward and the Function's CPU backward against the
+    VJP of the JAX package's reference formulation (fp32, ATTN_TOL)."""
+    q, k, v, g = _attn_inputs(T, D, T * 1000 + D)
+    _, vjp = jax.vjp(_reference_attention, q, k, v)
+    ref = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    plain = attention_bwd_plain(*(torch.from_numpy(a) for a in (q, k, v, g)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    launches = (attention.launches, attention_bwd.launches)
+    attention(*ts).backward(torch.from_numpy(g))
+    assert (attention.launches, attention_bwd.launches) == launches
+    direct = attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                           torch.from_numpy(q), None, torch.from_numpy(g))
+    for name, p, t, d, r in zip("qkv", plain, ts, direct, ref):
+        assert p.shape == (2, 1, T, D), name
+        np.testing.assert_allclose(p.numpy(), r, err_msg=name, **ATTN_TOL)
+        np.testing.assert_array_equal(t.grad.numpy(), p.numpy())
+        np.testing.assert_array_equal(d.numpy(), p.numpy())
+
+
 def test_attention_function_takes_gradient_in_any_stride_order():
     q, k, v, g = _attn_inputs(16, 64, 5)
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]

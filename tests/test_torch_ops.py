@@ -39,6 +39,26 @@ def test_attention_matches_jax(T, D):
     np.testing.assert_allclose(got, pallas, **ATTN_TOL)
 
 
+# T that no tile size divides and head widths that the CUDA wrapper pads to a
+# multiple of 64: the dispatcher's CPU path must not depend on either
+RAGGED = [(77, 40), (100, 72), (130, 160), (256, 192)]
+
+
+@pytest.mark.parametrize("T,D", RAGGED)
+def test_attention_matches_jax_at_ragged_shapes(T, D):
+    rng = np.random.default_rng(T * 1000 + D)
+    q, k, v = (rng.standard_normal((2, 2, T, D), dtype=np.float32)
+               for _ in range(3))
+    launches = attention.launches
+    got = attention(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v))
+    assert attention.launches == launches     # CPU tensors: plain version
+    assert got.shape == (2, 2, T, D) and got.dtype == torch.float32
+    ref = np.asarray(_reference_attention(q, k, v))
+    # fp32 on both sides, the sums over T in another order: ATTN_TOL
+    np.testing.assert_allclose(got.numpy(), ref, **ATTN_TOL)
+
+
 @pytest.mark.parametrize("C", [64, 128, 384])
 def test_group_norm_matches_jax(C):
     rng = np.random.default_rng(C)

@@ -11,7 +11,18 @@
 // flops each on 7 * T * D * 2 bytes per head (q, k, v, g read; dq, dk, dv
 // written; o and the log-sum-exp are inputs of this design, not of the
 // function): 10 * T * T * D / (14 * T * D) = 0.714 * T flops a byte, 183 at
-// T = 256, under the H100's 295 bf16 flops a byte.
+// T = 256, under the H100's 295 bf16 flops a byte. This design runs seven
+// products (S and dP in both passes) and re-reads tiles from L2 (a head's Q
+// and g once for each of its key tiles), so what it has to keep small is the
+// time the tensor cores and the SM's memory port stand idle: every product is
+// a wgmma fed from swizzled shared memory or registers, loads run under the
+// products, and blocks are persistent so that one item's output store and the
+// next item's first loads overlap. Debug builds with cycle stamps showed the
+// longest part of a 64-row step of the dk/dv pass to be the P^T hand-over
+// between the warpgroups (one warp a scheduler runs its exponentials and
+// stores at single-warp speed while the other warpgroup waits), and the SM's
+// memory port to be busy between two items with the next tiles and the
+// output, whatever way the output is stored.
 //
 // Design. The TPU kernel walks q blocks in grid order and adds every block's
 // share of dk and dv into one output block, which is race-free only because a
@@ -21,125 +32,70 @@
 //   1. delta: delta_i = sum_d g_id o_id per row (fp32), one warp a row. This
 //      equals the TPU kernel's rowsum(P * dP) in exact arithmetic (o = P v);
 //      it is taken from the bf16 forward output, which the tests allow for.
-//   2. dk/dv, key-tile major: a block owns 64 keys and walks the q tiles of
-//      its head (32 rows each), holding its dk and dv sums in registers.
-//   3. dq, q-tile major: a block owns 64 query rows and walks the key tiles
-//      (32 keys each), holding its dq sum in registers.
+//   2. dk/dv, key-tile major: a work item is 64 keys of a head (K and V
+//      resident), 64-row tiles of Q and g stream through a two-stage ring.
+//   3. dq, q-tile major: a work item is 128 query rows of a head (Q and g
+//      resident), 32-key tiles of K and V stream through a two-stage ring.
 // P is rebuilt tile by tile as exp(s - lse) from the forward's log-sum-exp.
+// Passes 2 and 3 run one persistent block on each SM (208 KB and 192 KB of
+// shared memory at D = 256), which walks work items blockIdx.x, + gridDim.x,
+// ...: the streaming ring runs on across items, and the resident tiles are
+// handed back as soon as their last product is done, so the next item's
+// loads run under this item's last products and its stores.
 //
-// Registers: at D = 256 the dk and dv sums of a 16-key warp tile would be
-// 2 * 16 * 256 fp32 = 256 registers a thread. So each pass has two phases
-// per tile, split between 8 warps: phase 1 computes the score tile S and
-// dP (each warp a 16 x 16 piece, contracting over all of D) and writes P and
-// dS, rounded to bf16 as the products want them, to shared memory; phase 2
-// multiplies them into the sums, each warp owning 16 rows by half of D, so a
-// thread holds 64 (dq) or 128 (dk plus dv) fp32 sums. Tiles are stored in
-// shared memory both row-major (A operands and the S / dP B operands) and
-// transposed (B operands of phase 2), with rows padded by 8 bf16 so fragment
-// loads are free of bank conflicts: 149 KB (dk/dv) and 125 KB (dq) at D = 256.
-// Products are mma.sync m16n8k16, bf16 in and fp32 accumulate.
+// Both passes are warp-specialised: a producer warp issues TMA loads (boxes of
+// 64 columns in the 128-byte swizzle, completion counted on a "full" mbarrier
+// a stage, the stage handed back on an "empty" one), gives its registers to
+// two consumer warpgroups (setmaxnreg), and those run wgmma, bf16 in and fp32
+// accumulate. Tiles are used as they lie in memory: the same tile of Q is the
+// K-major operand of S^T = K Q^T and the MN-major operand of dK += dS^T Q, so
+// no transposed copy exists and each tile is read from device memory once a
+// step. The tensor maps have three dimensions (B*H, T, D): rows past T arrive
+// as zeros, never as the next head's rows.
+//
+// dk/dv pass, per 64-row step: warpgroup A computes S^T = K Q^T, forms P^T in
+// registers, hands it in fp32 to warpgroup B through shared memory (each
+// thread's 32 values go to the thread of the same index, which holds the same
+// elements of dP^T, so the copy is free of bank conflicts), rounds it to bf16
+// in place as the A operand and owns dV += P^T g (64 x D fp32, D / 2
+// registers a thread). Warpgroup B computes dP^T = V g^T meanwhile, takes
+// P^T, forms dS^T in registers and owns dK += dS^T Q. Four products a step,
+// none repeated. Two named barriers order the hand-over.
+//
+// dq pass, per 32-key step: each consumer warpgroup owns 64 query rows,
+// computes S = Q K^T and dP = g V^T (64 x 32 each), forms dS in registers and
+// adds dQ += dS K with dS as the A operand.
 //
 // Masking: rows and keys past T (ragged tiles, the T = 16 mid site) are
-// zero-filled, their P is set to 0 and they are not stored. Padded head
+// zero-filled by TMA, their P is set to 0 and they are not stored. Padded head
 // columns (D not a multiple of 64, zero-padded by the caller) are zero in q,
 // k, v, o and g, so their gradients are zero and the caller slices them off.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 padding per shared-memory row
-constexpr int kKV_BK = 64;    // keys per block, dk/dv pass
-constexpr int kKV_BQ = 32;    // query rows per step, dk/dv pass
-constexpr int kQ_BQ = 64;     // query rows per block, dq pass
-constexpr int kQ_BK = 32;     // keys per step, dq pass
+using namespace hopper;
+
+constexpr int kStages = 2;
+constexpr int kThreads = 3 * 128;   // two consumer warpgroups and the producer's
+constexpr int kKV_BK = 64;          // keys per block, dk/dv pass
+constexpr int kKV_BQ = 64;          // query rows per step, dk/dv pass
+constexpr int kQ_BQ = 128;          // query rows per block, dq pass
+constexpr int kQ_BK = 32;           // keys per step, dq pass
+constexpr int kDeltaWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBarPReady = 1, kBarPFree = 2;   // named barriers, 256 threads
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 x 16, row-major) at row r0, column c0 of a tile with row
-// stride S (elements)
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* t,
-                                       int S, int r0, int c0, int g, int tq) {
-  const __nv_bfloat16* p = t + (r0 + g) * S + c0 + tq * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * S);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * S + 8);
-}
-
-// B fragment (16 x 8, column-major): the tile stores the 8 columns as rows
-// n0..n0+7, the 16 contraction indices k0.. contiguous within each row
-__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* t,
-                                       int S, int n0, int k0, int g, int tq) {
-  const __nv_bfloat16* p = t + (n0 + g) * S + k0 + tq * 2;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// rows [r0, r0 + R) of a (T, D) head into a row-major tile (row stride
-// D + kPad); rows past T are zero
-template <int D, int R>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int T, int tid) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < R * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// the same rows stored transposed: dst[d][r], row stride R + kPad.
-// Neighbouring threads take neighbouring rows so the 2-byte stores into a
-// row of dst fall in distinct banks.
-template <int D, int R>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src, int r0,
-                                            int T, int tid) {
-  for (int i = tid; i < R * (D / 8); i += kThreads) {
-    const int r = i % R, c = (i / R) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (R + kPad) + r] = e[j];
-  }
-}
-
-// grid: ceil(rows / kWarps); block: kThreads. delta[row] = sum_d g o.
+// grid: ceil(rows / kDeltaWarps); block: kDeltaWarps * 32. delta[row] = sum_d g o.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaWarps * 32)
 attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
                       const __nv_bfloat16* __restrict__ g,
                       float* __restrict__ delta, int rows) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
+  const int row = blockIdx.x * kDeltaWarps + warp;
   if (row >= rows) return;
   const size_t base = static_cast<size_t>(row) * D;
   float s = 0.f;
@@ -162,271 +118,362 @@ attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
 
 template <int D>
 constexpr size_t kv_smem_bytes() {
-  return (2 * static_cast<size_t>(kKV_BK) * (D + kPad) +      // K, V
-          2 * static_cast<size_t>(kKV_BQ) * (D + kPad) +      // Q, G row-major
-          2 * static_cast<size_t>(D) * (kKV_BQ + kPad) +      // Q, G transposed
-          2 * static_cast<size_t>(kKV_BK) * (kKV_BQ + kPad))  // P^T, dS^T
-             * sizeof(__nv_bfloat16) +
-         2 * kKV_BQ * sizeof(float);                          // lse, delta
+  // K, V, kStages of (Q tile, g tile), the fp32 P^T hand-over, alignment room
+  return static_cast<size_t>(2 * kKV_BK + kStages * 2 * kKV_BQ) * D * 2 +
+         32 * 128 * sizeof(float) + 1024;
 }
 
-// grid: (ceil(T / kKV_BK), B*H); block: kThreads.
+// grid: min(work items, SMs); block: kThreads. Work item w is key tile
+// w % n_ktiles of head w / n_ktiles.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ g,
+attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int T, float scale) {
-  constexpr int S = D + kPad;         // row stride of K, V, Q, G
-  constexpr int ST = kKV_BQ + kPad;   // row stride of Qt, Gt, Pt, dSt
-  constexpr int NH = D / 16;          // n-tiles of 8 in half of D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kKV_BK * S;
-  __nv_bfloat16* Qs = Vs + kKV_BK * S;
-  __nv_bfloat16* Gs = Qs + kKV_BQ * S;
-  __nv_bfloat16* Qt = Gs + kKV_BQ * S;
-  __nv_bfloat16* Gt = Qt + D * ST;
-  __nv_bfloat16* Pt = Gt + D * ST;        // [key][query]
-  __nv_bfloat16* dSt = Pt + kKV_BK * ST;  // [key][query]
-  float* lse_s = reinterpret_cast<float*>(dSt + kKV_BK * ST);
-  float* delta_s = lse_s + kKV_BQ;
+                     __nv_bfloat16* __restrict__ dv, int T, int n_ktiles,
+                     int n_work, float scale) {
+  constexpr int NC = D / kChunkCols;
+  constexpr uint32_t kChunk = 64 * kRowBytes;        // every tile here has 64 rows
+  constexpr uint32_t kTile = NC * kChunk;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kStages];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;   // mma fragment row / column pair
-  const int wr = (warp & 3) * 16;            // this warp's 16 keys in the tile
-  const int wh = warp >> 2;                  // phase 1: query half; phase 2: D half
-  const int k0 = blockIdx.x * kKV_BK;
-  const size_t head = static_cast<size_t>(blockIdx.y) * T * D;
-  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t st_s = v_s + kTile;                 // stage s: Q then g
+  float* px = reinterpret_cast<float*>(
+      smem_raw + (st_s + kStages * 2 * kTile - smem_u32(smem_raw)));
+  const uint32_t kv_full = smem_u32(&bars[0]);
+  const uint32_t kv_empty = smem_u32(&bars[1]);
+  const uint32_t qg_full = smem_u32(&bars[2]);       // + 8 * stage
+  const uint32_t qg_empty = smem_u32(&bars[2 + kStages]);
 
-  load_rows<D, kKV_BK>(Ks, k + head, k0, T, tid);
-  load_rows<D, kKV_BK>(Vs, v + head, k0, T, tid);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (T + kKV_BQ - 1) / kKV_BQ;
 
-  float acc_dk[NH][4], acc_dv[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += kKV_BQ) {
-    __syncthreads();   // the previous tile is consumed (and K, V are stored)
-    load_rows<D, kKV_BQ>(Qs, q + head, q0, T, tid);
-    load_rows<D, kKV_BQ>(Gs, g + head, q0, T, tid);
-    load_rows_t<D, kKV_BQ>(Qt, q + head, q0, T, tid);
-    load_rows_t<D, kKV_BQ>(Gt, g + head, q0, T, tid);
-    for (int i = tid; i < kKV_BQ; i += kThreads) {
-      const int row = q0 + i;
-      const size_t at = static_cast<size_t>(blockIdx.y) * T + row;
-      lse_s[i] = row < T ? lse[at] * kLog2e : 0.f;
-      delta_s[i] = row < T ? delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(qg_full + 8 * s, 1);
+      mbar_init(qg_empty + 8 * s, 8);                // one arrival a consumer warp
     }
-    __syncthreads();
-
-    // phase 1: S^T = K Q^T and dP^T = V G^T for 16 keys x 16 queries
-    float st[2][4], dpt[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t ak[4], av[4];
-      load_a(ak, Ks, S, wr, kk, gr, tq);
-      load_a(av, Vs, S, wr, kk, gr, tq);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        uint32_t b[2];
-        load_b(b, Qs, S, wh * 16 + n * 8, kk, gr, tq);
-        mma_16816(st[n], ak, b);
-        load_b(b, Gs, S, wh * 16 + n * 8, kk, gr, tq);
-        mma_16816(dpt[n], av, b);
-      }
-    }
-    // P^T and dS^T, rounded to bf16 into shared memory
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int key_l = wr + gr + hr * 8;
-        const int col = wh * 16 + n * 8 + tq * 2;   // query within the tile
-        float p[2], ds[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bool ok = (k0 + key_l < T) && (q0 + col + j < T);
-          p[j] = ok ? exp2f(st[n][hr * 2 + j] * scale_log2 - lse_s[col + j]) : 0.f;
-          ds[j] = p[j] * (dpt[n][hr * 2 + j] - delta_s[col + j]) * scale;
-        }
-        *reinterpret_cast<uint32_t*>(Pt + key_l * ST + col) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSt + key_l * ST + col) = pack_bf16(ds[0], ds[1]);
-      }
-    __syncthreads();
-
-    // phase 2: dV += P^T G and dK += dS^T Q for 16 keys x half of D
-#pragma unroll
-    for (int ks = 0; ks < kKV_BQ; ks += 16) {
-      uint32_t ap[4], as[4];
-      load_a(ap, Pt, ST, wr, ks, gr, tq);
-      load_a(as, dSt, ST, wr, ks, gr, tq);
-#pragma unroll
-      for (int n = 0; n < NH; ++n) {
-        uint32_t b[2];
-        load_b(b, Gt, ST, wh * (D / 2) + n * 8, ks, gr, tq);
-        mma_16816(acc_dv[n], ap, b);
-        load_b(b, Qt, ST, wh * (D / 2) + n * 8, ks, gr, tq);
-        mma_16816(acc_dk[n], as, b);
-      }
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  const int row0 = k0 + wr + gr, row1 = row0 + 8;
-#pragma unroll
-  for (int n = 0; n < NH; ++n) {
-    const int col = wh * (D / 2) + n * 8 + tq * 2;
-    if (row0 < T) {
-      const size_t at = head + static_cast<size_t>(row0) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(acc_dk[n][0], acc_dk[n][1]);
-      *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(acc_dv[n][0], acc_dv[n][1]);
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (warp == 8 && lane == 0) {
+      uint32_t it = 0;                               // Q/g tiles loaded so far
+      for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+        const int head = w / n_ktiles, k0 = (w % n_ktiles) * kKV_BK;
+        mbar_wait(kv_empty, (item & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * kTile);
+        tma_load_tile<D>(k_s, &tm_k, kv_full, kKV_BK, k0, head);
+        tma_load_tile<D>(v_s, &tm_v, kv_full, kKV_BK, k0, head);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const uint32_t s = it % kStages;
+          mbar_wait(qg_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+          const uint32_t q_s = st_s + s * 2 * kTile;
+          mbar_expect_tx(qg_full + 8 * s, 2 * kTile);
+          tma_load_tile<D>(q_s, &tm_q, qg_full + 8 * s, kKV_BQ, j * kKV_BQ, head);
+          tma_load_tile<D>(q_s + kTile, &tm_g, qg_full + 8 * s, kKV_BQ, j * kKV_BQ, head);
+        }
+      }
     }
-    if (row1 < T) {
-      const size_t at = head + static_cast<size_t>(row1) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(acc_dk[n][2], acc_dk[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(acc_dv[n][2], acc_dv[n][3]);
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int wg = warp >> 2;                        // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+    const int tid = threadIdx.x & 127;
+    const int g = lane >> 2, tq = lane & 3;          // accumulator row / column pair
+    const float scale_log2 = scale * kLog2e;
+    // the resident operand: K for warpgroup A, V for warpgroup B
+    const uint64_t a_desc = mma_desc(wg == 0 ? k_s : v_s);
+    uint32_t it = 0;                                 // Q/g tiles consumed so far
+    if (wg == 1) bar_arrive(kBarPFree, 256);         // the hand-over starts free
+
+    for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+      const int head = w / n_ktiles, k0 = (w % n_ktiles) * kKV_BK;
+      const bool last_item = w + gridDim.x >= n_work;
+      const int key0 = k0 + (warp & 3) * 16 + g, key1 = key0 + 8;
+      const bool key_ok[2] = {key0 < T, key1 < T};
+      const float* row_stat =
+          (wg == 0 ? lse : delta) + static_cast<size_t>(head) * T;
+      const float stat_mul = wg == 0 ? kLog2e : 1.f;   // A wants the lse in log2
+
+      float acc[NC][32];                             // dV (A) or dK (B)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+      mbar_wait(kv_full, item & 1);
+
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const uint32_t s = it % kStages;
+        const int q0 = j * kKV_BQ;
+        const uint64_t q_desc = mma_desc(st_s + s * 2 * kTile);
+        const uint64_t g_desc = mma_desc(st_s + s * 2 * kTile + kTile);
+        // A contracts K with Q and then multiplies into g's rows; B contracts
+        // V with g and then multiplies into Q's rows
+        const uint64_t b1_desc = wg == 0 ? q_desc : g_desc;
+        const uint64_t b2_desc = wg == 0 ? g_desc : q_desc;
+        mbar_wait(qg_full + 8 * s, (it / kStages) & 1);
+
+        // S^T = K Q^T (A) or dP^T = V g^T (B): 64 keys x 64 query rows
+        float t[32];
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = (c * kChunk + kk * kStepKMajor) >> 4;
+            wgmma_ss_n64(t, a_desc + off, b1_desc + off, (c | kk) != 0);
+          }
+        wgmma_commit();
+        // this thread's 16 query columns: log-sum-exp (A) or delta (B)
+        float stat[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int qi = q0 + (i >> 1) * 8 + tq * 2 + (i & 1);
+          stat[i] = qi < T ? row_stat[qi] * stat_mul : 0.f;
+        }
+        wgmma_wait<0>();
+        reg_fence(t);
+        // K and V have been read for the last time: the next item's may come
+        if (j == n_tiles - 1 && lane == 0) mbar_arrive(kv_empty);
+
+        if (wg == 0) {
+          // P = 0 past T. (Selects, not a branch around an unmasked copy of the
+          // loop: with the branch ptxas adds a wgmma wait and fence of its own.)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = (i >> 2) * 2 + (i & 1);
+            const int qi = q0 + (i >> 2) * 8 + tq * 2 + (i & 1);
+            t[i] = (key_ok[(i >> 1) & 1] && qi < T)
+                       ? ex2(fmaf(t[i], scale_log2, -stat[col]))
+                       : 0.f;
+          }
+          bar_sync(kBarPFree, 256);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) px[i * 128 + tid] = t[i];
+          __threadfence_block();
+          bar_arrive(kBarPReady, 256);
+        } else {
+          bar_sync(kBarPReady, 256);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = (i >> 2) * 2 + (i & 1);
+            t[i] = px[i * 128 + tid] * (t[i] - stat[col]) * scale;
+          }
+          // no arrival is left pending when the block ends
+          if (!(last_item && j == n_tiles - 1)) bar_arrive(kBarPFree, 256);
+        }
+
+        // dV += P^T g (A) or dK += dS^T Q (B): the query rows are the contraction
+        uint32_t ta[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) acc_to_a(ta[ks], t + 8 * ks);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            wgmma_rs_n64(acc[c], ta[ks],
+                         b2_desc + ((c * kChunk + ks * kStepMNMajor) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        if (lane == 0) mbar_arrive(qg_empty + 8 * s);
+      }
+
+      __nv_bfloat16* dst = (wg == 0 ? dv : dk) + static_cast<size_t>(head) * T * D;
+      store_acc<NC>(dst, acc, key0, T, tq, 1.f, 1.f);
     }
   }
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return (2 * static_cast<size_t>(kQ_BQ) * (D + kPad) +      // Q, G
-          2 * static_cast<size_t>(kQ_BK) * (D + kPad) +      // K, V row-major
-          static_cast<size_t>(D) * (kQ_BK + kPad) +          // K transposed
-          static_cast<size_t>(kQ_BQ) * (kQ_BK + kPad))       // dS
-             * sizeof(__nv_bfloat16) +
-         2 * kQ_BQ * sizeof(float);                          // lse, delta
+  // Q, g, kStages of (K tile, V tile), alignment room
+  return static_cast<size_t>(2 * kQ_BQ + kStages * 2 * kQ_BK) * D * 2 + 1024;
 }
 
-// grid: (ceil(T / kQ_BQ), B*H); block: kThreads.
+// grid: min(work items, SMs); block: kThreads. Work item w is q tile
+// w % n_qtiles of head w / n_qtiles.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ g,
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_g,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int T, float scale) {
-  constexpr int S = D + kPad;        // row stride of Q, G, K, V
-  constexpr int ST = kQ_BK + kPad;   // row stride of Kt, dS
-  constexpr int NH = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + kQ_BQ * S;
-  __nv_bfloat16* Ks = Gs + kQ_BQ * S;
-  __nv_bfloat16* Vs = Ks + kQ_BK * S;
-  __nv_bfloat16* Kt = Vs + kQ_BK * S;
-  __nv_bfloat16* dSs = Kt + D * ST;       // [query][key]
-  float* lse_s = reinterpret_cast<float*>(dSs + kQ_BQ * ST);
-  float* delta_s = lse_s + kQ_BQ;
+                   __nv_bfloat16* __restrict__ dq, int T, int n_qtiles,
+                   int n_work, float scale) {
+  constexpr int NC = D / kChunkCols;
+  constexpr uint32_t kQChunk = kQ_BQ * kRowBytes;
+  constexpr uint32_t kKVChunk = kQ_BK * kRowBytes;
+  constexpr uint32_t kQBytes = NC * kQChunk;
+  constexpr uint32_t kKVBytes = NC * kKVChunk;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kStages];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int wr = (warp & 3) * 16;            // this warp's 16 query rows
-  const int wh = warp >> 2;                  // phase 1: key half; phase 2: D half
-  const int q0 = blockIdx.x * kQ_BQ;
-  const size_t head = static_cast<size_t>(blockIdx.y) * T * D;
-  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t g_s = q_s + kQBytes;
+  const uint32_t st_s = g_s + kQBytes;               // stage s: K then V
+  const uint32_t qg_full = smem_u32(&bars[0]);
+  const uint32_t qg_empty = smem_u32(&bars[1]);
+  const uint32_t kv_full = smem_u32(&bars[2]);       // + 8 * stage
+  const uint32_t kv_empty = smem_u32(&bars[2 + kStages]);
 
-  load_rows<D, kQ_BQ>(Qs, q + head, q0, T, tid);
-  load_rows<D, kQ_BQ>(Gs, g + head, q0, T, tid);
-  for (int i = tid; i < kQ_BQ; i += kThreads) {
-    const int row = q0 + i;
-    const size_t at = static_cast<size_t>(blockIdx.y) * T + row;
-    lse_s[i] = row < T ? lse[at] * kLog2e : 0.f;
-    delta_s[i] = row < T ? delta[at] : 0.f;
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (T + kQ_BK - 1) / kQ_BK;
 
-  float acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kQ_BK) {
-    __syncthreads();   // the previous tile is consumed (and Q, G are stored)
-    load_rows<D, kQ_BK>(Ks, k + head, k0, T, tid);
-    load_rows<D, kQ_BK>(Vs, v + head, k0, T, tid);
-    load_rows_t<D, kQ_BK>(Kt, k + head, k0, T, tid);
-    __syncthreads();
-
-    // phase 1: S = Q K^T and dP = G V^T for 16 rows x 16 keys
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ag[4];
-      load_a(aq, Qs, S, wr, kk, gr, tq);
-      load_a(ag, Gs, S, wr, kk, gr, tq);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        uint32_t b[2];
-        load_b(b, Ks, S, wh * 16 + n * 8, kk, gr, tq);
-        mma_16816(s[n], aq, b);
-        load_b(b, Vs, S, wh * 16 + n * 8, kk, gr, tq);
-        mma_16816(dp[n], ag, b);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    mbar_init(qg_empty, 8);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 8);                // one arrival a consumer warp
     }
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row_l = wr + gr + hr * 8;
-        const int col = wh * 16 + n * 8 + tq * 2;   // key within the tile
-        float ds[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bool ok = (q0 + row_l < T) && (k0 + col + j < T);
-          const float p =
-              ok ? exp2f(s[n][hr * 2 + j] * scale_log2 - lse_s[row_l]) : 0.f;
-          ds[j] = p * (dp[n][hr * 2 + j] - delta_s[row_l]) * scale;
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (warp == 8 && lane == 0) {
+      uint32_t it = 0;                               // K/V tiles loaded so far
+      for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+        const int head = w / n_qtiles, q0 = (w % n_qtiles) * kQ_BQ;
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const uint32_t s = it % kStages;
+          mbar_wait(kv_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+          const uint32_t k_s = st_s + s * 2 * kKVBytes;
+          mbar_expect_tx(kv_full + 8 * s, 2 * kKVBytes);
+          tma_load_tile<D>(k_s, &tm_k, kv_full + 8 * s, kQ_BK, j * kQ_BK, head);
+          tma_load_tile<D>(k_s + kKVBytes, &tm_v, kv_full + 8 * s, kQ_BK, j * kQ_BK, head);
+          if (j == 0) {
+            // after the first K/V tile, which needs no free Q/g buffer
+            mbar_wait(qg_empty, (item & 1) ^ 1);
+            mbar_expect_tx(qg_full, 2 * kQBytes);
+            tma_load_tile<D>(q_s, &tm_q, qg_full, kQ_BQ, q0, head);
+            tma_load_tile<D>(g_s, &tm_g, qg_full, kQ_BQ, q0, head);
+          }
         }
-        *reinterpret_cast<uint32_t*>(dSs + row_l * ST + col) = pack_bf16(ds[0], ds[1]);
-      }
-    __syncthreads();
-
-    // phase 2: dQ += dS K for 16 rows x half of D
-#pragma unroll
-    for (int ks = 0; ks < kQ_BK; ks += 16) {
-      uint32_t a[4];
-      load_a(a, dSs, ST, wr, ks, gr, tq);
-#pragma unroll
-      for (int n = 0; n < NH; ++n) {
-        uint32_t b[2];
-        load_b(b, Kt, ST, wh * (D / 2) + n * 8, ks, gr, tq);
-        mma_16816(acc[n], a, b);
       }
     }
-  }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int wg = warp >> 2;                        // which 64 query rows
+    const int g = lane >> 2, tq = lane & 3;          // accumulator row / column pair
+    const float scale_log2 = scale * kLog2e;
+    const uint64_t q_desc = mma_desc(q_s + wg * 64 * kRowBytes);
+    const uint64_t g_desc = mma_desc(g_s + wg * 64 * kRowBytes);
+    uint32_t it = 0;                                 // K/V tiles consumed so far
 
-  const int row0 = q0 + wr + gr, row1 = row0 + 8;
+    for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+      const int head = w / n_qtiles, q0 = (w % n_qtiles) * kQ_BQ;
+      const int row0 = q0 + wg * 64 + (warp & 3) * 16 + g, row1 = row0 + 8;
+      const bool row_ok[2] = {row0 < T, row1 < T};
+      const float* lh = lse + static_cast<size_t>(head) * T;
+      const float* dh = delta + static_cast<size_t>(head) * T;
+      const float lse2[2] = {row_ok[0] ? lh[row0] * kLog2e : 0.f,
+                             row_ok[1] ? lh[row1] * kLog2e : 0.f};
+      const float dl[2] = {row_ok[0] ? dh[row0] : 0.f, row_ok[1] ? dh[row1] : 0.f};
+
+      float acc[NC][32];
 #pragma unroll
-  for (int n = 0; n < NH; ++n) {
-    const int col = wh * (D / 2) + n * 8 + tq * 2;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(dq + head + static_cast<size_t>(row0) * D + col) =
-          pack_bf16(acc[n][0], acc[n][1]);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(dq + head + static_cast<size_t>(row1) * D + col) =
-          pack_bf16(acc[n][2], acc[n][3]);
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+      mbar_wait(qg_full, item & 1);
+
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const uint32_t s = it % kStages;
+        const int k0 = j * kQ_BK;
+        const uint64_t k_desc = mma_desc(st_s + s * 2 * kKVBytes);
+        const uint64_t v_desc = mma_desc(st_s + s * 2 * kKVBytes + kKVBytes);
+        mbar_wait(kv_full + 8 * s, (it / kStages) & 1);
+
+        // S = Q K^T and dP = g V^T for 64 rows x 32 keys
+        float sc[16], dp[16];
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n32(sc, q_desc + ((c * kQChunk + kk * kStepKMajor) >> 4),
+                         k_desc + ((c * kKVChunk + kk * kStepKMajor) >> 4),
+                         (c | kk) != 0);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n32(dp, g_desc + ((c * kQChunk + kk * kStepKMajor) >> 4),
+                         v_desc + ((c * kKVChunk + kk * kStepKMajor) >> 4),
+                         (c | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        reg_fence(dp);
+        // Q and g have been read for the last time: the next item's may come
+        if (j == n_tiles - 1 && lane == 0) mbar_arrive(qg_empty);
+
+        if (k0 + kQ_BK > T || q0 + kQ_BQ > T) {      // a ragged tile: P = 0 past T
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int r = (i >> 1) & 1;
+            const int key = k0 + (i >> 2) * 8 + tq * 2 + (i & 1);
+            const float p = (row_ok[r] && key < T)
+                                ? ex2(fmaf(sc[i], scale_log2, -lse2[r]))
+                                : 0.f;
+            sc[i] = p * (dp[i] - dl[r]) * scale;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int r = (i >> 1) & 1;
+            sc[i] = ex2(fmaf(sc[i], scale_log2, -lse2[r])) * (dp[i] - dl[r]) * scale;
+          }
+        }
+
+        // dQ += dS K: the keys are the contraction
+        uint32_t da[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) acc_to_a(da[ks], sc + 8 * ks);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            wgmma_rs_n64(acc[c], da[ks],
+                         k_desc + ((c * kKVChunk + ks * kStepMNMajor) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        if (lane == 0) mbar_arrive(kv_empty + 8 * s);
+      }
+
+      store_acc<NC>(dq + static_cast<size_t>(head) * T * D, acc, row0, T, tq, 1.f, 1.f);
+    }
   }
 }
 
@@ -436,39 +483,51 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* dv, int BH, int T, float scale, cudaStream_t stream) {
   constexpr size_t kv_smem = kv_smem_bytes<D>();
   constexpr size_t dq_smem = dq_smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kv_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(
-        attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dq_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  // at every call, not once: with the attribute set by an earlier call only, a
+  // launch from autograd's thread after launches from the main thread was
+  // refused (cudaErrorInvalidValue) on the card; setting it is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kv_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dq_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // built at every call, since the pointers change; passed by value, so a
+  // CUDA graph captures them with the launches
+  CUtensorMap q64, k64, v64, g64, q128, k32, v32, g128;
+  if (!make_tile_map(&q64, q, BH, T, D, kKV_BQ) ||
+      !make_tile_map(&k64, k, BH, T, D, kKV_BK) ||
+      !make_tile_map(&v64, v, BH, T, D, kKV_BK) ||
+      !make_tile_map(&g64, g, BH, T, D, kKV_BQ) ||
+      !make_tile_map(&q128, q, BH, T, D, kQ_BQ) ||
+      !make_tile_map(&k32, k, BH, T, D, kQ_BK) ||
+      !make_tile_map(&v32, v, BH, T, D, kQ_BK) ||
+      !make_tile_map(&g128, g, BH, T, D, kQ_BQ))
+    return kTensorMapFailed;
   using bf = __nv_bfloat16;
-  const bf* qp = static_cast<const bf*>(q);
-  const bf* kp = static_cast<const bf*>(k);
-  const bf* vp = static_cast<const bf*>(v);
-  const bf* gp = static_cast<const bf*>(g);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
   const int rows = BH * T;
-  attn_bwd_delta_kernel<D><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const bf*>(o), gp, dp, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<D>
-      <<<dim3((T + kKV_BK - 1) / kKV_BK, BH), kThreads, kv_smem, stream>>>(
-          qp, kp, vp, gp, lp, dp, static_cast<bf*>(dk), static_cast<bf*>(dv),
-          T, scale);
+  attn_bwd_delta_kernel<D>
+      <<<(rows + kDeltaWarps - 1) / kDeltaWarps, kDeltaWarps * 32, 0, stream>>>(
+          static_cast<const bf*>(o), static_cast<const bf*>(g), dp, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D>
-      <<<dim3((T + kQ_BQ - 1) / kQ_BQ, BH), kThreads, dq_smem, stream>>>(
-          qp, kp, vp, gp, lp, dp, static_cast<bf*>(dq), T, scale);
+  const int n_ktiles = (T + kKV_BK - 1) / kKV_BK, kv_work = BH * n_ktiles;
+  attn_bwd_dkdv_kernel<D><<<kv_work < sms ? kv_work : sms, kThreads, kv_smem, stream>>>(
+      q64, k64, v64, g64, lp, dp, static_cast<bf*>(dk), static_cast<bf*>(dv), T,
+      n_ktiles, kv_work, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (T + kQ_BQ - 1) / kQ_BQ, q_work = BH * n_qtiles;
+  attn_bwd_dq_kernel<D><<<q_work < sms ? q_work : sms, kThreads, dq_smem, stream>>>(
+      q128, k32, v32, g128, lp, dp, static_cast<bf*>(dq), T, n_qtiles, q_work,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,7 +537,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // {64, 128, 192, 256} (the caller zero-pads other head widths and passes the
 // true scale). lse: the forward's fp32 (BH, T) natural log-sum-exp; delta:
 // fp32 (BH, T) scratch. Launches three kernels on the stream and returns the
-// first launch error, or cudaGetLastError() after the last launch.
+// first launch error, or cudaGetLastError() after the last launch; -1 if a
+// tensor map could not be encoded.
 extern "C" int uurg_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* g, const void* lse,
                                   void* delta, void* dq, void* dk, void* dv,

@@ -8,231 +8,249 @@
 // Bound: bytes on the sampling path. A head does 4 * T * T * D flops on
 // 8 * T * D bytes (q, k, v read, o written): T / 2 = 128 flops a byte at
 // T = 256 and 8 at the T = 16 mid site, both under the H100's 295 bf16 flops
-// a byte. Only T >= ~600 (DiT, SD) would be bound by the tensor cores.
+// a byte. Only T >= ~600 (DiT, SD) would be bound by the tensor cores. So the
+// kernel has to keep loads in flight while it computes, and must not spend
+// its issue slots and shared-memory bandwidth on feeding the tensor cores.
 //
-// Design: the TPU kernel holds a whole head's K and V in VMEM and does one
-// plain softmax. At D = 256 a 64-row q tile (32 KB) plus K (128 KB) plus V
-// (128 KB) is 288 KB, over the 227 KB a block can have, so this kernel walks
-// K/V in 64-key tiles with an online softmax (running max and sum per row,
-// the output rescaled when the max grows). Shared memory holds the q tile,
-// one K tile (row-major) and one V tile stored transposed, each row padded by
-// 8 bf16 so the fragment loads are free of bank conflicts: 104 KB at D = 256,
-// two blocks per SM. Four warps each own 16 query rows and run mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate). The register-pressure point is the
-// (16 x D) fp32 output accumulator of a warp: it is held in the mma C-fragment
-// layout, D / 8 tiles of 4 floats per thread (128 registers at D = 256), and
-// never spills to shared memory; the q fragments are re-read from shared
-// memory per 16-wide k step instead of being held (which would cost another
-// 64 registers). S is converted in registers straight into the A fragments of
-// the PV product. Rows past T (ragged q tiles, T = 16) are zero-filled and not
-// stored; keys past T are masked to -inf.
+// Design (warp-specialised, TMA + wgmma):
+// - A work item is 128 query rows of one head: two consumer warpgroups of 64
+//   rows each, and a producer warp. The producer's registers go to the
+//   consumers (setmaxnreg), which hold a 64 x D fp32 output (D / 2 registers
+//   a thread) plus a 64 x 64 score tile.
+// - The producer loads the q tile once and then K and V in 64-key tiles
+//   through a two-stage ring: TMA boxes in the 128-byte swizzle, completion
+//   counted on an mbarrier a stage ("full"), the consumers hand a stage back
+//   on a second mbarrier ("empty"). Loads of tile j + 1 run under the
+//   products of tile j. The tensor maps have three dimensions (B*H, T, D), so
+//   rows past T arrive as zeros and never as the next head's rows.
+// - Blocks are persistent: one on each SM (192 KB of shared memory at
+//   D = 256 leave room for no second), walking work items blockIdx.x,
+//   + gridDim.x, ... The K/V ring runs on across work items and the q tile
+//   is handed back as soon as its last score product is done, so the next
+//   item's loads run under this item's last products and its output store
+//   (on the card this gained 2% over one block an item). Neighbouring blocks
+//   take the two q tiles of one head at the same time, so its K and V come
+//   from L2 for one of them.
+// - Every product is a wgmma, bf16 in and fp32 accumulate. S = Q K^T reads
+//   both operands from shared memory (K-major). The online softmax runs on
+//   the score accumulator in registers, and its bf16 rounding is at once the
+//   A operand of O += P V. V is used as it lies in memory: the MN-major
+//   operand form takes the keys as the contraction, so there is no
+//   transposed copy. O is kept as D / 64 accumulators of 64 x 64, each fed by
+//   a 64-column instruction (one 256-column instruction gave the same bits
+//   and the same time on the card, and would need a form of its own for
+//   every D).
+// - The output leaves the registers as 16-byte stores after the four lanes of
+//   a quad have swapped their column pairs (hopper_mma.cuh, store_acc).
+// - Keys past T are masked to -inf; rows past T are computed on zeros and not
+//   stored.
 //
 // When a gradient is wanted the caller passes an lse buffer: the kernel then
 // also writes each row's natural log-sum-exp of the scaled scores, fp32
-// (B*H, T), from which the backward kernel rebuilds P tile by tile. The
+// (B*H, T), from which the backward kernels rebuild P tile by tile. The
 // sampling path passes none and runs the same instructions as without it.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;      // query rows per block
-constexpr int kBK = 64;      // keys per tile
-constexpr int kWarps = 4;    // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;      // bf16 padding per shared-memory row
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int kBQ = 128;          // query rows per block (two consumer warpgroups)
+constexpr int kBK = 64;           // keys per tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;     // warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return (static_cast<size_t>(kBQ + kBK) * (D + kPad) +
-          static_cast<size_t>(D) * (kBK + kPad)) * sizeof(__nv_bfloat16);
+  // q tile, kStages of (K tile, V tile), room to align to 1024 bytes
+  return static_cast<size_t>(kBQ + kStages * 2 * kBK) * D * 2 + 1024;
 }
 
-// grid: (ceil(T / kBQ), B*H); block: kThreads.
+// grid: min(work items, SMs); block: kThreads. Work item w is q tile
+// w % n_qtiles of head w / n_qtiles.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
-                float scale_log2) {
-  constexpr int QS = D + kPad;   // row stride of Qs and Ks (elements)
-  constexpr int VS = kBK + kPad; // row stride of Vt
-  constexpr int NT = D / 8;      // output n-tiles per warp
-  constexpr int CH = D / 8;      // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * QS;
-  __nv_bfloat16* Vt = Ks + kBK * QS;   // [D][kBK + kPad]: V transposed
+                int n_qtiles, int n_work, float scale_log2) {
+  constexpr int NC = D / kChunkCols;                 // 64-column chunks
+  constexpr uint32_t kQChunk = kBQ * kRowBytes;      // bytes of a q chunk
+  constexpr uint32_t kKVChunk = kBK * kRowBytes;
+  constexpr uint32_t kQBytes = NC * kQChunk;
+  constexpr uint32_t kKVBytes = NC * kKVChunk;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kStages];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;   // mma fragment row / column pair
-  const int q0 = blockIdx.x * kBQ;
-  const size_t head = static_cast<size_t>(blockIdx.y) * T * D;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
-  __nv_bfloat16* oh = o + head;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + kQBytes;               // stage s: K then V
+  const uint32_t q_full = smem_u32(&bars[0]);
+  const uint32_t q_empty = smem_u32(&bars[1]);
+  const uint32_t kv_full = smem_u32(&bars[2]);       // + 8 * stage
+  const uint32_t kv_empty = smem_u32(&bars[2 + kStages]);
 
-  for (int i = tid; i < kBQ * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = zero;
-    if (q0 + r < T)
-      val = *reinterpret_cast<const uint4*>(qh + static_cast<size_t>(q0 + r) * D + c);
-    *reinterpret_cast<uint4*>(Qs + r * QS + c) = val;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (T + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers * 4);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, kConsumers * 4);   // one arrival a warp
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};   // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
-  const int qr = warp * 16;
-
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();   // the previous tile is consumed (and Qs is stored)
-    // K tile, row-major: a warp reads contiguous 16-byte chunks of one row
-    for (int i = tid; i < kBK * CH; i += kThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = zero;
-      if (k0 + r < T)
-        val = *reinterpret_cast<const uint4*>(kh + static_cast<size_t>(k0 + r) * D + c);
-      *reinterpret_cast<uint4*>(Ks + r * QS + c) = val;
-    }
-    // V tile, transposed: neighbouring threads take neighbouring keys so the
-    // 2-byte stores into a Vt row fall in distinct banks
-    for (int i = tid; i < kBK * CH; i += kThreads) {
-      const int r = i % kBK, c = (i / kBK) * 8;
-      uint4 val = zero;
-      if (k0 + r < T)
-        val = *reinterpret_cast<const uint4*>(vh + static_cast<size_t>(k0 + r) * D + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * VS + r] = e[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = Qs + (qr + g) * QS + kk + tq * 2;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * QS), ld32(qa + 8),
-                             ld32(qa + 8 * QS + 8)};
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * QS + kk + tq * 2;
-        const uint32_t b[2] = {ld32(kb), ld32(kb + 8)};
-        mma_16816(s[n], a, b);
+  if (warp >= kConsumers * 4) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (warp == kConsumers * 4 && lane == 0) {
+      uint32_t it = 0;                               // K/V tiles loaded so far
+      for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+        const int head = w / n_qtiles, q0 = (w % n_qtiles) * kBQ;
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const uint32_t s = it % kStages;
+          mbar_wait(kv_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+          const uint32_t k_s = kv_s + s * 2 * kKVBytes;
+          mbar_expect_tx(kv_full + 8 * s, 2 * kKVBytes);
+          tma_load_tile<D>(k_s, &tm_k, kv_full + 8 * s, kBK, j * kBK, head);
+          tma_load_tile<D>(k_s + kKVBytes, &tm_v, kv_full + 8 * s, kBK, j * kBK, head);
+          if (j == 0) {
+            // after the first K/V tile, which needs no free q buffer
+            mbar_wait(q_empty, (item & 1) ^ 1);
+            mbar_expect_tx(q_full, kQBytes);
+            tma_load_tile<D>(q_s, &tm_q, q_full, kBQ, q0, head);
+          }
+        }
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int wg = warp >> 2;                        // 0 or 1: which 64 rows
+    const int g = lane >> 2, tq = lane & 3;          // accumulator row / column pair
+    const uint64_t q_desc = mma_desc(q_s + wg * 64 * kRowBytes);
+    uint32_t it = 0;                                 // K/V tiles consumed so far
 
-    // online softmax in the log2 domain
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + tq * 2 + (e & 1);
-        const float val = key < T ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key k0 is always valid, so m_new is finite; alpha is 0 on the first tile
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m_run[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
+      const int head = w / n_qtiles, q0 = (w % n_qtiles) * kBQ;
+      const int row0 = q0 + wg * 64 + (warp & 3) * 16 + g, row1 = row0 + 8;
 
-    // O += P V: the S accumulators of two neighbouring key tiles are the A
-    // fragment of one 16-key step
+      float acc[NC][32];
 #pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
-                             pack_bf16(s[2 * ks][2], s[2 * ks][3]),
-                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vb = Vt + (n * 8 + g) * VS + ks * 16 + tq * 2;
-        const uint32_t b[2] = {ld32(vb), ld32(vb + 8)};
-        mma_16816(acc[n], a, b);
-      }
-    }
-  }
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY};         // rows row0 and row1
+      float l_run[2] = {0.f, 0.f};                     // this thread's share of the sums
 
-  float inv[2];
+      mbar_wait(q_full, item & 1);
+
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const uint32_t s = it % kStages;
+        const uint32_t k_s = kv_s + s * 2 * kKVBytes;
+        const uint64_t k_desc = mma_desc(k_s);
+        const uint64_t v_desc = mma_desc(k_s + kKVBytes);
+        mbar_wait(kv_full + 8 * s, (it / kStages) & 1);
+
+        // S = Q K^T for this warpgroup's 64 rows and the tile's 64 keys
+        float sc[32];
+        wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / l_run[r];
-  }
-  const int row0 = q0 + qr + g, row1 = row0 + 8;
-  if (lse != nullptr && tq == 0) {
-    // log2-domain max plus log2 of the sum, back to the natural log
-    float* lh = lse + static_cast<size_t>(blockIdx.y) * T;
-    if (row0 < T) lh[row0] = (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
-    if (row1 < T) lh[row1] = (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
-  }
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + tq * 2;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row0) * D + col) =
-          pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row1) * D + col) =
-          pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64(sc, q_desc + ((c * kQChunk + kk * kStepKMajor) >> 4),
+                         k_desc + ((c * kKVChunk + kk * kStepKMajor) >> 4),
+                         (c | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        // the q tile has been read for the last time: the next item's may come
+        if (j == n_tiles - 1 && lane == 0) mbar_arrive(q_empty);
+
+        // online softmax in the log2 domain
+        const int k0 = j * kBK;
+        const bool ragged = k0 + kBK > T;
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (ragged) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = k0 + (i >> 2) * 8 + tq * 2 + (i & 1);
+            sc[i] = key < T ? sc[i] * scale_log2 : -INFINITY;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // key k0 is always valid, so m_new is finite; alpha is 0 on the first tile
+          const float m_new = fmaxf(m_run[r], mx[r]);
+          alpha[r] = ex2(m_run[r] - m_new);
+          m_run[r] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float p = ex2(sc[i] - m_run[(i >> 1) & 1]);
+          sc[i] = p;
+          rs[(i >> 1) & 1] += p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+
+        // O += P V: the rounded scores are the A operand, V's rows the contraction
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) acc_to_a(pa[ks], sc + 8 * ks);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            wgmma_rs_n64(acc[c], pa[ks],
+                         v_desc + ((c * kKVChunk + ks * kStepMNMajor) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        if (lane == 0) mbar_arrive(kv_empty + 8 * s);
+      }
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+        inv[r] = 1.f / l_run[r];
+      }
+      if (lse != nullptr && tq == 0) {
+        // log2-domain max plus log2 of the sum, back to the natural log
+        float* lh = lse + static_cast<size_t>(head) * T;
+        if (row0 < T) lh[row0] = (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
+        if (row1 < T) lh[row1] = (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
+      }
+      store_acc<NC>(o + static_cast<size_t>(head) * T * D, acc, row0, T, tq, inv[0],
+                    inv[1]);
+    }
   }
 }
 
@@ -240,19 +258,28 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int BH, int T, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((T + kBQ - 1) / kBQ, BH);
-  attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      T, scale * 1.4426950408889634f);
+  // at every call, not once: with the attribute set by an earlier call only, a
+  // launch from autograd's thread after launches from the main thread was
+  // refused (cudaErrorInvalidValue) on the card; setting it is cheap
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // built at every call, since the pointers change; passed by value, so a
+  // CUDA graph captures them with the launch
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_tile_map(&tm_q, q, BH, T, D, kBQ) ||
+      !make_tile_map(&tm_k, k, BH, T, D, kBK) ||
+      !make_tile_map(&tm_v, v, BH, T, D, kBK))
+    return kTensorMapFailed;
+  const int n_qtiles = (T + kBQ - 1) / kBQ;
+  const int n_work = BH * n_qtiles;
+  attn_fwd_kernel<D><<<n_work < sms ? n_work : sms, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, T, n_qtiles,
+      n_work, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,7 +288,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o: contiguous (BH, T, D) bf16, 16-byte aligned, D in
 // {64, 128, 192, 256} (the caller zero-pads other head widths and passes the
 // true scale). lse: fp32 (BH, T), or null when no gradient is wanted.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch; -1 if a tensor map could not be
+// encoded.
 extern "C" int uurg_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int BH, int T, int D,
                                   float scale, void* stream) {

@@ -2,9 +2,10 @@
 
 Each ``<name>.cu`` exports plain C functions and is compiled by ``nvcc`` on
 its own into ``build/uurg_torch_kernels/<name>-<hash>.so`` (the hash covers
-the source and the flags, so an edited source rebuilds), then loaded with
-``ctypes``. All missing libraries are compiled at once, one ``nvcc`` process
-per source. A failed build raises; nothing falls back.
+the source, the shared ``*.cuh`` headers beside it and the flags, so an
+edited source rebuilds), then loaded with ``ctypes``. All missing libraries
+are compiled at once, one ``nvcc`` process per source. A failed build raises;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -11,6 +11,13 @@ whose backward is :func:`attention_bwd`: the kernels of
 ``_attn_bwd_kernel``) for a CUDA tensor, :func:`attention_bwd_plain` for a
 CPU tensor. Nothing falls back from a kernel to a plain version.
 
+The kernels are Hopper designs (``sm_90a``): persistent warp-specialised
+blocks, tiles loaded by TMA through tensor maps that the C launchers encode
+at every call, every product a ``wgmma``; see the notes at the head of the
+two sources and ``uurg_torch/csrc/hopper_mma.cuh``. A launcher returns the
+CUDA error code of its launch, or -1 if a tensor map could not be encoded;
+the wrappers raise on either.
+
 Head widths: the kernels are compiled for D in {64, 128, 192, 256}. Other
 widths up to 256 are zero-padded to the next multiple of 64 (padded k
 columns add zero to the scores, padded v columns are sliced off, and the

@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each kernel against its plain PyTorch version on the same bf16 inputs and
    time kernel, plain version and the PyTorch library call (SDPA,
    ``F.group_norm``) with CUDA events around a CUDA-graph replay (device
-   time), and the kernel also launched eagerly from Python.
+   time), and the kernel also launched eagerly from Python. The GroupNorm
+   forward runs on the route its wrapper chooses by shape (``slab`` with its
+   cluster size, or ``sweep``); at every shape the ``sweep`` route is held
+   against the plain version and timed too (``sweep_ms``).
 4. One forward at batch 8 with the kernels against the same model on its
    plain path.
 5. The sampling path: ``ddpm_runner.sample_images`` on the full-width
@@ -41,6 +44,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tile, so TMA zero fill and key masking decide the result) and head
    widths that the wrapper pads, forward, log-sum-exp and backward against
    the plain versions, each run three times with equal bits.
+10. The GroupNorm forward off the main path: fp32, slices of unequal
+   length (H W not a multiple of the cluster), a sample too large for a
+   cluster (the ``sweep`` route), narrow channels with halved groups, batch
+   1, 2 and 3; y, mean and rstd against the plain version on the chosen
+   route, on ``sweep`` and at every cluster size that fits, each run three
+   times with equal bits.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -129,6 +138,17 @@ LSE_ATOL = 1e-4
 RAGGED_SHAPES = ((16, 72), (77, 40), (100, 72), (130, 160), (256, 192),
                  (1024, 64), (1024, 256))
 RAGGED_REPEATS = 3
+# GroupNorm forward off the main path: (batch, H = W, C, dtype name)
+GN_OFFPATH_SHAPES = ((3, 4, 256, "float32"), (3, 32, 384, "float32"),
+                     (3, 5, 256, "bfloat16"), (3, 12, 384, "bfloat16"),
+                     (3, 32, 512, "float32"), (1, 16, 256, "bfloat16"),
+                     (3, 8, 24, "bfloat16"), (3, 8, 24, "float32"),
+                     (1, 1, 64, "bfloat16"), (3, 21, 384, "bfloat16"),
+                     (2, 29, 640, "bfloat16"))
+# fp32 in and out: only the order of the fp32 sums differs from the plain
+# version's (y), and the statistics are fp32 at either dtype
+GN_FP32_ATOL, GN_FP32_RTOL = 1e-5, 1e-5
+GN_RSTD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -188,7 +208,8 @@ def time_ms(fn, iters: int = 20, stream=None) -> tuple[float, float]:
     return device, _events_ms(eager, iters)
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, atol: float = ATOL,
+            rtol: float = RTOL) -> float:
     import torch
 
     got, want = got.float(), want.float()
@@ -197,8 +218,8 @@ def compare(name: str, got, want) -> float:
     err = (got - want).abs()
     max_abs = err.max().item()
     print(f"  {name}: max_abs_err {max_abs:.3e} "
-          f"(tolerance {ATOL:g} + {RTOL:g}*|plain|)", flush=True)
-    if (err > ATOL + RTOL * want.abs()).any():
+          f"(tolerance {atol:g} + {rtol:g}*|plain|)", flush=True)
+    if (err > atol + rtol * want.abs()).any():
         fail(f"{name}: kernel disagrees with its plain version")
     return max_abs
 
@@ -235,6 +256,7 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from uurg_torch.ops import group_norm as GN
     from uurg_torch.ops.flash_attention import attention, attention_plain
     from uurg_torch.ops.group_norm import group_norm, group_norm_plain
 
@@ -243,6 +265,7 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
     shapes = sorted({(k, s, g) for k, s, g in sites})
     for kind, (C, H, W), groups in shapes:
         count = sum(1 for s in sites if s == (kind, (C, H, W), groups))
+        extra = {}
         if kind == "attn":
             T, D = H * W, C
             q, k, v = (torch.randn(batch, 1, T, D, generator=gen, device=dev,
@@ -263,11 +286,21 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
                  + 0.5).to(torch.bfloat16)
             scale = torch.randn(C, generator=gen, device=dev) * 0.2 + 1.0
             bias = torch.randn(C, generator=gen, device=dev) * 0.2
+            route, cluster = GN._fwd_route(H * W, C, x.element_size(), groups)
             got = group_norm(x, scale, bias, groups=groups)
             torch.cuda.synchronize()
-            max_abs = compare(
-                f"group_norm B={batch} H={H} W={W} C={C}", got,
-                group_norm_plain(x, scale, bias, groups, 1e-6))
+            tag = f"B={batch} H={H} W={W} C={C}"
+            want = group_norm_plain(x, scale, bias, groups, 1e-6)
+            max_abs = compare(f"group_norm {tag} ({route}, cluster {cluster})",
+                              got, want)
+
+            def sweep():
+                return GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
+                                             route=("sweep", 1))
+
+            compare(f"group_norm {tag} (sweep)", sweep()[0], want)
+            extra = {"route": route, "cluster": cluster,
+                     "sweep_ms": time_ms(sweep)[0]}
             x_nchw = x.permute(0, 3, 1, 2)
             s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
             run = (lambda: group_norm(x, scale, bias, groups=groups),
@@ -288,12 +321,15 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
             "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": max_abs,
+            "max_abs_err": max_abs, **extra,
         })
         print(f"  {name} {shape} x{count}/forward: kernel {ms:.4f} ms "
               f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
-              f"ms ({rows[-1]['bound_by']})", flush=True)
+              f"ms ({rows[-1]['bound_by']})"
+              + (f"; {extra['route']} route, cluster {extra['cluster']}, "
+                 f"sweep route {extra['sweep_ms']:.4f} ms" if extra else ""),
+              flush=True)
     return rows
 
 
@@ -566,6 +602,67 @@ def check_ragged(gen) -> list[dict]:
                 fail(f"attention {tag}: repeated runs differ in their bits")
         rows.append({"T": T, "D": D, "fwd_max_abs_err": fwd_err,
                      "lse_max_abs_err": lse_err, "bwd_max_abs_err": bwd_err})
+    print(f"  {len(rows)} shapes, {RAGGED_REPEATS} runs each with equal bits",
+          flush=True)
+    return rows
+
+
+def gn_routes(hw: int, c: int, itemsize: int, groups: int) -> list:
+    """Every route of the GroupNorm forward that can run this shape: the
+    wrapper's choice first, then ``sweep``, then ``slab`` at every other
+    cluster size whose block fits shared memory."""
+    from uurg_torch.ops import group_norm as GN
+
+    fit = [("slab", s) for s in GN._CLUSTERS if s < hw
+           and c * itemsize % 16 == 0
+           and GN._slab_smem(hw, c, itemsize, groups, s) <= GN._SMEM_MAX]
+    return list(dict.fromkeys(
+        [GN._fwd_route(hw, c, itemsize, groups), ("sweep", 1)] + fit))
+
+
+def check_gn_offpath(gen) -> list[dict]:
+    """Phase 10: the GroupNorm forward at shapes off the main path, on
+    every route that can run them (the wrapper's choice, ``sweep``, and
+    ``slab`` at each cluster size that fits: at H W = 25, 441 or 841 the
+    slices of a cluster differ in length)."""
+    import torch
+
+    from uurg_torch.ops import group_norm as GN
+
+    rows = []
+    for B, H, C, dtype_name in GN_OFFPATH_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn(B, H, H, C, generator=gen, device="cuda") * 2
+             + 0.5).to(dtype)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+        groups = 32
+        while C % groups:
+            groups //= 2                 # as the dispatcher does
+        want = GN.group_norm_plain(x, scale, bias, groups, 1e-6, True)
+        chosen = GN._fwd_route(H * H, C, x.element_size(), groups)
+        tol = (ATOL, RTOL) if dtype == torch.bfloat16 else \
+            (GN_FP32_ATOL, GN_FP32_RTOL)
+        errs = {}
+        for route in gn_routes(H * H, C, x.element_size(), groups):
+            tag = (f"group_norm B={B} H=W={H} C={C} G={groups} {dtype_name} "
+                   f"({route[0]}, cluster {route[1]})")
+            got = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
+                                        route=route)
+            torch.cuda.synchronize()
+            errs[f"{route[0]}{route[1]}"] = compare(tag, got[0], want[0],
+                                                    *tol)
+            compare(f"{tag} mean", got[1], want[1], GN_FP32_ATOL,
+                    GN_FP32_RTOL)
+            compare(f"{tag} rstd", got[2], want[2], GN_RSTD_TOL, GN_RSTD_TOL)
+            for _ in range(RAGGED_REPEATS - 1):
+                again = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
+                                              route=route)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: repeated runs differ in their bits")
+        rows.append({"B": B, "H": H, "W": H, "C": C, "G": groups,
+                     "dtype": dtype_name, "route": chosen[0],
+                     "cluster": chosen[1], "max_abs_err": errs})
     print(f"  {len(rows)} shapes, {RAGGED_REPEATS} runs each with equal bits",
           flush=True)
     return rows
@@ -883,6 +980,10 @@ def main() -> int:
           flush=True)
     ragged = check_ragged(gen)
 
+    print("== GroupNorm forward off the main path (fp32, ragged slices, "
+          "sweep route, small batches)", flush=True)
+    gn_offpath = check_gn_offpath(gen)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -913,6 +1014,7 @@ def main() -> int:
                                 "steps": DDIM_STEPS, "seconds": elapsed,
                                 "imgs_per_s": SAMPLING_BATCH / elapsed},
                    "training": train, "ragged_attention": ragged,
+                   "gn_offpath": gn_offpath,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

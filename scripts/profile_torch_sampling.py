@@ -22,7 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = (   # first match wins, on the lower-cased kernel name
     ("attention kernel", ("attn_fwd_kernel",)),
-    ("GroupNorm kernel", ("gn_fwd_kernel",)),
+    ("GroupNorm kernel", ("gn_fwd_",)),
     ("convolution", ("conv", "implicit", "fprop", "cudnn", "nhwc",
                      "winograd")),
     ("GEMM", ("gemm", "cutlass", "cublas")),

@@ -29,7 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (   # first match wins, on the lower-cased kernel name
     ("attention fwd kernel", ("attn_fwd_kernel",)),
     ("attention bwd kernels", ("attn_bwd_",)),
-    ("GroupNorm fwd kernel", ("gn_fwd_kernel",)),
+    ("GroupNorm fwd kernel", ("gn_fwd_",)),
     ("GroupNorm bwd kernels", ("gn_bwd_",)),
     ("optimizer / foreach", ("multi_tensor", "foreach")),
     ("convolution", ("conv", "implicit", "fprop", "dgrad", "wgrad", "cudnn",

@@ -8,6 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from uurg_torch.ops import flash_attention as FA  # noqa: E402
+from uurg_torch.ops import group_norm as GN  # noqa: E402
 from uurg_torch.ops.flash_attention import (  # noqa: E402
     attention,
     attention_bwd,
@@ -58,21 +59,48 @@ def test_attention_kernel_matches_plain(gen, T, D):
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=RTOL)
 
 
+# (batch, H = W, C): sites of the UNet, narrow channels with halved groups,
+# then the shapes off the main path that chip_smoke.py holds too: H W not a
+# multiple of the cluster (slices of unequal length), a sample too large
+# for a cluster in fp32 (the sweep route), batch 1 and 2, and a single pixel.
+# Each runs on the wrapper's route, on sweep and at every cluster that fits
+GN_SHAPES = [(3, 32, 128), (3, 16, 384), (3, 4, 512), (3, 8, 24), (3, 4, 256),
+             (3, 32, 384), (3, 5, 256), (3, 12, 384), (3, 32, 512),
+             (1, 16, 256), (1, 1, 64), (3, 21, 384), (2, 29, 640)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,C", [(32, 128), (16, 384), (4, 512), (8, 24)])
-def test_group_norm_kernel_matches_plain(gen, dtype, H, C):
-    x = (torch.randn(3, H, H, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+@pytest.mark.parametrize("B,H,C", GN_SHAPES)
+def test_group_norm_kernel_matches_plain(gen, dtype, B, H, C):
+    x = (torch.randn(B, H, H, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
     bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+    before = group_norm.launches
     got, mean, rstd = group_norm(x, scale, bias, return_stats=True)
     torch.cuda.synchronize()
+    assert group_norm.launches == before + 1
     groups = mean.shape[1]
     want, mean_p, rstd_p = group_norm_plain(x, scale, bias, groups, 1e-6, True)
     tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
         dict(atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
-    torch.testing.assert_close(mean, mean_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(rstd, rstd_p, atol=1e-4, rtol=1e-4)
+    chosen = GN._fwd_route(H * H, C, x.element_size(), groups)
+    fit = [("slab", s) for s in GN._CLUSTERS if s < H * H
+           and C * x.element_size() % 16 == 0
+           and GN._slab_smem(H * H, C, x.element_size(), groups, s)
+           <= GN._SMEM_MAX]
+    for route in dict.fromkeys([chosen, ("sweep", 1)] + fit):
+        out = GN._group_norm_kernel(x, scale, bias, groups, 1e-6, route=route)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[0].float(), want.float(), **tol)
+        torch.testing.assert_close(out[1], mean_p, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(out[2], rstd_p, atol=1e-4, rtol=1e-4)
+        if route == chosen:                          # what group_norm ran
+            assert all(torch.equal(a, b)
+                       for a, b in zip(out, (got, mean, rstd)))
+        for _ in range(2):                           # no atomics: same bits
+            again = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
+                                          route=route)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 def _rel_l2(got, want):

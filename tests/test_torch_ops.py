@@ -10,6 +10,7 @@ import numpy as np  # noqa: E402
 from uurg_torch.core.device import resolve_device  # noqa: E402
 from uurg_torch.ops import _build  # noqa: E402
 from uurg_torch.ops.flash_attention import attention  # noqa: E402
+from uurg_torch.ops import group_norm as GN  # noqa: E402
 from uurg_torch.ops.group_norm import group_norm  # noqa: E402
 from uurg_tpu.ops.flash_attention import (  # noqa: E402
     _reference_attention,
@@ -77,6 +78,68 @@ def test_group_norm_matches_jax(C):
     np.testing.assert_allclose(got.numpy(), np.asarray(y_p), **GN_TOL)
     np.testing.assert_allclose(mean.numpy(), np.asarray(mean_p), **GN_TOL)
     np.testing.assert_allclose(rstd.numpy(), np.asarray(rstd_p), rtol=1e-4)
+
+
+# H = W, C and the cluster size of every GroupNorm site of a full-width
+# CondUNet forward in bf16: the smallest cluster whose block (slice and
+# scratch) fits a block's shared memory
+MAIN_PATH_ROUTES = [(32, 128, 2), (16, 256, 1), (32, 256, 4), (4, 256, 1),
+                    (32, 384, 4), (16, 512, 2), (8, 256, 1), (16, 384, 1),
+                    (4, 512, 1), (8, 512, 1), (16, 128, 1)]
+
+
+@pytest.mark.parametrize("H,C,S", MAIN_PATH_ROUTES)
+def test_fwd_route_main_path_shapes_take_the_slab_route(H, C, S):
+    hw, pixel = H * H, C * 2
+    assert GN._fwd_route(hw, C, 2) == ("slab", S)
+    slice_bytes = -(-hw // S) * pixel
+    assert slice_bytes % pixel == 0 and slice_bytes % 16 == 0
+    assert slice_bytes < GN._slab_smem(hw, C, 2, 32, S) <= GN._SMEM_MAX
+    assert S <= hw and S in GN._CLUSTERS
+    # no smaller cluster would do
+    assert S == 1 or GN._slab_smem(hw, C, 2, 32, S // 2) > GN._SMEM_MAX
+
+
+@pytest.mark.parametrize("hw,C,itemsize,want", [
+    (1024, 512, 4, ("sweep", 1)),   # 2 MB: 256 KB a slice of eight
+    (1, 64, 2, ("sweep", 1)),       # one pixel: nothing to hold
+    (1024, 384, 4, ("slab", 8)),    # 192 KB slices
+    (25, 256, 2, ("slab", 1)),
+    (441, 384, 2, ("slab", 2)),     # 220 and 221 pixels
+    (729, 512, 2, ("slab", 4)),     # 182, 182, 182 and 183 pixels
+    (841, 640, 2, ("slab", 8)),     # 105 and 106 pixels
+    (64, 24, 4, ("slab", 1)),
+    (64, 12, 2, ("sweep", 1)),      # a pixel of 24 bytes: not whole chunks
+])
+def test_fwd_route_off_the_main_path(hw, C, itemsize, want):
+    route = GN._fwd_route(hw, C, itemsize)
+    assert route == want
+    if route[0] == "slab":
+        assert route[1] < hw
+        assert GN._slab_smem(hw, C, itemsize, 32, route[1]) <= GN._SMEM_MAX
+
+
+@pytest.mark.parametrize("H", [5, 12])
+@pytest.mark.parametrize("C", [128, 384])
+def test_group_norm_matches_jax_at_ragged_slices(H, C):
+    # H W not a multiple of 8 (a cluster's last slice is shorter) and, at
+    # C = 384, groups of 12 channels that a 16-byte chunk straddles: the CPU
+    # path must not depend on either. fp32 on both sides, the sums in
+    # another order: GN_TOL, as test_group_norm_matches_jax
+    rng = np.random.default_rng(H * 1000 + C)
+    x = (rng.standard_normal((3, H, H, C), dtype=np.float32) * 2 + 0.3)
+    scale = rng.standard_normal(C, dtype=np.float32) * 0.1 + 1.0
+    bias = rng.standard_normal(C, dtype=np.float32) * 0.1
+    launches = group_norm.launches
+    got, mean, rstd = group_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                                 torch.from_numpy(bias), groups=32,
+                                 return_stats=True)
+    assert group_norm.launches == launches     # CPU tensors: plain version
+    assert mean.shape == rstd.shape == (3, 32)
+    ref = np.asarray(_gn_reference(x, scale, bias, 32, 1e-6))
+    np.testing.assert_allclose(got.numpy(), ref, **GN_TOL)
+    xr = x.reshape(3, H * H, 32, C // 32)
+    np.testing.assert_allclose(mean.numpy(), xr.mean(axis=(1, 3)), **GN_TOL)
 
 
 def test_group_norm_constant_input_uses_variance_clamp():

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
-// TMA tile loads through tensor maps, wgmma (warpgroup matrix multiply) with
-// its shared-memory descriptors, named barriers and register reallocation.
+// Hopper (sm_90a) building blocks shared by the kernels: mbarriers, TMA tile
+// loads through tensor maps, bulk copies of a contiguous range, thread-block
+// clusters and their distributed shared memory (the GroupNorm forward), wgmma
+// (warpgroup matrix multiply) with its shared-memory descriptors, named
+// barriers and register reallocation (the attention kernels).
 // Thin wrappers over PTX; no kernel lives here.
 //
 // Shared-memory tile layout used throughout: a (rows, D) bf16 tile is stored
@@ -105,6 +107,49 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
 #pragma unroll
   for (int c = 0; c < D / kChunkCols; ++c)
     tma_load_3d(dst + c * rows * kRowBytes, map, bar, c * kChunkCols, row0, head);
+}
+
+// ------------------------------------------------------------- bulk copy
+// `bytes` contiguous bytes from global memory to shared memory at `dst`, with
+// no tensor map: source, destination and size are multiples of 16. Completion
+// is counted in bytes on `bar` (at most 2^20 - 1 bytes a barrier phase).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------- thread-block clusters
+// rank of this block in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster's barrier, split: every thread of every block arrives once and
+// waits once a phase. What a thread wrote before it arrived, into any block's
+// shared memory, is visible to every thread after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address, in the cluster's window, of block `rank`'s copy of this block's
+// shared-memory address `addr`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_store(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma

@@ -8,6 +8,12 @@ never falls back from one to the other. Both compute ``_gn_reference``:
 ``var = max(E[x^2] - mean^2, 0)``, ``y = x * a + b`` with
 ``a = rstd * scale``, ``b = bias - mean * a``, all in fp32, y in x's dtype.
 
+The forward kernel has two routes, chosen here by shape alone
+(:func:`_fwd_route`), never by a failed launch: ``slab`` holds a sample in
+the shared memory of a cluster of 1, 2, 4 or 8 thread blocks and reads x
+from device memory once; ``sweep`` (a sample too large for that) reads it
+twice.
+
 When a gradient is wanted the op goes through one
 ``torch.autograd.Function``. It saves x, scale and the forward's (B, G)
 mean and rstd, and its backward is :func:`group_norm_bwd`: the backward
@@ -17,6 +23,7 @@ for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,6 +32,10 @@ from uurg_torch.ops import _build
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _CHUNK_BYTES = 16
 _MAX_CHUNKS = 512   # C / (16 / itemsize): one thread per 16-byte column chunk
+_ROUTE_CODE = {"sweep": 0, "slab": 1}
+_CLUSTERS = (1, 2, 4, 8)     # 8: the largest cluster every launch may ask for
+_SMEM_MAX = 226 * 1024       # a block's 227 KB on sm_90 less the kernel's static part
+_SLAB_THREADS = 256          # kSlabThreads of csrc/group_norm.cu
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -107,29 +118,67 @@ def _check_kernel(x):
         raise ValueError("the GroupNorm kernels need 16-byte aligned tensors")
 
 
-def _load(symbol: str, n_ptr: int, n_int: int, with_eps: bool):
+def _slab_smem(hw: int, c: int, itemsize: int, groups: int, s: int) -> int:
+    """Dynamic shared memory of one block of the slab route, as the C
+    launcher reckons it: the slice, the [2][rows][C] scratch, per-channel
+    and per-group sums, statistics, and the cluster's [S][2][G] partials."""
+    pixels = -(-hw // s)
+    rows = max(1, min(_SLAB_THREADS // (c * itemsize // _CHUNK_BYTES), pixels))
+    floats = 2 * rows * c + 2 * c + 4 * groups + (2 * groups * s if s > 1 else 0)
+    return pixels * c * itemsize + 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
+    """(route, cluster) of the forward kernel for a sample of ``hw`` pixels
+    of ``c`` channels: ``("slab", S)`` with the smallest cluster S whose
+    block (a slice of ``ceil(hw / S)`` whole pixels and the scratch) fits
+    shared memory, else ``("sweep", 1)``. A cluster never has as many
+    blocks as the sample has pixels (a one-pixel sample has nothing to
+    hold), and a pixel must be whole 16-byte chunks for the bulk copy."""
+    if c * itemsize % _CHUNK_BYTES == 0:
+        for s in _CLUSTERS:
+            if s < hw and _slab_smem(hw, c, itemsize, groups, s) <= _SMEM_MAX:
+                return "slab", s
+    return "sweep", 1
+
+
+@functools.lru_cache(maxsize=None)
+def _load(symbol: str, n_ptr: int, ints: tuple):
+    """``symbol`` of the built source: ``n_ptr`` pointers, then ``ints``
+    (ctypes types), then the stream."""
     return _build.function(
         "group_norm", symbol,
-        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-        + ([ctypes.c_float] if with_eps else []) + [ctypes.c_int,
-                                                    ctypes.c_void_p])
+        [ctypes.c_void_p] * n_ptr + list(ints) + [ctypes.c_void_p])
 
 
-def _group_norm_kernel(x, scale, bias, groups, eps):
-    """Launch the forward kernel: (y, mean, rstd)."""
+_I, _F = ctypes.c_int, ctypes.c_float
+_FWD_INTS = (_I,) * 4 + (_F,) + (_I,) * 3   # B, HW, C, G, eps, dtype, route, cluster
+_BWD_INTS = (_I,) * 5                       # B, HW, C, G, dtype
+
+
+def _group_norm_kernel(x, scale, bias, groups, eps, route=None):
+    """Launch the forward kernel: (y, mean, rstd). ``route`` overrides
+    :func:`_fwd_route` (to time one route beside the other)."""
     _check_kernel(x)
     b, h, w, c = x.shape
+    name, cluster = route or _fwd_route(h * w, c, x.element_size(), groups)
     y = torch.empty_like(x)
-    mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    err = _load("uurg_group_norm_fwd", 6, 4, True)(
-        x.data_ptr(), scale.contiguous().data_ptr(),
-        bias.contiguous().data_ptr(), y.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), b, h * w, c, groups, eps, _DTYPE_CODE[x.dtype],
+    stats = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
+    if not bias.is_contiguous():
+        bias = bias.contiguous()
+    err = _load("uurg_group_norm_fwd", 6, _FWD_INTS)(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), stats.data_ptr() + 4 * b * groups, b, h * w, c,
+        groups, eps, _DTYPE_CODE[x.dtype], _ROUTE_CODE[name], cluster,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"GroupNorm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"GroupNorm kernel launch failed ({name} route, "
+                           f"cluster {cluster}): CUDA error {err}")
     group_norm.launches += 1
+    mean, rstd = stats.unbind(0)
     return y, mean, rstd
 
 
@@ -158,7 +207,7 @@ def group_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
-    err = _load("uurg_group_norm_bwd", 10, 4, False)(
+    err = _load("uurg_group_norm_bwd", 10, _BWD_INTS)(
         x.data_ptr(), g.data_ptr(), scale.contiguous().data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), b,

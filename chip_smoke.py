@@ -30,6 +30,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (SDPA, ``F.group_norm``, forward graph retained). The attention forward
    with its log-sum-exp output, as the training path runs it, is held
    against the plain version and ``logsumexp`` and timed at the same shapes.
+   The GroupNorm backward runs on the route its wrapper chooses (its
+   cluster size recorded), and the profiler must see exactly one device
+   kernel in one of its calls.
 7. One eps-loss backward at batch 8 with the kernels against the same model
    on its plain path: relative L2 error of all parameter gradients.
 8. The training path: ``ddpm_runner.sfron_forget`` (adaga, ron, a packed
@@ -50,6 +53,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, 2 and 3; y, mean and rstd against the plain version on the chosen
    route, on ``sweep`` and at every cluster size that fits, each run three
    times with equal bits.
+11. The GroupNorm backward off the main path, the same way: fp32 and bf16,
+   ragged slices (H = 5, 12), C = 24 with G = 8, a one-pixel sample, batch
+   1, 3 and 40, and the main path's eleven shapes at batch 256 (the CFG
+   double forward's batch that the Fisher pass backpropagates through);
+   dx, dscale and dbias against the plain version on every route and
+   cluster size that fits, three runs with equal bits.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -149,6 +158,22 @@ GN_OFFPATH_SHAPES = ((3, 4, 256, "float32"), (3, 32, 384, "float32"),
 # version's (y), and the statistics are fp32 at either dtype
 GN_FP32_ATOL, GN_FP32_RTOL = 1e-5, 1e-5
 GN_RSTD_TOL = 1e-4
+# GroupNorm backward off the main path: (batch, H = W, C, dtype name); the
+# main path's eleven shapes at batch 256 follow
+GN_BWD_OFFPATH_SHAPES = ((3, 5, 128, "bfloat16"), (3, 5, 128, "float32"),
+                         (3, 12, 384, "bfloat16"), (3, 12, 384, "float32"),
+                         (3, 8, 24, "bfloat16"), (3, 8, 24, "float32"),
+                         (1, 1, 64, "bfloat16"), (1, 16, 256, "bfloat16"),
+                         (3, 32, 384, "float32"), (3, 21, 384, "bfloat16"),
+                         (40, 16, 128, "float32"))
+# (H = W, C, sites in one pass) of the GroupNorm sites of the full-width
+# CIFAR-10 CondUNet: the profile scripts' shapes
+GN_SITES = ((32, 128, 8), (16, 256, 11), (32, 256, 2), (4, 256, 12),
+            (32, 384, 1), (16, 512, 2), (8, 256, 7), (16, 384, 1), (4, 512, 3),
+            (8, 512, 3), (16, 128, 1))
+# fp32 dx: the same fp32 products in another order, then gs - s1 - x_hat s2,
+# which cancels where the three are close
+GN_BWD_FP32_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -450,6 +475,7 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from uurg_torch.ops import flash_attention as FA
+    from uurg_torch.ops import group_norm as GN
     from uurg_torch.ops.group_norm import (group_norm, group_norm_bwd,
                                            group_norm_bwd_plain)
 
@@ -458,6 +484,7 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
     shapes = sorted({(k, s, g) for k, s, g in sites})
     for kind, (C, H, W), groups in shapes:
         count = sum(1 for s in sites if s == (kind, (C, H, W), groups))
+        extra = {}
         if kind == "attn":
             T, D = H * W, C
             q, k, v, g = (torch.randn(batch, 1, T, D, generator=gen,
@@ -518,10 +545,14 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
             bias = torch.randn(C, generator=gen, device=dev) * 0.2
             _, mean, rstd = group_norm(x, scale, bias, groups=groups,
                                        return_stats=True)
+            route, cluster = GN._bwd_route(H * W, C, x.element_size(), groups)
             got = group_norm_bwd(x, scale, mean, rstd, g)
             torch.cuda.synchronize()
             want = group_norm_bwd_plain(x, scale, mean, rstd, g)
-            tag = f"B={batch} H={H} W={W} C={C}"
+            tag = f"B={batch} H={H} W={W} C={C} ({route}, cluster {cluster})"
+            one_launch(f"group_norm bwd {tag}",
+                       lambda: group_norm_bwd(x, scale, mean, rstd, g))
+            extra = {"route": route, "cluster": cluster}
             max_abs = max(compare(f"group_norm bwd dx {tag}", got[0], want[0]),
                           rel_l2(f"group_norm bwd dscale {tag}", got[1],
                                  want[1], GN_SUM_REL_L2),
@@ -549,13 +580,34 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
             "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": max_abs,
+            "max_abs_err": max_abs, **extra,
         })
         print(f"  {name} {shape} x{count}/backward: kernel {ms:.4f} ms "
               f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
-              f"ms ({rows[-1]['bound_by']})", flush=True)
+              f"ms ({rows[-1]['bound_by']})"
+              + (f"; {extra['route']} route, cluster {extra['cluster']}"
+                 if extra else ""), flush=True)
     return rows
+
+
+def one_launch(name: str, fn) -> None:
+    """Fails unless the profiler sees exactly one device activity (a kernel;
+    no copy, no fill) in one call of ``fn``, launched after a synchronise
+    so that nothing else is in flight."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             for _ in range(e.count)]
+    if len(names) != 1:
+        fail(f"{name}: one call launched {len(names)} device kernels, not "
+             f"one: {names}")
 
 
 def check_lse(name: str, lse, q, k) -> float:
@@ -607,17 +659,20 @@ def check_ragged(gen) -> list[dict]:
     return rows
 
 
-def gn_routes(hw: int, c: int, itemsize: int, groups: int) -> list:
-    """Every route of the GroupNorm forward that can run this shape: the
-    wrapper's choice first, then ``sweep``, then ``slab`` at every other
-    cluster size whose block fits shared memory."""
+def gn_routes(hw: int, c: int, itemsize: int, groups: int,
+              backward: bool = False) -> list:
+    """Every route of the GroupNorm forward (or backward) that can run this
+    shape: the wrapper's choice first, then ``sweep``, then ``slab`` at
+    every other cluster size whose block fits shared memory."""
     from uurg_torch.ops import group_norm as GN
 
+    route, smem = ((GN._bwd_route, GN._bwd_slab_smem) if backward
+                   else (GN._fwd_route, GN._slab_smem))
     fit = [("slab", s) for s in GN._CLUSTERS if s < hw
            and c * itemsize % 16 == 0
-           and GN._slab_smem(hw, c, itemsize, groups, s) <= GN._SMEM_MAX]
+           and smem(hw, c, itemsize, groups, s) <= GN._SMEM_MAX]
     return list(dict.fromkeys(
-        [GN._fwd_route(hw, c, itemsize, groups), ("sweep", 1)] + fit))
+        [route(hw, c, itemsize, groups), ("sweep", 1)] + fit))
 
 
 def check_gn_offpath(gen) -> list[dict]:
@@ -658,6 +713,58 @@ def check_gn_offpath(gen) -> list[dict]:
             for _ in range(RAGGED_REPEATS - 1):
                 again = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
                                               route=route)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: repeated runs differ in their bits")
+        rows.append({"B": B, "H": H, "W": H, "C": C, "G": groups,
+                     "dtype": dtype_name, "route": chosen[0],
+                     "cluster": chosen[1], "max_abs_err": errs})
+    print(f"  {len(rows)} shapes, {RAGGED_REPEATS} runs each with equal bits",
+          flush=True)
+    return rows
+
+
+def check_gn_bwd_offpath(gen) -> list[dict]:
+    """Phase 11: the GroupNorm backward at shapes off the main path and at
+    the main path's shapes at batch 256, on every route that can run them,
+    dx, dscale and dbias against the plain version, three runs with equal
+    bits."""
+    import torch
+
+    from uurg_torch.ops import group_norm as GN
+
+    rows = []
+    shapes = GN_BWD_OFFPATH_SHAPES + tuple(
+        (2 * TRAIN_BATCH, H, C, "bfloat16") for H, C, _ in GN_SITES)
+    for B, H, C, dtype_name in shapes:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn(B, H, H, C, generator=gen, device="cuda") * 2
+             + 0.5).to(dtype)
+        g = torch.randn(B, H, H, C, generator=gen, device="cuda").to(dtype)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        groups = 32
+        while C % groups:
+            groups //= 2                 # as the dispatcher does
+        _, mean, rstd = GN.group_norm_plain(x, scale, scale, groups, 1e-6,
+                                            True)
+        want = GN.group_norm_bwd_plain(x, scale, mean, rstd, g)
+        size = x.element_size()
+        chosen = GN._bwd_route(H * H, C, size, groups)
+        tol = (ATOL, RTOL) if dtype == torch.bfloat16 else \
+            (GN_BWD_FP32_TOL, GN_BWD_FP32_TOL)
+        errs = {}
+        for route in gn_routes(H * H, C, size, groups, backward=True):
+            tag = (f"group_norm bwd B={B} H=W={H} C={C} G={groups} "
+                   f"{dtype_name} ({route[0]}, cluster {route[1]})")
+            got = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g,
+                                            route=route)
+            torch.cuda.synchronize()
+            errs[f"{route[0]}{route[1]}"] = max(
+                compare(f"{tag} dx", got[0], want[0], *tol),
+                rel_l2(f"{tag} dscale", got[1], want[1], GN_SUM_REL_L2),
+                rel_l2(f"{tag} dbias", got[2], want[2], GN_SUM_REL_L2))
+            for _ in range(RAGGED_REPEATS - 1):
+                again = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g,
+                                                  route=route)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     fail(f"{tag}: repeated runs differ in their bits")
         rows.append({"B": B, "H": H, "W": H, "C": C, "G": groups,
@@ -984,6 +1091,10 @@ def main() -> int:
           "sweep route, small batches)", flush=True)
     gn_offpath = check_gn_offpath(gen)
 
+    print("== GroupNorm backward off the main path (fp32, ragged slices, "
+          "sweep route, small batches, batch 256)", flush=True)
+    gn_bwd_offpath = check_gn_bwd_offpath(gen)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -1015,6 +1126,7 @@ def main() -> int:
                                 "imgs_per_s": SAMPLING_BATCH / elapsed},
                    "training": train, "ragged_attention": ragged,
                    "gn_offpath": gn_offpath,
+                   "gn_bwd_offpath": gn_bwd_offpath,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

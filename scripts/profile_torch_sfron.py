@@ -30,7 +30,7 @@ GROUPS = (   # first match wins, on the lower-cased kernel name
     ("attention fwd kernel", ("attn_fwd_kernel",)),
     ("attention bwd kernels", ("attn_bwd_",)),
     ("GroupNorm fwd kernel", ("gn_fwd_",)),
-    ("GroupNorm bwd kernels", ("gn_bwd_",)),
+    ("GroupNorm bwd kernel", ("gn_bwd_",)),
     ("optimizer / foreach", ("multi_tensor", "foreach")),
     ("convolution", ("conv", "implicit", "fprop", "dgrad", "wgrad", "cudnn",
                      "nhwc", "winograd", "xmma")),

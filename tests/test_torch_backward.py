@@ -94,18 +94,25 @@ def test_attention_function_takes_gradient_in_any_stride_order():
         np.testing.assert_allclose(t.grad.numpy(), w.numpy(), **ATTN_TOL)
 
 
-def _gn_inputs(C, seed):
+def _gn_inputs(C, seed, H=8):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((3, 8, 8, C), dtype=np.float32) * 2 + 0.3
+    x = rng.standard_normal((3, H, H, C), dtype=np.float32) * 2 + 0.3
     scale = rng.standard_normal(C, dtype=np.float32) * 0.1 + 1.0
     bias = rng.standard_normal(C, dtype=np.float32) * 0.1
-    g = rng.standard_normal((3, 8, 8, C), dtype=np.float32)
+    g = rng.standard_normal((3, H, H, C), dtype=np.float32)
     return x, scale, bias, g
 
 
-@pytest.mark.parametrize("C,groups", [(64, 32), (128, 32), (384, 32), (24, 8)])
-def test_group_norm_bwd_matches_jax(C, groups):
-    x, scale, bias, g = _gn_inputs(C, C)
+# (C, groups, H = W): the 8x8 cases, then H W not a multiple of the
+# backward kernel's cluster (slices of unequal length; at C = 384 a 16-byte
+# chunk straddles groups of 12): the CPU path must not depend on either
+@pytest.mark.parametrize("C,groups,H", [
+    pytest.param(64, 32, 8, id="64-32"), pytest.param(128, 32, 8, id="128-32"),
+    pytest.param(384, 32, 8, id="384-32"), pytest.param(24, 8, 8, id="24-8"),
+    pytest.param(128, 32, 5, id="128-32-H5"),
+    pytest.param(384, 32, 12, id="384-32-H12")])
+def test_group_norm_bwd_matches_jax(C, groups, H):
+    x, scale, bias, g = _gn_inputs(C, C, H)
     _, vjp = jax.vjp(lambda a, s, b: _gn_reference(a, s, b, groups, 1e-6),
                      x, scale, bias)
     ref = [np.asarray(a) for a in vjp(jnp.asarray(g))]

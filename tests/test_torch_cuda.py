@@ -147,27 +147,47 @@ def test_attention_autograd_uses_both_kernels(gen):
         assert _rel_l2(t.grad, w) < BWD_REL_L2
 
 
+# the forward's shapes, then batches whose dscale and dbias fold over more
+# than one group of rows (the second level of the batch fold)
+GN_BWD_SHAPES = GN_SHAPES + [(128, 4, 256), (256, 8, 512), (40, 16, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,C", [(32, 128), (16, 384), (4, 512), (8, 24)])
-def test_group_norm_bwd_kernel_matches_plain(gen, dtype, H, C):
-    x = (torch.randn(3, H, H, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-    g = torch.randn(3, H, H, C, generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("B,H,C", GN_BWD_SHAPES)
+def test_group_norm_bwd_kernel_matches_plain(gen, dtype, B, H, C):
+    x = (torch.randn(B, H, H, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(B, H, H, C, generator=gen, device="cuda").to(dtype)
     scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
     bias = torch.randn(C, generator=gen, device="cuda") * 0.2
     _, mean, rstd = group_norm(x, scale, bias, return_stats=True)
+    groups = mean.shape[1]
     before = group_norm_bwd.launches
     got = group_norm_bwd(x, scale, mean, rstd, g)
     torch.cuda.synchronize()
-    assert group_norm_bwd.launches == before + 1
+    assert group_norm_bwd.launches == before + 1          # one launch a call
     dx, dscale, dbias = group_norm_bwd_plain(x, scale, mean, rstd, g)
     tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
         dict(atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(got[0].float(), dx.float(), **tol)
-    # fp32 sums over batch and space of identical products, in another order
-    torch.testing.assert_close(got[1], dscale, atol=1e-3, rtol=1e-4)
-    torch.testing.assert_close(got[2], dbias, atol=1e-3, rtol=1e-4)
-    again = group_norm_bwd(x, scale, mean, rstd, g)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    size = x.element_size()
+    chosen = GN._bwd_route(H * H, C, size, groups)
+    fit = [("slab", s) for s in GN._CLUSTERS if s < H * H
+           and C * size % 16 == 0
+           and GN._bwd_slab_smem(H * H, C, size, groups, s) <= GN._SMEM_MAX]
+    for route in dict.fromkeys([chosen, ("sweep", 1)] + fit):
+        out = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g, route=route)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[0].float(), dx.float(), **tol)
+        # fp32 sums over batch and space of identical products, in another
+        # order
+        torch.testing.assert_close(out[1], dscale, atol=1e-3, rtol=1e-4)
+        torch.testing.assert_close(out[2], dbias, atol=1e-3, rtol=1e-4)
+        if route == chosen:                          # what group_norm_bwd ran
+            assert all(torch.equal(a, b) for a, b in zip(out, got))
+        for _ in range(2):           # no float atomics: same bits every run
+            again = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g,
+                                              route=route)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert int(GN._fold_counters[x.device].abs().sum()) == 0   # left zero
 
 
 def test_group_norm_autograd_uses_both_kernels(gen):

@@ -119,6 +119,59 @@ def test_fwd_route_off_the_main_path(hw, C, itemsize, want):
         assert GN._slab_smem(hw, C, itemsize, 32, route[1]) <= GN._SMEM_MAX
 
 
+# the same sites for the backward, whose slab holds x and g: twice the
+# bytes a sample, so the cluster doubles wherever the forward's slice was
+# the limit (32x32x384 at S = 8 is the tightest block: 215 of 226 KB)
+BWD_MAIN_PATH_ROUTES = [(32, 128, 4), (16, 256, 2), (32, 256, 8), (4, 256, 1),
+                        (32, 384, 8), (16, 512, 4), (8, 256, 1), (16, 384, 2),
+                        (4, 512, 1), (8, 512, 1), (16, 128, 1)]
+
+
+@pytest.mark.parametrize("H,C,S", BWD_MAIN_PATH_ROUTES)
+def test_bwd_route_main_path_shapes_take_the_slab_route(H, C, S):
+    hw = H * H
+    assert GN._bwd_route(hw, C, 2) == ("slab", S)
+    # x and g are both held: the slab route reads each from device memory once
+    slices = 2 * -(-hw // S) * C * 2
+    assert slices < GN._bwd_slab_smem(hw, C, 2, 32, S) <= GN._SMEM_MAX
+    assert S < hw and S in GN._CLUSTERS
+    # no smaller cluster would do
+    assert S == 1 or GN._bwd_slab_smem(hw, C, 2, 32, S // 2) > GN._SMEM_MAX
+    # the forward's block holds x alone: never a larger cluster
+    assert GN._fwd_route(hw, C, 2)[1] <= S
+
+
+@pytest.mark.parametrize("hw,C,itemsize,groups,want", [
+    (1024, 384, 4, 32, ("sweep", 1)),   # 3 MB of x and g: 384 KB a slice of eight
+    (1, 64, 2, 32, ("sweep", 1)),       # one pixel: nothing to hold
+    (1024, 128, 4, 32, ("slab", 8)),
+    (25, 128, 2, 32, ("slab", 1)),      # H = 5
+    (144, 384, 2, 32, ("slab", 2)),     # H = 12: 72 pixels a slice
+    (441, 384, 2, 32, ("slab", 4)),     # 110, 110, 110 and 111 pixels
+    (841, 640, 2, 32, ("sweep", 1)),
+    (64, 24, 4, 8, ("slab", 1)),        # C = 24, G = 8
+    (64, 12, 2, 4, ("sweep", 1)),       # a pixel of 24 bytes: not whole chunks
+])
+def test_bwd_route_off_the_main_path(hw, C, itemsize, groups, want):
+    route = GN._bwd_route(hw, C, itemsize, groups)
+    assert route == want
+    for s in GN._CLUSTERS:                  # slab wherever a cluster fits
+        fits = s < hw and C * itemsize % 16 == 0 and \
+            GN._bwd_slab_smem(hw, C, itemsize, groups, s) <= GN._SMEM_MAX
+        assert not fits or route[0] == "slab" and route[1] <= s
+
+
+@pytest.mark.parametrize("b,fold,groups", [(1, 16, 1), (3, 16, 1), (128, 16, 8),
+                                           (256, 16, 16), (1024, 16, 64),
+                                           (1025, 17, 61), (10 ** 5, 1563, 64)])
+def test_bwd_batch_fold_groups_fit_the_counters(b, fold, groups):
+    # the group size of the backward's batch fold: 16 samples a group until
+    # there would be more groups than counters
+    got = GN._fold_rows(b)
+    assert (got, -(-b // got)) == (fold, groups)
+    assert groups <= GN._FOLD_GROUPS
+
+
 @pytest.mark.parametrize("H", [5, 12])
 @pytest.mark.parametrize("C", [128, 384])
 def test_group_norm_matches_jax_at_ragged_slices(H, C):

@@ -518,6 +518,64 @@ def test_train_cli_sfron_on_cpu(tmp_path):
         cli.main(common + ["--mode", "sa"])
 
 
+@pytest.mark.parametrize("grid_fails", [False, True])
+def test_train_cli_sfron_without_ema_writes_its_grid(tmp_path, monkeypatch,
+                                                     caplog, grid_fails):
+    """With ``model.ema: false`` the snapshot grid samples the model being
+    trained: in eval mode (training-mode dropout would need a generator),
+    and back in training mode after. A grid that fails is logged as a
+    warning and the run still finishes, as in the JAX package's CLI."""
+    pytest.importorskip("yaml")
+    pytest.importorskip("PIL")
+    import logging
+
+    import yaml
+
+    from uurg_torch.cli import train as cli
+    from uurg_torch.workloads import ddpm_runner as R
+
+    cfg = _tiny_config(tmp_path, n_iters=2, visualization_samples=10)
+    cfg = cfg.merged({"model": {"ema": False}})
+    cfg_path = tmp_path / "tiny.yml"
+    cfg_path.write_text(yaml.safe_dump(cfg.to_dict()))
+    modes = []
+    sample = R.sample_images
+
+    def spy(args, config, model, *a, **k):
+        modes.append(model.training)
+        if grid_fails:
+            raise RuntimeError("injected grid failure")
+        return sample(args, config, model, *a, **k)
+
+    monkeypatch.setattr(R, "sample_images", spy)
+    with caplog.at_level(logging.WARNING, logger="uurg_torch.train"):
+        cli.main(["--config", str(cfg_path), "--exp", str(tmp_path / "exp"),
+                  "--device", "cpu", "--timesteps", "1", "--mode", "sfron",
+                  "--n_iters", "2"])
+    assert modes == [True]                 # the trained model, mid-run
+    assert len(list((tmp_path / "exp").rglob("ckpt.pth"))) == 1
+    grids = list((tmp_path / "exp").rglob("samples_step00001.png"))
+    warned = [r for r in caplog.records if "snapshot grid" in r.getMessage()]
+    if grid_fails:
+        assert not grids and len(warned) == 1
+        assert "injected grid failure" in caplog.text
+    else:
+        assert len(grids) == 1 and not warned
+
+
+def test_sample_images_runs_in_eval_mode_and_restores_training(tmp_path):
+    cfg = _tiny_config(tmp_path)
+    wl = DDPMWorkload.from_config(cfg, device="cpu")
+    model = wl.init_params(0).train()
+    imgs = TR.sample_images(_Args, cfg, model, np.arange(2), num_steps=1,
+                            batch_size=2)
+    assert imgs.shape == (2, 32, 32, 3) and model.training
+    model.eval()
+    TR.sample_images(_Args, cfg, model, np.arange(2), num_steps=1,
+                     batch_size=2)
+    assert not model.training
+
+
 @pytest.mark.parametrize("flag", [["--skip_type", "quad"], ["--eta", "1"],
                                   ["--uc", "false"],
                                   ["--negative_guidance", "2"],

@@ -127,7 +127,17 @@ def main(argv=None):
 
     def sample_hook(state, step_idx):
         """Snapshot grid (diffusion.py:874-928 sample_visualization): one
-        row per class from the EMA model, written under logs/."""
+        row per class from the EMA model (the model itself without EMA),
+        written under logs/. A failed grid is logged and the run goes on,
+        as in the JAX package's CLI: it loses one picture, never the run."""
+        try:
+            _sample_grid(state, step_idx)
+        except Exception:  # noqa: BLE001 - cosmetic path, log and continue
+            logging.getLogger("uurg_torch.train").warning(
+                "snapshot grid at step %d failed (continuing)", step_idx,
+                exc_info=True)
+
+    def _sample_grid(state, step_idx):
         import numpy as np
 
         from uurg_torch.utils.images import save_grid

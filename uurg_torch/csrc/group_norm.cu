@@ -41,15 +41,24 @@
 // and rstd and gs = g * scale:
 //   dx = (gs - s1 - x_hat * s2) * rstd,  s1 = mean_group(gs),
 //   s2 = mean_group(gs * x_hat),  dscale = sum g * x_hat,  dbias = sum g,
-// all fp32, dx in x's dtype. Bound: bytes (read x and g, write dx). The same
-// block layout as the forward's sweep route: sweep 1 reads x and g and sums g and g * x_hat
-// per channel (scale is constant over a channel, so s1 and s2 are the
-// scale-weighted group sums of those two, and they are also the sample's
-// dbias and dscale terms); sweep 2 re-reads both and writes dx. The TPU
-// kernel adds dscale and dbias across its sequential grid; here each block
-// writes its sample's (C,) partials and a second small launch sums them over
-// the batch in a fixed order, so the result does not depend on block order
-// and needs no atomics.
+// all fp32, dx in x's dtype. Bound: bytes (read x and g once, write dx once).
+// Scale is constant over a channel, so s1 and s2 are the scale-weighted group
+// sums of the per-channel sums of g and g * x_hat, which are also the
+// sample's dbias and dscale terms. The same two routes as the forward:
+// route "slab" holds a slice of x AND of g in each block of a cluster of S
+// (twice the forward's bytes, so S doubles where the forward's slice was
+// the limit), brought in by the same bulk copies, one barrier for both
+// halves of a copy; the sums, the fold and the exchange of the 2 G group
+// sums are the forward's, and dx is written from shared memory, so x and g
+// come from device memory once. Route "sweep" (one block a sample) reads x
+// and g twice. The TPU kernel adds
+// dscale and dbias across its sequential grid. Here, in the same launch, with
+// no float atomics and equal bits on every run: each sample's per-channel
+// sums go to an fp32 scratch row (a cluster's S blocks first hand each other
+// their channels, so a sample is one row), and integer arrival counters elect
+// the last block of each group of rows, which folds the group's rows in
+// index order, then the last of those, which folds the group sums in order
+// (arrive_row before dx, fold_batch after it).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -97,7 +106,7 @@ constexpr int kSlabThreads = 256;     // ops/group_norm.py mirrors it (_SLAB_THR
 constexpr int kSlabChunks = 4;        // bulk copies (and barriers) a slice, at most
 constexpr int kSlabChunkBytes = 16384;  // ... each at least this long
 
-// ---- what the two forward routes share: one source of the arithmetic ----
+// ---- what the routes share: one source of the arithmetic ----
 
 // this thread's channel sums into the block's [2][rows][C] scratch
 template <int N>
@@ -114,11 +123,13 @@ __device__ __forceinline__ void store_partials(float* red, int rows, int C, int 
 
 // [2][rows][C] partials -> ch[2][C] (one thread a column, rows additions,
 // a warp's addresses one float apart) -> grp[2][G] (one thread a group and
-// sum, C / G neighbours). Per channel before per group: a 16-byte chunk may
+// sum, C / G neighbours, each weighted by w[channel] where w is given: the
+// backward's scale). Per channel before per group: a 16-byte chunk may
 // straddle groups (C / G = 12, or 3). Fixed order, no atomics. Begins and ends
 // with a block barrier.
 __device__ __forceinline__ void fold_partials(const float* red, float* ch, float* grp,
-                                              int rows, int C, int G) {
+                                              int rows, int C, int G,
+                                              const float* __restrict__ w = nullptr) {
   __syncthreads();
   for (int j = threadIdx.x; j < 2 * C; j += blockDim.x) {
     const int which = j / C, c = j - which * C;
@@ -134,11 +145,50 @@ __device__ __forceinline__ void fold_partials(const float* red, float* ch, float
     const int which = j / G, g = j - which * G;
     const float* src = ch + which * C + g * cg;
     float acc = 0.f;
+    if (w) {
 #pragma unroll 4
-    for (int k = 0; k < cg; ++k) acc += src[k];
+      for (int k = 0; k < cg; ++k) acc += src[k] * w[g * cg + k];
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < cg; ++k) acc += src[k];
+    }
     grp[j] = acc;
   }
   __syncthreads();
+}
+
+// A block's slice of npix whole pixels (from element `first` on) of each of
+// the K sources, into K slabs of maxpix pixels one after the other in shared
+// memory: up to kSlabChunks bulk copies (cp.async.bulk, no tensor map: the
+// range is contiguous), issued by lane k for copy k of every source at once,
+// one mbarrier each, so that the sums start on the first while the rest
+// lands. Copy k covers pixels [k cp, min((k + 1) cp, npix)); returns cp and
+// sets *nk. The caller's block barrier makes the barriers' initialisation
+// visible before anyone waits.
+template <typename T, int K>
+__device__ __forceinline__ int issue_slice(uint64_t* bars, T* slab, const T* const (&src)[K],
+                                           size_t first, int npix, int maxpix, int C,
+                                           int* nk_out) {
+  using namespace hopper;
+  const int slice_bytes = npix * C * static_cast<int>(sizeof(T));
+  int nk = slice_bytes / kSlabChunkBytes;
+  nk = nk < 1 ? 1 : (nk > kSlabChunks ? kSlabChunks : nk);
+  const int cp = (npix + nk - 1) / nk;
+  if (threadIdx.x < nk && threadIdx.x * cp < npix) {    // lane k: copy k
+    const int c0 = threadIdx.x * cp;
+    const int n = npix - c0 < cp ? npix - c0 : cp;
+    const uint32_t bytes = static_cast<uint32_t>(n) * C * sizeof(T);
+    const uint32_t bar = smem_u32(&bars[threadIdx.x]);
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, K * bytes);
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+      bulk_load(smem_u32(slab + (static_cast<size_t>(s) * maxpix + c0) * C),
+                src[s] + first + static_cast<size_t>(c0) * C, bytes, bar);
+  }
+  *nk_out = nk;
+  return cp;
 }
 
 // mean and rstd of group g from the sample's sums over n values
@@ -259,23 +309,9 @@ gn_fwd_slab_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   float* stat = grp + 2 * G;
   float* part = stat + 2 * G;
 
-  // the slice in up to kSlabChunks bulk copies of whole pixels, one barrier
-  // each, so that the sums start on the first while the rest lands
-  const int slice_bytes = npix * C * static_cast<int>(sizeof(T));
-  int nk = slice_bytes / kSlabChunkBytes;
-  nk = nk < 1 ? 1 : (nk > kSlabChunks ? kSlabChunks : nk);
-  const int cp = (npix + nk - 1) / nk;
-  if (threadIdx.x < nk && threadIdx.x * cp < npix) {    // lane k: copy k
-    const int c0 = threadIdx.x * cp;
-    const int n = npix - c0 < cp ? npix - c0 : cp;
-    const uint32_t bytes = static_cast<uint32_t>(n) * C * sizeof(T);
-    const uint32_t bar = smem_u32(&bars[threadIdx.x]);
-    mbar_init(bar, 1);
-    mbar_init_fence();
-    mbar_expect_tx(bar, bytes);
-    bulk_load(smem_u32(slab + static_cast<size_t>(c0) * C),
-              x + first + static_cast<size_t>(c0) * C, bytes, bar);
-  }
+  const T* const srcs[1] = {x};
+  int nk;
+  const int cp = issue_slice<T, 1>(bars, slab, srcs, first, npix, maxpix, C, &nk);
   float a[N], b[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) { a[i] = scale[cc * N + i]; b[i] = bias[cc * N + i]; }
@@ -414,14 +450,160 @@ int launch(const void* x, const void* scale, const void* bias, void* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- the backward's batch fold of dscale and dbias, in the same launch ----
+
+// Thread 0 arrives on the integer counter `ctr`; true in every thread of the
+// block that arrived n-th of n. The fences order each thread's earlier
+// writes before the arrival and the elected block's later reads after it.
+// The elected block sets the counter back to 0: no other block of the launch
+// touches it again, so the next launch (or a CUDA graph's replay) finds it
+// zero. That assumes the launches sharing the counters run one at a time,
+// on one stream.
+__device__ __forceinline__ bool elect_last(unsigned* ctr, unsigned n, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(ctr, 1u) == n - 1;
+    if (last) atomicExch(ctr, 0u);
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// dst[j] = sum over r in index order of src[r][j], j < ncols (a multiple of
+// 4), 16 bytes a thread; the rows come from L2 (other blocks wrote them)
+__device__ __forceinline__ void sum_rows(const float* src, int nrows, int ncols,
+                                         float* dst) {
+  const int n4 = ncols / 4;
+  const float4* s = reinterpret_cast<const float4*>(src);
+  for (int j = threadIdx.x; j < n4; j += blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int r = 0; r < nrows; ++r) {
+      const float4 v = __ldcg(s + static_cast<size_t>(r) * n4 + j);
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+    reinterpret_cast<float4*>(dst)[j] = acc;
+  }
+}
+
+// The arrival of a block whose part of sample `sample`'s row part[sample] =
+// [sum g x_hat (C) | sum g (C)] is written: thread 0 fences and adds one
+// to the counter of the sample's group (the caller's block barrier before
+// it orders the other threads' writes before that fence, as in a grid
+// barrier) and gets the old count back, which nothing reads until
+// fold_batch: the block goes on to dx while the atomic is in flight. (A
+// warp of its own for the arrival, whose fence then stalls no dx, measured
+// slower.)
+__device__ __forceinline__ unsigned arrive_row(unsigned* counters, int fold, int sample) {
+  unsigned old = 0;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    old = atomicAdd(&counters[1 + sample / fold], 1u);
+  }
+  return old;
+}
+
+// Called last by every block with arrive_row's result, `arrivals` blocks a
+// sample. Rows fold in groups of `fold` samples: the block whose arrival
+// completed its group adds the group's rows in index order into
+// gpart[group] (with one group, straight into out) and resets the group's
+// counter; counter 0 then elects the last of those, which adds gpart's rows
+// in order into out = [dscale | dbias]. Equal bits whatever order the
+// blocks run in; the tail after the last block's dx is two short serial
+// chains (fold + B / fold rows) instead of one of B rows.
+__device__ __forceinline__ void fold_batch(unsigned old, const float* part, float* gpart,
+                                           float* out, unsigned* counters, int B,
+                                           int C, int fold, int sample, int arrivals) {
+  __shared__ int flag;
+  const int ngroups = (B + fold - 1) / fold;
+  const int group = sample / fold;
+  const int r0 = group * fold;
+  const int r1 = B < r0 + fold ? B : r0 + fold;
+  if (threadIdx.x == 0) {
+    const bool last = old == static_cast<unsigned>((r1 - r0) * arrivals) - 1;
+    if (last) atomicExch(&counters[1 + group], 0u);
+    flag = last;
+  }
+  __syncthreads();
+  if (!flag) return;
+  __threadfence();
+  if (ngroups == 1) {
+    sum_rows(part, B, 2 * C, out);
+    return;
+  }
+  sum_rows(part + static_cast<size_t>(r0) * 2 * C, r1 - r0, 2 * C,
+           gpart + static_cast<size_t>(group) * 2 * C);
+  if (!elect_last(&counters[0], static_cast<unsigned>(ngroups), &flag)) return;
+  sum_rows(gpart, ngroups, 2 * C, out);
+}
+
+// this thread's mean and rstd, a channel each
+template <int N>
+__device__ __forceinline__ void channel_stats(float* m, float* rs, const float* mean,
+                                              const float* rstd, int sample, int G,
+                                              int cg, int cc) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int grp = (cc * N + i) / cg;
+    m[i] = mean[sample * G + grp];
+    rs[i] = rstd[sample * G + grp];
+  }
+}
+
+// sums of g and g * x_hat over a chunk's channels
+template <int N>
+__device__ __forceinline__ void add_bwd_sums(const float* xv, const float* gv,
+                                             const float* m, const float* rs,
+                                             float* sa, float* sb) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    sa[i] += gv[i];
+    sb[i] += gv[i] * ((xv[i] - m[i]) * rs[i]);
+  }
+}
+
+// the chunk's dx, into xv
+template <int N>
+__device__ __forceinline__ void bwd_dx(float* xv, const float* gv, const float* m,
+                                       const float* rs, const float* sc,
+                                       const float* s1, const float* s2) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float xh = (xv[i] - m[i]) * rs[i];
+    xv[i] = (gv[i] * sc[i] - s1[i] - xh * s2[i]) * rs[i];
+  }
+}
+
+// scale, s1 and s2 of this thread's channels; s = [s2[G], s1[G]]
+template <int N>
+__device__ __forceinline__ void dx_terms(float* sc, float* s1, float* s2,
+                                         const float* scale, const float* s, int G,
+                                         int cg, int cc) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = cc * N + i;
+    sc[i] = scale[c];
+    s2[i] = s[c / cg];
+    s1[i] = s[G + c / cg];
+  }
+}
+
+// work = [dscale (C) | dbias (C) | part (B, 2, C) | gpart (groups, 2, C)]
+__device__ __forceinline__ float* part_rows(float* work, int C) { return work + 2 * C; }
+
+// ---- backward route "sweep": one block a sample, x and g read twice ----
 // grid: one block per sample; block as the forward's sweep route.
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-              const float* __restrict__ scale, const float* __restrict__ mean,
-              const float* __restrict__ rstd, T* __restrict__ dx,
-              float* __restrict__ dscale_part, float* __restrict__ dbias_part,
-              int HW, int C, int G) {
+gn_bwd_sweep_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ scale, const float* __restrict__ mean,
+                    const float* __restrict__ rstd, T* __restrict__ dx,
+                    float* __restrict__ work, unsigned* __restrict__ counters, int B,
+                    int HW, int C, int G, int fold) {
   constexpr int N = Chunk<T>::N;
   extern __shared__ float smem[];
   const int nchunk = C / N;
@@ -429,126 +611,231 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int cc = threadIdx.x % nchunk;
   const int r0 = threadIdx.x / nchunk;
   const int cg = C / G;
-  const size_t base = static_cast<size_t>(blockIdx.x) * HW * C + cc * N;
+  const int sample = blockIdx.x;
+  const size_t base = static_cast<size_t>(sample) * HW * C + cc * N;
 
   float m[N], rs[N], sa[N], sb[N];
+  channel_stats<N>(m, rs, mean, rstd, sample, G, cg, cc);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int grp = (cc * N + i) / cg;
-    m[i] = mean[blockIdx.x * G + grp];
-    rs[i] = rstd[blockIdx.x * G + grp];
-    sa[i] = 0.f;
-    sb[i] = 0.f;
-  }
+  for (int i = 0; i < N; ++i) { sa[i] = 0.f; sb[i] = 0.f; }
   for (int p = r0; p < HW; p += rows) {
     const size_t off = base + static_cast<size_t>(p) * C;
     float xv[N], gv[N];
     Chunk<T>::load(x + off, xv);
     Chunk<T>::load(g + off, gv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      sa[i] += gv[i];
-      sb[i] += gv[i] * ((xv[i] - m[i]) * rs[i]);
-    }
+    add_bwd_sums<N>(xv, gv, m, rs, sa, sb);
   }
 
-  float* red_a = smem;                 // [rows][C] per-thread sums of g
-  float* red_b = red_a + rows * C;     // [rows][C] per-thread sums of g * x_hat
-  float* ch_a = red_b + rows * C;      // [C] scale * sum g
-  float* ch_b = ch_a + C;              // [C] scale * sum g * x_hat
-  float* g_s1 = ch_b + C;              // [G]
-  float* g_s2 = g_s1 + G;              // [G]
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    red_a[r0 * C + cc * N + i] = sa[i];
-    red_b[r0 * C + cc * N + i] = sb[i];
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      a += red_a[r * C + c];
-      b += red_b[r * C + c];
-    }
-    dbias_part[static_cast<size_t>(blockIdx.x) * C + c] = a;
-    dscale_part[static_cast<size_t>(blockIdx.x) * C + c] = b;
-    ch_a[c] = scale[c] * a;
-    ch_b[c] = scale[c] * b;
-  }
-  __syncthreads();
+  float* red = smem;                   // [2][rows][C]
+  float* ch = red + 2 * rows * C;      // [2][C] sum g x_hat, sum g
+  float* grp = ch + 2 * C;             // [2][G] scale-weighted, then s2, s1
+  store_partials<N>(red, rows, C, r0, cc, sb, sa);
+  fold_partials(red, ch, grp, rows, C, G, scale);
+  float* part = part_rows(work, C);
+  for (int j = threadIdx.x; j < 2 * C; j += blockDim.x)
+    part[static_cast<size_t>(sample) * 2 * C + j] = ch[j];
   const float inv_n = 1.f / (static_cast<float>(HW) * cg);
-  for (int grp = threadIdx.x; grp < G; grp += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < cg; ++j) {
-      a += ch_a[grp * cg + j];
-      b += ch_b[grp * cg + j];
-    }
-    g_s1[grp] = a * inv_n;
-    g_s2[grp] = b * inv_n;
-  }
+  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) grp[j] *= inv_n;
   __syncthreads();
+  const unsigned old = arrive_row(counters, fold, sample);
 
   float sc[N], s1[N], s2[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = cc * N + i;
-    sc[i] = scale[c];
-    s1[i] = g_s1[c / cg];
-    s2[i] = g_s2[c / cg];
-  }
+  dx_terms<N>(sc, s1, s2, scale, grp, G, cg, cc);
   for (int p = r0; p < HW; p += rows) {
     const size_t off = base + static_cast<size_t>(p) * C;
     float xv[N], gv[N];
     Chunk<T>::load(x + off, xv);
     Chunk<T>::load(g + off, gv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float xh = (xv[i] - m[i]) * rs[i];
-      xv[i] = (gv[i] * sc[i] - s1[i] - xh * s2[i]) * rs[i];
-    }
+    bwd_dx<N>(xv, gv, m, rs, sc, s1, s2);
     Chunk<T>::store(dx + off, xv);
   }
+  fold_batch(old, part, part + static_cast<size_t>(B) * 2 * C, work, counters, B, C,
+             fold, sample, 1);
 }
 
-// grid: ceil(C / 256); block: 256. out[c] = sum over b in order of part[b][c].
-__global__ void gn_bwd_reduce_kernel(const float* __restrict__ dscale_part,
-                                     const float* __restrict__ dbias_part,
-                                     float* __restrict__ dscale,
-                                     float* __restrict__ dbias, int B, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float a = 0.f, b = 0.f;
-  for (int i = 0; i < B; ++i) {
-    a += dscale_part[static_cast<size_t>(i) * C + c];
-    b += dbias_part[static_cast<size_t>(i) * C + c];
+// ---- backward route "slab": a cluster of S blocks a sample, x and g read once ----
+// grid: B * S blocks in clusters of S, pixels and threads as the forward's
+// slab route. Dynamic shared memory: the slices of x and of g, then red[2][rows][C],
+// ch[2][C], grp[2][G], and with S > 1 xchg[S][2][G] (every rank's grp) and
+// recv[S][2][cw]: every rank's ch at the cw channels whose batch sums this
+// rank collects, [rank cw, min((rank + 1) cw, C)).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_bwd_slab_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ scale, const float* __restrict__ mean,
+                   const float* __restrict__ rstd, T* __restrict__ dx,
+                   float* __restrict__ work, unsigned* __restrict__ counters, int B,
+                   int HW, int C, int G, int fold, int S) {
+  using namespace hopper;
+  constexpr int N = Chunk<T>::N;
+  extern __shared__ __align__(128) unsigned char slab_smem[];
+  __shared__ __align__(8) uint64_t bars[kSlabChunks];
+  const int nchunk = C / N;
+  const int rows = blockDim.x / nchunk;
+  const int cc = threadIdx.x % nchunk;
+  const int r0 = threadIdx.x / nchunk;
+  const int cg = C / G;
+  const int rank = S > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int sample = blockIdx.x / S;
+  const int p0 = rank * HW / S;
+  const int npix = (rank + 1) * HW / S - p0;
+  const int maxpix = (HW + S - 1) / S;
+  const int cw = (C + S - 1) / S;
+  const size_t first = (static_cast<size_t>(sample) * HW + p0) * C;
+
+  // arrive at once: when a peer's wait below returns, this block runs and
+  // its shared memory may be written
+  if (S > 1) cluster_arrive();
+
+  T* slab = reinterpret_cast<T*>(slab_smem);     // x, then g
+  float* red = reinterpret_cast<float*>(slab_smem + 2 * static_cast<size_t>(maxpix) *
+                                                        C * sizeof(T));
+  float* ch = red + 2 * rows * C;
+  float* grp = ch + 2 * C;
+  float* xchg = grp + 2 * G;
+  float* recv = xchg + 2 * G * S;
+
+  const T* const srcs[2] = {x, g};
+  int nk;
+  const int cp = issue_slice<T, 2>(bars, slab, srcs, first, npix, maxpix, C, &nk);
+  float m[N], rs[N], sa[N], sb[N];
+  channel_stats<N>(m, rs, mean, rstd, sample, G, cg, cc);
+#pragma unroll
+  for (int i = 0; i < N; ++i) { sa[i] = 0.f; sb[i] = 0.f; }
+  __syncthreads();                     // the barriers are initialised
+
+  const T* xm = slab + cc * N;
+  const T* gm = xm + static_cast<size_t>(maxpix) * C;
+  for (int k = 0; k < nk; ++k) {
+    const int c0 = k * cp;
+    if (c0 >= npix) break;
+    const int c1 = npix - c0 < cp ? npix : c0 + cp;
+    mbar_wait(smem_u32(&bars[k]), 0);
+#pragma unroll 4
+    for (int p = c0 + r0; p < c1; p += rows) {
+      float xv[N], gv[N];
+      Chunk<T>::load(xm + static_cast<size_t>(p) * C, xv);
+      Chunk<T>::load(gm + static_cast<size_t>(p) * C, gv);
+      add_bwd_sums<N>(xv, gv, m, rs, sa, sb);
+    }
   }
-  dscale[c] = a;
-  dbias[c] = b;
+  store_partials<N>(red, rows, C, r0, cc, sb, sa);
+  fold_partials(red, ch, grp, rows, C, G, scale);
+
+  float* part = part_rows(work, C);
+  float* row = part + static_cast<size_t>(sample) * 2 * C;
+  if (S > 1) {
+    // push grp into every block's xchg[rank], and this slice's channel sums
+    // into recv[rank] of the block that collects them; then one cluster
+    // barrier: no block touches a peer's memory afterwards
+    cluster_wait();
+    for (int j = threadIdx.x; j < 2 * G * S; j += blockDim.x) {
+      const int to = j / (2 * G), e = j - to * 2 * G;
+      cluster_store(cluster_map(smem_u32(xchg + rank * 2 * G + e), to), grp[e]);
+    }
+    for (int j = threadIdx.x; j < 2 * C; j += blockDim.x) {
+      const int which = j / C, c = j - which * C, to = c / cw;
+      cluster_store(cluster_map(smem_u32(recv + (rank * 2 + which) * cw + c - to * cw), to),
+                    ch[j]);
+    }
+    cluster_arrive();
+    cluster_wait();
+    // this rank's channels of the sample's row, the ranks added in order
+    const int lo = rank * cw, n = C - lo < cw ? C - lo : cw;
+    for (int j = threadIdx.x; j < 2 * cw; j += blockDim.x) {
+      const int which = j / cw, k = j - which * cw;
+      if (k >= n) continue;
+      float acc = 0.f;
+      for (int r = 0; r < S; ++r) acc += recv[(r * 2 + which) * cw + k];
+      row[which * C + lo + k] = acc;
+    }
+  } else {
+    for (int j = threadIdx.x; j < 2 * C; j += blockDim.x) row[j] = ch[j];
+  }
+  // s2, s1: the group sums over the sample, the ranks added in order (equal
+  // bits in every block and run), over n values
+  const float inv_n = 1.f / (static_cast<float>(HW) * cg);
+  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) {
+    float acc = grp[j];
+    if (S > 1) {
+      acc = 0.f;
+      for (int r = 0; r < S; ++r) acc += xchg[r * 2 * G + j];
+    }
+    grp[j] = acc * inv_n;
+  }
+  __syncthreads();
+  const unsigned old = arrive_row(counters, fold, sample);
+
+  float sc[N], s1[N], s2[N];
+  dx_terms<N>(sc, s1, s2, scale, grp, G, cg, cc);
+  T* out = dx + first + cc * N;
+#pragma unroll 4
+  for (int p = r0; p < npix; p += rows) {
+    float xv[N], gv[N];
+    Chunk<T>::load(xm + static_cast<size_t>(p) * C, xv);
+    Chunk<T>::load(gm + static_cast<size_t>(p) * C, gv);
+    bwd_dx<N>(xv, gv, m, rs, sc, s1, s2);
+    Chunk<T>::store(out + static_cast<size_t>(p) * C, xv);
+  }
+  fold_batch(old, part, part + static_cast<size_t>(B) * 2 * C, work, counters, B, C,
+             fold, sample, S);
 }
 
 template <typename T>
-int launch_bwd(const void* x, const void* g, const void* scale,
-               const void* mean, const void* rstd, void* dx, void* dscale_part,
-               void* dbias_part, void* dscale, void* dbias, int B, int HW,
-               int C, int G, cudaStream_t stream) {
+int launch_bwd(const void* x, const void* g, const void* scale, const void* mean,
+               const void* rstd, void* dx, void* work, void* counters, int B, int HW,
+               int C, int G, int fold, int route, int S, cudaStream_t stream) {
   const int nchunk = C / Chunk<T>::N;
-  int rows = kMaxThreads / nchunk;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const float* sc = static_cast<const float*>(scale);
+  const float* mn = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rstd);
+  T* dxt = static_cast<T*>(dx);
+  float* wk = static_cast<float*>(work);
+  unsigned* ctr = static_cast<unsigned*>(counters);
+  if (fold < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0) {
+    int rows = kMaxThreads / nchunk;
+    if (rows < 1) rows = 1;
+    const size_t smem = (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        gn_bwd_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gn_bwd_sweep_kernel<T><<<B, rows * nchunk, smem, stream>>>(
+        xt, gt, sc, mn, rs, dxt, wk, ctr, B, HW, C, G, fold);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != 1 || S < 1 || S > 8 || S > HW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int maxpix = (HW + S - 1) / S;
+  int rows = kSlabThreads / nchunk;
+  if (rows > maxpix) rows = maxpix;
   if (rows < 1) rows = 1;
-  const int threads = rows * nchunk;
-  const size_t smem =
-      (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G) * sizeof(float);
-  gn_bwd_kernel<T><<<B, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const float*>(scale), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<T*>(dx),
-      static_cast<float*>(dscale_part), static_cast<float*>(dbias_part), HW,
-      C, G);
-  cudaError_t err = cudaGetLastError();
+  const int cw = (C + S - 1) / S;
+  const size_t smem = 2 * static_cast<size_t>(maxpix) * C * sizeof(T) +
+                      (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G +
+                       (S > 1 ? 2 * G * S + 2 * cw * S : 0)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_bwd_slab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gn_bwd_reduce_kernel<<<(C + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(dscale_part),
-      static_cast<const float*>(dbias_part), static_cast<float*>(dscale),
-      static_cast<float*>(dbias), B, C);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(B) * S);
+  config.blockDim = dim3(rows * nchunk);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = S > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, gn_bwd_slab_kernel<T>, xt, gt, sc, mn, rs, dxt, wk,
+                           ctr, B, HW, C, G, fold, S);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,24 +862,27 @@ extern "C" int uurg_group_norm_fwd(const void* x, const void* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward. x, g, dx: contiguous NHWC of one dtype (0 = bfloat16,
-// 1 = float32), with the forward's constraints on C; scale: fp32 (C,);
-// mean, rstd: the forward's fp32 (B, G); dscale_part, dbias_part: fp32 (B, C)
-// scratch; dscale, dbias: fp32 (C,). Launches two kernels on the stream and
-// returns the first launch error, or cudaGetLastError() after the last one.
-extern "C" int uurg_group_norm_bwd(const void* x, const void* g,
-                                   const void* scale, const void* mean,
-                                   const void* rstd, void* dx,
-                                   void* dscale_part, void* dbias_part,
-                                   void* dscale, void* dbias, int B, int HW,
-                                   int C, int G, int dtype, void* stream) {
+// Backward, one launch. x, g, dx: contiguous NHWC of one dtype (0 =
+// bfloat16, 1 = float32), with the forward's constraints on C; scale: fp32
+// (C,); mean, rstd: the forward's fp32 (B, G); work: fp32, 16-byte aligned,
+// (2 + 2 B + 2 ceil(B / fold)) C floats, of which the first 2 C are written
+// as dscale then dbias and the rest is scratch; counters: uint32, at least
+// 1 + ceil(B / fold), zero on entry and left zero (the launches that share
+// them must run one at a time). route: 0 = sweep, 1 = slab with clusters of
+// `cluster` blocks, chosen by the caller by shape as for the forward.
+// Returns the launch's CUDA error code (0 = launched); nothing falls back.
+extern "C" int uurg_group_norm_bwd(const void* x, const void* g, const void* scale,
+                                   const void* mean, const void* rstd, void* dx,
+                                   void* work, void* counters, int B, int HW, int C,
+                                   int G, int fold, int dtype, int route, int cluster,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16>(x, g, scale, mean, rstd, dx, dscale_part,
-                                     dbias_part, dscale, dbias, B, HW, C, G, s);
+    return launch_bwd<__nv_bfloat16>(x, g, scale, mean, rstd, dx, work, counters, B, HW,
+                                     C, G, fold, route, cluster, s);
   if (dtype == 1)
-    return launch_bwd<float>(x, g, scale, mean, rstd, dx, dscale_part,
-                             dbias_part, dscale, dbias, B, HW, C, G, s);
+    return launch_bwd<float>(x, g, scale, mean, rstd, dx, work, counters, B, HW, C, G,
+                             fold, route, cluster, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,8 +17,11 @@ twice.
 When a gradient is wanted the op goes through one
 ``torch.autograd.Function``. It saves x, scale and the forward's (B, G)
 mean and rstd, and its backward is :func:`group_norm_bwd`: the backward
-kernels of the same source (which replace the Pallas ``_gn_bwd_kernel``)
-for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor.
+kernel of the same source (which replaces the Pallas ``_gn_bwd_kernel``)
+for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor. The
+backward has the same two routes (:func:`_bwd_route`; a slab holds x and g,
+so twice the forward's bytes) and folds dscale and dbias over the batch in
+the same launch: one launch a call.
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ _ROUTE_CODE = {"sweep": 0, "slab": 1}
 _CLUSTERS = (1, 2, 4, 8)     # 8: the largest cluster every launch may ask for
 _SMEM_MAX = 226 * 1024       # a block's 227 KB on sm_90 less the kernel's static part
 _SLAB_THREADS = 256          # kSlabThreads of csrc/group_norm.cu
+# the backward's batch fold: groups of at least _FOLD_ROWS samples, at most
+# _FOLD_GROUPS groups, so 1 + _FOLD_GROUPS arrival counters serve any batch
+_FOLD_ROWS, _FOLD_GROUPS = 16, 64
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -118,29 +124,65 @@ def _check_kernel(x):
         raise ValueError("the GroupNorm kernels need 16-byte aligned tensors")
 
 
+def _slab_rows(hw: int, c: int, itemsize: int, s: int) -> int:
+    """Thread rows of a slab block (kSlabThreads over the 16-byte chunks of
+    a pixel, at most the slice's pixels)."""
+    return max(1, min(_SLAB_THREADS // (c * itemsize // _CHUNK_BYTES),
+                      -(-hw // s)))
+
+
 def _slab_smem(hw: int, c: int, itemsize: int, groups: int, s: int) -> int:
-    """Dynamic shared memory of one block of the slab route, as the C
-    launcher reckons it: the slice, the [2][rows][C] scratch, per-channel
-    and per-group sums, statistics, and the cluster's [S][2][G] partials."""
-    pixels = -(-hw // s)
-    rows = max(1, min(_SLAB_THREADS // (c * itemsize // _CHUNK_BYTES), pixels))
+    """Dynamic shared memory of one block of the forward's slab route, as
+    the C launcher reckons it: the slice, the [2][rows][C] scratch,
+    per-channel and per-group sums, statistics, and the cluster's
+    [S][2][G] partials."""
+    rows = _slab_rows(hw, c, itemsize, s)
     floats = 2 * rows * c + 2 * c + 4 * groups + (2 * groups * s if s > 1 else 0)
-    return pixels * c * itemsize + 4 * floats
+    return -(-hw // s) * c * itemsize + 4 * floats
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
-    """(route, cluster) of the forward kernel for a sample of ``hw`` pixels
-    of ``c`` channels: ``("slab", S)`` with the smallest cluster S whose
-    block (a slice of ``ceil(hw / S)`` whole pixels and the scratch) fits
+def _bwd_slab_smem(hw: int, c: int, itemsize: int, groups: int, s: int) -> int:
+    """The same for the backward's slab route: slices of x and of g, the
+    [2][rows][C] scratch, per-channel and per-group sums, and with a cluster
+    its [S][2][G] group sums and [S][2][ceil(C / S)] channel sums."""
+    rows = _slab_rows(hw, c, itemsize, s)
+    floats = 2 * rows * c + 2 * c + 2 * groups
+    if s > 1:
+        floats += 2 * groups * s + 2 * -(-c // s) * s
+    return 2 * -(-hw // s) * c * itemsize + 4 * floats
+
+
+def _route(smem, hw: int, c: int, itemsize: int, groups: int):
+    """``("slab", S)`` with the smallest cluster S whose block (a slice of
+    ``ceil(hw / S)`` whole pixels and the scratch, ``smem`` bytes) fits
     shared memory, else ``("sweep", 1)``. A cluster never has as many
     blocks as the sample has pixels (a one-pixel sample has nothing to
     hold), and a pixel must be whole 16-byte chunks for the bulk copy."""
     if c * itemsize % _CHUNK_BYTES == 0:
         for s in _CLUSTERS:
-            if s < hw and _slab_smem(hw, c, itemsize, groups, s) <= _SMEM_MAX:
+            if s < hw and smem(hw, c, itemsize, groups, s) <= _SMEM_MAX:
                 return "slab", s
     return "sweep", 1
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
+    """(route, cluster) of the forward kernel for a sample of ``hw`` pixels
+    of ``c`` channels (:func:`_route`)."""
+    return _route(_slab_smem, hw, c, itemsize, groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
+    """(route, cluster) of the backward kernel: the slab holds x and g, so
+    S is the forward's doubled where the forward's slice was the limit."""
+    return _route(_bwd_slab_smem, hw, c, itemsize, groups)
+
+
+def _fold_rows(b: int) -> int:
+    """Samples a group of the backward's batch fold: ``_FOLD_ROWS``, or
+    more where the batch would need more than ``_FOLD_GROUPS`` groups."""
+    return max(_FOLD_ROWS, -(-b // _FOLD_GROUPS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,7 +196,8 @@ def _load(symbol: str, n_ptr: int, ints: tuple):
 
 _I, _F = ctypes.c_int, ctypes.c_float
 _FWD_INTS = (_I,) * 4 + (_F,) + (_I,) * 3   # B, HW, C, G, eps, dtype, route, cluster
-_BWD_INTS = (_I,) * 5                       # B, HW, C, G, dtype
+_BWD_INTS = (_I,) * 8   # B, HW, C, G, fold, dtype, route, cluster
+_fold_counters: dict = {}
 
 
 def _group_norm_kernel(x, scale, bias, groups, eps, route=None):
@@ -187,8 +230,8 @@ def group_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     """(dx, dscale, dbias) of GroupNorm at x for the output gradient g,
     from the forward's fp32 (B, G) mean and rstd. g must match x in shape,
     dtype, device and contiguity. CPU tensors: :func:`group_norm_bwd_plain`;
-    CUDA tensors: the backward kernels."""
-    b, c = x.shape[0], x.shape[-1]
+    CUDA tensors: the backward kernel, one launch."""
+    b = x.shape[0]
     groups = mean.shape[-1]
     _check(x, scale, scale, groups)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
@@ -202,22 +245,40 @@ def group_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
                              "fp32 (B, G) statistics")
     if x.device.type == "cpu":
         return group_norm_bwd_plain(x, scale, mean, rstd, g)
+    return _group_norm_bwd_kernel(x, scale, mean, rstd, g)
+
+
+def _group_norm_bwd_kernel(x, scale, mean, rstd, g, route=None):
+    """Launch the backward kernel on checked inputs: (dx, dscale, dbias).
+    ``route`` overrides :func:`_bwd_route` (to time one route beside the
+    other). One fp32 allocation holds dscale, dbias (returned as views of
+    it) and the batch fold's scratch; the fold's arrival counters are one
+    zeroed buffer a device, which every launch leaves zero, so launches
+    that share it must run one at a time (one stream)."""
     _check_kernel(x)
+    b, h, w, c = x.shape
+    groups = mean.shape[-1]
+    name, cluster = route or _bwd_route(h * w, c, x.element_size(), groups)
+    fold = _fold_rows(b)
+    counters = _fold_counters.get(x.device)
+    if counters is None:
+        counters = _fold_counters[x.device] = torch.zeros(
+            1 + _FOLD_GROUPS, dtype=torch.int32, device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    dscale = torch.empty((c,), dtype=torch.float32, device=x.device)
-    dbias = torch.empty_like(dscale)
-    err = _load("uurg_group_norm_bwd", 10, _BWD_INTS)(
-        x.data_ptr(), g.data_ptr(), scale.contiguous().data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), b,
-        x.shape[1] * x.shape[2], c, groups, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    work = torch.empty((2 + 2 * b + 2 * -(-b // fold)) * c,
+                       dtype=torch.float32, device=x.device)
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
+    err = _load("uurg_group_norm_bwd", 8, _BWD_INTS)(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), work.data_ptr(), counters.data_ptr(),
+        b, h * w, c, groups, fold, _DTYPE_CODE[x.dtype], _ROUTE_CODE[name],
+        cluster, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"GroupNorm backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"GroupNorm backward kernel launch failed ({name} "
+                           f"route, cluster {cluster}): CUDA error {err}")
     group_norm_bwd.launches += 1
-    return dx, dscale, dbias
+    return dx, work[:c], work[c:2 * c]
 
 
 class _GroupNorm(torch.autograd.Function):
@@ -240,8 +301,9 @@ class _GroupNorm(torch.autograd.Function):
         x, scale, mean, rstd = ctx.saved_tensors
         # the gradient may arrive in any stride order (the convolution's
         # backward); the kernel takes contiguous NHWC
-        dx, dscale, dbias = group_norm_bwd(x, scale, mean, rstd,
-                                           gy.contiguous())
+        if not gy.is_contiguous():
+            gy = gy.contiguous()
+        dx, dscale, dbias = group_norm_bwd(x, scale, mean, rstd, gy)
         return dx, dscale, dbias, None, None
 
 

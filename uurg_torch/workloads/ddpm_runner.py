@@ -225,8 +225,10 @@ def sample_images(args, config, model: CondUNet, labels: np.ndarray,
                   seed: int = 0) -> np.ndarray:
     """Batched class-conditional sampling -> uint8 NHWC images.
 
-    Runs on the model's device. The last batch is padded to the batch size
-    with class 0 and the padding is dropped from the output."""
+    Runs on the model's device, in eval mode (no dropout, as the reference
+    samples with ``train=False``); the model's mode is restored after. The
+    last batch is padded to the batch size with class 0 and the padding is
+    dropped from the output."""
     device = next(model.parameters()).device
     wl = DDPMWorkload.from_config(config, dtype=model.cfg.dtype, device=device)
     sampler = wl.make_sampler(num_steps=num_steps, cond_scale=cond_scale,
@@ -234,10 +236,15 @@ def sample_images(args, config, model: CondUNet, labels: np.ndarray,
     bs = batch_size or config.sampling.batch_size
     generator = torch.Generator(device=device).manual_seed(seed)
     out = []
-    for start in range(0, len(labels), bs):
-        chunk = np.asarray(labels[start:start + bs])
-        lab = torch.as_tensor(np.pad(chunk, (0, bs - len(chunk))),
-                              dtype=torch.long, device=device)
-        x = sampler(model, lab, generator)
-        out.append(to_uint8(config, x[:len(chunk)]).cpu())
+    was_training = model.training
+    model.eval()
+    try:
+        for start in range(0, len(labels), bs):
+            chunk = np.asarray(labels[start:start + bs])
+            lab = torch.as_tensor(np.pad(chunk, (0, bs - len(chunk))),
+                                  dtype=torch.long, device=device)
+            x = sampler(model, lab, generator)
+            out.append(to_uint8(config, x[:len(chunk)]).cpu())
+    finally:
+        model.train(was_training)
     return torch.cat(out).numpy()

@@ -59,6 +59,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    double forward's batch that the Fisher pass backpropagates through);
    dx, dscale and dbias against the plain version on every route and
    cluster size that fits, three runs with equal bits.
+12. Fisher and masks (stages 1 and 2 of the north-star run). The kernels at
+   the Fisher pass's shapes: attention forward, log-sum-exp and backward at
+   both attention sites at CFG batch 256, 124 and 132 (the ragged last
+   batches of the forget and remain splits, doubled), GroupNorm forward and
+   backward at the eleven site shapes at batch 124 and 132, against the
+   plain versions, three runs with equal bits. One Fisher batch (batch 8,
+   CFG 16) with the kernels against the same model on its plain path. Then
+   ``ddpm_runner.generate_fisher`` over the whole stand-in splits (one pass,
+   the ragged last batch kept, eval mode), with the launch counters zeroed
+   just before and read just after: one forward and one backward of every
+   attention and GroupNorm site a Fisher batch. The Fisher files must be
+   finite, non-negative and not all zero; a Fisher batch is timed on the
+   host clock and its device time profiled. ``generate_fisher_mask`` at
+   three thresholds, ``sfron_forget`` for 2 steps under the ``fisher_1.0``
+   file read from ``args.mask_path``, ``generate_salun_mask`` over the
+   forget split (train mode, exact launch counts), and 2 SalUn steps
+   (``rl`` under that mask).
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -174,6 +191,18 @@ GN_SITES = ((32, 128, 8), (16, 256, 11), (32, 256, 2), (4, 256, 12),
 # fp32 dx: the same fp32 products in another order, then gs - s1 - x_hat s2,
 # which cancels where the three are close
 GN_BWD_FP32_TOL = 1e-4
+# the Fisher pass (configs/cifar10_fisher.yml differs from the sfron config
+# in no value the pass reads): CFG 2.0 double forward of each batch of 128
+# of the forget and remain splits, the ragged last batch kept. On the
+# stand-in (2048 samples) the splits hold 190 and 1858: 17 batches, of CFG
+# batch 256 but for the last of each split (124 and 132)
+FISHER_BATCHES = (2 * TRAIN_BATCH, 124, 132)
+FISHER_THRESHOLDS = (0.5, 1.0, 2.0)
+SALUN_RATIO = 0.5
+MASKED_STEPS = 2
+# one Fisher batch, kernels vs plain path: relative L2 of the squared
+# gradients concatenated; a square doubles the gradient's relative error
+FISHER_REL_L2 = 2 * MODEL_GRAD_REL_L2
 
 
 def fail(msg: str) -> None:
@@ -390,12 +419,26 @@ def summarise(rows: list[dict], launches: dict, meta: dict) -> list[dict]:
     return out
 
 
-def model_check(model, gen) -> float:
-    import torch
-
+@contextlib.contextmanager
+def plain_layers():
+    """Route the model's attention and GroupNorm through their plain
+    versions for the duration (the whole-model checks' reference)."""
     from uurg_torch.models import layers
     from uurg_torch.ops.flash_attention import attention_plain
     from uurg_torch.ops.group_norm import group_norm_plain
+
+    kernels = (layers.attention, layers.group_norm)
+    layers.attention = attention_plain
+    layers.group_norm = (lambda x, s, b, *, groups, eps:
+                         group_norm_plain(x, s, b, groups, eps))
+    try:
+        yield
+    finally:
+        layers.attention, layers.group_norm = kernels
+
+
+def model_check(model, gen) -> float:
+    import torch
 
     dev = torch.device("cuda")
     x = torch.randn(8, 32, 32, 3, generator=gen, device=dev)
@@ -404,14 +447,8 @@ def model_check(model, gen) -> float:
     keep = torch.arange(8, device=dev) % 2 == 0
     with torch.inference_mode():
         got = model(x, t, c, keep)
-        kernels = (layers.attention, layers.group_norm)
-        layers.attention = attention_plain
-        layers.group_norm = (lambda x, s, b, *, groups, eps:
-                             group_norm_plain(x, s, b, groups, eps))
-        try:
+        with plain_layers():
             want = model(x, t, c, keep)
-        finally:
-            layers.attention, layers.group_norm = kernels
     if not torch.isfinite(got).all():
         fail("batch-8 forward with kernels is not finite")
     rel = ((got - want).norm() / want.norm()).item()
@@ -780,9 +817,8 @@ def grad_check(model, wl, gen) -> float:
     model on its plain path (dropout off, the same t, noise and labels)."""
     import torch
 
-    from uurg_torch.models import layers
-    from uurg_torch.ops.flash_attention import attention_bwd, attention_plain
-    from uurg_torch.ops.group_norm import group_norm_bwd, group_norm_plain
+    from uurg_torch.ops.flash_attention import attention_bwd
+    from uurg_torch.ops.group_norm import group_norm_bwd
 
     dev = torch.device("cuda")
     x = torch.rand(8, 32, 32, 3, generator=gen, device=dev) * 2 - 1
@@ -804,14 +840,8 @@ def grad_check(model, wl, gen) -> float:
     if (attention_bwd.launches - bwd[0], group_norm_bwd.launches - bwd[1]) \
             == (0, 0):
         fail("the batch-8 backward did not go through the backward kernels")
-    kernels = (layers.attention, layers.group_norm)
-    layers.attention = attention_plain
-    layers.group_norm = (lambda x, s, b, *, groups, eps:
-                         group_norm_plain(x, s, b, groups, eps))
-    try:
+    with plain_layers():
         want = grads()
-    finally:
-        layers.attention, layers.group_norm = kernels
     if not torch.isfinite(got).all():
         fail("batch-8 gradients with kernels are not finite")
     rel = ((got - want).norm() / want.norm()).item()
@@ -821,6 +851,24 @@ def grad_check(model, wl, gen) -> float:
     if rel > MODEL_GRAD_REL_L2:
         fail("the model's gradients with kernels disagree with its plain path")
     return rel
+
+
+def _zero_launches() -> None:
+    from uurg_torch.ops.flash_attention import attention, attention_bwd
+    from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
+
+    attention.launches = attention_bwd.launches = 0
+    group_norm.launches = group_norm_bwd.launches = 0
+
+
+def _read_launches() -> dict:
+    from uurg_torch.ops.flash_attention import attention, attention_bwd
+    from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
+
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention_bwd.launches,
+            "group_norm_fwd": group_norm.launches,
+            "group_norm_bwd": group_norm_bwd.launches}
 
 
 @contextlib.contextmanager
@@ -861,8 +909,6 @@ def train_path(config, card: str, n_attn: int, n_gn: int) -> dict:
     from uurg_torch.core.tree import pack_mask, sparsity
     from uurg_torch.io.jax_interop import load_reference_checkpoint
     from uurg_torch.models.unet_cond import CondUNet
-    from uurg_torch.ops.flash_attention import attention, attention_bwd
-    from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
     from uurg_torch.workloads import ddpm_runner as R
     from uurg_torch.workloads.ddpm import DDPMWorkload
 
@@ -891,16 +937,12 @@ def train_path(config, card: str, n_attn: int, n_gn: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with step_clock(R) as rec:
-            attention.launches = attention_bwd.launches = 0
-            group_norm.launches = group_norm_bwd.launches = 0
+            _zero_launches()
             t0 = time.time()
             state = R.sfron_forget(Args, timed_cfg, ckpt_dir, mask=mask)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            launches = {"attention_fwd": attention.launches,
-                        "attention_bwd": attention_bwd.launches,
-                        "group_norm_fwd": group_norm.launches,
-                        "group_norm_bwd": group_norm_bwd.launches}
+            launches = _read_launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         if state.step != WARMUP_STEPS + TRAIN_STEPS or \
                 len(rec["metrics"]) != TRAIN_STEPS:
@@ -963,6 +1005,353 @@ def train_path(config, card: str, n_attn: int, n_gn: int) -> dict:
             "median_step_ms": float(np.median(step_s) * 1e3),
             "steps_per_s": float(1 / np.median(step_s)),
             "call_seconds": wall, "peak_gib": peak_gib, "losses": losses}
+
+
+def check_fisher_kernels(sites, gen) -> dict:
+    """Phase 12, first part: the kernels at the Fisher pass's shapes."""
+    import torch
+
+    from uurg_torch.ops import flash_attention as FA
+    from uurg_torch.ops.group_norm import (group_norm, group_norm_bwd,
+                                           group_norm_bwd_plain,
+                                           group_norm_plain)
+
+    dev = torch.device("cuda")
+    errs = {}
+    attn = sorted({(s[1][1] * s[1][2], s[1][0]) for s in sites
+                   if s[0] == "attn"})
+    for B in FISHER_BATCHES:
+        for T, D in attn:
+            q, k, v, g = (torch.randn(B, 1, T, D, generator=gen, device=dev,
+                                      dtype=torch.bfloat16) for _ in range(4))
+            tag = f"attention B={B} T={T} D={D}"
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            torch.cuda.synchronize()
+            fwd = compare(tag, o, FA.attention_plain(q, k, v))
+            check_lse(tag, lse, q, k)
+            got = FA.attention_bwd(q, k, v, o, lse, g)
+            torch.cuda.synchronize()
+            bwd = max(rel_l2(f"attention bwd d{n} B={B} T={T} D={D}", a, b,
+                             BWD_REL_L2)
+                      for n, a, b in zip("qkv", got,
+                                         FA.attention_bwd_plain(q, k, v, g)))
+            for _ in range(RAGGED_REPEATS - 1):
+                o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
+                again = FA.attention_bwd(q, k, v, o, lse, g)
+                if not (torch.equal(o2, o) and torch.equal(lse2, lse)
+                        and all(torch.equal(a, b) for a, b in zip(got, again))):
+                    fail(f"{tag}: repeated runs differ in their bits")
+            errs[f"attention B={B} T={T}"] = {"fwd": fwd, "bwd": bwd}
+    gn = sorted({(s[1], s[2]) for s in sites if s[0] == "gn"})
+    for B in FISHER_BATCHES[1:]:
+        for (C, H, W), groups in gn:
+            x = (torch.randn(B, H, W, C, generator=gen, device=dev) * 2
+                 + 0.5).to(torch.bfloat16)
+            g = torch.randn(B, H, W, C, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            scale = torch.randn(C, generator=gen, device=dev) * 0.2 + 1.0
+            bias = torch.randn(C, generator=gen, device=dev) * 0.2
+            tag = f"group_norm B={B} H={H} W={W} C={C}"
+            y, mean, rstd = group_norm(x, scale, bias, groups=groups,
+                                       return_stats=True)
+            got = group_norm_bwd(x, scale, mean, rstd, g)
+            torch.cuda.synchronize()
+            fwd = compare(tag, y, group_norm_plain(x, scale, bias, groups,
+                                                   1e-6))
+            want = group_norm_bwd_plain(x, scale, mean, rstd, g)
+            bwd = max(compare(f"{tag} bwd dx", got[0], want[0]),
+                      rel_l2(f"{tag} bwd dscale", got[1], want[1],
+                             GN_SUM_REL_L2),
+                      rel_l2(f"{tag} bwd dbias", got[2], want[2],
+                             GN_SUM_REL_L2))
+            for _ in range(RAGGED_REPEATS - 1):
+                again = group_norm(x, scale, bias, groups=groups,
+                                   return_stats=True)
+                again_bwd = group_norm_bwd(x, scale, mean, rstd, g)
+                if not all(torch.equal(a, b) for a, b in
+                           zip((*again, *again_bwd), (y, mean, rstd, *got))):
+                    fail(f"{tag}: repeated runs differ in their bits")
+            errs[f"group_norm B={B} H={H} C={C}"] = {"fwd": fwd, "bwd": bwd}
+    print(f"  {len(errs)} shapes, {RAGGED_REPEATS} runs each with equal bits",
+          flush=True)
+    return errs
+
+
+def fisher_batch_check(model, wl, gen) -> float:
+    """One Fisher batch (batch 8, CFG 16, eval mode) with the kernels
+    against the same model on its plain path: the squared gradients."""
+    import torch
+
+    from uurg_torch.ops.flash_attention import attention_bwd
+    from uurg_torch.ops.group_norm import group_norm_bwd
+
+    dev = torch.device("cuda")
+    x = torch.rand(8, 32, 32, 3, generator=gen, device=dev) * 2 - 1
+    noise = torch.randn(8, 32, 32, 3, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (8,), generator=gen, device=dev)
+    c = torch.randint(0, 10, (8,), generator=gen, device=dev)
+    model.eval()
+    params = list(model.parameters())
+
+    def fisher():
+        loss = wl.fisher_loss(model, x, c, t, noise, COND_SCALE)
+        grads = torch.autograd.grad(loss, params)
+        return torch.cat([g.float().reshape(-1) ** 2 for g in grads])
+
+    bwd = (attention_bwd.launches, group_norm_bwd.launches)
+    got = fisher()
+    if (attention_bwd.launches - bwd[0], group_norm_bwd.launches - bwd[1]) \
+            == (0, 0):
+        fail("the Fisher batch did not go through the backward kernels")
+    with plain_layers():
+        want = fisher()
+    if not torch.isfinite(got).all():
+        fail("the Fisher batch with kernels is not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"  batch-8 Fisher (CFG 16, {got.numel()} values), kernels vs "
+          f"plain path: rel L2 err {rel:.3e} (tolerance {FISHER_REL_L2:g})",
+          flush=True)
+    if rel > FISHER_REL_L2:
+        fail("the Fisher with kernels disagrees with the plain path")
+    return rel
+
+
+@contextlib.contextmanager
+def fisher_clock():
+    """Wrap the Fisher batch step that ``accumulate_fisher`` builds: host
+    clock around each batch, between two waits for the device. The run
+    still goes through the runner's own entry point and step."""
+    import torch
+
+    from uurg_torch.unlearn import fisher as F
+
+    record = {"s": [], "batch": []}
+    make = F.make_fisher_batch_step
+
+    def timed_make(loss_fn):
+        step = make(loss_fn)
+
+        def timed(fisher, model, batch, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(fisher, model, batch, gen)
+            torch.cuda.synchronize()
+            record["s"].append(time.perf_counter() - t0)
+            record["batch"].append(int(batch[0].shape[0]))
+
+        return timed
+
+    F.make_fisher_batch_step = timed_make
+    try:
+        yield record
+    finally:
+        F.make_fisher_batch_step = make
+
+
+def fisher_device_ms(wl, model, batch,
+                     iters: int = 3) -> tuple[float, float]:
+    """(stream ms by CUDA events, device busy ms by the profiler) of one
+    Fisher batch at CFG batch 2 x len(batch), after one warm-up batch. The
+    events span ``iters`` batches launched back to back, so where the host
+    launches slower than the device runs they read the host's pace; the
+    profiler sums the device kernels' own times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uurg_torch.unlearn.fisher import make_fisher_batch_step
+
+    step = make_fisher_batch_step(wl.fisher_loss_fn(COND_SCALE))
+    fisher = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    gen = torch.Generator(device=wl.device).manual_seed(SEED)
+    step(fisher, model, batch, gen)
+    torch.cuda.synchronize()
+    stream_ms = _events_ms(
+        lambda: [step(fisher, model, batch, gen) for _ in range(iters)],
+        iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(fisher, model, batch, gen)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    key = ("self_device_time_total" if events
+           and hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    busy_ms = sum(getattr(e, key) for e in events) / 1e3
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in a Fisher batch")
+    return stream_ms, busy_ms
+
+
+def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
+    """Phase 12: Fisher diagonals, Fisher-ratio masks, SFR-on under a mask
+    file, the SalUn mask and SalUn steps, through the runner's entry points
+    on the full-width config."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.core.tree import sparsity, tree_count_nonzero
+    from uurg_torch.data.splits import class_forget_split
+    from uurg_torch.io.checkpoint import restore_checkpoint
+    from uurg_torch.workloads import ddpm_runner as R
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    class Args:
+        seed = SEED
+        ckpt_folder = None             # a seeded init through load_params
+        label_to_forget = 0
+        cond_scale = COND_SCALE
+        forget_alpha = FORGET_ALPHA
+        method = "ron"
+        unlearn_loss = "adaga"
+
+    wl = DDPMWorkload.from_config(config)
+    model = R.load_params(Args, config, wl)
+    n_params = sum(p.numel() for p in model.parameters())
+    print("  kernels vs plain versions at the Fisher pass's shapes",
+          flush=True)
+    kernel_errs = check_fisher_kernels(collect_sites(model, wl.device), gen)
+    fisher_rel = fisher_batch_check(model, wl, gen)
+
+    remain, forget = class_forget_split(R._load_train_dataset(Args, config),
+                                        Args.label_to_forget)
+    sizes = {"forget": len(forget), "remain": len(remain)}
+    want_batches = [2 * min(TRAIN_BATCH, n - i) for n in sizes.values()
+                    for i in range(0, n, TRAIN_BATCH)]
+    out = tempfile.mkdtemp(prefix="uurg_fisher_")
+    try:
+        mask_dir = os.path.join(out, "mask_0")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with fisher_clock() as rec:
+            _zero_launches()
+            t0 = time.time()
+            R.generate_fisher(Args, config, mask_dir)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = _read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_batches = len(want_batches)
+        cfg_batches = [2 * b for b in rec["batch"]]
+        print(f"  splits {sizes}: {len(cfg_batches)} Fisher batches of CFG "
+              f"batch {cfg_batches}", flush=True)
+        if cfg_batches != want_batches:
+            fail(f"generate_fisher ran CFG batches {cfg_batches}, not "
+                 f"{want_batches}")
+        want = {k: n_batches * (n_attn if k.startswith("attention") else n_gn)
+                for k in launches}
+        print(f"  launches: {launches} (expected {want})", flush=True)
+        if launches != want:
+            fail("not every attention/GroupNorm site of the Fisher pass went "
+                 "through its forward and backward kernels")
+        totals = {}
+        for name in ("forget", "remain"):
+            f = restore_checkpoint(os.path.join(mask_dir, f"{name}_fisher"),
+                                   model)
+            flat = torch.cat([v.reshape(-1) for v in f.values()])
+            if not (torch.isfinite(flat).all() and (flat >= 0).all()
+                    and flat.max() > 0):
+                fail(f"the {name} Fisher is not finite, non-negative and "
+                     f"non-zero")
+            totals[name] = float(flat.double().sum())
+        per = np.asarray(rec["s"])
+        full = per[[i for i, b in enumerate(cfg_batches)
+                    if b == 2 * TRAIN_BATCH]]
+        x, c = remain.get_batch(np.arange(TRAIN_BATCH))
+        stream_ms, busy_ms = fisher_device_ms(
+            wl, model.eval(), R._device_batch(config, x, c, wl.device))
+        print(f"  {n_batches} Fisher batches: median {np.median(per) * 1e3:.3f}"
+              f" ms/batch (CFG 256 only: {np.median(full) * 1e3:.3f} ms, "
+              f"{1 / np.median(full):.3f} batches/s), min "
+              f"{per.min() * 1e3:.3f}, max {per.max() * 1e3:.3f} ms; call "
+              f"{wall:.3f} s with init and files; one CFG-256 batch: "
+              f"{stream_ms:.3f} ms by CUDA events, device busy "
+              f"{busy_ms:.3f} ms; peak device memory {peak_gib:.3f} GiB; "
+              f"Fisher sums {totals}; on {card}", flush=True)
+
+        masks = R.generate_fisher_mask(mask_dir, FISHER_THRESHOLDS)
+        mask_sparsity = {}
+        for th in FISHER_THRESHOLDS:
+            back = restore_checkpoint(os.path.join(mask_dir, f"fisher_{th}"),
+                                      model)
+            if not all(v.dtype == torch.bool for v in back.values()) or \
+                    sum(v.numel() for v in back.values()) != n_params:
+                fail(f"fisher_{th}: leaves not bool or not {n_params} "
+                     f"elements")
+            if not all(torch.equal(back[k], v.cpu())
+                       for k, v in masks[th].items()):
+                fail(f"fisher_{th}: the file differs from the mask computed")
+            mask_sparsity[th] = sparsity(back)
+            print(f"  threshold {th}: sparsity {mask_sparsity[th]:.6f} of "
+                  f"{n_params}", flush=True)
+
+        steps_cfg = config.merged({"training": {
+            "n_iters": MASKED_STEPS, "snapshot_freq": 10 ** 6,
+            "log_freq": 10 ** 6}})
+
+        def masked_steps(name, args):
+            with step_clock(R) as srec:
+                state = R.sfron_forget(args, steps_cfg,
+                                       os.path.join(out, name))
+            file_mask = restore_checkpoint(args.mask_path, model)
+            if state.step != MASKED_STEPS or not all(
+                    torch.equal(state.mask[k].cpu(), v)
+                    for k, v in file_mask.items()):
+                fail(f"{name}: {state.step} steps, or the mask held is not "
+                     f"the file's")
+            losses = [(float(m["forget_loss"]), float(m["remain_loss"]))
+                      for m in srec["metrics"]]
+            if not np.isfinite(losses).all():
+                fail(f"{name}: a loss is not finite: {losses}")
+            print(f"  {name}: {MASKED_STEPS} steps under "
+                  f"{os.path.basename(args.mask_path)}, losses {losses}",
+                  flush=True)
+            return losses
+
+        class Masked(Args):
+            mask_path = os.path.join(mask_dir, "fisher_1.0")
+
+        sfron_losses = masked_steps("sfron", Masked)
+
+        salun_dir = os.path.join(out, "salun_mask_0")
+        _zero_launches()
+        R.generate_salun_mask(Args, config, salun_dir, [SALUN_RATIO])
+        torch.cuda.synchronize()
+        salun_launches = _read_launches()
+        n_salun = -(-sizes["forget"] // TRAIN_BATCH)
+        want = {k: n_salun * (n_attn if k.startswith("attention") else n_gn)
+                for k in salun_launches}
+        if salun_launches != want:
+            fail(f"SalUn gradients: launches {salun_launches}, not {want}")
+        path = os.path.join(salun_dir, f"with_{SALUN_RATIO}")
+        kept = tree_count_nonzero(restore_checkpoint(path, model))
+        k = int(n_params * SALUN_RATIO)
+        print(f"  SalUn mask at ratio {SALUN_RATIO} over {n_salun} forget "
+              f"batches (train mode; launches {salun_launches}): {kept} of "
+              f"{n_params} kept, k = {k}, ties at the threshold "
+              f"{kept - k}", flush=True)
+        if kept < k:
+            fail("the SalUn mask keeps fewer than k weights")
+
+        class SalUn(Args):
+            mask_path = path
+            unlearn_loss = "rl"       # what --mode salun sets
+
+        salun_losses = masked_steps("salun", SalUn)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {"launches": launches, "kernel_errs": kernel_errs,
+            "fisher_rel_l2": fisher_rel, "splits": sizes,
+            "cfg_batches": cfg_batches, "batch_ms": (per * 1e3).tolist(),
+            "median_batch_ms": float(np.median(per) * 1e3),
+            "median_cfg256_batch_ms": float(np.median(full) * 1e3),
+            "cfg256_batches_per_s": float(1 / np.median(full)),
+            "cfg256_stream_ms": stream_ms, "cfg256_device_busy_ms": busy_ms,
+            "call_seconds": wall, "peak_gib": peak_gib, "fisher_sums": totals,
+            "mask_sparsity": mask_sparsity, "sfron_losses": sfron_losses,
+            "salun_launches": salun_launches, "salun_kept": kept,
+            "salun_k": k, "salun_losses": salun_losses}
 
 
 def main() -> int:
@@ -1095,6 +1484,10 @@ def main() -> int:
           "sweep route, small batches, batch 256)", flush=True)
     gn_bwd_offpath = check_gn_bwd_offpath(gen)
 
+    print(f"== main path: Fisher and masks, full width, CFG {COND_SCALE}, "
+          f"batch {TRAIN_BATCH} of each split", flush=True)
+    fisher = fisher_path(config, card, n_attn, n_gn, gen)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -1112,7 +1505,8 @@ def main() -> int:
             "replaces": "uurg_tpu/ops/group_norm.py:60", "per": bwd_per},
     }
     by_path = {name: {"sampling": launches.get(name, 0),
-                      "training": train["launches"][name]} for name in meta}
+                      "training": train["launches"][name],
+                      "fisher": fisher["launches"][name]} for name in meta}
     kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -1126,7 +1520,7 @@ def main() -> int:
                                 "imgs_per_s": SAMPLING_BATCH / elapsed},
                    "training": train, "ragged_attention": ragged,
                    "gn_offpath": gn_offpath,
-                   "gn_bwd_offpath": gn_bwd_offpath,
+                   "gn_bwd_offpath": gn_bwd_offpath, "fisher": fisher,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -214,3 +214,38 @@ def test_sampling_path_saves_nothing_for_backward(gen):
     with torch.inference_mode():
         out = attention(q, q, q)
     assert out.grad_fn is None
+
+
+def test_backward_kernels_at_the_ragged_fisher_batch(gen):
+    """The last remain batch of the Fisher pass on the stand-in, doubled by
+    the CFG forward: batch 124 (not a multiple of the GroupNorm backward's
+    16-sample fold groups), at both attention sites and three GroupNorm
+    site shapes of the full-width UNet."""
+    for T in (256, 16):
+        q, k, v, g = (torch.randn(124, 1, T, 256, generator=gen,
+                                  device="cuda", dtype=torch.bfloat16)
+                      for _ in range(4))
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        got = attention_bwd(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        for name, a, b in zip("qkv", got, attention_bwd_plain(q, k, v, g)):
+            assert _rel_l2(a, b) < BWD_REL_L2, (T, name)
+        again = attention_bwd(q, k, v, o, lse, g)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for H, C in ((32, 128), (16, 256), (4, 512)):
+        x = (torch.randn(124, H, H, C, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        g = torch.randn(124, H, H, C, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        _, mean, rstd = group_norm(x, scale, scale, return_stats=True)
+        got = group_norm_bwd(x, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+        dx, dscale, dbias = group_norm_bwd_plain(x, scale, mean, rstd, g)
+        torch.testing.assert_close(got[0].float(), dx.float(), atol=ATOL,
+                                   rtol=RTOL)
+        torch.testing.assert_close(got[1], dscale, atol=1e-3, rtol=1e-4)
+        torch.testing.assert_close(got[2], dbias, atol=1e-3, rtol=1e-4)
+        again = group_norm_bwd(x, scale, mean, rstd, g)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert int(GN._fold_counters[x.device].abs().sum()) == 0   # left zero

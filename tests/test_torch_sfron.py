@@ -47,6 +47,18 @@ TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
 F32 = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this file runs: under pytest-xdist the
+    suite runs several worker processes on one host, and torch's default
+    of one thread a core in each oversubscribes the cores several times
+    over (a torch-heavy file ran 3-10x slower beside another one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny_config(tmp_path, **training):
     cfg = load_config(SFRON)
     model = {**cfg.model.to_dict(), "ch": 32, "ch_mult": [1, 2],
@@ -512,8 +524,11 @@ def test_train_cli_sfron_on_cpu(tmp_path):
     runs = list((tmp_path / "exp").rglob("ckpt.pth"))
     assert len(runs) == 1 and "forget_0" in str(runs[0])
     assert list((tmp_path / "exp").rglob("samples_step00001.png"))
-    with pytest.raises(NotImplementedError, match="Fisher"):
-        cli.main(common + ["--mode", "generate_fisher"])
+    # the Fisher mode runs (it raised before its slice) and writes the
+    # JAX runner's file names under the run directory
+    cli.main(common + ["--mode", "generate_fisher"])
+    assert {p.name for p in (tmp_path / "exp").rglob("mask_0/*")} == {
+        "forget_fisher", "remain_fisher", "fisher_1.0"}
     with pytest.raises(NotImplementedError, match="sa_forget"):
         cli.main(common + ["--mode", "sa"])
 
@@ -579,14 +594,36 @@ def test_sample_images_runs_in_eval_mode_and_restores_training(tmp_path):
 @pytest.mark.parametrize("flag", [["--skip_type", "quad"], ["--eta", "1"],
                                   ["--uc", "false"],
                                   ["--negative_guidance", "2"],
-                                  ["--sparse", "true"],
-                                  ["--threshold", "0.5"],
-                                  ["--mask_ratio", "0.3", "0.5"]])
+                                  ["--sparse", "true"]])
 def test_train_cli_unread_flag_raises(flag):
-    """A parity flag that no mode of the slice reads raises at a value other
-    than its default instead of being ignored."""
+    """A parity flag that no mode reads raises at a value other than its
+    default instead of being ignored."""
     from uurg_torch.cli import train as cli
 
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(["--config", "unused.yml", "--mode", "sfron",
                   "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("mode,flag,names", [
+    ("generate_fisher", ["--threshold", "0.5", "2.0"],
+     {"forget_fisher", "remain_fisher", "fisher_0.5", "fisher_2.0"}),
+    ("generate_mask", ["--mask_ratio", "0.3", "0.5"],
+     {"with_0.3", "with_0.5"})])
+def test_train_cli_mask_flags_are_read(tmp_path, mode, flag, names):
+    """--threshold and --mask_ratio (raised as unread before the Fisher
+    slice) give one mask file each, under the JAX runner's names."""
+    pytest.importorskip("yaml")
+    import yaml
+
+    from uurg_torch.cli import train as cli
+
+    cfg = _tiny_config(tmp_path, batch_size=16)
+    cfg_path = tmp_path / "tiny.yml"
+    cfg_path.write_text(yaml.safe_dump(cfg.to_dict()))
+    folder = tmp_path / "pre"
+    cli.main(["--config", str(cfg_path), "--exp", str(tmp_path / "exp"),
+              "--device", "cpu", "--ckpt_folder", str(folder),
+              "--mode", mode] + flag)
+    sub = "mask_0" if mode == "generate_fisher" else "salun_mask_0"
+    assert set(os.listdir(folder / sub)) == names

@@ -4,10 +4,13 @@ Run as ``python -m uurg_torch.cli.train --config configs/cifar10_sfron.yml
 --mode sfron --ckpt_folder RUN_DIR --label_to_forget 0``. Needs PyYAML
 (config, run-dir dump); the snapshot grids need Pillow.
 
-Modes of this slice: pretrain | retrain | sfron. The others raise
-NotImplementedError and name the slice that brings them. The saliency mask
-(``--mask_path``) is a file written by the Fisher/mask modes, which come
-with the Fisher slice; until then ``sfron`` runs unmasked without it.
+Modes: pretrain | retrain | sfron | salun | generate_fisher | generate_mask;
+``sa`` raises NotImplementedError and names the slice that brings it.
+``generate_fisher`` writes ``<ckpt_folder or run dir>/mask_<label>/
+{forget_fisher, remain_fisher, fisher_<th>}`` (one mask a ``--threshold``),
+``generate_mask`` the SalUn masks ``.../salun_mask_<label>/with_<ratio>``
+(one a ``--mask_ratio``); ``sfron`` and ``salun`` read such a mask file from
+``--mask_path`` (``salun`` forces ``--unlearn_loss rl``).
 """
 from __future__ import annotations
 
@@ -15,18 +18,11 @@ import argparse
 import logging
 import os
 
-_LATER = {
-    "generate_fisher": "the Fisher and saliency-mask slice",
-    "generate_mask": "the Fisher and saliency-mask slice",
-    "salun": "the Fisher and saliency-mask slice (SalUn needs its top-k "
-             "mask)",
-    "sa": "the sa_forget slice",
-}
-# flags accepted for parity that nothing in this slice reads, with their
-# defaults; any other value raises rather than being ignored
+_LATER = {"sa": "the sa_forget slice"}
+# flags accepted for parity that no mode reads, with their defaults; any
+# other value raises rather than being ignored
 _UNREAD = {"skip_type": "uniform", "eta": 0.0, "uc": True,
-           "negative_guidance": 1.0, "sparse": False, "threshold": [1.0],
-           "mask_ratio": [0.5]}
+           "negative_guidance": 1.0, "sparse": False}
 
 
 def str2bool(v) -> bool:
@@ -61,7 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--unlearn_loss", type=str, default="adaga",
                    choices=["adaga", "ga", "rl"])
     p.add_argument("--mask_path", type=str, default="",
-                   help="saliency mask files arrive with the Fisher slice")
+                   help="saliency mask file (sfron, salun), e.g. "
+                        "<ckpt_folder>/mask_0/fisher_1.0")
     # sampling knobs of the snapshot grids (DDPM/train.py parity)
     p.add_argument("--sample_type", type=str, default="generalized",
                    choices=["generalized", "ddpm_noisy"],
@@ -72,13 +69,17 @@ def parse_args(argv=None):
                    help="sampling steps for snapshot grids")
     p.add_argument("--eta", type=float, default=0.0)
     p.add_argument("--verbose", type=str, default="info")
-    # reference flags accepted for command-line parity; this slice reads
-    # none of them, so a value other than the default raises (_UNREAD)
+    # reference flags accepted for command-line parity; no mode reads them,
+    # so a value other than the default raises (_UNREAD)
     p.add_argument("--uc", type=str2bool, default=True)
     p.add_argument("--negative_guidance", type=float, default=1.0)
     p.add_argument("--sparse", type=str2bool, default=False)
-    p.add_argument("--threshold", type=float, nargs="+", default=[1.0])
-    p.add_argument("--mask_ratio", type=float, nargs="+", default=[0.5])
+    # mask generation
+    p.add_argument("--threshold", type=float, nargs="+", default=[1.0],
+                   help="generate_fisher: Fisher-ratio thresholds, one mask "
+                        "each")
+    p.add_argument("--mask_ratio", type=float, nargs="+", default=[0.5],
+                   help="generate_mask: SalUn top-k ratios, one mask each")
     p.add_argument("--n_iters", type=int, default=0,
                    help="override config training.n_iters (smoke runs)")
     p.add_argument("--rng_impl", type=str, default="auto",
@@ -101,9 +102,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"--mode {args.mode} is not ported yet; it arrives with "
             f"{_LATER[args.mode]}")
-    if args.mask_path:
-        raise NotImplementedError(
-            "--mask_path: mask files arrive with the Fisher slice")
     if args.rng_impl != "auto" or args.profile_dir:
         raise NotImplementedError(
             "--rng_impl and --profile_dir are JAX-only; the port uses torch "
@@ -113,8 +111,7 @@ def main(argv=None):
     if unread:
         raise NotImplementedError(
             f"{', '.join(unread)}: accepted for command-line parity but read "
-            f"by no mode of this slice (--threshold and --mask_ratio arrive "
-            f"with the Fisher and saliency-mask slice); leave at the default")
+            f"by no mode; leave at the default")
     from uurg_torch.core.config import load_config
     from uurg_torch.core.expdir import setup_run_dirs
     from uurg_torch.workloads import ddpm_runner as R
@@ -170,7 +167,20 @@ def main(argv=None):
         remain, _ = class_forget_split(R._load_train_dataset(args, config),
                                        args.label_to_forget)
         R.pretrain(args, config, ckpt_dir, dataset=remain, device=args.device)
+    elif args.mode == "generate_fisher":
+        out = os.path.join(args.ckpt_folder or run_dir,
+                           f"mask_{args.label_to_forget}")
+        R.generate_fisher(args, config, out, device=args.device)
+        R.generate_fisher_mask(out, args.threshold, device=args.device)
+    elif args.mode == "generate_mask":
+        out = os.path.join(args.ckpt_folder or run_dir,
+                           f"salun_mask_{args.label_to_forget}")
+        R.generate_salun_mask(args, config, out, args.mask_ratio,
+                              device=args.device)
     else:
+        if args.mode == "salun":
+            # SalUn = RandomLabel loss + top-k mask, through the same engine
+            args.unlearn_loss = "rl"
         R.sfron_forget(args, config, ckpt_dir, sample_hook=hook,
                        device=args.device)
     print(f"done: {run_dir}")

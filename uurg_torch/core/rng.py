@@ -9,6 +9,18 @@ from __future__ import annotations
 import torch
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of one step or batch: a function of (seed, step)
+    alone, so a resumed run draws what the uninterrupted one would have
+    (the JAX package folds the step into its key, or splits it once a
+    batch). Both are mixed into every bit (the splitmix64 finaliser): the
+    CPU generator seeds its Mersenne Twister from the low 32 bits only."""
+    z = ((seed % 2**32) * 2**32 + step % 2**32 + 0x9E3779B97F4A7C15) % 2**64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2**64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2**64
+    return (z ^ (z >> 31)) % 2**63
+
+
 def antithetic_timesteps(generator: torch.Generator, batch: int,
                          num_timesteps: int) -> torch.Tensor:
     """Sample ``t ~ U[0, T)`` antithetically: draw n//2+1 and mirror as

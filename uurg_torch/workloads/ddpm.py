@@ -1,11 +1,11 @@
 """DDPM workload: the conditional CIFAR-10 UNet with its schedule.
 
-Port of ``uurg_tpu/workloads/ddpm.py``: config, init, the training and
-forgetting losses, and the sampler. Loss functions have the signature
-``loss_fn(model, batch, generator) -> scalar`` with ``batch = (x, c)``: x
-float32 NHWC in model range, c int64 labels, both on the workload's device.
-Every random draw (timesteps, noise, label dropout, dropout masks) comes
-from ``generator``. The Fisher and SA losses arrive with their slices.
+Port of ``uurg_tpu/workloads/ddpm.py``: config, init, the training,
+forgetting and Fisher losses, and the sampler. Loss functions have the
+signature ``loss_fn(model, batch, generator) -> scalar`` with ``batch = (x,
+c)``: x float32 NHWC in model range, c int64 labels, both on the workload's
+device. Every random draw (timesteps, noise, label dropout, dropout masks)
+comes from ``generator``. The SA losses arrive with the ``sa_forget`` slice.
 """
 from __future__ import annotations
 
@@ -151,6 +151,34 @@ class DDPMWorkload:
         if unlearn_loss == "rl":
             return self.rl_forget_loss_fn(label_to_forget, n_classes)
         raise NotImplementedError(unlearn_loss)
+
+    # -- fisher ------------------------------------------------------------
+
+    def fisher_loss(self, model: CondUNet, x: torch.Tensor, c: torch.Tensor,
+                    t: torch.Tensor, noise: torch.Tensor,
+                    cond_scale: float = 2.0) -> torch.Tensor:
+        """The loss whose squared gradients form the Fisher diagonal, at
+        GIVEN timesteps and noise: the CFG double forward at ``cond_scale``
+        and a sum-reduced eps-MSE, averaged over the batch
+        (DDPM/runners/diffusion.py:1255-1281). The model runs as it is set;
+        the Fisher pass sets it to eval mode (no dropout), as the
+        reference's test-mode forward."""
+        model_fn = S.cfg_model_fn(model, c, cond_scale)
+        eps_hat = model_fn(self.schedule.q_sample(x, t, noise), t)
+        return torch.sum(torch.square(noise - eps_hat), dim=(1, 2, 3)).mean()
+
+    def fisher_loss_fn(self, cond_scale: float = 2.0) -> Callable:
+        """``fisher_loss`` with antithetic t and noise drawn from the
+        generator."""
+
+        def fn(model, batch, generator):
+            x, c = batch
+            t = antithetic_timesteps(generator, x.shape[0],
+                                     self.schedule.num_timesteps)
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            return self.fisher_loss(model, x, c, t, noise, cond_scale)
+
+        return fn
 
     # -- sampling ----------------------------------------------------------
 

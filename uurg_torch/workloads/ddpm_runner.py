@@ -1,11 +1,15 @@
-"""Host-side DDPM runner: training, SFR-on unlearning and sampling.
+"""Host-side DDPM runner: training, Fisher and saliency masks, SFR-on
+unlearning and sampling.
 
 Port of ``uurg_tpu/workloads/ddpm_runner.py``: ``pretrain`` (also the
-retrain mode), ``sfron_forget``, ``load_params`` and ``sample_images``, on
-one device; the multi-device paths arrive with the multi-device slice, the
-Fisher, mask and SA modes with theirs. Checkpoints are the reference
-``<ckpt_dir>/ckpt.pth`` list format with the optimizer state, written at
-every ``snapshot_freq`` and at the end, and read back on resume.
+retrain mode), ``generate_fisher``, ``generate_fisher_mask``,
+``generate_salun_mask``, ``sfron_forget`` (also SalUn), ``load_params`` and
+``sample_images``, on one device; the multi-device paths arrive with the
+multi-device slice, ``sa_forget`` with its own. Checkpoints are the
+reference ``<ckpt_dir>/ckpt.pth`` list format with the optimizer state,
+written at every ``snapshot_freq`` and at the end, and read back on resume.
+Fishers and masks are ``torch.save`` files of named tensors
+(:mod:`uurg_torch.io.checkpoint`) under the JAX runner's names.
 """
 from __future__ import annotations
 
@@ -17,17 +21,23 @@ from typing import Callable
 import numpy as np
 import torch
 
-from uurg_torch.core.tree import PackedMask
-from uurg_torch.data.arrays import (ArrayDataset, infinite_batches,
-                                    random_flip_batch)
+from uurg_torch.core.device import resolve_device
+from uurg_torch.core.rng import step_seed
+from uurg_torch.core.tree import PackedMask, pack_mask
+from uurg_torch.data.arrays import (ArrayDataset, epoch_batches,
+                                    infinite_batches, random_flip_batch)
 from uurg_torch.data.datasets import load_cifar10, synthetic_dataset
 from uurg_torch.data.splits import class_forget_split
 from uurg_torch.data.transforms import data_transform, inverse_data_transform
+from uurg_torch.io.checkpoint import restore_checkpoint, save_checkpoint
 from uurg_torch.io.jax_interop import (load_reference_checkpoint,
                                        load_training_checkpoint,
                                        save_reference_checkpoint)
 from uurg_torch.models.unet_cond import CondUNet
 from uurg_torch.train.optim import build_reference_optimizer
+from uurg_torch.unlearn.fisher import accumulate_fisher, sum_gradients
+from uurg_torch.unlearn.saliency import (fisher_ratio_mask, mask_sparsity,
+                                         topk_saliency_mask)
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
                                       make_sfron_step)
 from uurg_torch.workloads.ddpm import DDPMWorkload
@@ -64,13 +74,6 @@ def _device_batch(config, x: np.ndarray, c: np.ndarray,
     x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
     c = torch.from_numpy(np.asarray(c, np.int64)).to(device)
     return data_transform(config, x), c
-
-
-def _step_seed(seed: int, step: int) -> int:
-    """The generator seed of one step: a function of (seed, step) alone, so
-    a resumed run draws what the uninterrupted one would have (the JAX step
-    folds the step into its key)."""
-    return (seed % 2**31) * 2**32 + step
 
 
 def _save(ckpt_dir: str, state: SFRonState) -> None:
@@ -110,7 +113,7 @@ def _train(args, config, ckpt_dir: str, wl: DDPMWorkload, state: SFRonState,
     for i in range(start_step, config.training.n_iters):
         rb = _device_batch(config, *next(r_it), wl.device)
         fb = _device_batch(config, *next(f_it), wl.device) if f_it else rb
-        gen.manual_seed(_step_seed(args.seed, i))
+        gen.manual_seed(step_seed(args.seed, i))
         metrics = step_fn(state, fb, rb, gen)
         if (i + 1) % config.training.log_freq == 0:
             log.info("step:%04d remain L:%.4f forget L:%.4f forget a:%.6f "
@@ -147,11 +150,99 @@ def pretrain(args, config, ckpt_dir: str, dataset: ArrayDataset | None = None,
     return _train(args, config, ckpt_dir, wl, state, step, None, ds)
 
 
+def generate_fisher(args, config, out_dir: str,
+                    device: str | torch.device | None = None) -> str:
+    """Forget and remain Fisher diagonals (DDPM/runners/diffusion.py:
+    1210-1364) of the model ``load_params`` gives, in eval mode, over one
+    unshuffled pass of each split with the ragged last batch kept, written
+    to ``<out_dir>/{forget,remain}_fisher``. Runs on ``device``, CUDA
+    unless "cpu" is asked for."""
+    wl = DDPMWorkload.from_config(config, device=device)
+    model = load_params(args, config, wl)
+    remain, forget = class_forget_split(_load_train_dataset(args, config),
+                                        args.label_to_forget)
+    loss_fn = wl.fisher_loss_fn(cond_scale=getattr(args, "cond_scale", 2.0))
+
+    def batches(split):
+        for x, c in epoch_batches(split, config.training.batch_size,
+                                  drop_last=False):
+            yield _device_batch(config, x, c, wl.device)
+
+    was_training = model.training
+    model.eval()
+    try:
+        for name, split in (("forget", forget), ("remain", remain)):
+            fisher = accumulate_fisher(loss_fn, model, batches(split),
+                                       args.seed)
+            save_checkpoint(os.path.join(out_dir, f"{name}_fisher"), fisher)
+            log.info("saved %s fisher (%d examples)", name, len(split))
+    finally:
+        model.train(was_training)
+    return out_dir
+
+
+def generate_fisher_mask(fisher_dir: str, thresholds, like=None,
+                         device: str | torch.device | None = None
+                         ) -> dict[float, dict]:
+    """Fisher-ratio saliency masks (DDPM/generate_fisher_mask.py:6-48), one
+    a threshold, written to ``<fisher_dir>/fisher_<th>`` (bool leaves).
+    ``like`` (a model or named tensors) checks the Fishers' keys and
+    shapes. Computes on ``device``, CUDA unless "cpu" is asked for."""
+    dev = resolve_device(device)
+    ff, rf = ({k: v.to(dev) for k, v in restore_checkpoint(
+        os.path.join(fisher_dir, f"{name}_fisher"), like).items()}
+        for name in ("forget", "remain"))
+    out = {}
+    for th in np.atleast_1d(thresholds):
+        mask = fisher_ratio_mask(ff, rf, float(th))
+        log.info("threshold %.3g -> sparsity %.2f%%", th,
+                 mask_sparsity(mask) * 100)
+        save_checkpoint(os.path.join(fisher_dir, f"fisher_{th}"), mask)
+        out[float(th)] = mask
+    return out
+
+
+def generate_salun_mask(args, config, out_dir: str, ratios,
+                        device: str | torch.device | None = None) -> str:
+    """SalUn top-k |grad| masks (DDPM/runners/diffusion.py:930-1036
+    generate_mask): the ``ga`` loss gradients of the model ``load_params``
+    gives, in training mode (dropout, label dropout), summed over one pass
+    of the forget split, then one mask a ratio, written to
+    ``<out_dir>/with_<ratio>``. Runs on ``device``, CUDA unless "cpu" is
+    asked for."""
+    wl = DDPMWorkload.from_config(config, device=device)
+    model = load_params(args, config, wl)
+    _, forget = class_forget_split(_load_train_dataset(args, config),
+                                   args.label_to_forget)
+    batches = (_device_batch(config, x, c, wl.device)
+               for x, c in epoch_batches(forget, config.training.batch_size))
+    was_training = model.training
+    model.train()
+    try:
+        grads = sum_gradients(wl.ga_forget_loss_fn(), model, batches,
+                              args.seed)
+    finally:
+        model.train(was_training)
+    for ratio in np.atleast_1d(ratios):
+        save_checkpoint(os.path.join(out_dir, f"with_{ratio}"),
+                        topk_saliency_mask(grads, float(ratio)))
+    return out_dir
+
+
 def _device_mask(mask: dict, device: torch.device) -> dict:
     """Packed leaves stay packed; 0/1 leaves become bool (1 byte/element)."""
     return {k: v.to(device) if isinstance(v, PackedMask)
             else torch.as_tensor(v).to(device=device, dtype=torch.bool)
             for k, v in mask.items()}
+
+
+def load_mask(path: str, model: CondUNet, pack: bool = False) -> dict:
+    """A saliency mask file for ``model`` (keys and shapes checked): bool
+    leaves, or bit-plane packed with ``pack``."""
+    mask = {k: v.unpack(torch.bool) if isinstance(v, PackedMask)
+            else v.to(torch.bool)
+            for k, v in restore_checkpoint(path, model).items()}
+    return pack_mask(mask) if pack else mask
 
 
 def sfron_forget(args, config, ckpt_dir: str, mask: dict | None = None,
@@ -161,10 +252,14 @@ def sfron_forget(args, config, ckpt_dir: str, mask: dict | None = None,
     (adaga/ga/rl, masked, clipped), remain step, EMA, from the model
     ``load_params`` gives. ``mask`` is the saliency mask, ``dict[str,
     Tensor]`` of 0/1 or bool tensors or of PackedMask, keyed by parameter
-    name (None: no mask). Runs on ``device``, CUDA unless "cpu" is asked
-    for."""
+    name; without it the file ``args.mask_path`` is read when set (packed
+    when ``args.pack_mask``), else no mask. Runs on ``device``, CUDA unless
+    "cpu" is asked for."""
     wl = DDPMWorkload.from_config(config, device=device)
     model = load_params(args, config, wl)
+    if mask is None and getattr(args, "mask_path", None):
+        mask = load_mask(args.mask_path, model,
+                         getattr(args, "pack_mask", False))
     opt = build_reference_optimizer(config, model.parameters())
     sf_cfg = SFRonConfig(
         n_iters=config.training.n_iters,

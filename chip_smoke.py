@@ -76,6 +76,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    file read from ``args.mask_path``, ``generate_salun_mask`` over the
    forget split (train mode, exact launch counts), and 2 SalUn steps
    (``rl`` under that mask).
+13. Selective Amnesia (``configs/cifar10_sa.yml``). The kernels at the
+   per-sample Fisher's batch (50 = T / 20 timesteps of one example):
+   attention forward, log-sum-exp and backward, GroupNorm forward and
+   backward at every site shape, against the plain versions, three runs
+   with equal bits. One example's gradient (batch 50) with the kernels
+   against the same model on its plain path. Then ``cli/fim.py``'s
+   ``generate_fim`` at 20 chunks x 8 examples (batch 4) with the launch
+   counters zeroed just before and read just after (one forward and one
+   backward of every site an example); the ``fisher_dict`` it writes must
+   be finite, non-negative and not all zero. ``ddpm_runner.sa_forget``
+   from that file on the stand-in's remain split: 2 warm-up steps (one
+   profiled for its device time), then 10 counted and timed steps (two
+   eval-mode forwards at batch 128 and their backward a step); losses
+   finite, the EWC term above 0 after the first step, parameters and EMA
+   moved, exact launch counts.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -158,6 +173,8 @@ MODEL_GRAD_REL_L2 = 5e-2
 # the forward's log-sum-exp (fp32) against torch.logsumexp of fp32 scores:
 # both sum exp in fp32, in another order
 LSE_ATOL = 1e-4
+# CUgraphNodeType (cuda.h) of a kernel node
+GRAPH_KERNEL_NODE = 0
 # (T, D) off the main path, at batch 4 x 2 heads: T below, across and far
 # above one tile, not a multiple of 8; D padded by the wrapper to 64, 128,
 # 192 and unpadded
@@ -203,6 +220,22 @@ MASKED_STEPS = 2
 # one Fisher batch, kernels vs plain path: relative L2 of the squared
 # gradients concatenated; a square doubles the gradient's relative error
 FISHER_REL_L2 = 2 * MODEL_GRAD_REL_L2
+# Selective Amnesia: configs/cifar10_sa.yml, the sections sa_forget and
+# generate_fim read (held equal to the YAML by tests/test_torch_sa.py)
+SA_CONFIG = {
+    **SFRON_CONFIG,
+    "model": {**SFRON_CONFIG["model"], "ema_rate": 0.9999},
+    "training": {"batch_size": TRAIN_BATCH, "n_iters": 20000,
+                 "snapshot_freq": 1000, "log_freq": 50, "gamma": 1,
+                 "lmbda": 10},
+}
+# the SA Fisher at cli/fim.py's --n_chunks default, n_samples cut from 256
+# to 8 (batch 4): 160 examples, each a forward and a backward at batch
+# T / FIM_CHUNKS = 50
+FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 8, 4
+FIM_EXAMPLE_BATCH = (SA_CONFIG["diffusion"]["num_diffusion_timesteps"]
+                     // FIM_CHUNKS)
+SA_WARMUP_STEPS, SA_STEPS = 2, 10
 
 
 def fail(msg: str) -> None:
@@ -628,23 +661,46 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
     return rows
 
 
-def one_launch(name: str, fn) -> None:
-    """Fails unless the profiler sees exactly one device activity (a kernel;
-    no copy, no fill) in one call of ``fn``, launched after a synchronise
-    so that nothing else is in flight."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def enqueued_node_types(fn) -> list[int]:
+    """The CUgraphNodeType of each operation that one call of ``fn``
+    enqueues, read from a CUDA graph the call is captured into (the call is
+    not run)."""
+    import ctypes
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             for _ in range(e.count)]
-    if len(names) != 1:
-        fail(f"{name}: one call launched {len(names)} device kernels, not "
-             f"one: {names}")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if not err and n.value:
+        err = cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        err = err or cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                             ctypes.byref(kind))
+        types.append(kind.value)
+    if err:
+        fail(f"reading a captured graph's nodes: CUDA driver error {err}")
+    return types
+
+
+def one_launch(name: str, fn) -> None:
+    """Fails unless one call of ``fn`` enqueues exactly one operation, a
+    kernel (no copy, no fill), on the device. Read from a CUDA graph of the
+    call, which lists every operation: the profiler dropped the record of a
+    kernel that had launched in about 1 call of 200
+    (``scripts/check_one_launch.py`` on an H100)."""
+    types = enqueued_node_types(fn)
+    if types != [GRAPH_KERNEL_NODE]:
+        fail(f"{name}: one call enqueued the graph nodes {types} "
+             f"(CUgraphNodeType; {GRAPH_KERNEL_NODE} is a kernel), not one "
+             f"kernel")
 
 
 def check_lse(name: str, lse, q, k) -> float:
@@ -1007,8 +1063,10 @@ def train_path(config, card: str, n_attn: int, n_gn: int) -> dict:
             "call_seconds": wall, "peak_gib": peak_gib, "losses": losses}
 
 
-def check_fisher_kernels(sites, gen) -> dict:
-    """Phase 12, first part: the kernels at the Fisher pass's shapes."""
+def check_batch_kernels(sites, gen, attn_batches, gn_batches) -> dict:
+    """The four kernels against their plain versions at every site shape of
+    a pass, attention at ``attn_batches``, GroupNorm at ``gn_batches``,
+    three runs each with equal bits (phases 12 and 13)."""
     import torch
 
     from uurg_torch.ops import flash_attention as FA
@@ -1020,7 +1078,7 @@ def check_fisher_kernels(sites, gen) -> dict:
     errs = {}
     attn = sorted({(s[1][1] * s[1][2], s[1][0]) for s in sites
                    if s[0] == "attn"})
-    for B in FISHER_BATCHES:
+    for B in attn_batches:
         for T, D in attn:
             q, k, v, g = (torch.randn(B, 1, T, D, generator=gen, device=dev,
                                       dtype=torch.bfloat16) for _ in range(4))
@@ -1043,7 +1101,7 @@ def check_fisher_kernels(sites, gen) -> dict:
                     fail(f"{tag}: repeated runs differ in their bits")
             errs[f"attention B={B} T={T}"] = {"fwd": fwd, "bwd": bwd}
     gn = sorted({(s[1], s[2]) for s in sites if s[0] == "gn"})
-    for B in FISHER_BATCHES[1:]:
+    for B in gn_batches:
         for (C, H, W), groups in gn:
             x = (torch.randn(B, H, W, C, generator=gen, device=dev) * 2
                  + 0.5).to(torch.bfloat16)
@@ -1117,35 +1175,39 @@ def fisher_batch_check(model, wl, gen) -> float:
 
 
 @contextlib.contextmanager
-def fisher_clock():
-    """Wrap the Fisher batch step that ``accumulate_fisher`` builds: host
-    clock around each batch, between two waits for the device. The run
-    still goes through the runner's own entry point and step."""
+def batch_clock(factory: str):
+    """Wrap the Fisher batch step that ``uurg_torch.unlearn.fisher.<factory>``
+    builds (``make_fisher_batch_step`` for ``generate_fisher``,
+    ``make_per_sample_fisher_step`` for ``cli/fim.py``): host clock around
+    each batch, between two waits for the device. The run still goes
+    through the entry point's own step; ``record["step"]`` is the last step
+    built, timed."""
     import torch
 
     from uurg_torch.unlearn import fisher as F
 
     record = {"s": [], "batch": []}
-    make = F.make_fisher_batch_step
+    make = getattr(F, factory)
 
     def timed_make(loss_fn):
         step = make(loss_fn)
 
-        def timed(fisher, model, batch, gen):
+        def timed(fisher, model, batch, gen_or_seed):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(fisher, model, batch, gen)
+            step(fisher, model, batch, gen_or_seed)
             torch.cuda.synchronize()
             record["s"].append(time.perf_counter() - t0)
             record["batch"].append(int(batch[0].shape[0]))
 
+        record["step"] = timed
         return timed
 
-    F.make_fisher_batch_step = timed_make
+    setattr(F, factory, timed_make)
     try:
         yield record
     finally:
-        F.make_fisher_batch_step = make
+        setattr(F, factory, make)
 
 
 def fisher_device_ms(wl, model, batch,
@@ -1156,7 +1218,6 @@ def fisher_device_ms(wl, model, batch,
     launches slower than the device runs they read the host's pace; the
     profiler sums the device kernels' own times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from uurg_torch.unlearn.fisher import make_fisher_batch_step
 
@@ -1168,8 +1229,19 @@ def fisher_device_ms(wl, model, batch,
     stream_ms = _events_ms(
         lambda: [step(fisher, model, batch, gen) for _ in range(iters)],
         iters)
+    return stream_ms, device_busy_ms("a Fisher batch",
+                                     lambda: step(fisher, model, batch, gen))
+
+
+def device_busy_ms(name: str, run) -> float:
+    """The device kernels' own times summed over one ``run()``, by the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(fisher, model, batch, gen)
+        run()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1178,8 +1250,8 @@ def fisher_device_ms(wl, model, batch,
            else "self_cuda_time_total")
     busy_ms = sum(getattr(e, key) for e in events) / 1e3
     if busy_ms <= 0:
-        fail("the profiler saw no device time in a Fisher batch")
-    return stream_ms, busy_ms
+        fail(f"the profiler saw no device time in {name}")
+    return busy_ms
 
 
 def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
@@ -1211,7 +1283,8 @@ def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print("  kernels vs plain versions at the Fisher pass's shapes",
           flush=True)
-    kernel_errs = check_fisher_kernels(collect_sites(model, wl.device), gen)
+    kernel_errs = check_batch_kernels(collect_sites(model, wl.device), gen,
+                                      FISHER_BATCHES, FISHER_BATCHES[1:])
     fisher_rel = fisher_batch_check(model, wl, gen)
 
     remain, forget = class_forget_split(R._load_train_dataset(Args, config),
@@ -1224,7 +1297,7 @@ def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
         mask_dir = os.path.join(out, "mask_0")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with fisher_clock() as rec:
+        with batch_clock("make_fisher_batch_step") as rec:
             _zero_launches()
             t0 = time.time()
             R.generate_fisher(Args, config, mask_dir)
@@ -1352,6 +1425,257 @@ def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
             "mask_sparsity": mask_sparsity, "sfron_losses": sfron_losses,
             "salun_launches": salun_launches, "salun_kept": kept,
             "salun_k": k, "salun_losses": salun_losses}
+
+
+def per_sample_grad_check(model, wl, gen) -> float:
+    """One example's SA Fisher gradient (batch 50: its 50 timesteps) with
+    the kernels against the same model on its plain path."""
+    import torch
+
+    from uurg_torch.ops.flash_attention import attention_bwd
+    from uurg_torch.ops.group_norm import group_norm_bwd
+
+    dev = torch.device("cuda")
+    x = torch.rand(32, 32, 3, generator=gen, device=dev) * 2 - 1
+    c = torch.randint(0, 10, (), generator=gen, device=dev)
+    ts = torch.arange(500, 500 + FIM_EXAMPLE_BATCH, device=dev)
+    noise = torch.randn(FIM_EXAMPLE_BATCH, 32, 32, 3, generator=gen,
+                        device=dev)
+    model.eval()
+    params = list(model.parameters())
+
+    def grads():
+        loss = wl.elbo_chunk_loss(model, x, c, ts, noise)
+        return torch.cat([g.float().reshape(-1) for g in
+                          torch.autograd.grad(loss, params)])
+
+    bwd = (attention_bwd.launches, group_norm_bwd.launches)
+    got = grads()
+    if (attention_bwd.launches - bwd[0], group_norm_bwd.launches - bwd[1]) \
+            == (0, 0):
+        fail("the per-sample gradient did not go through the backward "
+             "kernels")
+    with plain_layers():
+        want = grads()
+    if not torch.isfinite(got).all():
+        fail("the per-sample gradient with kernels is not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"  one example's gradient (batch {FIM_EXAMPLE_BATCH}, "
+          f"{got.numel()} values), kernels vs plain path: rel L2 err "
+          f"{rel:.3e} (tolerance {MODEL_GRAD_REL_L2:g})", flush=True)
+    if rel > MODEL_GRAD_REL_L2:
+        fail("the per-sample gradient with kernels disagrees with the plain "
+             "path")
+    return rel
+
+
+@contextlib.contextmanager
+def sa_clock(runner, ewc=None, profile_step: int | None = None):
+    """Wrap the step that ``sa_forget`` builds (the runner's
+    ``make_sfron_step``, forgetting off): after each step, wait for the
+    device and read the clock, keep the step's loss and, with ``ewc``
+    (model -> float), the EWC term after the first step; the step numbered
+    ``profile_step`` is profiled for its device time instead of timed. The
+    run still goes through the runner's own entry point and step."""
+    import torch
+
+    record = {"t": [], "loss": [], "ewc_after_first": None, "busy_ms": None}
+    make = runner.make_sfron_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(state, *batches):
+            if state.step == profile_step:
+                out = {}
+                record["busy_ms"] = device_busy_ms(
+                    "an SA step", lambda: out.update(step(state, *batches)))
+                return out
+            metrics = step(state, *batches)
+            if ewc is not None and record["ewc_after_first"] is None:
+                record["ewc_after_first"] = ewc(state.model)
+            torch.cuda.synchronize()
+            record["t"].append(time.perf_counter())
+            record["loss"].append(float(metrics["remain_loss"]))
+            return metrics
+
+        return timed
+
+    runner.make_sfron_step = timed_make
+    try:
+        yield record
+    finally:
+        runner.make_sfron_step = make
+
+
+def sa_path(card: str, n_attn: int, n_gn: int, gen) -> dict:
+    """Phase 13: the SA Fisher through ``cli/fim.py``'s function, then
+    ``sa_forget`` from the file it wrote, on the full-width config."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.cli import fim
+    from uurg_torch.core.config import Config
+    from uurg_torch.io.checkpoint import restore_checkpoint
+    from uurg_torch.workloads import ddpm_runner as R
+    from uurg_torch.workloads.ddpm import DDPMWorkload, ewc_penalty
+
+    config = Config(SA_CONFIG)
+    wl = DDPMWorkload.from_config(config)
+    folder = tempfile.mkdtemp(prefix="uurg_sa_")
+
+    class FimArgs:
+        ckpt_folder = folder           # no ckpts/: a seeded init
+        n_chunks = FIM_CHUNKS
+        n_samples = FIM_SAMPLES
+        batch_size = FIM_BATCH
+        seed = SEED
+
+    class Args:
+        ckpt_folder = folder
+        seed = SEED
+        label_to_forget = 0
+
+    try:
+        model = R.load_params(Args, config, wl)
+        print(f"  kernels vs plain versions at batch {FIM_EXAMPLE_BATCH}",
+              flush=True)
+        kernel_errs = check_batch_kernels(
+            collect_sites(model, wl.device), gen, (FIM_EXAMPLE_BATCH,),
+            (FIM_EXAMPLE_BATCH,))
+        grad_rel = per_sample_grad_check(model, wl, gen)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with batch_clock("make_per_sample_fisher_step") as frec:
+            _zero_launches()
+            t0 = time.time()
+            path = fim.generate_fim(FimArgs, config)
+            torch.cuda.synchronize()
+            fim_wall = time.time() - t0
+            fim_launches = _read_launches()
+        fim_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_ex = sum(frec["batch"])
+        if n_ex != FIM_CHUNKS * FIM_SAMPLES:
+            fail(f"generate_fim ran {n_ex} examples, not "
+                 f"{FIM_CHUNKS * FIM_SAMPLES}")
+        want = {k: n_ex * (n_attn if k.startswith("attention") else n_gn)
+                for k in fim_launches}
+        print(f"  launches: {fim_launches} (expected {want})", flush=True)
+        if fim_launches != want:
+            fail("not every attention/GroupNorm site of the per-sample "
+                 "Fisher went through its forward and backward kernels")
+        fisher = restore_checkpoint(path, model)
+        flat = torch.cat([v.reshape(-1) for v in fisher.values()])
+        if not (torch.isfinite(flat).all() and (flat >= 0).all()
+                and flat.max() > 0):
+            fail("the SA Fisher is not finite, non-negative and non-zero")
+        per_ex = np.asarray(frec["s"]) / np.asarray(frec["batch"])
+        x = torch.rand(FIM_BATCH, 32, 32, 3, generator=gen,
+                       device=wl.device) * 2 - 1
+        c = torch.randint(0, 10, (FIM_BATCH,), generator=gen,
+                          device=wl.device)
+        ts = torch.arange(FIM_EXAMPLE_BATCH, device=wl.device).expand(
+            FIM_BATCH, FIM_EXAMPLE_BATCH)
+        zeros = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+        fim_busy = device_busy_ms(
+            "a per-sample Fisher batch",
+            lambda: frec["step"](zeros, model.eval(), (x, c, ts), SEED))
+        fim_busy /= FIM_BATCH
+        print(f"  SA Fisher: {n_ex} examples ({FIM_CHUNKS} chunks x "
+              f"{FIM_SAMPLES}, batch {FIM_BATCH}), median "
+              f"{np.median(per_ex) * 1e3:.3f} ms/example "
+              f"({1 / np.median(per_ex):.3f} examples/s), min "
+              f"{per_ex.min() * 1e3:.3f}, max {per_ex.max() * 1e3:.3f} ms; "
+              f"call {fim_wall:.3f} s with init and file ("
+              f"{n_ex / fim_wall:.3f} examples/s); device busy "
+              f"{fim_busy:.3f} ms/example; peak device memory "
+              f"{fim_peak:.3f} GiB; Fisher sum "
+              f"{float(flat.double().sum()):.6e}; on {card}", flush=True)
+        del fisher, flat, zeros
+
+        warm = config.merged({"training": {
+            "n_iters": SA_WARMUP_STEPS, "snapshot_freq": 10 ** 6,
+            "log_freq": 10 ** 6}})
+        ckpt_dir = os.path.join(folder, "sa")
+        with sa_clock(R, profile_step=SA_WARMUP_STEPS - 1) as wrec:
+            R.sa_forget(Args, warm, ckpt_dir)
+        timed_cfg = config.merged({"training": {
+            "n_iters": SA_STEPS, "snapshot_freq": 10 ** 6,
+            "log_freq": 10 ** 6}})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        def ewc(sa_model):
+            # the pull toward the starting weights (``model``, the same
+            # seeded init that sa_forget loads) under the file's Fisher
+            f = {k: v.to(wl.device)
+                 for k, v in restore_checkpoint(path, model).items()}
+            with torch.no_grad():
+                return float(ewc_penalty(sa_model, f,
+                                         dict(model.named_parameters())))
+
+        with sa_clock(R, ewc) as rec:
+            _zero_launches()
+            t0 = time.time()
+            state = R.sa_forget(Args, timed_cfg, ckpt_dir)
+            torch.cuda.synchronize()
+            sa_wall = time.time() - t0
+            sa_launches = _read_launches()
+        sa_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if state.step != SA_STEPS or len(rec["loss"]) != SA_STEPS:
+            fail(f"sa_forget ran {len(rec['loss'])} counted steps to step "
+                 f"{state.step}, not {SA_STEPS}")
+        if not np.isfinite(rec["loss"]).all():
+            fail(f"an SA loss is not finite: {rec['loss']}")
+        if not rec["ewc_after_first"] > 0:
+            fail(f"the EWC term after the first step is "
+                 f"{rec['ewc_after_first']}, not above 0")
+        moved = sum(not torch.equal(p, q) for p, q in
+                    zip(state.model.parameters(), model.parameters()))
+        ema_moved = sum(not torch.equal(p, q) for p, q in
+                        zip(state.ema_model.parameters(), model.parameters()))
+        n_leaves = len(list(model.parameters()))
+        print(f"  {moved}/{n_leaves} parameter tensors and {ema_moved} EMA "
+              f"tensors moved; EWC term after the first step "
+              f"{rec['ewc_after_first']:.6e}", flush=True)
+        if moved < n_leaves // 2 or ema_moved < n_leaves // 2:
+            fail("the SA parameters or the EMA did not move")
+        want = {k: SA_STEPS * 2 * (n_attn if k.startswith("attention")
+                                   else n_gn) for k in sa_launches}
+        print(f"  launches: {sa_launches} (expected {want})", flush=True)
+        if sa_launches != want:
+            fail("not every attention/GroupNorm site of the SA step went "
+                 "through its forward and backward kernels")
+        step_s = np.diff(rec["t"])
+        print(f"  {SA_STEPS} SA steps (two eval-mode forwards at batch "
+              f"{TRAIN_BATCH} and their backward): median "
+              f"{np.median(step_s) * 1e3:.3f} ms/step "
+              f"({1 / np.median(step_s):.3f} steps/s), min "
+              f"{step_s.min() * 1e3:.3f}, max {step_s.max() * 1e3:.3f} ms; "
+              f"call {sa_wall:.3f} s with init and ckpt.pth; device busy "
+              f"{wrec['busy_ms']:.3f} ms/step (warm-up step 2, profiled); "
+              f"peak device memory {sa_peak:.3f} GiB; losses "
+              f"{rec['loss'][0]:.4f} -> {rec['loss'][-1]:.4f}; on {card}",
+              flush=True)
+        if not os.path.exists(os.path.join(ckpt_dir, "ckpt.pth")):
+            fail("sa_forget wrote no ckpt.pth")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return {"kernel_errs": kernel_errs, "grad_rel_l2": grad_rel,
+            "fim_launches": fim_launches, "fim_examples": n_ex,
+            "fim_example_ms": (per_ex * 1e3).tolist(),
+            "fim_median_example_ms": float(np.median(per_ex) * 1e3),
+            "fim_examples_per_s": float(1 / np.median(per_ex)),
+            "fim_call_seconds": fim_wall, "fim_busy_ms_per_example": fim_busy,
+            "fim_peak_gib": fim_peak, "sa_launches": sa_launches,
+            "sa_step_ms": (step_s * 1e3).tolist(),
+            "sa_median_step_ms": float(np.median(step_s) * 1e3),
+            "sa_steps_per_s": float(1 / np.median(step_s)),
+            "sa_call_seconds": sa_wall, "sa_busy_ms": wrec["busy_ms"],
+            "sa_peak_gib": sa_peak, "sa_losses": rec["loss"],
+            "ewc_after_first": rec["ewc_after_first"]}
 
 
 def main() -> int:
@@ -1488,6 +1812,12 @@ def main() -> int:
           f"batch {TRAIN_BATCH} of each split", flush=True)
     fisher = fisher_path(config, card, n_attn, n_gn, gen)
 
+    print(f"== main path: Selective Amnesia, full width, the per-sample "
+          f"Fisher ({FIM_CHUNKS} chunks x {FIM_SAMPLES} examples) and "
+          f"{SA_WARMUP_STEPS} + {SA_STEPS} SA steps at batch {TRAIN_BATCH}",
+          flush=True)
+    sa = sa_path(card, n_attn, n_gn, gen)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -1506,7 +1836,9 @@ def main() -> int:
     }
     by_path = {name: {"sampling": launches.get(name, 0),
                       "training": train["launches"][name],
-                      "fisher": fisher["launches"][name]} for name in meta}
+                      "fisher": fisher["launches"][name],
+                      "sa_fim": sa["fim_launches"][name],
+                      "sa": sa["sa_launches"][name]} for name in meta}
     kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -1521,6 +1853,7 @@ def main() -> int:
                    "training": train, "ragged_attention": ragged,
                    "gn_offpath": gn_offpath,
                    "gn_bwd_offpath": gn_bwd_offpath, "fisher": fisher,
+                   "sa": sa,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -529,8 +529,17 @@ def test_train_cli_sfron_on_cpu(tmp_path):
     cli.main(common + ["--mode", "generate_fisher"])
     assert {p.name for p in (tmp_path / "exp").rglob("mask_0/*")} == {
         "forget_fisher", "remain_fisher", "fisher_1.0"}
-    with pytest.raises(NotImplementedError, match="sa_forget"):
-        cli.main(common + ["--mode", "sa"])
+    # the SA mode runs (it raised before its slice) from a fisher_dict in
+    # --ckpt_folder and writes its ckpt.pth under a run directory of its own
+    from uurg_torch.io.checkpoint import save_checkpoint
+
+    wl = DDPMWorkload.from_config(cfg, device="cpu")
+    save_checkpoint(str(tmp_path / "sa" / "fisher_dict"), {
+        k: torch.rand(p.shape) for k, p in
+        wl.init_params(0).named_parameters()})
+    cli.main(common + ["--mode", "sa", "--ckpt_folder", str(tmp_path / "sa")])
+    after = list((tmp_path / "exp").rglob("ckpt.pth"))
+    assert len(after) == 2 and runs[0] in after
 
 
 @pytest.mark.parametrize("grid_fails", [False, True])

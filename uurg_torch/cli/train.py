@@ -4,8 +4,10 @@ Run as ``python -m uurg_torch.cli.train --config configs/cifar10_sfron.yml
 --mode sfron --ckpt_folder RUN_DIR --label_to_forget 0``. Needs PyYAML
 (config, run-dir dump); the snapshot grids need Pillow.
 
-Modes: pretrain | retrain | sfron | salun | generate_fisher | generate_mask;
-``sa`` raises NotImplementedError and names the slice that brings it.
+Modes: pretrain | retrain | sfron | sa | salun | generate_fisher |
+generate_mask. ``sa`` (Selective Amnesia) reads ``<ckpt_folder>/fisher_dict``
+from ``python -m uurg_torch.cli.fim`` and the remember images of
+``<ckpt_folder>/class_samples`` (the remain split when there is none).
 ``generate_fisher`` writes ``<ckpt_folder or run dir>/mask_<label>/
 {forget_fisher, remain_fisher, fisher_<th>}`` (one mask a ``--threshold``),
 ``generate_mask`` the SalUn masks ``.../salun_mask_<label>/with_<ratio>``
@@ -18,7 +20,6 @@ import argparse
 import logging
 import os
 
-_LATER = {"sa": "the sa_forget slice"}
 # flags accepted for parity that no mode reads, with their defaults; any
 # other value raises rather than being ignored
 _UNREAD = {"skip_type": "uniform", "eta": 0.0, "uc": True,
@@ -98,10 +99,6 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.mode in _LATER:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet; it arrives with "
-            f"{_LATER[args.mode]}")
     if args.rng_impl != "auto" or args.profile_dir:
         raise NotImplementedError(
             "--rng_impl and --profile_dir are JAX-only; the port uses torch "
@@ -177,6 +174,8 @@ def main(argv=None):
                            f"salun_mask_{args.label_to_forget}")
         R.generate_salun_mask(args, config, out, args.mask_ratio,
                               device=args.device)
+    elif args.mode == "sa":
+        R.sa_forget(args, config, ckpt_dir, device=args.device)
     else:
         if args.mode == "salun":
             # SalUn = RandomLabel loss + top-k mask, through the same engine

@@ -9,8 +9,12 @@ One generator a call, reseeded every batch from ``(seed, batch index)``;
 the JAX package splits its key once a batch, so the two streams never match
 bit for bit and tests inject the draws.
 
-The per-sample Fisher of ``sa_forget`` (``make_per_sample_fisher_step``,
-``vmap(grad)`` in the JAX package) comes with the ``sa_forget`` slice.
+The per-sample Fisher of ``sa_forget`` (``make_per_sample_fisher_step``)
+takes one ``torch.autograd.grad`` an example in a loop, as the torch
+reference does (one backward a sample), where the JAX package maps
+``grad`` over the batch with ``vmap``: the attention and GroupNorm kernels
+sit behind ``autograd.Function``s that ``torch.func`` cannot transform, and
+the GroupNorm backward kernel folds dscale and dbias over the whole batch.
 """
 from __future__ import annotations
 
@@ -94,3 +98,26 @@ def sum_gradients(loss_fn: LossFn, model: torch.nn.Module,
         torch._foreach_add_(list(acc.values()),
                             _grads(loss_fn, model, batch, gen))
     return acc
+
+
+def make_per_sample_fisher_step(per_sample_loss_fn: LossFn) -> Callable:
+    """``step(fisher, model, batch, seed)``: ``fisher += mean over the batch
+    of g_i^2`` in place, ``g_i`` the gradient of ``per_sample_loss_fn(model,
+    example_i, generator)`` for ONE example (DDPM/runners/diffusion.py:
+    264-344, SA-FIM). ``batch`` is a tuple of tensors with a leading batch
+    axis; example ``i`` is the tuple of their ``i``-th rows, and its
+    generator is seeded from ``step_seed(seed, i)``."""
+
+    def step(fisher: dict[str, torch.Tensor], model: torch.nn.Module, batch,
+             seed: int) -> None:
+        acc = list(fisher.values())
+        n = batch[0].shape[0]
+        gen = torch.Generator(device=next(model.parameters()).device)
+        for i in range(n):
+            gen.manual_seed(step_seed(seed, i))
+            example = tuple(leaf[i] for leaf in batch)
+            grads = [g.to(a.dtype) for g, a in zip(
+                _grads(per_sample_loss_fn, model, example, gen), acc)]
+            torch._foreach_addcmul_(acc, grads, grads, value=1.0 / n)
+
+    return step

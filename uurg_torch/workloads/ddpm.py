@@ -1,16 +1,18 @@
 """DDPM workload: the conditional CIFAR-10 UNet with its schedule.
 
 Port of ``uurg_tpu/workloads/ddpm.py``: config, init, the training,
-forgetting and Fisher losses, and the sampler. Loss functions have the
-signature ``loss_fn(model, batch, generator) -> scalar`` with ``batch = (x,
-c)``: x float32 NHWC in model range, c int64 labels, both on the workload's
-device. Every random draw (timesteps, noise, label dropout, dropout masks)
-comes from ``generator``. The SA losses arrive with the ``sa_forget`` slice.
+forgetting, Fisher and Selective Amnesia (SA) losses, and the sampler. Loss
+functions have the signature ``loss_fn(model, batch, generator) -> scalar``
+with ``batch = (x, c)``: x float32 NHWC in model range, c int64 labels, both
+on the workload's device. Every random draw (timesteps, noise, label
+dropout, dropout masks) comes from ``generator``, except the per-sample
+Fisher integrand's, ``fn(model, example, generator)`` for ONE example ``(x,
+c, ts)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Mapping
 
 import torch
 
@@ -152,6 +154,87 @@ class DDPMWorkload:
             return self.rl_forget_loss_fn(label_to_forget, n_classes)
         raise NotImplementedError(unlearn_loss)
 
+    # -- SA (Selective Amnesia, EWC) ---------------------------------------
+
+    def sa_loss(self, model: CondUNet, batch, x_forget: torch.Tensor,
+                t: torch.Tensor, noise_f: torch.Tensor, noise_r: torch.Tensor,
+                fisher: Mapping[str, torch.Tensor],
+                params_mle: Mapping[str, torch.Tensor], label_to_forget: int,
+                gamma: float, lmbda: float) -> torch.Tensor:
+        """The SA forgetting loss at GIVEN draws (DDPM/runners/diffusion.py:
+        354-477 sa_forget): the mean eps-loss of ``x_forget`` under the
+        forgotten label, plus ``gamma`` times the mean eps-loss of the
+        remember batch under its own labels, plus ``lmbda`` times the EWC
+        pull ``sum F (p - p_mle)^2`` (:func:`ewc_penalty`). Both forwards
+        share ``t`` and keep every label. The model runs as it is set;
+        ``sa_forget`` sets it to eval mode, as the JAX loss's
+        ``train=False``."""
+        x_rem, c_rem = batch
+        keep = torch.ones((x_rem.shape[0],), dtype=torch.bool,
+                          device=x_rem.device)
+
+        def apply_for(c):
+            return lambda x_t, t_vec: model(x_t, t_vec, c, keep)
+
+        c_forget = torch.full_like(c_rem, label_to_forget)
+        loss = noise_estimation_loss(apply_for(c_forget), self.schedule,
+                                     x_forget, t, noise_f)
+        loss = loss + gamma * noise_estimation_loss(
+            apply_for(c_rem), self.schedule, x_rem, t, noise_r)
+        return loss + lmbda * ewc_penalty(model, fisher, params_mle)
+
+    def sa_loss_fn(self, label_to_forget: int, gamma: float, lmbda: float,
+                   fisher: Mapping[str, torch.Tensor],
+                   params_mle: Mapping[str, torch.Tensor]) -> Callable:
+        """``sa_loss`` with, drawn from the generator in this order,
+        uniform-noise forget images in [-1, 1) of the remember batch's
+        shape, antithetic t, then the forget and the remember noise."""
+
+        def fn(model, batch, generator):
+            x_rem = batch[0]
+            x_forget = torch.rand(x_rem.shape, generator=generator,
+                                  device=x_rem.device) * 2.0 - 1.0
+            t = antithetic_timesteps(generator, x_rem.shape[0],
+                                     self.schedule.num_timesteps)
+            noise_f = torch.randn(x_rem.shape, generator=generator,
+                                  device=x_rem.device)
+            noise_r = torch.randn(x_rem.shape, generator=generator,
+                                  device=x_rem.device)
+            return self.sa_loss(model, batch, x_forget, t, noise_f, noise_r,
+                                fisher, params_mle, label_to_forget, gamma,
+                                lmbda)
+
+        return fn
+
+    def elbo_chunk_loss(self, model: CondUNet, x: torch.Tensor, c,
+                        ts: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Mean eps-loss of ONE example ``x`` (H, W, C) with label ``c`` over
+        the timesteps ``ts`` (chunk,), at GIVEN noise (chunk, H, W, C): the
+        per-sample full-ELBO Fisher integrand (DDPM/fim.py,
+        runners/diffusion.py:262-352 save_fim, chunked over t). Every label
+        is kept. The model runs as it is set; the Fisher CLI sets it to
+        eval mode."""
+        n = ts.shape[0]
+        x_b = x.expand(n, *x.shape)
+        c_b = torch.as_tensor(c, dtype=torch.long, device=x.device).expand(n)
+        keep = torch.ones((n,), dtype=torch.bool, device=x.device)
+        return noise_estimation_loss(
+            lambda x_t, t_vec: model(x_t, t_vec, c_b, keep), self.schedule,
+            x_b, ts, noise)
+
+    def elbo_chunk_loss_fn(self) -> Callable:
+        """``elbo_chunk_loss`` with ``noise`` drawn from the generator; the
+        example is ``(x, c, ts)``. For
+        :func:`uurg_torch.unlearn.fisher.make_per_sample_fisher_step`."""
+
+        def fn(model, example, generator):
+            x, c, ts = example
+            noise = torch.randn((ts.shape[0],) + tuple(x.shape),
+                                generator=generator, device=x.device)
+            return self.elbo_chunk_loss(model, x, c, ts, noise)
+
+        return fn
+
     # -- fisher ------------------------------------------------------------
 
     def fisher_loss(self, model: CondUNet, x: torch.Tensor, c: torch.Tensor,
@@ -210,3 +293,40 @@ class DDPMWorkload:
                                  generator=generator)
 
         return sample
+
+
+class _EWCPull(torch.autograd.Function):
+    """``sum F (p - p_mle)^2`` over every parameter, with its exact gradient
+    ``2 F (p - p_mle)``, each a few multi-tensor (``_foreach``) launches for
+    all parameters at once. Leaf by leaf with autograd the SA step made
+    2,624 more launches (about eight a leaf) and took a third longer on
+    the host clock (``scripts/profile_torch_sa.py``, part 3, on an H100)."""
+
+    @staticmethod
+    def forward(ctx, fisher, mle, *params):
+        ctx.fisher, ctx.mle = fisher, mle
+        ctx.save_for_backward(*params)
+        diff = torch._foreach_sub(params, mle)
+        terms = torch._foreach_mul(diff, diff)
+        torch._foreach_mul_(terms, fisher)
+        # every term is >= 0 (F is a sum of squares), so the L1 norm of a
+        # leaf is its sum
+        return torch.stack(torch._foreach_norm(terms, 1)).sum()
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = torch._foreach_sub(ctx.saved_tensors, ctx.mle)
+        torch._foreach_mul_(grads, ctx.fisher)
+        torch._foreach_mul_(grads, 2.0 * grad_out)
+        return (None, None, *grads)
+
+
+def ewc_penalty(model: torch.nn.Module, fisher: Mapping[str, torch.Tensor],
+                params_mle: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The EWC pull ``sum F (p - p_mle)^2`` of ``model``'s parameters toward
+    ``params_mle``, weighted by the Fisher diagonal ``fisher`` (both keyed
+    by parameter name, on the parameters' device, non-negative F),
+    differentiable in the parameters."""
+    names, params = zip(*model.named_parameters())
+    return _EWCPull.apply([fisher[k] for k in names],
+                          [params_mle[k] for k in names], *params)

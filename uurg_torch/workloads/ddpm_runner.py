@@ -3,13 +3,14 @@ unlearning and sampling.
 
 Port of ``uurg_tpu/workloads/ddpm_runner.py``: ``pretrain`` (also the
 retrain mode), ``generate_fisher``, ``generate_fisher_mask``,
-``generate_salun_mask``, ``sfron_forget`` (also SalUn), ``load_params`` and
-``sample_images``, on one device; the multi-device paths arrive with the
-multi-device slice, ``sa_forget`` with its own. Checkpoints are the
-reference ``<ckpt_dir>/ckpt.pth`` list format with the optimizer state,
-written at every ``snapshot_freq`` and at the end, and read back on resume.
-Fishers and masks are ``torch.save`` files of named tensors
-(:mod:`uurg_torch.io.checkpoint`) under the JAX runner's names.
+``generate_salun_mask``, ``sfron_forget`` (also SalUn), ``sa_forget``
+(Selective Amnesia), ``load_params`` and ``sample_images``, on one device;
+the multi-device paths arrive with the multi-device slice. Checkpoints are
+the reference ``<ckpt_dir>/ckpt.pth`` list format with the optimizer state,
+written at every ``snapshot_freq`` and at the end, and read back on resume
+(``sa_forget`` never resumes, as in the JAX runner). Fishers and masks are
+``torch.save`` files of named tensors (:mod:`uurg_torch.io.checkpoint`)
+under the JAX runner's names.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from uurg_torch.core.rng import step_seed
 from uurg_torch.core.tree import PackedMask, pack_mask
 from uurg_torch.data.arrays import (ArrayDataset, epoch_batches,
                                     infinite_batches, random_flip_batch)
-from uurg_torch.data.datasets import load_cifar10, synthetic_dataset
+from uurg_torch.data.datasets import (load_cifar10, load_image_folder,
+                                      synthetic_dataset)
 from uurg_torch.data.splits import class_forget_split
 from uurg_torch.data.transforms import data_transform, inverse_data_transform
 from uurg_torch.io.checkpoint import restore_checkpoint, save_checkpoint
@@ -284,6 +286,83 @@ def sfron_forget(args, config, ckpt_dir: str, mask: dict | None = None,
                                         args.label_to_forget)
     return _train(args, config, ckpt_dir, wl, state, step, forget, remain,
                   sample_hook)
+
+
+def _remember_dataset(args, config) -> ArrayDataset:
+    """The 'remember' samples of SA: ``<ckpt_folder>/class_samples`` (one
+    subdirectory of generated images a class) without the forgotten
+    class's (all_but_one_class_path_dataset), or the remain split of the
+    training set when there is no such folder or it holds no image. Files
+    beside the subdirectories are passed over (the JAX runner falls back to
+    the remain split on one)."""
+    samples_dir = os.path.join(args.ckpt_folder, "class_samples")
+    try:
+        classes = [c for c in sorted(os.listdir(samples_dir))
+                   if c != str(args.label_to_forget)
+                   and os.path.isdir(os.path.join(samples_dir, c))]
+        return load_image_folder(samples_dir, config.data.image_size, classes)
+    except (FileNotFoundError, NotADirectoryError):
+        log.warning("no class_samples under %s; falling back to the remain "
+                    "split", args.ckpt_folder)
+        remain, _ = class_forget_split(_load_train_dataset(args, config),
+                                       args.label_to_forget)
+        return remain
+
+
+def sa_forget(args, config, ckpt_dir: str,
+              device: str | torch.device | None = None) -> SFRonState:
+    """Selective Amnesia (EWC) forgetting (DDPM/runners/diffusion.py:
+    354-477): the eps-loss of uniform-noise images under the forgotten
+    label, plus ``training.gamma`` times the eps-loss of remember samples,
+    plus ``training.lmbda`` times the EWC pull toward the starting weights,
+    weighted by the per-sample Fisher ``<ckpt_folder>/fisher_dict`` that
+    ``python -m uurg_torch.cli.fim`` writes. The model ``load_params``
+    gives runs in eval mode (no dropout, no label dropout); each step clips
+    the gradient at ``optim.grad_clip``, applies the optimizer and the EMA
+    at ``model.ema_rate``. ``ckpt.pth`` is written at every
+    ``snapshot_freq`` and at the end; there is no resume. Runs on
+    ``device``, CUDA unless "cpu" is asked for."""
+    folder = getattr(args, "ckpt_folder", None)
+    fisher_path = os.path.join(folder or "", "fisher_dict")
+    if not folder or not os.path.exists(fisher_path):
+        raise FileNotFoundError(
+            f"sa_forget needs the per-sample Fisher {fisher_path}: write it "
+            f"with python -m uurg_torch.cli.fim --ckpt_folder {folder or 'DIR'}")
+    wl = DDPMWorkload.from_config(config, device=device)
+    model = load_params(args, config, wl)
+    fisher = {k: v.to(wl.device) for k, v in
+              restore_checkpoint(fisher_path, like=model).items()}
+    params_mle = {k: p.detach().clone().float()
+                  for k, p in model.named_parameters()}
+    loss_fn = wl.sa_loss_fn(args.label_to_forget,
+                            config.training.get("gamma", 1.0),
+                            config.training.get("lmbda", 100.0), fisher,
+                            params_mle)
+    opt = build_reference_optimizer(config, model.parameters())
+    ema = bool(config.model.get("ema"))
+    # the SFR-on engine with forgetting off, as pretrain: one descent step
+    # on the SA loss, clipped, then the EMA
+    cfg = SFRonConfig(
+        n_iters=config.training.n_iters, forget_alpha=0.0,
+        alpha_sched="const", forget_clip=None,
+        remain_clip=config.optim.get("grad_clip"),
+        ema_mu=config.model.get("ema_rate", 0.9999) if ema else None)
+    step = make_sfron_step(cfg, None, loss_fn)
+    state = init_state(model, opt, ema=ema)
+    model.eval()
+    it = infinite_batches(_remember_dataset(args, config),
+                          config.training.batch_size, seed=args.seed)
+    gen = torch.Generator(device=wl.device)
+    for i in range(config.training.n_iters):
+        batch = _device_batch(config, *next(it), wl.device)
+        gen.manual_seed(step_seed(args.seed, i))
+        metrics = step(state, batch, batch, gen)
+        if (i + 1) % config.training.log_freq == 0:
+            log.info("step %d loss %.4f", i, float(metrics["remain_loss"]))
+        if (i + 1) % config.training.snapshot_freq == 0:
+            _save(ckpt_dir, state)
+    _save(ckpt_dir, state)
+    return state
 
 
 def load_params(args, config, wl: DDPMWorkload,

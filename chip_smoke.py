@@ -92,6 +92,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    finite, the EWC term above 0 after the first step, parameters and EMA
    moved, exact launch counts.
 
+14. Evaluation and the five stages end to end. InceptionV3 (seeded, fp32,
+   TF32 off) at batch 4 from uint8 32x32 images through ``preprocess``, and
+   the ResNet-34 probe (ImageNet stem, fp32) at 224 px, on the card against
+   the same weights on the CPU: pool, spatial, logits and the probe's
+   logits within relative error 1e-3. Their throughput: InceptionV3 at
+   batch 256 by CUDA events and ``featurize`` over 2,048 images on the host
+   clock; the probe in bf16 at batch 64. Then the twin of
+   ``cli/parity_check.py`` through ``uurg_torch.cli.parity_check.run`` on
+   the full-width config and the stand-in artifacts: the Fisher pass, the
+   ``fisher_1.0`` mask, 10 SFR-on steps under it, 1,152 remaining-class and
+   128 forgotten-class samples by DDIM-50 CFG, the metrics against the
+   stand-in's remain split (1,858 references) and the UA probe. The launch
+   counters are zeroed just before and read just after: one forward and
+   backward of every site a Fisher batch, two a step, one forward a
+   sampling step. Every metric finite, precision, recall and UA in [0, 1],
+   IS at least 1, every band SKIPPED, the report and both npz files
+   written; host seconds by stage and peak device memory printed.
+
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_detail.json``. Exits non-zero without CUDA or
@@ -236,6 +254,18 @@ FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 8, 4
 FIM_EXAMPLE_BATCH = (SA_CONFIG["diffusion"]["num_diffusion_timesteps"]
                      // FIM_CHUNKS)
 SA_WARMUP_STEPS, SA_STEPS = 2, 10
+# evaluation and the twin of cli/parity_check.py (phase 14). The networks on
+# the card against the same weights on the CPU, fp32 with TF32 off: relative
+# error of the max magnitude (cuDNN and the CPU sum the convolutions in
+# other orders)
+EVAL_REL = 1e-3
+EVAL_CHECK_BATCH = 4
+INCEPTION_BATCH, INCEPTION_IMAGES = 256, 2048
+PROBE_BATCH, PROBE_IMAGES = 64, 512
+# the twin's cuts of the full north-star run: SFR-on 10 of 150 iterations,
+# 128 samples a remaining class (1,152 of 45,000), 128 probe samples of
+# 5,000; DDIM-50 and the references (the stand-in's remain split) uncut
+PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 1152, 128
 
 
 def fail(msg: str) -> None:
@@ -1678,6 +1708,278 @@ def sa_path(card: str, n_attn: int, n_gn: int, gen) -> dict:
             "ewc_after_first": rec["ewc_after_first"]}
 
 
+@contextlib.contextmanager
+def stage_clock(targets):
+    """Wrap each ``(module, attribute, stage)`` of ``targets``: the host
+    seconds of every call, between two waits for the device, summed by
+    stage. The run still goes through the wrapped functions."""
+    import torch
+
+    seconds = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def wrap(fn, stage):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                seconds[stage] = (seconds.get(stage, 0.0)
+                                  + time.perf_counter() - t0)
+        return timed
+
+    for (mod, name, stage), (_, _, fn) in zip(targets, saved):
+        setattr(mod, name, wrap(fn, stage))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def model_flops(model, x) -> float:
+    """Multiply-add FLOPs (2 a MAC) of the convolutions and linear layers
+    in one forward of ``model`` on ``x``, counted by hooks."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.weight[0].numel()
+        else:
+            k = mod.in_features
+        total[0] += 2 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return float(total[0])
+
+
+def rel_max(name: str, got, want, tol: float) -> float:
+    """max |got - want| over max |want|, on the CPU in fp32."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+             f"not finite")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"  {name}: rel err {rel:.3e} (tolerance {tol:g})", flush=True)
+    if rel > tol:
+        fail(f"{name}: the card disagrees with the CPU")
+    return rel
+
+
+def eval_networks(card: str) -> dict:
+    """Phase 14, first half: InceptionV3 and the ResNet-34 probe on the card
+    against the same weights on the CPU, then their throughput."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+    from uurg_torch.core.rng import seeded_init_
+    from uurg_torch.eval.classifier_eval import classifier_probe, resize_batch
+    from uurg_torch.eval.generative import featurize
+    from uurg_torch.eval.inception import (init_inception, make_extractor,
+                                           preprocess)
+    from uurg_torch.models.resnet import ResNet34
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    rng = np.random.default_rng(SEED)
+    imgs = rng.integers(0, 256, (EVAL_CHECK_BATCH, 32, 32, 3), np.uint8)
+    cpu_inc = init_inception(SEED)
+    want = make_extractor(cpu_inc)(imgs)
+    inc = init_inception(SEED).to(dev)
+    got = make_extractor(inc)(imgs)
+    errs = {f"inception_{n}": rel_max(f"InceptionV3 {n} (batch "
+                                      f"{EVAL_CHECK_BATCH}, 32 px -> 299)",
+                                      torch.from_numpy(g),
+                                      torch.from_numpy(w), EVAL_REL)
+            for n, g, w in zip(("pool", "spatial", "logits"), got, want)}
+    del cpu_inc
+    probe_cpu = seeded_init_(ResNet34(10, imagenet_stem=True), SEED)
+    probe = seeded_init_(ResNet34(10, imagenet_stem=True), SEED).to(dev)
+    x224 = resize_batch(imgs, 224, "cpu")
+    with torch.inference_mode():
+        errs["probe_logits"] = rel_max(
+            f"ResNet-34 logits (fp32, batch {EVAL_CHECK_BATCH}, 224 px)",
+            probe(x224.to(dev)), probe_cpu(x224), EVAL_REL)
+    del probe_cpu, probe
+
+    # InceptionV3 throughput at batch 256: device time by CUDA events over
+    # back-to-back batches already on the card, and the host clock around
+    # featurize (copies both ways included)
+    xb = torch.from_numpy(rng.integers(
+        0, 256, (INCEPTION_BATCH, 32, 32, 3), np.uint8)).to(dev)
+    flops = model_flops(inc, preprocess(xb[:1])) * INCEPTION_BATCH
+    with torch.inference_mode():
+        for _ in range(2):
+            inc(preprocess(xb))
+        torch.cuda.synchronize()
+        iters = 10
+        inc_ms = _events_ms(lambda: [inc(preprocess(xb))
+                                     for _ in range(iters)], iters)
+    many = rng.integers(0, 256, (INCEPTION_IMAGES, 32, 32, 3), np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = featurize(make_extractor(inc, materialize=False), many,
+                      INCEPTION_BATCH)
+    inc_host_s = time.perf_counter() - t0
+    if feats[0].shape != (INCEPTION_IMAGES, 2048) or not all(
+            np.isfinite(f).all() for f in feats):
+        fail("featurize on the card gave bad features")
+    inc_ips = INCEPTION_BATCH / (inc_ms / 1e3)
+    print(f"  InceptionV3 batch {INCEPTION_BATCH} (fp32, TF32 off): "
+          f"{inc_ms:.3f} ms by CUDA events, {inc_ips:.1f} images/s, "
+          f"{flops / (inc_ms / 1e3) / 1e12:.2f} TFLOP/s of "
+          f"{flops / INCEPTION_BATCH / 1e9:.3f} GFLOP an image "
+          f"({flops / (inc_ms / 1e3) / FP32_FLOPS:.1%} of the fp32 peak); "
+          f"featurize {INCEPTION_IMAGES} images on the host clock "
+          f"{inc_host_s:.3f} s, {INCEPTION_IMAGES / inc_host_s:.1f} "
+          f"images/s; on {card}", flush=True)
+    del inc
+
+    # the probe as the UA CLI runs it: bf16 convolutions, fp32 BatchNorm
+    probe = seeded_init_(ResNet34(10, dtype=torch.bfloat16,
+                                  imagenet_stem=True), SEED).to(dev)
+    pb = resize_batch(many[:PROBE_BATCH], 224, dev)
+    with torch.inference_mode():
+        for _ in range(2):
+            probe(pb)
+        torch.cuda.synchronize()
+        probe_ms = _events_ms(lambda: [probe(pb) for _ in range(iters)],
+                              iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = classifier_probe(probe, many[:PROBE_IMAGES], 0, PROBE_BATCH,
+                           224, dev)
+    probe_host_s = time.perf_counter() - t0
+    if res["n"] != PROBE_IMAGES or not 0 <= res["forget_accuracy"] <= 1:
+        fail(f"classifier_probe on the card gave {res}")
+    probe_ips = PROBE_BATCH / (probe_ms / 1e3)
+    print(f"  ResNet-34 probe batch {PROBE_BATCH} at 224 px (bf16): "
+          f"{probe_ms:.3f} ms by CUDA events, {probe_ips:.1f} images/s; "
+          f"classifier_probe over {PROBE_IMAGES} images (resize, copies, "
+          f"softmax) on the host clock {probe_host_s:.3f} s, "
+          f"{PROBE_IMAGES / probe_host_s:.1f} images/s; on {card}",
+          flush=True)
+    return {"rel_errs": errs, "inception_batch_ms": inc_ms,
+            "inception_images_per_s": inc_ips,
+            "inception_gflop_per_image": flops / INCEPTION_BATCH / 1e9,
+            "inception_featurize_s": inc_host_s,
+            "inception_featurize_images_per_s": INCEPTION_IMAGES / inc_host_s,
+            "probe_batch_ms": probe_ms, "probe_images_per_s": probe_ips,
+            "probe_host_s": probe_host_s,
+            "probe_host_images_per_s": PROBE_IMAGES / probe_host_s}
+
+
+def parity_path(config, card: str, n_attn: int, n_gn: int) -> dict:
+    """Phase 14, second half: the twin of ``cli/parity_check.py`` through
+    its ``run`` at full width on the stand-in artifacts: Fisher, mask,
+    SFR-on, sampling, metrics, with exact launch counts."""
+    import shutil
+    import types
+
+    import numpy as np
+    import scipy.linalg
+    import torch
+
+    from uurg_torch.cli import parity_check as P
+    from uurg_torch.data.splits import class_forget_split
+    from uurg_torch.eval import classifier_eval as CE
+    from uurg_torch.eval import generative as G
+    from uurg_torch.workloads import ddpm_runner as R
+
+    cfg = config.merged({"training": {"n_iters": PARITY_ITERS}})
+    work = tempfile.mkdtemp(prefix="uurg_parity_")
+    args = types.SimpleNamespace(
+        artifacts=os.path.join(work, "artifacts"), out=os.path.join(
+            work, "out"), label_to_forget=0, forget_alpha=1e-4,
+        mask_threshold=1.0, n_samples=PARITY_SAMPLES, n_probe=PARITY_PROBE,
+        sample_steps=DDIM_STEPS, quick=False, skip_fisher=False,
+        pack_mask=False, nu_dtype="f32", remat=False, seed=1234)
+    # what the run should launch: one forward and backward of every site a
+    # Fisher batch (the stand-in's splits at the training batch, the ragged
+    # last batch kept), two a SFR-on step, one forward a sampling step
+    remain, forget = class_forget_split(R._load_train_dataset(
+        args, cfg.merged({"data": {"path": args.artifacts}})), 0)
+    bs = cfg.training.batch_size
+    n_fisher = sum(-(-len(s) // bs) for s in (forget, remain))
+    n_sample = sum(-(-n // cfg.sampling.batch_size)
+                   for n in (PARITY_SAMPLES, PARITY_PROBE)) * DDIM_STEPS
+    fwd = n_fisher + 2 * PARITY_ITERS + n_sample
+    bwd = n_fisher + 2 * PARITY_ITERS
+    want = {"attention_fwd": fwd * n_attn, "attention_bwd": bwd * n_attn,
+            "group_norm_fwd": fwd * n_gn, "group_norm_bwd": bwd * n_gn}
+    stages = [(R, "generate_fisher", "fisher"),
+              (R, "generate_fisher_mask", "mask"),
+              (R, "sfron_forget", "sfron"), (R, "sample_images", "sampling"),
+              (G, "featurize", "featurize"), (G, "compute_fid", "frechet"),
+              (scipy.linalg, "sqrtm", "sqrtm"),
+              (G, "precision_recall", "precision_recall"),
+              (G, "inception_score", "inception_score"),
+              (CE, "classifier_probe", "probe")]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with stage_clock(stages) as seconds:
+            _zero_launches()
+            t0 = time.time()
+            report = P.run(args, cfg, "cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = _read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  launches: {launches} (expected {want}: {n_fisher} Fisher "
+              f"batches, {PARITY_ITERS} SFR-on steps, {n_sample} sampling "
+              f"UNet calls)", flush=True)
+        if launches != want:
+            fail("not every attention/GroupNorm site of the five stages went "
+                 "through its kernels")
+        m = report["metrics"]
+        print(f"  metrics: {json.dumps(m)}", flush=True)
+        if not all(np.isfinite(m[k]) for k in P.BANDS):
+            fail(f"a metric is not finite: {m}")
+        if not all(0.0 <= m[k] <= 1.0 for k in
+                   ("precision", "recall", "forget_accuracy")):
+            fail(f"precision, recall or UA outside [0, 1]: {m}")
+        if m["inception_score"] < 1.0:
+            fail(f"IS {m['inception_score']} below 1")
+        if report["real_run"] or not all(
+                r["status"].startswith("SKIPPED") for r in report["report"]):
+            fail(f"a band is not SKIPPED on stand-ins: {report['report']}")
+        with open(os.path.join(args.out, "parity_report.json")) as f:
+            if json.load(f)["report"] != report["report"]:
+                fail("parity_report.json differs from the report returned")
+        for name, n in (("samples.npz", PARITY_SAMPLES),
+                        ("probe_samples.npz", PARITY_PROBE)):
+            arr = np.load(os.path.join(args.out, name))["arr_0"]
+            if arr.shape != (n, 32, 32, 3) or arr.dtype != np.uint8:
+                fail(f"{name}: {arr.shape} {arr.dtype}, not ({n}, 32, 32, 3)"
+                     f" uint8")
+        timed = ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        print(f"  the five stages at full width: {wall:.3f} s on the host "
+              f"clock; by stage (s, host clock between waits for the "
+              f"device): {timed}; references {len(remain)}; peak device "
+              f"memory {peak_gib:.3f} GiB; on {card}", flush=True)
+        for r in report["report"]:
+            print(f"  {r['metric']:<22}{r['value']:>10}  {r['band']:<12}"
+                  f"{r['status']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "expected": want, "wall_s": wall,
+            "stage_s": seconds, "peak_gib": peak_gib, "metrics": m,
+            "fisher_batches": n_fisher, "sampling_unet_calls": n_sample,
+            "references": len(remain)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1818,6 +2120,16 @@ def main() -> int:
           flush=True)
     sa = sa_path(card, n_attn, n_gn, gen)
 
+    print("== evaluation: InceptionV3 and the ResNet-34 probe, card vs CPU, "
+          "throughput", flush=True)
+    evaluation = eval_networks(card)
+    torch.cuda.empty_cache()
+    print(f"== main path: the five stages end to end (the twin of "
+          f"cli/parity_check.py) at full width, {PARITY_ITERS} SFR-on steps, "
+          f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}",
+          flush=True)
+    parity = parity_path(config, card, n_attn, n_gn)
+
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
     meta = {
@@ -1838,7 +2150,8 @@ def main() -> int:
                       "training": train["launches"][name],
                       "fisher": fisher["launches"][name],
                       "sa_fim": sa["fim_launches"][name],
-                      "sa": sa["sa_launches"][name]} for name in meta}
+                      "sa": sa["sa_launches"][name],
+                      "parity": parity["launches"][name]} for name in meta}
     kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -1853,7 +2166,7 @@ def main() -> int:
                    "training": train, "ragged_attention": ragged,
                    "gn_offpath": gn_offpath,
                    "gn_bwd_offpath": gn_bwd_offpath, "fisher": fisher,
-                   "sa": sa,
+                   "sa": sa, "evaluation": evaluation, "parity": parity,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -92,3 +92,19 @@ def test_full_width_parameter_count_and_init():
             for _ in range(2))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k                 # same seed, same weights
+
+
+def test_from_config_raises_on_remat():
+    # the JAX from_config reads model.remat; the port does not have it and
+    # must not drop it without a word
+    from uurg_torch.core.config import Config
+
+    model = {"in_channels": 3, "out_ch": 3, "ch": 32, "ch_mult": [1, 2],
+             "num_res_blocks": 1, "attn_resolutions": [16], "dropout": 0.0,
+             "resamp_with_conv": True}
+    data = {"image_size": 32, "n_classes": 10}
+    assert TU.UNetConfig.from_config(
+        Config({"model": model, "data": data})).ch == 32
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TU.UNetConfig.from_config(
+            Config({"model": {**model, "remat": True}, "data": data}))

@@ -1,4 +1,5 @@
-"""RNG helpers: antithetic timestep sampling and conditioning-dropout masks.
+"""RNG helpers: antithetic timestep sampling, conditioning-dropout masks and
+the seeded random weights of the evaluation networks.
 
 Port of ``uurg_tpu/core/rng.py``. Every draw comes from an explicit
 ``torch.Generator`` (the JAX package threads ``jax.random`` keys). The two
@@ -43,3 +44,24 @@ def cond_keep_mask(generator: torch.Generator, batch: int,
     if cond_drop_prob >= 1.0:
         return torch.zeros((batch,), dtype=torch.bool, device=dev)
     return torch.rand((batch,), generator=generator, device=dev) >= cond_drop_prob
+
+
+def seeded_init_(model: torch.nn.Module, seed: int,
+                 conv_gain: float = 1.0) -> torch.nn.Module:
+    """Seeded random weights in place, for an evaluation network run
+    without its published checkpoint: normal convolutions of variance
+    ``conv_gain / fan_in`` (1: LeCun, flax's default; 2: He, which keeps
+    the scale of activations through a plain stack of ReLU layers),
+    LeCun-normal linear layers, zero linear biases; BatchNorm keeps its
+    identity statistics. Returns the model in eval mode. Its metrics are
+    not comparable to published ones."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+                gain = conv_gain if isinstance(mod, torch.nn.Conv2d) else 1.0
+                mod.weight.normal_(0.0, (gain / mod.weight[0].numel()) ** 0.5,
+                                   generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model.eval()

@@ -5,6 +5,8 @@ reference-name mapping of ``uurg_tpu/io/torch_interop.py``
 (``flax_unet_params_to_torch``): Dense kernels are transposed (and become
 1x1 conv weights inside attention blocks), HWIO conv kernels become OIHW.
 It takes a nested dict of numpy arrays, so no JAX is needed to call it.
+``jax_resnet_variables_to_torch`` does the same for the JAX package's
+ResNet (``params`` and ``batch_stats``) under torchvision's names.
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
@@ -103,6 +105,42 @@ def jax_unet_params_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tenso
         else:
             raise KeyError(f"Unmapped flax path: {path}")
         out[tk] = torch.tensor(v)
+    return out
+
+
+_RESNET_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def jax_resnet_variables_to_torch(params: Mapping[str, Any],
+                                  batch_stats: Mapping[str, Any]
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX package's ResNet variables (``uurg_tpu/models/resnet.py``:
+    ``conv_stem``, ``bn_stem``, ``stage{i}_block{j}/{conv,bn}{k}``,
+    ``sc_conv``, ``sc_bn``, ``fc``) -> a state dict of float32 tensors
+    under the port's torchvision names (HWIO kernels to OIHW, the Dense
+    kernel transposed, BatchNorm scale/bias/mean/var)."""
+    out = {}
+    for tree in (params, batch_stats):
+        for path, v in _flatten(tree).items():
+            v = np.asarray(v, np.float32)
+            *mods, leaf = path
+            if mods == ["fc"]:
+                out[f"fc.{'weight' if leaf == 'kernel' else 'bias'}"] = \
+                    torch.tensor(v.T if leaf == "kernel" else v)
+                continue
+            if mods[0] in ("conv_stem", "bn_stem"):
+                name = mods[0].replace("_stem", "1")
+            elif (m := re.fullmatch(r"stage(\d+)_block(\d+)", mods[0])):
+                inner = {"sc_conv": "downsample.0",
+                         "sc_bn": "downsample.1"}.get(mods[1], mods[1])
+                name = f"layer{int(m.group(1)) + 1}.{m.group(2)}.{inner}"
+            else:
+                raise KeyError(f"Unmapped flax path: {path}")
+            if leaf == "kernel":
+                out[f"{name}.weight"] = torch.tensor(v.transpose(3, 2, 0, 1))
+            else:
+                out[f"{name}.{_RESNET_BN[leaf]}"] = torch.tensor(v)
     return out
 
 

@@ -48,7 +48,13 @@ class UNetConfig:
 
     @classmethod
     def from_config(cls, cfg, dtype: torch.dtype = torch.bfloat16) -> "UNetConfig":
-        """Build from a reference-schema YAML config (model/data sections)."""
+        """Build from a reference-schema YAML config (model/data sections).
+        ``model.remat: true`` (rematerialised res blocks in the JAX package)
+        raises: it is not ported (ROADMAP.md Queue 1 item 4)."""
+        if cfg.model.get("remat", False):
+            raise NotImplementedError(
+                "model.remat is not ported to uurg_torch (ROADMAP.md Queue 1 "
+                "item 4); set it false")
         return cls(
             in_channels=cfg.model.in_channels,
             out_channels=cfg.model.out_ch,

@@ -109,6 +109,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sampling step. Every metric finite, precision, recall and UA in [0, 1],
    IS at least 1, every band SKIPPED, the report and both npz files
    written; host seconds by stage and peak device memory printed.
+15. Classification unlearning on ResNet-18 (CIFAR stem, full width,
+   seeded flax-style init), none of the four kernels on its path: the
+   launch counters are zeroed at the start and must read 0 at the end.
+   One train-mode CE step through SGD at batch 16 on the card against the
+   CPU from the same weights, in fp32 with TF32 off (logits, loss,
+   parameters after the step, running statistics and eval-mode logits
+   within relative L2 1e-4, gradients within 5e-3, each side's fp32
+   gradients' distance from float64 printed) and in float64 (all within
+   1e-9). Then on a CIFAR-10-sized stand-in (50,000 + 10,000 images,
+   random 10% forgetting, batch 256, the flip and pad-crop augmentation):
+   ``SFRon`` through the registry in fp32 and in bf16 (the Fisher pass
+   over both splits timed, the mask density, 10 warm-up iterations of
+   which 5 profiled for the device's busy time, 250 timed; cut from 1,500
+   by its ``n_iters`` override), losses finite, parameters and running
+   statistics moved, forget and test accuracy and peak memory printed;
+   the other eight methods through the registry at one epoch each in bf16
+   (finite, parameters moved but for Baseline, running statistics moved
+   where the model trains, the context's model untouched);
+   ``python -m uurg_torch.cli.main_random --unlearn_method SFRon
+   --svc_mia --dtype bf16`` on its own 2,048 / 512-image stand-in in a
+   subprocess (exit 0, its CSV row); the SVC attack's fit at 4,000 +
+   4,000 on the host.
 
 Prints the kernels JSON line and the card's name and power limit, then as
 the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -266,6 +288,27 @@ PROBE_BATCH, PROBE_IMAGES = 64, 512
 # 128 samples a remaining class (1,152 of 45,000), 128 probe samples of
 # 5,000; DDIM-50 and the references (the stand-in's remain split) uncut
 PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 1152, 128
+# classification (phase 15): ResNet-18 with the CIFAR stem at full width on
+# a CIFAR-10-sized stand-in (50,000 train and 10,000 test images of 32 px,
+# 10 classes, noise 0.5), random 10% forgetting (5,000 forget, 45,000
+# retain), batch 256. The card against the CPU in fp32 (TF32 off) at batch
+# 16: relative L2 (the convolutions sum in other orders)
+CLS_TRAIN, CLS_TEST, CLS_BATCH, CLS_CHECK_BATCH = 50_000, 10_000, 256, 16
+CLS_REL = 1e-4
+# the fp32 gradients: the backward of 20 train-mode BatchNorms subtracts
+# the gradient's projections on 1 and on x_hat, which cancels, so the
+# rounding of each side's fp32 sums grows to ~1e-3 at the first layers
+# (each side's distance from float64 is printed beside it)
+CLS_GRAD_REL = 5e-3
+# float64 on both: only the order of the sums differs
+CLS_F64_REL = 1e-9
+# SFR-on cut from 1,500 iterations to 10 warm-up (5 of them profiled) + 250
+# timed, through the method's n_iters override; the other eight methods at
+# one epoch each (Finetune, RandomLabel, SalUn, BadTeacher from 10 epochs,
+# Retrain from 200, GradAscent from 9, SCRUB from 6 epochs and 2 max steps)
+CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 250
+CLS_ONE_EPOCH = {"epochs": 1, "sgda_epochs": 1, "msteps": 1}
+CLS_CLI_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -522,20 +565,21 @@ def model_check(model, gen) -> float:
         fail("the model with kernels disagrees with its plain path")
     return rel
 
-def rel_l2(name: str, got, want, tol: float) -> float:
-    """Relative L2 error of ``got`` against ``want``; fails above ``tol``.
-    Returns the max abs error."""
+def rel_l2(name: str, got, want, tol: float,
+           against: str = "its plain version") -> float:
+    """Relative L2 error of ``got`` against ``want`` (on the CPU, in
+    float64); fails above ``tol``. Returns the max abs error."""
     import torch
 
-    got, want = got.float(), want.float()
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
     if not torch.isfinite(got).all():
-        fail(f"{name}: kernel output is not finite")
+        fail(f"{name}: output is not finite")
     rel = ((got - want).norm() / want.norm()).item()
     max_abs = (got - want).abs().max().item()
     print(f"  {name}: rel L2 err {rel:.3e} (tolerance {tol:g}), max_abs_err "
           f"{max_abs:.3e}", flush=True)
     if not rel <= tol:
-        fail(f"{name}: kernel disagrees with its plain version")
+        fail(f"{name}: disagrees with {against}")
     return max_abs
 
 
@@ -1980,6 +2024,365 @@ def parity_path(config, card: str, n_attn: int, n_gn: int) -> dict:
             "references": len(remain)}
 
 
+@contextlib.contextmanager
+def cls_clock(module, profile_from: int, n_profiled: int):
+    """Wrap the SFR-on step that ``module.make_sfron_step`` builds: steps
+    ``profile_from`` to ``profile_from + n_profiled - 1`` run under the
+    profiler (their device time summed), every other step is followed by a
+    wait for the device and a read of the clock; the losses are kept. The
+    run still goes through the method's own step."""
+    import torch
+
+    record = {"t": [], "loss": [], "busy_ms": 0.0}
+    make = module.make_sfron_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(state, *batches):
+            out = {}
+            if profile_from <= state.step < profile_from + n_profiled:
+                record["busy_ms"] += device_busy_ms(
+                    "an SFR-on iteration",
+                    lambda: out.update(step(state, *batches)))
+            else:
+                out = step(state, *batches)
+                torch.cuda.synchronize()
+                record["t"].append(time.perf_counter())
+            record["loss"].append((float(out["forget_loss"]),
+                                   float(out["remain_loss"])))
+            return out
+
+        return timed
+
+    module.make_sfron_step = timed_make
+    try:
+        yield record
+    finally:
+        module.make_sfron_step = make
+
+
+def _cls_model(dtype, dev, seed: int = SEED):
+    import torch
+
+    from uurg_torch.models import create_model, init_classifier
+
+    return init_classifier(torch.Generator().manual_seed(seed),
+                           create_model("ResNet18", 10, dtype=dtype)).to(dev)
+
+
+def _moved(model, before: dict) -> tuple[float, float]:
+    """(max |change| of the parameters, of the running statistics)."""
+    sd = model.state_dict()
+
+    def biggest(pick):
+        return max(float((sd[k].float() - v.float()).abs().max())
+                   for k, v in before.items() if pick(k))
+
+    return (biggest(lambda k: "running" not in k and "num_batches" not in k),
+            biggest(lambda k: "running" in k))
+
+
+def cls_card_vs_cpu(dev) -> dict:
+    """Phase 15, first part: one train-mode CE step through SGD at batch 16
+    on the card and on the CPU from the same weights, in fp32 (TF32 off)
+    and in float64; the fp32 gradients' distance from float64 on each."""
+    import numpy as np
+    import torch
+
+    import torch.nn.functional as F
+
+    from uurg_torch.models import create_model, init_classifier
+    from uurg_torch.train.optim import make_optimizer
+    from uurg_torch.workloads.classification import Classifier
+
+    rng = np.random.default_rng(SEED)
+    x = rng.random((CLS_CHECK_BATCH, 32, 32, 3), dtype=np.float32)
+    y = rng.integers(0, 10, CLS_CHECK_BATCH)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for where in ("cpu", dev):
+            model = init_classifier(
+                torch.Generator().manual_seed(SEED),
+                create_model("ResNet18", 10, dtype=dtype)).to(where, dtype)
+            cls = Classifier(torch.device(where))
+            opt = make_optimizer("sgd", model.parameters(), 0.1,
+                                 momentum=0.9, weight_decay=5e-4)
+            xb, yb = cls.batch(x, y)
+            logits = cls.train_apply(model, xb)
+            loss = F.cross_entropy(logits, yb)     # in the logits' dtype
+            loss.backward()
+            grads = torch.cat([p.grad.reshape(-1)
+                               for p in model.parameters()])
+            with torch.no_grad():            # the moved statistics, before
+                eval_logits = cls.eval_apply(model, xb)  # the step
+            opt.step()
+            sd = model.state_dict()
+            out[dtype, str(where)] = {
+                "logits": logits, "loss": loss.reshape(1),
+                "gradients": grads,
+                "parameters after the step": torch.cat(
+                    [p.detach().reshape(-1) for p in model.parameters()]),
+                "running mean": torch.cat([v.reshape(-1) for k, v in
+                                           sd.items()
+                                           if k.endswith("running_mean")]),
+                "running var": torch.cat([v.reshape(-1) for k, v in
+                                          sd.items()
+                                          if k.endswith("running_var")]),
+                "eval-mode logits": eval_logits}
+    errs = {}
+    for dtype, tol in ((torch.float32, CLS_REL), (torch.float64, CLS_F64_REL)):
+        name = str(dtype).removeprefix("torch.")
+        for k, v in out[dtype, str(dev)].items():
+            t = CLS_GRAD_REL if k == "gradients" and name == "float32" else tol
+            errs[f"{name} {k}"] = rel_l2(
+                f"ResNet-18 {k} ({name}, card vs CPU, batch "
+                f"{CLS_CHECK_BATCH})", v, out[dtype, "cpu"][k], t, "the CPU")
+    ref = out[torch.float64, "cpu"]["gradients"].cpu()
+    for where in ("cpu", str(dev)):
+        g = out[torch.float32, where]["gradients"].detach().cpu().double()
+        gap = ((g - ref).norm() / ref.norm()).item()
+        errs[f"float32 gradients on {where} vs float64"] = gap
+        print(f"  float32 gradients on {where} against float64 on the CPU: "
+              f"rel L2 {gap:.3e}", flush=True)
+    return errs
+
+
+def cls_sfron(dtype, data, dev, card: str) -> dict:
+    """Phase 15: ``SFRon`` through the registry on the stand-in at
+    ``dtype``: the Fisher pass, the mask, 10 + 250 iterations."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.data.arrays import epoch_batches
+    from uurg_torch.unlearn.methods import classification as TM
+    from uurg_torch.workloads.classification import Classifier
+
+    retain, forget, test, aug = data
+    model = _cls_model(dtype, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    n_iters = CLS_WARMUP + CLS_TIMED
+    ctx = TM.UnlearnContext(
+        classifier=Classifier(dev), model=model, retain_train=retain,
+        forget_train=forget, num_classes=10, batch_size=CLS_BATCH,
+        seed=SEED, transform=aug, overrides={"n_iters": n_iters})
+    masks = []
+    ratio_mask = TM.fisher_ratio_mask
+
+    def keep_mask(*a, **k):
+        masks.append(ratio_mask(*a, **k))
+        return masks[-1]
+
+    TM.fisher_ratio_mask = keep_mask
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with stage_clock([(TM, "accumulate_fisher", "fisher")]) as seconds, \
+                cls_clock(TM, CLS_WARMUP - CLS_PROFILED,
+                          CLS_PROFILED) as rec:
+            t0 = time.perf_counter()
+            unlearned = TM.unlearn_method_registry.get("SFRon")(ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        TM.fisher_ratio_mask = ratio_mask
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_fisher = sum(-(-len(d) // CLS_BATCH) for d in (forget, retain))
+    mask = masks[0]
+    density = (sum(int(m.sum()) for m in mask.values())
+               / sum(m.numel() for m in mask.values()))
+    losses = np.asarray(rec["loss"])
+    if len(losses) != n_iters or not np.isfinite(losses).all():
+        fail(f"SFRon: {len(losses)} iterations or a loss not finite")
+    dp, ds = _moved(unlearned, before)
+    if not dp > 0 or not ds > 0:
+        fail(f"SFRon: parameters ({dp}) or running statistics ({ds}) did "
+             f"not move")
+    t = np.asarray(rec["t"][-CLS_TIMED - 1:])
+    if len(t) != CLS_TIMED + 1:
+        fail(f"SFRon: {len(rec['t'])} timed iterations")
+    dt = np.diff(t)
+    mean_s = (t[-1] - t[0]) / CLS_TIMED
+    busy = rec["busy_ms"] / CLS_PROFILED
+    acc, test_acc = (Classifier(dev).validate(
+        unlearned, epoch_batches(d, CLS_BATCH))["acc"] for d in (forget, test))
+    name = str(dtype).removeprefix("torch.")
+    print(f"  SFRon {name}: Fisher pass {n_fisher} batches (eval mode, batch "
+          f"{CLS_BATCH}) in {seconds['fisher']:.3f} s, "
+          f"{n_fisher / seconds['fisher']:.2f} batches/s on the host clock; "
+          f"mask density {density:.4f}; iterations median {np.median(dt) * 1e3:.3f} "
+          f"ms ({1 / np.median(dt):.2f} it/s), mean {mean_s * 1e3:.3f} ms "
+          f"({1 / mean_s:.2f} it/s) over {CLS_TIMED} after {CLS_WARMUP} "
+          f"warm-up (cut from 1,500); device busy {busy:.3f} ms an iteration "
+          f"(profiler, {CLS_PROFILED} iterations, one a forget step), "
+          f"{busy / 1e3 / mean_s:.1%} of the mean; peak {peak_gib:.3f} GiB; "
+          f"forget accuracy {acc:.2f}%, test {test_acc:.2f}% (random init); "
+          f"the call {wall:.3f} s; "
+          f"on {card}", flush=True)
+    return {"fisher_batches": n_fisher, "fisher_s": seconds["fisher"],
+            "fisher_batches_per_s": n_fisher / seconds["fisher"],
+            "mask_density": density, "iter_ms": (dt * 1e3).tolist(),
+            "median_iter_ms": float(np.median(dt) * 1e3),
+            "median_iters_per_s": float(1 / np.median(dt)),
+            "mean_iter_ms": float(mean_s * 1e3),
+            "mean_iters_per_s": float(1 / mean_s),
+            "busy_ms_per_iter": busy, "busy_share": busy / 1e3 / mean_s,
+            "peak_gib": peak_gib, "forget_acc": acc, "test_acc": test_acc,
+            "call_s": wall,
+            "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+
+
+def cls_methods(data, dev, card: str) -> dict:
+    """Phase 15: the other eight methods through the registry on the
+    stand-in at one epoch each, bf16."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.unlearn.methods import classification as TM
+    from uurg_torch.workloads.classification import Classifier
+
+    retain, forget, _, aug = data
+    model = _cls_model(torch.bfloat16, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for name in ("Baseline", "Finetune", "Retrain", "GradAscent",
+                 "RandomLabel", "SalUn", "BadTeacher", "SCRUB"):
+        ctx = TM.UnlearnContext(
+            classifier=Classifier(dev), model=model, retain_train=retain,
+            forget_train=forget, num_classes=10, batch_size=CLS_BATCH,
+            seed=SEED, transform=aug,
+            init_fn=lambda s: _cls_model(torch.bfloat16, dev, s),
+            overrides=dict(CLS_ONE_EPOCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unlearned = TM.unlearn_method_registry.get(name)(ctx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sd = unlearned.state_dict()
+        if not all(torch.isfinite(v.float()).all() for v in sd.values()):
+            fail(f"{name}: a weight is not finite")
+        dp, ds = _moved(unlearned, before)
+        trains = name not in ("Baseline", "GradAscent")  # GA: eval mode
+        if (dp > 0) != (name != "Baseline") or (ds > 0) != trains:
+            fail(f"{name}: parameters moved {dp}, running statistics {ds}")
+        if any(not torch.equal(v, model.state_dict()[k])
+               for k, v in before.items()):
+            fail(f"{name} changed the context's model")
+        out[name] = {"seconds": secs, "param_change": dp, "stat_change": ds}
+        print(f"  {name} (bf16, one epoch): {secs:.3f} s; max |change| "
+              f"parameters {dp:.3e}, running statistics {ds:.3e}",
+              flush=True)
+    print(f"  eight methods on {card}", flush=True)
+    return out
+
+
+def cls_cli(card: str) -> dict:
+    """Phase 15: ``python -m uurg_torch.cli.main_random --unlearn_method
+    SFRon --svc_mia --dtype bf16`` on the CLI's own stand-in fallback, its
+    1,500 iterations, in a subprocess."""
+    import csv
+    import shutil
+
+    import numpy as np
+
+    work = tempfile.mkdtemp(prefix="uurg_cls_cli_")
+    out = os.path.join(work, "out")
+    cmd = [sys.executable, "-m", "uurg_torch.cli.main_random",
+           "--unlearn_method", "SFRon", "--svc_mia", "--dtype", "bf16",
+           "--data_path", os.path.join(work, "no_data"), "--save_path", out]
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=CLS_CLI_TIMEOUT)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+            fail(f"main_random exited {proc.returncode}")
+        with open(os.path.join(out, "results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        want = ["method", "unlearn_time", "retain_acc", "forget_acc",
+                "test_acc", "mia", "svc_confidence", "svc_entropy",
+                "svc_m_entropy"]
+        if len(rows) != 1 or list(rows[0]) != want:
+            fail(f"main_random wrote {rows}")
+        row = {k: (v if k == "method" else float(v))
+               for k, v in rows[0].items()}
+        if not all(np.isfinite(v) for k, v in row.items() if k != "method"):
+            fail(f"main_random: a value is not finite: {row}")
+        rates = re.findall(r"sfron iter (\d+)/1500 .*?\(([\d.]+) it/s\)",
+                           proc.stderr)
+        print(f"  main_random SFRon --svc_mia --dtype bf16 (2,048 / 512 "
+              f"stand-in images, 1,500 iterations): exit 0 in {secs:.3f} s; "
+              f"row {json.dumps(row)}; logged rates {rates}; on {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"seconds": secs, "row": row, "logged_rates": rates}
+
+
+def svc_fit_seconds(card: str) -> float:
+    """Phase 15: the SVC attack's fit at the protocol's cap, 4,000 members
+    and 4,000 non-members of 1-D features, on the card's host."""
+    import numpy as np
+
+    from uurg_torch.eval.mia import fit_svc
+
+    rng = np.random.default_rng(SEED)
+    x = np.concatenate([rng.normal(0.0, 1.0, 4000), rng.normal(
+        0.8, 1.2, 4000)]).astype(np.float32).reshape(-1, 1)
+    y = np.concatenate([np.ones(4000), np.zeros(4000)])
+    t0 = time.perf_counter()
+    predict = fit_svc(x, y)
+    secs = time.perf_counter() - t0
+    share = float(predict(x).mean())
+    print(f"  SVC fit, 4,000 + 4,000 1-D features (SMO, numpy): {secs:.3f} s "
+          f"on the host of {card}; members predicted {share:.3f}",
+          flush=True)
+    return secs
+
+
+def classification_path(card: str) -> dict:
+    """Phase 15: classification unlearning on ResNet-18, with zero launches
+    of the four kernels."""
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+    from uurg_torch.data.arrays import pad_crop_batch, random_flip_batch
+    from uurg_torch.data.datasets import synthetic_dataset
+    from uurg_torch.data.splits import random_forget_split
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    _zero_launches()
+    errs = cls_card_vs_cpu(dev)
+    t0 = time.perf_counter()
+    train = synthetic_dataset(CLS_TRAIN, 32, 3, 10, seed=0, base_seed=0,
+                              noise_sigma=0.5)
+    test = synthetic_dataset(CLS_TEST, 32, 3, 10, seed=1, base_seed=0,
+                             noise_sigma=0.5)
+    retain, forget = random_forget_split(train, 0.1, SEED)
+    print(f"  stand-in {CLS_TRAIN} + {CLS_TEST} images made in "
+          f"{time.perf_counter() - t0:.1f} s; {len(forget)} forget, "
+          f"{len(retain)} retain", flush=True)
+
+    def aug(x, rng):
+        return random_flip_batch(pad_crop_batch(x, 4, rng), rng)
+
+    data = (retain, forget, test, aug)
+    sfron = {str(dt).removeprefix("torch."): cls_sfron(dt, data, dev, card)
+             for dt in (torch.float32, torch.bfloat16)}
+    methods = cls_methods(data, dev, card)
+    torch.cuda.empty_cache()
+    cli = cls_cli(card)
+    svc_s = svc_fit_seconds(card)
+    launches = _read_launches()
+    print(f"  launches of the four kernels on the classification path: "
+          f"{launches}", flush=True)
+    if any(launches.values()):
+        fail("a DDPM kernel launched on the classification path")
+    return {"card_vs_cpu_max_abs": errs, "sfron": sfron, "methods": methods,
+            "cli": cli, "svc_fit_s": svc_s, "launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2129,6 +2532,14 @@ def main() -> int:
           f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}",
           flush=True)
     parity = parity_path(config, card, n_attn, n_gn)
+    del config, wl
+    torch.cuda.empty_cache()
+    print(f"== main path: classification, ResNet-18 (CIFAR stem, full width) "
+          f"on a {CLS_TRAIN}-image stand-in, random 10% forgetting, batch "
+          f"{CLS_BATCH}: card vs CPU, SFRon fp32 and bf16 ({CLS_WARMUP} + "
+          f"{CLS_TIMED} of 1,500 iterations), the other eight methods at one "
+          f"epoch, the main_random CLI", flush=True)
+    classification = classification_path(card)
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -2151,7 +2562,9 @@ def main() -> int:
                       "fisher": fisher["launches"][name],
                       "sa_fim": sa["fim_launches"][name],
                       "sa": sa["sa_launches"][name],
-                      "parity": parity["launches"][name]} for name in meta}
+                      "parity": parity["launches"][name],
+                      "classification": classification["launches"][name]}
+              for name in meta}
     kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -2167,6 +2580,7 @@ def main() -> int:
                    "gn_offpath": gn_offpath,
                    "gn_bwd_offpath": gn_bwd_offpath, "fisher": fisher,
                    "sa": sa, "evaluation": evaluation, "parity": parity,
+                   "classification": classification,
                    "total_seconds": time.time() - t_start}, f, indent=1)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

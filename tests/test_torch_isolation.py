@@ -1,4 +1,5 @@
-"""uurg_torch and chip_smoke.py never import JAX or the JAX package."""
+"""uurg_torch and chip_smoke.py never import JAX, the JAX package or
+scikit-learn (the card's machine has none)."""
 import ast
 import os
 import subprocess
@@ -9,7 +10,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "uurg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "uurg_tpu", "sklearn")
 
 
 def _port_files():

@@ -1,9 +1,11 @@
-"""Host-side array datasets and shuffled batchers.
+"""Host-side array datasets, shuffled batchers and the classification
+augmentation.
 
 This package's own copy of the numpy code in ``uurg_tpu/data/arrays.py``
-that the DDPM trainer uses (the reference's DataLoader + ``cycle()``
-idiom): datasets are in-memory numpy arrays, batches come from a shuffled
-index stream. Same seed, same batches as the JAX package.
+that the DDPM trainer and the classification methods use (the reference's
+DataLoader + ``cycle()`` idiom): datasets are in-memory numpy arrays,
+batches come from a shuffled index stream. Same seed, same batches and the
+same augmentation as the JAX package.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ class ArrayDataset:
     def subset(self, idx: np.ndarray) -> "ArrayDataset":
         return ArrayDataset(self.images[idx], self.labels[idx])
 
+    def images_f32(self) -> np.ndarray:
+        if self.images.dtype == np.uint8:
+            return self.images.astype(np.float32) / 255.0
+        return self.images.astype(np.float32)
+
     def get_batch(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(float32 [0,1] images, int32 labels) for these indices."""
         x = self.images[idx]
@@ -47,6 +54,22 @@ def random_flip_batch(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     x = x.copy()
     x[flip] = x[flip, :, ::-1, :]
     return x
+
+
+def pad_crop_batch(x: np.ndarray, pad: int,
+                   rng: np.random.Generator) -> np.ndarray:
+    """Random crop after zero padding (the classification augmentation), one
+    gather for the whole batch: offsets in [0, 2 pad] a sample, rows then
+    columns, drawn from ``rng`` in that order."""
+    n, h, w, c = x.shape
+    padded = np.zeros((n, h + 2 * pad, w + 2 * pad, c), x.dtype)
+    padded[:, pad:-pad, pad:-pad, :] = x
+    ys = rng.integers(0, 2 * pad + 1, n)
+    xs = rng.integers(0, 2 * pad + 1, n)
+    rows = ys[:, None] + np.arange(h)[None, :]          # (n, h)
+    cols = xs[:, None] + np.arange(w)[None, :]          # (n, w)
+    return padded[np.arange(n)[:, None, None],
+                  rows[:, :, None], cols[:, None, :], :]
 
 
 def epoch_batches(

@@ -1,10 +1,12 @@
-"""Dataset loaders for the DDPM slice: the CIFAR-10 pickle reader, the
-synthetic stand-in and the image-folder reader.
+"""Dataset loaders: CIFAR-10/100, SVHN, STL-10, Tiny-ImageNet, image
+folders and the synthetic stand-in.
 
-This package's own copy of the numpy code in ``uurg_tpu/data/datasets.py``
-(``synthetic_dataset``, ``load_cifar10``, ``load_image_folder``). Same seed,
-same arrays. Pillow is imported at the call, so only the folder reader
-needs it.
+This package's own copy of the numpy code in ``uurg_tpu/data/datasets.py``.
+Same seed, same arrays. The loaders read the standard on-disk formats
+(Classification/dataset/{cifar10,cifar100,SVHN,tinyimagenet}.py) and raise
+``FileNotFoundError`` when the files are missing, so the classification
+CLIs fall back to the stand-in. Pillow and SciPy are imported at the call,
+so only the folder reader and the SVHN reader need them.
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ from typing import Sequence
 
 import numpy as np
 
+from uurg_torch.core.registry import Registry
 from uurg_torch.data.arrays import ArrayDataset
+
+dataset_registry = Registry("dataset")
 
 
 def synthetic_dataset(n: int = 512, resolution: int = 32, channels: int = 3,
@@ -59,6 +64,56 @@ def load_cifar10(root: str, train: bool = True) -> ArrayDataset:
         ys.extend(entry.get("labels", entry.get("fine_labels")))
     x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
     return ArrayDataset(np.ascontiguousarray(x), np.asarray(ys, np.int64))
+
+
+def load_cifar100(root: str, train: bool = True) -> ArrayDataset:
+    """cifar-100-python pickle files -> NHWC uint8, fine labels. Unpickling
+    runs code: point ``root`` only at a trusted copy."""
+    d = os.path.join(root, "cifar-100-python")
+    with open(os.path.join(d, "train" if train else "test"), "rb") as f:
+        entry = pickle.load(f, encoding="latin1")
+    x = np.asarray(entry["data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return ArrayDataset(np.ascontiguousarray(x),
+                        np.asarray(entry["fine_labels"], np.int64))
+
+
+def load_svhn(root: str, train: bool = True) -> ArrayDataset:
+    """SVHN ``{train,test}_32x32.mat`` -> NHWC uint8; label 10 is digit 0."""
+    import scipy.io as sio
+
+    fname = "train_32x32.mat" if train else "test_32x32.mat"
+    mat = sio.loadmat(os.path.join(root, fname))
+    x = np.transpose(mat["X"], (3, 0, 1, 2))            # HWCN -> NHWC
+    y = mat["y"].astype(np.int64).squeeze()
+    y[y == 10] = 0
+    return ArrayDataset(np.ascontiguousarray(x), y)
+
+
+def load_stl10(root: str, train: bool = True) -> ArrayDataset:
+    """STL-10 binary files (96x96x3, each image CHW column-major) -> NHWC
+    uint8, labels 0-9."""
+    split = "train" if train else "test"
+    with open(os.path.join(root, "stl10_binary", f"{split}_X.bin"), "rb") as f:
+        x = np.frombuffer(f.read(), np.uint8).reshape(-1, 3, 96, 96)
+        x = np.transpose(x, (0, 3, 2, 1))
+    with open(os.path.join(root, "stl10_binary", f"{split}_y.bin"), "rb") as f:
+        y = np.frombuffer(f.read(), np.uint8).astype(np.int64) - 1
+    return ArrayDataset(np.ascontiguousarray(x), y)
+
+
+def load_tinyimagenet(root: str, train: bool = True) -> ArrayDataset:
+    """Tiny-ImageNet from ``tinyimagenet_{train,val}.npz`` ({'images',
+    'labels'}) or the ``tiny-imagenet-200/{train,val}`` image folders at 64
+    px (Classification/dataset/tinyimagenet.py:23-73)."""
+    split = "train" if train else "val"
+    npz = os.path.join(root, f"tinyimagenet_{split}.npz")
+    if os.path.exists(npz):
+        d = np.load(npz)
+        return ArrayDataset(d["images"], d["labels"].astype(np.int64))
+    folder = os.path.join(root, "tiny-imagenet-200", split)
+    if os.path.isdir(folder):
+        return load_image_folder(folder, 64, center_crop=False)
+    raise FileNotFoundError(f"no TinyImageNet under {root}")
 
 
 def load_image_folder(root: str, resolution: int,
@@ -109,3 +164,11 @@ def _center_crop_resize(img, size: int):
     y = (arr.shape[0] - size) // 2
     x = (arr.shape[1] - size) // 2
     return Image.fromarray(arr[y:y + size, x:x + size])
+
+
+dataset_registry.register("CIFAR10", load_cifar10)
+dataset_registry.register("CIFAR100", load_cifar100)
+dataset_registry.register("SVHN", load_svhn)
+dataset_registry.register("STL10", load_stl10)
+dataset_registry.register("TinyImagenet", load_tinyimagenet)
+dataset_registry.register("synthetic", synthetic_dataset)

@@ -1,9 +1,12 @@
-"""Files of named tensors: Fisher diagonals and saliency masks.
+"""Files of named tensors: Fisher diagonals, saliency masks and classifier
+weights.
 
 The counterpart for such trees of ``uurg_tpu/io/checkpoint.py``, which
 writes Orbax directories. The port cannot read Orbax without JAX, so it
 writes one ``torch.save`` file a tree: a dict keyed by the reference
-parameter names. The file is read back with ``weights_only=True`` and so
+parameter names (a Fisher or a mask), or a model's ``state_dict()`` (a
+classifier: parameters and BatchNorm buffers, ``num_batches_tracked``
+included). The file is read back with ``weights_only=True`` and so
 holds tensors and plain containers only: a
 :class:`~uurg_torch.core.tree.PackedMask` leaf is stored as ``{"bits":
 uint8 tensor, "shape": list}`` and rebuilt on load.
@@ -33,8 +36,10 @@ def save_checkpoint(path: str, tree: Mapping) -> None:
 
 def restore_checkpoint(path: str, like=None) -> dict:
     """Read what :func:`save_checkpoint` wrote, on the CPU. With ``like``
-    (a model or a dict of named tensors), the keys and shapes must be
-    ``like``'s, else ``ValueError``. A directory (an Orbax tree written by
+    (a dict of named tensors, or a model, which stands for its
+    ``state_dict()``: parameters and buffers), the keys and shapes must be
+    ``like``'s, else ``ValueError``. A tree over the parameters alone (a
+    Fisher, a mask) is checked against ``dict(model.named_parameters())``. A directory (an Orbax tree written by
     the JAX package) raises: it cannot be read without JAX."""
     if os.path.isdir(path):
         raise ValueError(
@@ -45,8 +50,8 @@ def restore_checkpoint(path: str, like=None) -> dict:
     tree = {k: PackedMask(v["bits"], tuple(v["shape"]))
             if isinstance(v, dict) else v for k, v in raw.items()}
     if like is not None:
-        ref = dict(like.named_parameters()) if isinstance(
-            like, torch.nn.Module) else like
+        ref = like.state_dict() if isinstance(like, torch.nn.Module) \
+            else like
         if set(tree) != set(ref):
             missing, extra = set(ref) - set(tree), set(tree) - set(ref)
             raise ValueError(

@@ -8,13 +8,21 @@ on the 3x3) for 50/101/152; BatchNorm eps 1e-5, momentum 0.1 (the JAX
 package's 0.9 in flax's convention); a global mean and a float32 fc.
 Padding is torch's explicit padding, as the JAX model uses.
 
+BatchNorm in train mode is flax's: it normalises with the batch statistics
+and moves the running variance toward the *biased* batch variance, where
+``nn.BatchNorm2d`` moves it toward the unbiased one (n / (n - 1) larger: 1.6%
+at n = 64). Eval mode is ``nn.BatchNorm2d``'s own. :func:`init_classifier`
+draws flax's initial weights.
+
 Parameter names are torchvision's (``conv1``, ``bn1``, ``layer{1-4}.{j}.
 conv1/bn1/conv2/bn2[/conv3/bn3]/downsample.{0,1}``, ``fc``), so a
 torchvision checkpoint loads directly and a reference-CIFAR one through
 :mod:`uurg_torch.io.tv_resnet_interop`. The convolutions compute in
 ``dtype`` (inputs and weights cast at each convolution, float32 weights
 kept); BatchNorm, the residual sums, the mean and the fc run in float32,
-as the JAX model's ``dtype=bfloat16`` does.
+as the JAX model's ``dtype=bfloat16`` does (in float64 when the model is
+built with ``dtype=torch.float64`` and converted with ``.double()``, for
+precision checks).
 """
 from __future__ import annotations
 
@@ -24,6 +32,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm``:
+    ``running = (1 - momentum) * running + momentum * batch`` with the
+    biased batch variance. The names of its parameters and buffers are the
+    stock layer's, ``num_batches_tracked`` included (counted, never read)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
 
 class Conv2d(nn.Conv2d):
     """Bias-free convolution computed in ``dtype``."""
@@ -39,12 +65,17 @@ class Conv2d(nn.Conv2d):
                         self.padding)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 for a model run in float64 (``.double()``)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return bn(x.float())
+    return bn(_wide(x))
 
 
 class BasicBlock(nn.Module):
@@ -126,7 +157,7 @@ class ResNet(nn.Module):
             x = F.max_pool2d(x, 3, 2, 1)
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        return self.fc(x.float().mean(dim=(2, 3)))
+        return self.fc(_wide(x).mean(dim=(2, 3)))
 
 
 def ResNet18(num_classes=10, dtype=torch.float32, imagenet_stem=False):
@@ -152,3 +183,26 @@ def ResNet101(num_classes=10, dtype=torch.float32, imagenet_stem=False):
 def ResNet152(num_classes=10, dtype=torch.float32, imagenet_stem=False):
     return ResNet([3, 8, 36, 3], Bottleneck, num_classes, dtype=dtype,
                   imagenet_stem=imagenet_stem)
+
+
+@torch.no_grad()
+def init_classifier(generator: torch.Generator,
+                    model: nn.Module) -> nn.Module:
+    """flax's initial weights, in distribution, drawn from ``generator`` in
+    place: LeCun-normal kernels of the convolutions and the dense layer (a
+    normal of variance 1 / fan_in truncated at two standard deviations and
+    rescaled, as ``variance_scaling(1, "fan_in", "truncated_normal")``),
+    zero dense bias, BatchNorm scale 1, bias 0 and identity running
+    statistics. Returns ``model``."""
+    # the standard deviation of a unit normal truncated to [-2, 2]
+    trunc_std = 0.87962566103423978
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            std = (1.0 / mod.weight[0].numel()) ** 0.5 / trunc_std
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+    return model

@@ -25,9 +25,15 @@ weighted gradient of a phase is taken as the gradient of the loss times its
 weight (alpha, remain_alpha, 1/grad_accum), which equals the JAX package's
 scaled gradient in exact arithmetic.
 
-Models with mutable state (BatchNorm, the JAX ``has_model_state``) arrive
-with the classification slice; ``make_sfron_scan`` (many steps per device
-dispatch, for a slow host link) is not ported.
+Mutable model state (BatchNorm running statistics, the JAX
+``has_model_state``) lives in the model's buffers: a loss function that
+runs the model in train mode moves them in place, so the forget phase moves
+them only on the steps where it runs and the remain phase then moves them
+again, as the JAX step threads them through its ``lax.cond``. The fast-slow
+mix touches parameters only. ``make_sfron_scan`` (many steps per device
+dispatch, for a slow host link) is not ported: the classification method
+loops over this step with batches drawn on the device
+(:func:`uurg_torch.unlearn.methods.classification.device_batcher`).
 """
 from __future__ import annotations
 

@@ -121,7 +121,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    random 10% forgetting, batch 256, the flip and pad-crop augmentation):
    ``SFRon`` through the registry in fp32 and in bf16 (the Fisher pass
    over both splits timed, the mask density, 10 warm-up iterations of
-   which 5 profiled for the device's busy time, 250 timed; cut from 1,500
+   which 5 profiled for the device's busy time, 100 timed; cut from 1,500
    by its ``n_iters`` override), losses finite, parameters and running
    statistics moved, forget and test accuracy and peak memory printed;
    the other eight methods through the registry at one epoch each in bf16
@@ -129,11 +129,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    where the model trains, the context's model untouched);
    ``python -m uurg_torch.cli.main_random --unlearn_method SFRon
    --svc_mia --dtype bf16`` on its own 2,048 / 512-image stand-in in a
-   subprocess (exit 0, its CSV row); the SVC attack's fit at 4,000 +
-   4,000 on the host.
+   subprocess, its SFRon cut from 1,500 iterations to 250 (exit 0, its CSV
+   row, the rate it logs at iteration 250); the SVC attack's fit at 4,000 +
+   4,000 on the host. The float32 attention counters must read 0 too.
+16. The float32 attention kernels (``uurg_torch/csrc/flash_attention_f32.cu``)
+   with TF32 off: at ViT-B/16's (64, 12, 197, 64) and main_random's
+   (256, 12, 5, 64), at D = 40 and 160 (padded) and at the ragged shapes
+   of phase 9, the forward (relative L2 1e-5), its log-sum-exp against
+   ``torch.logsumexp`` and the backward (1e-4) against the plain versions;
+   at the two ViT shapes the kernel, the plain version and float32 SDPA
+   with its backward timed by CUDA-graph replay.
+17. ViT-B/16 and Swin-T classification at 224 px. ViT_B in fp32 on the
+   card against the CPU at batch 2 from the same weights (logits and all
+   parameter gradients, each side's distance from float64 printed), its
+   call exactly 12 + 12 float32 attention launches; ``SFRon`` through the
+   registry at batch 64 on a 320-image 224 px stand-in (the Fisher pass,
+   the mask, 3 + 20 of 1,500 iterations) in fp32 (float32 counters exactly
+   12 a forward and 12 a backward, bf16 counters 0) and in bf16 (the
+   reverse); Swin_T card against CPU and 3 SFR-on iterations with no
+   attention launch; then in subprocesses, each exit 0:
+   ``main_random --unlearn SFRon --model ViT_B`` on its 32 px stand-in
+   (SFRon cut from 1,500 iterations to 10),
+   ``save_base_dataset --as_npz``, ``train_classifier`` for one epoch (32
+   steps at batch 64, 224 px) and ``classifier_evaluation`` reading its
+   ``.pth`` on the npz.
+Then the remat'd DDPM step: the full-width config in train mode at batch
+   128 with ``model.remat`` against the same weights and generator without
+   it (loss equal, gradients within 4 times the plain step's own run-to-run
+   spread, which is bit-equality where that spread is 0; exactly 44 more
+   GroupNorm forward launches; the peak memory of each), and
+   ``sfron_forget`` for 4 steps with remat and an Adam second moment in
+   bf16 against the same without remat (exact launch counts, step times,
+   peak memory).
 
-Prints the kernels JSON line and the card's name and power limit, then as
-the last line ``{"ok": true, "device": {...}}``. Per-shape details go to
+Each phase's heading carries the seconds since the start. Prints the
+kernels JSON line and the card's name and power limit, then as the last
+line ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_detail.json``. Exits non-zero without CUDA or
 outside a checkout of the repository.
 """
@@ -149,6 +180,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.time()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 rate, bf16
 # tensor-core rate, fp32 rate outside the tensor cores.
@@ -221,6 +253,21 @@ GRAPH_KERNEL_NODE = 0
 RAGGED_SHAPES = ((16, 72), (77, 40), (100, 72), (130, 160), (256, 192),
                  (1024, 64), (1024, 256))
 RAGGED_REPEATS = 3
+# the float32 attention kernels (phase 16): (B, H, T, D) of ViT-B/16 at
+# 224 px (batch 64, the phase-17 SFR-on batch) and at main_random's 32 px
+# (batch 256, 5 tokens), then head widths the wrapper pads (40 -> 64,
+# 160 -> 192); RAGGED_SHAPES follow at batch 4 x 2 heads
+F32_VIT_SHAPE = (64, 12, 197, 64)
+VIT_BLOCKS = 12          # attention launches per ViT-B/16 forward
+F32_SHAPES = (F32_VIT_SHAPE, (256, 12, 5, 64), (8, 12, 197, 40),
+              (8, 12, 197, 160))
+# float32 kernel vs plain version, both float32 (TF32 off), relative L2:
+# the kernel sums the D-term scores, the softmax and the T-term products in
+# another order and in base 2 (the scale folded with log2 e), so each output
+# carries ~sqrt(T) float32 roundings (~1e-6); the backward's
+# dS = P (dP - delta) cancels where dP is close to delta, and dk, dv sum T
+# such terms, so it gets ten times the forward's room
+F32_FWD_REL, F32_BWD_REL = 1e-5, 1e-4
 # GroupNorm forward off the main path: (batch, H = W, C, dtype name)
 GN_OFFPATH_SHAPES = ((3, 4, 256, "float32"), (3, 32, 384, "float32"),
                      (3, 5, 256, "bfloat16"), (3, 12, 384, "bfloat16"),
@@ -302,13 +349,49 @@ CLS_REL = 1e-4
 CLS_GRAD_REL = 5e-3
 # float64 on both: only the order of the sums differs
 CLS_F64_REL = 1e-9
-# SFR-on cut from 1,500 iterations to 10 warm-up (5 of them profiled) + 250
+# SFR-on cut from 1,500 iterations to 10 warm-up (5 of them profiled) + 100
 # timed, through the method's n_iters override; the other eight methods at
 # one epoch each (Finetune, RandomLabel, SalUn, BadTeacher from 10 epochs,
 # Retrain from 200, GradAscent from 9, SCRUB from 6 epochs and 2 max steps)
-CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 250
+CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 100
 CLS_ONE_EPOCH = {"epochs": 1, "sgda_epochs": 1, "msteps": 1}
 CLS_CLI_TIMEOUT = 600
+# ViT-B/16 and Swin-T classification (phase 17) at 224 px: the card against
+# the CPU at batch 2 from the same weights, fp32 (TF32 off), relative L2 of
+# the logits and of all parameter gradients (no BatchNorm here, but twelve
+# LayerNorm backwards and the attention backward's cancellations: each
+# side's distance from float64 is printed beside it). On an H100 the
+# logits read 8.5e-7 and the gradients 1.1e-6 (ViT_B; Swin_T 1.7e-7 and
+# 3.3e-7): the gradient limit sits ten times above the higher reading, low
+# enough that a TF32 product (~1e-3) in the backward would fail it
+VIT_RES, VIT_CHECK_BATCH = 224, 2
+VIT_REL, VIT_GRAD_REL = 1e-4, 1e-5
+# SFR-on through the registry at batch 64 on a 224 px stand-in (320 train
+# images, random 10% forgetting: 32 forget, 288 retain), cut from 1,500
+# iterations to VIT_WARMUP (one profiled) + VIT_TIMED; Swin-T runs
+# SWIN_ITERS iterations without the Fisher mask
+VIT_BATCH, VIT_TRAIN = 64, 320
+VIT_WARMUP, VIT_TIMED, SWIN_ITERS = 3, 20, 3
+VIT_CLI_TIMEOUT = 600
+# main_random's SFRon in the CLI subprocesses, cut from its 1,500 iterations
+# through the method's n_iters override (sfron_cut_cli): the ResNet-18 run
+# of phase 15 to 250 (where it logs its rate), the ViT-B/16 run of phase 17
+# to 10
+CLS_CLI_ITERS, VIT_CLI_ITERS = 250, 10
+# the remat'd DDPM step (after phase 17): the full-width config at batch 128
+# in train mode (dropout on), remat against no remat from the same weights
+# and generator. The loss must be equal. The recompute runs the same
+# kernels on the same inputs, so the gradients may differ from the plain
+# step's by no more than REMAT_SPREAD times the plain step's own run-to-run
+# spread, measured beside it by running the plain step twice: bit-equality
+# where that spread is 0, as both readings were on an H100
+REMAT_SPREAD = 4
+REMAT_STEPS = 4
+
+
+def banner(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    print(f"== {msg} [at {time.time() - STARTED:.1f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -826,6 +909,83 @@ def check_ragged(gen) -> list[dict]:
     return rows
 
 
+def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
+    """Phase 16: the float32 attention kernels against their plain versions
+    on the card (TF32 off) at F32_SHAPES and RAGGED_SHAPES: the forward,
+    its log-sum-exp against ``torch.logsumexp`` and the backward; then at
+    the two ViT shapes the kernel, the plain version and float32 SDPA (and
+    SDPA's backward) timed by CUDA-graph replay. Returns (summary rows of
+    the 224 px shape for the kernels line, per-shape details)."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = list(F32_SHAPES) + [(4, 2, T, D) for T, D in RAGGED_SHAPES]
+    rows, detail = [], []
+    for B, H, T, D in shapes:
+        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                      for _ in range(4))
+        tag = f"f32 B={B} H={H} T={T} D={D}"
+        before = (FA.attention.launches, FA.attention_bwd.launches)
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        o = o.contiguous()             # a column slice where D was padded
+        got = FA.attention_bwd(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        if (FA.attention.launches, FA.attention_bwd.launches) != before:
+            fail(f"attention {tag}: a float32 call counted as bf16")
+        fwd_abs = rel_l2(f"attention {tag}", o, FA.attention_plain(q, k, v),
+                         F32_FWD_REL)
+        lse_err = check_lse(f"attention {tag}", lse, q, k)
+        want = FA.attention_bwd_plain(q, k, v, g)
+        bwd_abs = max(rel_l2(f"attention bwd d{n} {tag}", a, b, F32_BWD_REL)
+                      for n, a, b in zip("qkv", got, want))
+        info = {"shape": {"B": B, "H": H, "T": T, "D": D},
+                "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
+                "bwd_max_abs_err": bwd_abs}
+        detail.append(info)
+        if (B, H, T, D) not in F32_SHAPES[:2]:
+            continue
+        lib, stream = library_bwd(F.scaled_dot_product_attention,
+                                  (q, k, v), g)
+        fwd = {"ms": time_ms(lambda: FA._attention_kernel(
+                   q, k, v, with_lse=True)),
+               "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v)),
+               "library_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v))}
+        bwd = {"ms": time_ms(lambda: FA.attention_bwd(q, k, v, o, lse, g)),
+               "plain_ms": time_ms(
+                   lambda: FA.attention_bwd_plain(q, k, v, g)),
+               "library_ms": time_ms(lib, stream=stream)}
+        n = B * H * T * D
+        for name, t, nbytes, ops, err in (
+                ("attention_fwd_f32", fwd, 4 * n * 4, 4 * n * T, fwd_abs),
+                ("attention_bwd_f32", bwd, 7 * n * 4, 10 * n * T, bwd_abs)):
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_FLOPS * 1e3
+            row = {"name": name, "shape": info["shape"],
+                   "sites_per_forward": VIT_BLOCKS, "ms": t["ms"][0],
+                   "eager_ms": t["ms"][1], "plain_ms": t["plain_ms"][0],
+                   "library_ms": t["library_ms"][0], "bytes_ms": bytes_ms,
+                   "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                else "operations"),
+                   "max_abs_err": err}
+            info[name] = row
+            if (B, H, T, D) == F32_VIT_SHAPE:
+                rows.append(row)
+            print(f"  {name} {info['shape']}: kernel {row['ms']:.4f} ms "
+                  f"(eager {row['eager_ms']:.4f} ms), plain "
+                  f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} "
+                  f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+                  flush=True)
+    print(f"  {len(detail)} shapes held (forward {F32_FWD_REL:g}, backward "
+          f"{F32_BWD_REL:g})", flush=True)
+    return rows, detail
+
+
 def gn_routes(hw: int, c: int, itemsize: int, groups: int,
               backward: bool = False) -> list:
     """Every route of the GroupNorm forward (or backward) that can run this
@@ -988,7 +1148,17 @@ def _zero_launches() -> None:
     from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
 
     attention.launches = attention_bwd.launches = 0
+    attention.launches_f32 = attention_bwd.launches_f32 = 0
     group_norm.launches = group_norm_bwd.launches = 0
+
+
+def _read_all_launches() -> dict:
+    """The four bf16/GroupNorm counts and the float32 attention routes'."""
+    from uurg_torch.ops.flash_attention import attention, attention_bwd
+
+    return {**_read_launches(),
+            "attention_fwd_f32": attention.launches_f32,
+            "attention_bwd_f32": attention_bwd.launches_f32}
 
 
 def _read_launches() -> dict:
@@ -2150,7 +2320,8 @@ def cls_card_vs_cpu(dev) -> dict:
 
 def cls_sfron(dtype, data, dev, card: str) -> dict:
     """Phase 15: ``SFRon`` through the registry on the stand-in at
-    ``dtype``: the Fisher pass, the mask, 10 + 250 iterations."""
+    ``dtype``: the Fisher pass, the mask, CLS_WARMUP + CLS_TIMED
+    iterations."""
     import numpy as np
     import torch
 
@@ -2276,10 +2447,26 @@ def cls_methods(data, dev, card: str) -> dict:
     return out
 
 
+def sfron_cut_cli(n_iters: int) -> list[str]:
+    """The command that runs ``uurg_torch.cli.main_random``'s ``main`` on
+    the arguments that follow it, as ``python -m`` does, with the
+    registry's SFRon given the method's ``n_iters`` override (the CLI, like
+    the JAX package's, has no flag for it)."""
+    code = ("import dataclasses, sys\n"
+            "from uurg_torch.cli import main_random\n"
+            "from uurg_torch.unlearn.methods.classification import "
+            "unlearn_method_registry as reg\n"
+            "sfron = reg.get('SFRon')\n"
+            "reg.register('SFRon', lambda ctx: sfron(dataclasses.replace("
+            f"ctx, overrides={{**ctx.overrides, 'n_iters': {n_iters}}})))\n"
+            "main_random.main(sys.argv[1:])\n")
+    return [sys.executable, "-c", code]
+
+
 def cls_cli(card: str) -> dict:
-    """Phase 15: ``python -m uurg_torch.cli.main_random --unlearn_method
-    SFRon --svc_mia --dtype bf16`` on the CLI's own stand-in fallback, its
-    1,500 iterations, in a subprocess."""
+    """Phase 15: ``main_random --unlearn_method SFRon --svc_mia --dtype
+    bf16`` on the CLI's own stand-in fallback, cut to CLS_CLI_ITERS
+    iterations, in a subprocess."""
     import csv
     import shutil
 
@@ -2287,9 +2474,8 @@ def cls_cli(card: str) -> dict:
 
     work = tempfile.mkdtemp(prefix="uurg_cls_cli_")
     out = os.path.join(work, "out")
-    cmd = [sys.executable, "-m", "uurg_torch.cli.main_random",
-           "--unlearn_method", "SFRon", "--svc_mia", "--dtype", "bf16",
-           "--data_path", os.path.join(work, "no_data"), "--save_path", out]
+    cmd = [*sfron_cut_cli(CLS_CLI_ITERS), "--unlearn_method", "SFRon",
+           "--svc_mia", "--dtype", "bf16", "--data_path", os.path.join(work, "no_data"), "--save_path", out]
     try:
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -2309,10 +2495,14 @@ def cls_cli(card: str) -> dict:
                for k, v in rows[0].items()}
         if not all(np.isfinite(v) for k, v in row.items() if k != "method"):
             fail(f"main_random: a value is not finite: {row}")
-        rates = re.findall(r"sfron iter (\d+)/1500 .*?\(([\d.]+) it/s\)",
-                           proc.stderr)
+        rates = re.findall(rf"sfron iter (\d+)/{CLS_CLI_ITERS} .*?"
+                           r"\(([\d.]+) it/s\)", proc.stderr)
+        if len(rates) != CLS_CLI_ITERS // 250:
+            fail(f"main_random did not run {CLS_CLI_ITERS} iterations: "
+                 f"{rates}")
         print(f"  main_random SFRon --svc_mia --dtype bf16 (2,048 / 512 "
-              f"stand-in images, 1,500 iterations): exit 0 in {secs:.3f} s; "
+              f"stand-in images, {CLS_CLI_ITERS} iterations): exit 0 in "
+              f"{secs:.3f} s; "
               f"row {json.dumps(row)}; logged rates {rates}; on {card}",
               flush=True)
     finally:
@@ -2343,7 +2533,7 @@ def svc_fit_seconds(card: str) -> float:
 
 def classification_path(card: str) -> dict:
     """Phase 15: classification unlearning on ResNet-18, with zero launches
-    of the four kernels."""
+    of the kernels (the four and the float32 attention routes)."""
     import torch
 
     from uurg_torch.core.device import resolve_device
@@ -2374,13 +2564,426 @@ def classification_path(card: str) -> dict:
     torch.cuda.empty_cache()
     cli = cls_cli(card)
     svc_s = svc_fit_seconds(card)
-    launches = _read_launches()
-    print(f"  launches of the four kernels on the classification path: "
+    launches = _read_all_launches()
+    print(f"  launches of the kernels on the classification path: "
           f"{launches}", flush=True)
     if any(launches.values()):
         fail("a DDPM kernel launched on the classification path")
     return {"card_vs_cpu_max_abs": errs, "sfron": sfron, "methods": methods,
             "cli": cli, "svc_fit_s": svc_s, "launches": launches}
+
+
+def _vit_model(name: str, dtype, seed: int = SEED):
+    """``create_model(name)`` with flax's init from ``seed`` at 224 px (a
+    ViT's 197 tokens), on the CPU."""
+    import torch
+
+    from uurg_torch.models import create_model, init_classifier
+
+    return init_classifier(torch.Generator().manual_seed(seed),
+                           create_model(name, 10, dtype=dtype),
+                           resolution=VIT_RES)
+
+
+def vit_card_vs_cpu(name: str, dev) -> dict:
+    """Phase 17: logits and all parameter gradients of one fp32 forward and
+    backward at batch 2, 224 px, on the card against the CPU from the same
+    weights; each side's distance from float64 on the CPU. Returns the
+    errors and the attention launch counts of the card's call."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.random((VIT_CHECK_BATCH, 3, VIT_RES, VIT_RES),
+                                    dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((VIT_CHECK_BATCH, 10)))
+    import copy
+
+    base = _vit_model(name, torch.float32)
+    f64 = _vit_model(name, torch.float64)
+    f64.load_state_dict(base.state_dict())
+    out = {}
+    for tag, model, where in (("cpu", base, "cpu"), ("card", base, dev),
+                              ("float64", f64.double(), "cpu")):
+        m = (model if where == "cpu" else
+             copy.deepcopy(model).to(where)).train()
+        xx = x.to(where, torch.float64 if tag == "float64" else torch.float32)
+        _zero_launches()
+        logits = m(xx)
+        (logits * w.to(where, logits.dtype)).sum().backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        out[tag] = {"logits": logits.detach(), "launches":
+                    _read_all_launches(), "gradients": torch.cat(
+                        [p.grad.reshape(-1) for p in m.parameters()])}
+    errs = {"logits": rel_l2(f"{name} logits (fp32, card vs CPU, batch "
+                             f"{VIT_CHECK_BATCH}, {VIT_RES} px)",
+                             out["card"]["logits"], out["cpu"]["logits"],
+                             VIT_REL, "the CPU"),
+            "gradients": rel_l2(f"{name} all parameter gradients (fp32, "
+                                f"card vs CPU)", out["card"]["gradients"],
+                                out["cpu"]["gradients"], VIT_GRAD_REL,
+                                "the CPU")}
+    ref = out["float64"]["gradients"].cpu()
+    for where in ("cpu", "card"):
+        g = out[where]["gradients"].detach().cpu().double()
+        gap = ((g - ref).norm() / ref.norm()).item()
+        lg = out[where]["logits"].cpu().double()
+        lref = out["float64"]["logits"].cpu()
+        lgap = ((lg - lref).norm() / lref.norm()).item()
+        errs[f"fp32 on {where} vs float64"] = {"logits": lgap,
+                                               "gradients": gap}
+        print(f"  {name} fp32 on {where} against float64 on the CPU: logits "
+              f"rel L2 {lgap:.3e}, gradients {gap:.3e}", flush=True)
+    return {"errors": errs, "card_launches": out["card"]["launches"]}
+
+
+def vit_stand_in():
+    """A 224 px stand-in (VIT_TRAIN train images of 10 classes, noise 0.5,
+    random 10% forgetting) and the flip and pad-crop augmentation."""
+    from uurg_torch.data.arrays import pad_crop_batch, random_flip_batch
+    from uurg_torch.data.datasets import synthetic_dataset
+    from uurg_torch.data.splits import random_forget_split
+
+    train = synthetic_dataset(VIT_TRAIN, VIT_RES, 3, 10, seed=0, base_seed=0,
+                              noise_sigma=0.5)
+    retain, forget = random_forget_split(train, 0.1, SEED)
+
+    def aug(x, rng):
+        return random_flip_batch(pad_crop_batch(x, 4, rng), rng)
+
+    return retain, forget, aug
+
+
+def vit_sfron(name: str, dtype, data, dev, card: str, n_iters: int,
+              mask: bool = True) -> dict:
+    """Phase 17: ``SFRon`` through the registry on the 224 px stand-in at
+    batch 64: the Fisher pass and mask (unless ``mask`` is off), then
+    ``n_iters`` iterations; the first VIT_WARMUP - 1 untimed, one profiled,
+    the rest timed. The launch counters are zeroed just before and read
+    just after; the model's forwards are counted by a hook, those with
+    grad on (each followed by one backward) apart."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.unlearn.methods import classification as TM
+    from uurg_torch.workloads.classification import Classifier
+
+    retain, forget, aug = data
+    model = _vit_model(name, dtype).to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    calls = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: calls.append(torch.is_grad_enabled()))
+    ctx = TM.UnlearnContext(
+        classifier=Classifier(dev), model=model, retain_train=retain,
+        forget_train=forget, num_classes=10, batch_size=VIT_BATCH,
+        seed=SEED, transform=aug,
+        overrides={"n_iters": n_iters, "mask": mask})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiled = min(1, n_iters - 1)
+    with cls_clock(TM, VIT_WARMUP - 1, profiled) as rec:
+        _zero_launches()
+        t0 = time.perf_counter()
+        unlearned = TM.unlearn_method_registry.get("SFRon")(ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_all_launches()
+    hook.remove()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = np.asarray(rec["loss"])
+    if len(losses) != n_iters or not np.isfinite(losses).all():
+        fail(f"{name} SFRon: {len(losses)} iterations or a loss not finite")
+    moved = max(float((unlearned.state_dict()[k].float() - v.float()).abs()
+                      .max()) for k, v in before.items())
+    if not moved > 0:
+        fail(f"{name} SFRon: the parameters did not move")
+    if any(not torch.equal(v, model.state_dict()[k])
+           for k, v in before.items()):
+        fail(f"{name} SFRon changed the context's model")
+    # the clock reads after every iteration but the profiled one
+    t = np.asarray(rec["t"][VIT_WARMUP - 1:] if n_iters > VIT_WARMUP
+                   else rec["t"])
+    dt = np.diff(t)
+    tag = f"{name} {str(dtype).removeprefix('torch.')}"
+    print(f"  {tag} SFRon ({n_iters} iterations, batch {VIT_BATCH}, "
+          f"{VIT_RES} px{', Fisher mask' if mask else ', no mask'}): "
+          f"{len(calls)} forwards ({sum(calls)} with a backward), the call "
+          f"{wall:.3f} s; iterations median "
+          f"{np.median(dt) * 1e3 if len(dt) else float('nan'):.3f} ms over "
+          f"{len(dt)}; device busy {rec['busy_ms'] / max(profiled, 1):.3f} "
+          f"ms in the profiled iteration; peak {peak_gib:.3f} GiB; "
+          f"launches {launches}; on {card}", flush=True)
+    return {"launches": launches, "forwards": len(calls),
+            "grad_forwards": sum(calls), "call_s": wall,
+            "iter_ms": (dt * 1e3).tolist(),
+            "median_iter_ms": float(np.median(dt) * 1e3) if len(dt) else None,
+            "busy_ms_profiled_iter": rec["busy_ms"] / max(profiled, 1),
+            "peak_gib": peak_gib,
+            "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+
+
+def _expect_launches(tag: str, got: dict, want: dict) -> None:
+    print(f"  {tag} launches: {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{tag}: the attention launches are not exactly one a block "
+             f"a forward and a backward on the expected route")
+
+
+def vit_clis(card: str) -> dict:
+    """Phase 17: ``main_random --unlearn SFRon --model ViT_B`` on its
+    stand-in fallback (fp32, 32 px: 5 tokens; SFRon cut to VIT_CLI_ITERS
+    iterations), then the north-star
+    helpers: ``save_base_dataset --as_npz``, ``train_classifier`` for one
+    epoch (32 steps at batch 64, 224 px) and ``classifier_evaluation``
+    reading its ``.pth`` on the npz; each in a subprocess, exit 0."""
+    import csv
+    import shutil
+
+    import numpy as np
+
+    work = tempfile.mkdtemp(prefix="uurg_vit_cli_")
+    none = os.path.join(work, "no_data")
+    probe = os.path.join(work, "probe")
+    module = [sys.executable, "-m"]
+    runs = [
+        ("main_random", [*sfron_cut_cli(VIT_CLI_ITERS), "--unlearn", "SFRon",
+                         "--model", "ViT_B", "--data_path", none,
+                         "--save_path", os.path.join(work, "cls")]),
+        ("save_base_dataset", [*module, "uurg_torch.cli.save_base_dataset",
+                               "--data_path", none, "--as_npz", "--out",
+                               os.path.join(work, "ref")]),
+        ("train_classifier", [*module, "uurg_torch.cli.train_classifier",
+                              "--data_path", none, "--epochs", "1",
+                              "--save_path", probe]),
+        ("classifier_evaluation", [
+            *module, "uurg_torch.cli.classifier_evaluation",
+            os.path.join(work, "ref.npz"), "--classifier_ckpt",
+            os.path.join(probe, "cifar10_resnet34.pth"), "--csv",
+            os.path.join(work, "ua.csv")]),
+    ]
+    out = {}
+    try:
+        for name, args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run(args, cwd=ROOT,
+                                  capture_output=True, text=True,
+                                  timeout=VIT_CLI_TIMEOUT)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+                fail(f"{name} exited {proc.returncode}")
+            out[name] = {"seconds": secs}
+            print(f"  {name}: exit 0 in {secs:.3f} s; "
+                  f"{proc.stdout.strip().splitlines()[-1][:300]}", flush=True)
+        with open(os.path.join(work, "cls", "results.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or rows[0]["method"] != "SFRon" or not all(
+                np.isfinite(float(v)) for k, v in rows[0].items()
+                if k != "method"):
+            fail(f"main_random --model ViT_B wrote {rows}")
+        ref = np.load(os.path.join(work, "ref.npz"))["arr_0"]
+        if ref.dtype != np.uint8 or ref.shape[1:] != (32, 32, 3):
+            fail(f"save_base_dataset wrote {ref.dtype} {ref.shape}")
+        with open(os.path.join(work, "ua.csv")) as f:
+            ua = list(csv.DictReader(f))
+        if len(ua) != 1 or not 0.0 <= float(ua[0]["forget_accuracy"]) <= 1:
+            fail(f"classifier_evaluation wrote {ua}")
+        out["main_random_row"] = rows[0]
+        out["ua_row"] = ua[0]
+        print(f"  main_random ViT_B row {json.dumps(rows[0])}; "
+              f"{len(ref)} references; UA row {json.dumps(ua[0])}; on "
+              f"{card}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def vit_path(card: str) -> dict:
+    """Phase 17: ViT-B/16 and Swin-T classification on the card."""
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    out = {}
+    check = vit_card_vs_cpu("ViT_B", dev)
+    _expect_launches("ViT_B fp32 card check (1 forward, 1 backward)",
+                     check["card_launches"],
+                     {**{k: 0 for k in check["card_launches"]},
+                      "attention_fwd_f32": VIT_BLOCKS,
+                      "attention_bwd_f32": VIT_BLOCKS})
+    out["vit_check"] = check
+    t0 = time.perf_counter()
+    data = vit_stand_in()
+    print(f"  stand-in {VIT_TRAIN} images at {VIT_RES} px made in "
+          f"{time.perf_counter() - t0:.1f} s; {len(data[1])} forget, "
+          f"{len(data[0])} retain", flush=True)
+    n_iters = VIT_WARMUP + VIT_TIMED
+    for dtype, route in ((torch.float32, "_f32"), (torch.bfloat16, "")):
+        run = vit_sfron("ViT_B", dtype, data, dev, card, n_iters)
+        want = {k: 0 for k in run["launches"]}
+        want[f"attention_fwd{route}"] = VIT_BLOCKS * run["forwards"]
+        want[f"attention_bwd{route}"] = VIT_BLOCKS * run["grad_forwards"]
+        _expect_launches(f"ViT_B {str(dtype).removeprefix('torch.')} SFRon",
+                         run["launches"], want)
+        out[f"vit_sfron{route or '_bf16'}"] = run
+    torch.cuda.empty_cache()
+    swin = vit_card_vs_cpu("Swin_T", dev)
+    run = vit_sfron("Swin_T", torch.float32, data, dev, card, SWIN_ITERS,
+                    mask=False)
+    for tag, launches in (("Swin_T card check", swin["card_launches"]),
+                          ("Swin_T SFRon", run["launches"])):
+        _expect_launches(tag, launches, {k: 0 for k in launches})
+    out["swin_check"], out["swin_sfron"] = swin, run
+    torch.cuda.empty_cache()
+    out["clis"] = vit_clis(card)
+    return out
+
+
+def remat_path(config, card: str, n_attn: int, n_gn: int) -> dict:
+    """After phase 17: the full-width CondUNet with ``model.remat`` against
+    the same weights without, one train-mode loss and backward at batch 128
+    each (dropout drawn from the same seeded generator): the loss equal, the
+    gradients within REMAT_SPREAD times the plain step's own spread (the
+    plain step run twice; bit-equal where that is 0), 44 more GroupNorm forward launches (two a residual block) and
+    the peak memory of each. Then ``sfron_forget`` for REMAT_STEPS steps
+    with remat and an Adam second moment in bf16, against the same steps
+    without remat: exact launch counts, finite losses, step times, peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.models.layers import ResnetBlockDDPM
+    from uurg_torch.workloads import ddpm_runner as R
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    class Args:
+        seed = SEED
+        ckpt_folder = None
+        label_to_forget = 0
+        forget_alpha = FORGET_ALPHA
+        method = "ron"
+        unlearn_loss = "adaga"
+        nu_dtype = torch.bfloat16
+
+    configs = {"plain": config,
+               "remat": config.merged({"model": {"remat": True}})}
+    rng = np.random.default_rng(SEED)
+    batch = (torch.from_numpy(rng.random((TRAIN_BATCH, 32, 32, 3),
+                                         dtype=np.float32) * 2 - 1).cuda(),
+             torch.from_numpy(rng.integers(0, 10, TRAIN_BATCH)).cuda())
+    res = {}
+    for tag in ("plain", "plain", "remat"):
+        wl = DDPMWorkload.from_config(configs[tag])
+        model = R.load_params(Args, configs[tag], wl).train()
+        n_blocks = sum(isinstance(m, ResnetBlockDDPM)
+                       for m in model.modules())
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        loss = wl.train_loss_fn()(model, batch, gen)
+        fwd = _read_launches()["group_norm_fwd"]
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = _read_launches()
+        grads = torch.cat([p.grad.float().reshape(-1)
+                           for p in model.parameters()])
+        key = tag if tag not in res else "plain again"
+        res[key] = {"loss": loss.detach(), "grads": grads, "peak_gib": peak,
+                    "forward_gn": fwd, "launches": launches,
+                    "gen_state": gen.get_state()}
+        del model, wl, loss
+        torch.cuda.empty_cache()
+    plain, again, remat = res["plain"], res["plain again"], res["remat"]
+    if not torch.equal(plain["loss"], remat["loss"]):
+        fail(f"remat changed the loss: {plain['loss'].item()} vs "
+             f"{remat['loss'].item()}")
+    if not torch.equal(plain["gen_state"], remat["gen_state"]):
+        fail("remat left the dropout generator elsewhere")
+    spread = ((again["grads"] - plain["grads"]).norm()
+              / plain["grads"].norm()).item()
+    print(f"  plain step twice: gradients rel L2 {spread:.3e} (the run-to-"
+          f"run spread)", flush=True)
+    grad_err = rel_l2("remat vs plain gradients (bf16, batch "
+                      f"{TRAIN_BATCH})", remat["grads"], plain["grads"],
+                      REMAT_SPREAD * spread, "the step without remat")
+    extra = remat["launches"]["group_norm_fwd"] - \
+        plain["launches"]["group_norm_fwd"]
+    want_extra = 2 * n_blocks
+    print(f"  GroupNorm forward launches: plain {plain['launches']}, remat "
+          f"{remat['launches']}: {extra} more in the backward (expected "
+          f"{want_extra} = 2 x {n_blocks} residual blocks); forward alone "
+          f"{plain['forward_gn']} and {remat['forward_gn']} (sites {n_gn})",
+          flush=True)
+    if extra != want_extra or want_extra != 44 or not \
+            plain["forward_gn"] == remat["forward_gn"] == n_gn:
+        fail("remat did not recompute exactly the residual blocks' two "
+             "GroupNorms")
+    for k in ("attention_fwd", "attention_bwd", "group_norm_bwd"):
+        if plain["launches"][k] != remat["launches"][k]:
+            fail(f"remat changed the {k} launches")
+    print(f"  peak memory of the step: plain {plain['peak_gib']:.3f} GiB, "
+          f"remat {remat['peak_gib']:.3f} GiB on {card}", flush=True)
+
+    steps = {}
+    for tag in ("plain", "remat"):
+        cfg = configs[tag].merged({"training": {
+            "n_iters": REMAT_STEPS, "snapshot_freq": 10 ** 6,
+            "log_freq": 10 ** 6}})
+        ckpt_dir = tempfile.mkdtemp(prefix="uurg_remat_")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with step_clock(R) as rec:
+                _zero_launches()
+                t0 = time.time()
+                state = R.sfron_forget(Args, cfg, ckpt_dir)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = _read_all_launches()
+        finally:
+            for name in os.listdir(ckpt_dir):
+                os.remove(os.path.join(ckpt_dir, name))
+            os.rmdir(ckpt_dir)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        nu = [s["nu"].dtype for s in state.optimizer.state.values()]
+        if not nu or any(d != torch.bfloat16 for d in nu):
+            fail(f"{tag}: the Adam second moments are not bf16: {set(nu)}")
+        losses = [(float(m["forget_loss"]), float(m["remain_loss"]))
+                  for m in rec["metrics"]]
+        if len(losses) != REMAT_STEPS or not np.isfinite(losses).all():
+            fail(f"{tag} SFR-on steps: {losses}")
+        phases = 2 * REMAT_STEPS
+        want = {"attention_fwd": n_attn * phases,
+                "attention_bwd": n_attn * phases,
+                "group_norm_fwd": (n_gn + (44 if tag == "remat" else 0))
+                * phases,
+                "group_norm_bwd": n_gn * phases,
+                "attention_fwd_f32": 0, "attention_bwd_f32": 0}
+        print(f"  {tag} SFR-on, nu bf16, {REMAT_STEPS} steps: launches "
+              f"{launches} (expected {want})", flush=True)
+        if launches != want:
+            fail(f"{tag} SFR-on steps: launch counts")
+        step_s = np.diff(rec["t"])
+        steps[tag] = {"launches": launches, "losses": losses,
+                      "step_ms": (step_s * 1e3).tolist(), "peak_gib": peak,
+                      "call_s": wall}
+        print(f"  {tag}: steps {np.round(step_s * 1e3, 3).tolist()} ms, "
+              f"peak {peak:.3f} GiB, call {wall:.3f} s on {card}",
+              flush=True)
+        del state
+        torch.cuda.empty_cache()
+    return {"loss": plain["loss"].item(), "grad_rel_l2": grad_err,
+            "plain_spread_rel_l2": spread, "extra_gn_fwd": extra,
+            "step_peak_gib": {"plain": plain["peak_gib"],
+                              "remat": remat["peak_gib"]},
+            "sfron": steps,
+            "launches": {k: steps["remat"]["launches"][k]
+                         for k in steps["remat"]["launches"]}}
 
 
 def main() -> int:
@@ -2407,12 +3010,12 @@ def main() -> int:
     t_start = time.time()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"== card: {card}", flush=True)
+    banner(f"card: {card}")
     print(f"== torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {sh([_build._nvcc(), '--version']).splitlines()[-1]}",
           flush=True)
 
-    print("== build", flush=True)
+    banner("build")
     t0 = time.time()
     _build.build_all()
     print(f"  built {len(_build.sources())} sources in "
@@ -2433,24 +3036,24 @@ def main() -> int:
 
     model = R.load_params(Args, config, wl)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"== model: full-width CondUNet, {n_params} parameters, "
-          f"seeded random init", flush=True)
+    banner(f"model: full-width CondUNet, {n_params} parameters, "
+          f"seeded random init")
     sites = collect_sites(model, wl.device)
     n_attn = sum(1 for s in sites if s[0] == "attn")
     n_gn = sum(1 for s in sites if s[0] == "gn")
     print(f"  sites per forward: {n_attn} attention, {n_gn} GroupNorm",
           flush=True)
 
-    print("== kernels vs plain versions (bf16, CFG batch "
-          f"{2 * SAMPLING_BATCH})", flush=True)
+    banner("kernels vs plain versions (bf16, CFG batch "
+          f"{2 * SAMPLING_BATCH})")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(sites, 2 * SAMPLING_BATCH, gen)
 
-    print("== whole model, kernels vs plain path", flush=True)
+    banner("whole model, kernels vs plain path")
     model_rel = model_check(model, gen)
 
-    print(f"== main path: sample_images, DDIM-{DDIM_STEPS}, CFG "
-          f"{COND_SCALE}, {SAMPLING_BATCH} labels", flush=True)
+    banner(f"main path: sample_images, DDIM-{DDIM_STEPS}, CFG "
+          f"{COND_SCALE}, {SAMPLING_BATCH} labels")
     labels = np.arange(SAMPLING_BATCH) % config.data.n_classes
     R.sample_images(Args, config, model, labels[:8], num_steps=2,
                     cond_scale=COND_SCALE, batch_size=SAMPLING_BATCH,
@@ -2487,59 +3090,71 @@ def main() -> int:
           f"output finite; image mean {imgs.mean():.2f} std "
           f"{imgs.std():.2f}", flush=True)
 
-    print(f"== backward kernels vs plain versions (bf16, training batch "
-          f"{TRAIN_BATCH})", flush=True)
+    banner(f"backward kernels vs plain versions (bf16, training batch "
+          f"{TRAIN_BATCH})")
     rows += check_bwd_kernels(sites, TRAIN_BATCH, gen)
 
-    print("== whole model gradients, kernels vs plain path", flush=True)
+    banner("whole model gradients, kernels vs plain path")
     grad_rel = grad_check(model, wl, gen)
     del model
     torch.cuda.empty_cache()
 
-    print(f"== main path: sfron_forget, full width, batch {TRAIN_BATCH} "
+    banner(f"main path: sfron_forget, full width, batch {TRAIN_BATCH} "
           f"forget + {TRAIN_BATCH} remain, {WARMUP_STEPS} warm-up + "
-          f"{TRAIN_STEPS} counted steps", flush=True)
+          f"{TRAIN_STEPS} counted steps")
     train = train_path(config, card, n_attn, n_gn)
 
-    print("== attention kernels off the main path (ragged T, padded D)",
-          flush=True)
+    banner("attention kernels off the main path (ragged T, padded D)")
     ragged = check_ragged(gen)
 
-    print("== GroupNorm forward off the main path (fp32, ragged slices, "
-          "sweep route, small batches)", flush=True)
+    banner("GroupNorm forward off the main path (fp32, ragged slices, "
+          "sweep route, small batches)")
     gn_offpath = check_gn_offpath(gen)
 
-    print("== GroupNorm backward off the main path (fp32, ragged slices, "
-          "sweep route, small batches, batch 256)", flush=True)
+    banner("GroupNorm backward off the main path (fp32, ragged slices, "
+          "sweep route, small batches, batch 256)")
     gn_bwd_offpath = check_gn_bwd_offpath(gen)
 
-    print(f"== main path: Fisher and masks, full width, CFG {COND_SCALE}, "
-          f"batch {TRAIN_BATCH} of each split", flush=True)
+    banner(f"main path: Fisher and masks, full width, CFG {COND_SCALE}, "
+          f"batch {TRAIN_BATCH} of each split")
     fisher = fisher_path(config, card, n_attn, n_gn, gen)
 
-    print(f"== main path: Selective Amnesia, full width, the per-sample "
+    banner(f"main path: Selective Amnesia, full width, the per-sample "
           f"Fisher ({FIM_CHUNKS} chunks x {FIM_SAMPLES} examples) and "
-          f"{SA_WARMUP_STEPS} + {SA_STEPS} SA steps at batch {TRAIN_BATCH}",
-          flush=True)
+          f"{SA_WARMUP_STEPS} + {SA_STEPS} SA steps at batch {TRAIN_BATCH}")
     sa = sa_path(card, n_attn, n_gn, gen)
 
-    print("== evaluation: InceptionV3 and the ResNet-34 probe, card vs CPU, "
-          "throughput", flush=True)
+    banner("evaluation: InceptionV3 and the ResNet-34 probe, card vs CPU, "
+          "throughput")
     evaluation = eval_networks(card)
     torch.cuda.empty_cache()
-    print(f"== main path: the five stages end to end (the twin of "
+    banner(f"main path: the five stages end to end (the twin of "
           f"cli/parity_check.py) at full width, {PARITY_ITERS} SFR-on steps, "
-          f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}",
-          flush=True)
+          f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}")
     parity = parity_path(config, card, n_attn, n_gn)
     del config, wl
     torch.cuda.empty_cache()
-    print(f"== main path: classification, ResNet-18 (CIFAR stem, full width) "
+    banner(f"main path: classification, ResNet-18 (CIFAR stem, full width) "
           f"on a {CLS_TRAIN}-image stand-in, random 10% forgetting, batch "
           f"{CLS_BATCH}: card vs CPU, SFRon fp32 and bf16 ({CLS_WARMUP} + "
           f"{CLS_TIMED} of 1,500 iterations), the other eight methods at one "
-          f"epoch, the main_random CLI", flush=True)
+          f"epoch, the main_random CLI")
     classification = classification_path(card)
+
+    banner("float32 attention kernels vs plain versions (TF32 off): "
+          "ViT-B/16 at 224 and 32 px, padded D, ragged T")
+    rows_f32, f32_detail = attention_f32_path(gen)
+    banner(f"main path: ViT-B/16 (fp32 and bf16) and Swin-T classification "
+          f"at {VIT_RES} px: card vs CPU, SFRon at batch {VIT_BATCH} "
+          f"({VIT_WARMUP} + {VIT_TIMED} of 1,500 iterations), main_random "
+          f"--model ViT_B, save_base_dataset, train_classifier, "
+          f"classifier_evaluation")
+    vit = vit_path(card)
+    torch.cuda.empty_cache()
+    banner(f"main path: the remat'd DDPM step (full width, batch "
+          f"{TRAIN_BATCH}, Adam nu in bf16) against no remat")
+    remat = remat_path(Config(SFRON_CONFIG), card, n_attn, n_gn)
+    rows += rows_f32
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -2556,15 +3171,35 @@ def main() -> int:
         "group_norm_bwd": {
             "source": "uurg_torch/csrc/group_norm.cu",
             "replaces": "uurg_tpu/ops/group_norm.py:60", "per": bwd_per},
+        "attention_fwd_f32": {
+            "source": "uurg_torch/csrc/flash_attention_f32.cu",
+            "replaces": "uurg_tpu/ops/flash_attention.py:49",
+            "per": f"ViT-B/16 forward at batch {F32_VIT_SHAPE[0]}, "
+                   f"{VIT_RES} px (fp32)"},
+        "attention_bwd_f32": {
+            "source": "uurg_torch/csrc/flash_attention_f32.cu",
+            "replaces": "uurg_tpu/ops/flash_attention.py:113",
+            "per": f"ViT-B/16 backward at batch {F32_VIT_SHAPE[0]}, "
+                   f"{VIT_RES} px (fp32)"},
     }
-    by_path = {name: {"sampling": launches.get(name, 0),
-                      "training": train["launches"][name],
-                      "fisher": fisher["launches"][name],
-                      "sa_fim": sa["fim_launches"][name],
-                      "sa": sa["sa_launches"][name],
-                      "parity": parity["launches"][name],
-                      "classification": classification["launches"][name]}
-              for name in meta}
+    # the DDPM paths read the four bf16/GroupNorm counters; the paths from
+    # phase 15 on read the float32 routes' too
+    ddpm_paths = {"training": train["launches"], "fisher": fisher["launches"],
+                  "sa_fim": sa["fim_launches"], "sa": sa["sa_launches"],
+                  "parity": parity["launches"]}
+    all_paths = {"classification": classification["launches"],
+                 "vit_f32": vit["vit_sfron_f32"]["launches"],
+                 "vit_bf16": vit["vit_sfron_bf16"]["launches"],
+                 "swin": vit["swin_sfron"]["launches"],
+                 "remat": remat["launches"]}
+    by_path = {}
+    for name in meta:
+        paths = {}
+        if not name.endswith("_f32"):
+            paths["sampling"] = launches.get(name, 0)
+            paths.update({p: got[name] for p, got in ddpm_paths.items()})
+        paths.update({p: got[name] for p, got in all_paths.items()})
+        by_path[name] = paths
     kernels = summarise(rows, by_path, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -2581,7 +3216,10 @@ def main() -> int:
                    "gn_bwd_offpath": gn_bwd_offpath, "fisher": fisher,
                    "sa": sa, "evaluation": evaluation, "parity": parity,
                    "classification": classification,
-                   "total_seconds": time.time() - t_start}, f, indent=1)
+                   "attention_f32": f32_detail, "vit": vit,
+                   "remat": remat,
+                   "total_seconds": time.time() - t_start}, f, indent=1,
+                  default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -26,6 +26,7 @@ from uurg_torch.data.datasets import synthetic_dataset  # noqa: E402
 from uurg_torch.io import checkpoint as CK  # noqa: E402
 from uurg_torch.io.jax_interop import jax_resnet_variables_to_torch  # noqa: E402
 from uurg_torch.models import resnet as TR  # noqa: E402
+from uurg_torch.models.init import init_classifier  # noqa: E402
 from uurg_torch.train.optim import cosine_annealing, make_optimizer  # noqa: E402
 from uurg_torch.unlearn import protocol as TP  # noqa: E402
 from uurg_torch.unlearn import sfron as TS  # noqa: E402
@@ -490,7 +491,9 @@ def test_run_comparison_matches_jax(pretrained, tmp_path, monkeypatch):
         transform=_jax_aug, overrides=over,
         csv_path=str(tmp_path / "j.csv"))
 
-    def carried_init(generator, fresh):
+    def carried_init(generator, fresh, resolution=32):
+        # the protocol passes the data's resolution, as the JAX one does
+        assert resolution == train.images.shape[1]
         fresh.load_state_dict(to_torch(*jax_init(
             generator.initial_seed())).state_dict())
         return fresh
@@ -648,10 +651,10 @@ def test_checkpoint_round_trips_a_trained_classifier(pretrained, tmp_path):
 def test_init_classifier_is_flax_in_distribution():
     """LeCun-normal truncated at two sigma: per-layer variance 1 / fan_in
     and no draw beyond 2 sigma; BatchNorm at identity."""
-    model = TR.init_classifier(torch.Generator().manual_seed(0),
-                               TR.ResNet18(10))
-    again = TR.init_classifier(torch.Generator().manual_seed(0),
-                               TR.ResNet18(10))
+    model = init_classifier(torch.Generator().manual_seed(0),
+                            TR.ResNet18(10))
+    again = init_classifier(torch.Generator().manual_seed(0),
+                            TR.ResNet18(10))
     assert all(torch.equal(v, again.state_dict()[k])
                for k, v in model.state_dict().items())
     n = sum(p.numel() for p in model.parameters())

@@ -249,3 +249,36 @@ def test_backward_kernels_at_the_ragged_fisher_batch(gen):
         again = group_norm_bwd(x, scale, mean, rstd, g)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert int(GN._fold_counters[x.device].abs().sum()) == 0   # left zero
+
+
+# the float32 route (the ViT classifiers): ViT-B/16 at 224 and 32 px, padded
+# head widths, then the ragged shapes above at D in {40, 72, 160, 192}
+F32_SHAPES = [(4, 12, 197, 64), (8, 12, 5, 64), (2, 12, 197, 40),
+              (2, 12, 197, 160)] + [(2, 2, T, D) for T, D in SHAPES[4:]]
+
+
+@pytest.mark.parametrize("B,H,T,D", F32_SHAPES)
+def test_attention_f32_kernels_match_plain(gen, B, H, T, D):
+    """float32 on both sides (TF32 off): relative L2 1e-5 forward and 1e-4
+    backward, as chip_smoke.py phase 16; one launch of each on its own
+    counter and none on the bf16 counters."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                  for _ in range(4))
+    counts = (attention.launches, attention.launches_f32,
+              attention_bwd.launches, attention_bwd.launches_f32)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention(*ts)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention.launches_f32,
+            attention_bwd.launches, attention_bwd.launches_f32) == (
+        counts[0], counts[1] + 1, counts[2], counts[3] + 1)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    assert out.dtype == torch.float32
+    assert rel(out, attention_plain(q, k, v)) <= 1e-5
+    for t, w in zip(ts, attention_bwd_plain(q, k, v, g)):
+        assert rel(t.grad, w) <= 1e-4

@@ -69,9 +69,25 @@ def test_quick_standin_runs_all_five_stages(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--nu_dtype", "bf16"], ["--remat"]])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+def test_unported_flags_raise(tmp_path, flag, monkeypatch):
+    """Both flags were refused before they were ported; now each reaches
+    the stages: --remat as the config's model.remat, --nu_dtype bf16 as the
+    SFR-on stage's Adam second-moment dtype (the Fisher stage, stubbed
+    here to stop the run, receives both)."""
+    from uurg_torch.workloads import ddpm_runner
+
+    seen = {}
+
+    def stop(run_args, config, out, device=None):
+        seen.update(remat=config.model.get("remat", False),
+                    nu_dtype=run_args.nu_dtype)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ddpm_runner, "generate_fisher", stop)
+    with pytest.raises(KeyboardInterrupt):
         TP.main(_argv(tmp_path, "--quick", "--device", "cpu", *flag))
+    assert seen == ({"remat": True, "nu_dtype": None} if flag == ["--remat"]
+                    else {"remat": False, "nu_dtype": torch.bfloat16})
 
 
 def test_default_device_is_cuda(tmp_path):

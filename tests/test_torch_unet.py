@@ -95,16 +95,16 @@ def test_full_width_parameter_count_and_init():
 
 
 def test_from_config_raises_on_remat():
-    # the JAX from_config reads model.remat; the port does not have it and
-    # must not drop it without a word
+    # the JAX from_config reads model.remat. The port refused it until it
+    # had it; now it reads it the same way (default off), so no config
+    # value is dropped without a word
     from uurg_torch.core.config import Config
 
     model = {"in_channels": 3, "out_ch": 3, "ch": 32, "ch_mult": [1, 2],
              "num_res_blocks": 1, "attn_resolutions": [16], "dropout": 0.0,
              "resamp_with_conv": True}
     data = {"image_size": 32, "n_classes": 10}
-    assert TU.UNetConfig.from_config(
-        Config({"model": model, "data": data})).ch == 32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TU.UNetConfig.from_config(
-            Config({"model": {**model, "remat": True}, "data": data}))
+    cfg = TU.UNetConfig.from_config(Config({"model": model, "data": data}))
+    assert cfg.ch == 32 and cfg.remat is False
+    on = Config({"model": {**model, "remat": True}, "data": data})
+    assert TU.UNetConfig.from_config(on).remat is True

@@ -106,11 +106,11 @@ def parse_args(argv=None):
                    help="bit-pack the saliency mask (1 bit/elem)")
     p.add_argument("--nu_dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
-                   help="Adam second-moment dtype; bf16 is not ported "
-                        "(ROADMAP.md Queue 1 item 4) and raises")
+                   help="Adam second-moment storage dtype of the SFR-on "
+                        "stage (bf16 halves its memory)")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize UNet res blocks in the backward; not "
-                        "ported (ROADMAP.md Queue 1 item 4), raises")
+                   help="rematerialize UNet res blocks in the backward "
+                        "(model.remat)")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
@@ -130,10 +130,8 @@ def run(args, config, device=None) -> dict:
     overrides and ``data.path`` are applied to a copy) and ``device`` (CUDA
     unless "cpu" is asked for). Writes the outputs under ``args.out`` and
     returns the report written to ``parity_report.json``."""
-    if args.nu_dtype != "f32" or args.remat:
-        raise NotImplementedError(
-            "--nu_dtype bf16 and --remat are not ported to uurg_torch "
-            "(ROADMAP.md Queue 1 item 4)")
+    import torch
+
     from uurg_torch.core.device import resolve_device
     from uurg_torch.core.rng import seeded_init_
     from uurg_torch.data.splits import class_forget_split
@@ -162,12 +160,15 @@ def run(args, config, device=None) -> dict:
     if args.quick:
         config = config.merged(QUICK_CONFIG)
         n_samples, n_probe, steps = QUICK_SAMPLES, QUICK_PROBE, QUICK_STEPS
+    if args.remat:
+        config = config.merged({"model": {"remat": True}})
     run_args = types.SimpleNamespace(
         ckpt_folder=args.artifacts if art["ddpm_ckpt"] else "",
         label_to_forget=args.label_to_forget,
         forget_alpha=args.forget_alpha, remain_alpha=1.0,
         decay_forget_alpha=False, method="ron", unlearn_loss="adaga",
-        mask_path="", seed=args.seed, pack_mask=args.pack_mask)
+        mask_path="", seed=args.seed, pack_mask=args.pack_mask,
+        nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None)
 
     # 1-2) Fisher diagonals and the saliency mask (DDPM/README.md:49-53)
     if not args.skip_fisher:

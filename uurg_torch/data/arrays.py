@@ -1,5 +1,5 @@
 """Host-side array datasets, shuffled batchers and the classification
-augmentation.
+augmentations (flip, pad-crop, a light RandAugment).
 
 This package's own copy of the numpy code in ``uurg_tpu/data/arrays.py``
 that the DDPM trainer and the classification methods use (the reference's
@@ -70,6 +70,64 @@ def pad_crop_batch(x: np.ndarray, pad: int,
     cols = xs[:, None] + np.arange(w)[None, :]          # (n, w)
     return padded[np.arange(n)[:, None, None],
                   rows[:, :, None], cols[:, None, :], :]
+
+
+def _shift_zero_fill(x: np.ndarray, shift: int, axis: int) -> np.ndarray:
+    """Shift a batch along ``axis`` with zero fill (affine translate)."""
+    out = np.zeros_like(x)
+    src = [slice(None)] * x.ndim
+    dst = [slice(None)] * x.ndim
+    if shift >= 0:
+        dst[axis] = slice(shift, None)
+        src[axis] = slice(None, x.shape[axis] - shift)
+    else:
+        dst[axis] = slice(None, shift)
+        src[axis] = slice(-shift, None)
+    out[tuple(dst)] = x[tuple(src)]
+    return out
+
+
+def rand_augment_batch(x: np.ndarray, rng: np.random.Generator,
+                       num_ops: int = 2, magnitude: float = 9.0
+                       ) -> np.ndarray:
+    """Light numpy RandAugment (the TinyImageNet recipe,
+    Classification/dataset/tinyimagenet.py, uses torchvision's RandAugment)
+    on float32 [0, 1] NHWC batches: brightness, contrast, solarize,
+    posterize, translate-x/y with zero fill; the op and its sign drawn per
+    sample from ``rng`` in the JAX package's order, so the same generator
+    gives the same output."""
+    n = len(x)
+    m = magnitude / 30.0
+    out = x.copy()
+    for _ in range(num_ops):
+        ops = rng.integers(0, 6, n)
+        signs = rng.choice([-1.0, 1.0], n)
+        for op in range(6):
+            idx = np.where(ops == op)[0]
+            if len(idx) == 0:
+                continue
+            sub = out[idx]
+            if op == 0:    # brightness
+                sub = np.clip(sub + signs[idx, None, None, None] * m, 0, 1)
+            elif op == 1:  # contrast
+                mean = sub.mean(axis=(1, 2, 3), keepdims=True)
+                f = 1.0 + signs[idx, None, None, None] * m
+                sub = np.clip(mean + (sub - mean) * f, 0, 1)
+            elif op == 2:  # solarize
+                thresh = 1.0 - m
+                sub = np.where(sub >= thresh, 1.0 - sub, sub)
+            elif op == 3:  # posterize
+                q = 2 ** max(1, int(8 - 4 * m))
+                sub = np.floor(sub * q) / q
+            else:          # translate-x (4) / translate-y (5), zero fill
+                axis = 2 if op == 4 else 1
+                mag = int(m * sub.shape[axis] * 0.3) or 1
+                for s in (-1, 1):
+                    grp = signs[idx] == s
+                    if grp.any():
+                        sub[grp] = _shift_zero_fill(sub[grp], s * mag, axis)
+            out[idx] = sub
+    return out
 
 
 def epoch_batches(

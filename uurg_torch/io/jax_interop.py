@@ -6,7 +6,9 @@ reference-name mapping of ``uurg_tpu/io/torch_interop.py``
 1x1 conv weights inside attention blocks), HWIO conv kernels become OIHW.
 It takes a nested dict of numpy arrays, so no JAX is needed to call it.
 ``jax_resnet_variables_to_torch`` does the same for the JAX package's
-ResNet (``params`` and ``batch_stats``) under torchvision's names.
+ResNet (``params`` and ``batch_stats``) under torchvision's names, and
+``jax_vit_params_to_torch`` / ``jax_swin_params_to_torch`` for its ViT and
+Swin, whose port keeps the Flax module names.
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
@@ -142,6 +144,41 @@ def jax_resnet_variables_to_torch(params: Mapping[str, Any],
             else:
                 out[f"{name}.{_RESNET_BN[leaf]}"] = torch.tensor(v)
     return out
+
+
+def _flax_names_to_torch(params: Mapping[str, Any]
+                         ) -> dict[str, torch.Tensor]:
+    """Flax params -> a state dict under the same module path: Dense kernels
+    (in, out) -> Linear weights (out, in), HWIO conv kernels -> OIHW,
+    LayerNorm ``scale`` -> ``weight``; biases and bare parameters as they
+    are."""
+    out = {}
+    for path, v in _flatten(params).items():
+        v = np.asarray(v, np.float32)
+        *mods, leaf = path
+        if leaf == "kernel":
+            leaf, v = "weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4
+                                 else v.T)
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join([*mods, leaf])] = torch.tensor(v)
+    return out
+
+
+def jax_vit_params_to_torch(params: Mapping[str, Any]
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX package's ViT params (``uurg_tpu/models/vit.py``) -> a state
+    dict of :class:`uurg_torch.models.vit.ViT`: ``cls_token`` and
+    ``pos_embed`` as they are, the rest as :func:`_flax_names_to_torch`."""
+    return _flax_names_to_torch(params)
+
+
+def jax_swin_params_to_torch(params: Mapping[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+    """The JAX package's Swin params (``uurg_tpu/models/swin.py``) -> a
+    state dict of :class:`uurg_torch.models.swin.Swin`: ``rel_pos_bias`` as
+    it is, the rest as :func:`_flax_names_to_torch`."""
+    return _flax_names_to_torch(params)
 
 
 def load_reference_checkpoint(path: str, model: torch.nn.Module,

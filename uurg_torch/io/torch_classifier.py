@@ -5,10 +5,10 @@ classifier from torchvision with ImageNet weights and a re-initialised head
 (Classification/models/{resnet,vit,swin}.py). Without a download, the user
 drops the ``.pth`` locally: it is read through
 :mod:`uurg_torch.io.tv_resnet_interop` (torchvision or reference-CIFAR
-layout) and overlaid on a freshly initialised model, keeping the fresh
+layout) or :mod:`uurg_torch.io.tv_vit_swin_interop` (torchvision ViT-B/16
+and Swin) and overlaid on a freshly initialised model, keeping the fresh
 tensor wherever the shapes disagree, which re-creates the reference's head
-re-initialisation without special cases. ViT and Swin arrive with the next
-classification slice.
+re-initialisation without special cases.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from typing import Mapping
 import torch
 
 from uurg_torch.io.tv_resnet_interop import load_torch_resnet_checkpoint
+from uurg_torch.io.tv_vit_swin_interop import (load_torch_swin_checkpoint,
+                                               load_torch_vit_checkpoint)
 
 log = logging.getLogger(__name__)
 
@@ -30,9 +32,13 @@ def load_torch_classifier(path: str, model_name: str
     if name.startswith("resnet"):
         return load_torch_resnet_checkpoint(path)
     if name.startswith(("vit", "swin")):
-        raise NotImplementedError(
-            f"{model_name}: ViT and Swin checkpoints arrive with the next "
-            f"classification slice (io/tv_vit_swin_interop.py)")
+        load = (load_torch_vit_checkpoint if name.startswith("vit")
+                else load_torch_swin_checkpoint)
+        state, dropped = load(path)
+        if dropped:
+            log.info("torch_init: %d keys dropped (%s)", len(dropped),
+                     ", ".join(dropped[:6]))
+        return state
     raise ValueError(f"no torch converter for model family {model_name!r}")
 
 

@@ -1,29 +1,23 @@
 """The classifier registry and factory (port of
 ``uurg_tpu/models/__init__.py``: ``model_registry`` and ``create_model``
-under the JAX names, without ``eval()``). ``init_classifier`` is
-re-exported beside them."""
+under the JAX names, without ``eval()``): the ResNets, ViT-B/16 and
+Swin-T/S/B. ``init_classifier`` is re-exported beside them."""
 from uurg_torch.core.registry import Registry
 
 model_registry = Registry("model")
 
 from uurg_torch.models.resnet import (  # noqa: E402
-    ResNet18, ResNet34, ResNet50, ResNet101, ResNet152, init_classifier,
+    ResNet18, ResNet34, ResNet50, ResNet101, ResNet152,
 )
-
-
-def _not_ported(name: str):
-    def factory(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet: ViT and Swin arrive with the next "
-            f"classification slice (models/vit.py, models/swin.py)")
-    return factory
-
+from uurg_torch.models.init import init_classifier  # noqa: E402,F401
+from uurg_torch.models.swin import Swin_B, Swin_S, Swin_T  # noqa: E402
+from uurg_torch.models.vit import ViT_B  # noqa: E402
 
 for _name, _fn in [
     ("ResNet18", ResNet18), ("ResNet34", ResNet34), ("ResNet50", ResNet50),
     ("ResNet101", ResNet101), ("ResNet152", ResNet152),
-    ("ViT_B", _not_ported("ViT_B")), ("Swin_T", _not_ported("Swin_T")),
-    ("Swin_S", _not_ported("Swin_S")), ("Swin_B", _not_ported("Swin_B")),
+    ("ViT_B", ViT_B), ("Swin_T", Swin_T), ("Swin_S", Swin_S),
+    ("Swin_B", Swin_B),
 ]:
     model_registry.register(_name, _fn)
 

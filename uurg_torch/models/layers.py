@@ -150,22 +150,29 @@ class ResnetBlockDDPM(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv after (0, 1) asymmetric padding."""
+    """Stride-2 3x3 conv after (0, 1) asymmetric padding, or without
+    ``with_conv`` a 2x2 average pool (DDPM/models/diffusion.py:65-82)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, with_conv: bool = True):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2)
+        if with_conv:
+            self.conv = Conv2d(channels, channels, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        if hasattr(self, "conv"):
+            return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return F.avg_pool2d(x, 2, 2)
 
 
 class Upsample(nn.Module):
-    """Nearest-neighbour 2x upsample, then a 3x3 conv."""
+    """Nearest-neighbour 2x upsample, then a 3x3 conv unless ``with_conv``
+    is off (DDPM/models/diffusion.py:49-62)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, with_conv: bool = True):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        if with_conv:
+            self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return self.conv(x) if hasattr(self, "conv") else x

@@ -11,8 +11,8 @@ Padding is torch's explicit padding, as the JAX model uses.
 BatchNorm in train mode is flax's: it normalises with the batch statistics
 and moves the running variance toward the *biased* batch variance, where
 ``nn.BatchNorm2d`` moves it toward the unbiased one (n / (n - 1) larger: 1.6%
-at n = 64). Eval mode is ``nn.BatchNorm2d``'s own. :func:`init_classifier`
-draws flax's initial weights.
+at n = 64). Eval mode is ``nn.BatchNorm2d``'s own.
+:func:`uurg_torch.models.init.init_classifier` draws flax's initial weights.
 
 Parameter names are torchvision's (``conv1``, ``bn1``, ``layer{1-4}.{j}.
 conv1/bn1/conv2/bn2[/conv3/bn3]/downsample.{0,1}``, ``fc``), so a
@@ -183,26 +183,3 @@ def ResNet101(num_classes=10, dtype=torch.float32, imagenet_stem=False):
 def ResNet152(num_classes=10, dtype=torch.float32, imagenet_stem=False):
     return ResNet([3, 8, 36, 3], Bottleneck, num_classes, dtype=dtype,
                   imagenet_stem=imagenet_stem)
-
-
-@torch.no_grad()
-def init_classifier(generator: torch.Generator,
-                    model: nn.Module) -> nn.Module:
-    """flax's initial weights, in distribution, drawn from ``generator`` in
-    place: LeCun-normal kernels of the convolutions and the dense layer (a
-    normal of variance 1 / fan_in truncated at two standard deviations and
-    rescaled, as ``variance_scaling(1, "fan_in", "truncated_normal")``),
-    zero dense bias, BatchNorm scale 1, bias 0 and identity running
-    statistics. Returns ``model``."""
-    # the standard deviation of a unit normal truncated to [-2, 2]
-    trunc_std = 0.87962566103423978
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            std = (1.0 / mod.weight[0].numel()) ** 0.5 / trunc_std
-            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-    return model

@@ -9,6 +9,14 @@ the generator the call passes; gradients reach the float32 parameters
 through the casts. Submodule names follow the
 reference torch state dict, so a reference ``ckpt.pth`` loads with
 ``strict=True`` once the ``module.`` prefix is stripped.
+
+``UNetConfig.remat`` (``model.remat`` in the YAML) recomputes each residual
+block's forward in the backward instead of keeping its activations, as the
+JAX model's ``nn.remat`` of ``ResnetBlockDDPM`` does (the attention blocks
+and resamplers keep theirs): ``torch.utils.checkpoint`` without reentry,
+with the dropout generator's state replayed for the recompute.
+``resamp_with_conv=False`` resamples by a 2x2 average pool and a
+nearest-neighbour x2 without convolutions.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from uurg_torch.models.layers import (
     Conv2d,
@@ -45,17 +54,17 @@ class UNetConfig:
     n_classes: int = 10
     cond_drop_prob: float = 0.1
     dtype: torch.dtype = torch.bfloat16
+    # recompute the res blocks in the backward (activation memory for
+    # conv work); forward-only use is unaffected
+    remat: bool = False
 
     @classmethod
-    def from_config(cls, cfg, dtype: torch.dtype = torch.bfloat16) -> "UNetConfig":
-        """Build from a reference-schema YAML config (model/data sections).
-        ``model.remat: true`` (rematerialised res blocks in the JAX package)
-        raises: it is not ported (ROADMAP.md Queue 1 item 4)."""
-        if cfg.model.get("remat", False):
-            raise NotImplementedError(
-                "model.remat is not ported to uurg_torch (ROADMAP.md Queue 1 "
-                "item 4); set it false")
+    def from_config(cls, cfg, dtype: torch.dtype = torch.bfloat16
+                    ) -> "UNetConfig":
+        """Build from a reference-schema YAML config (model/data sections);
+        ``remat`` is ``model.remat`` (default off)."""
         return cls(
+            remat=bool(cfg.model.get("remat", False)),
             in_channels=cfg.model.in_channels,
             out_channels=cfg.model.out_ch,
             ch=cfg.model.ch,
@@ -89,8 +98,6 @@ class CondUNet(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if not cfg.resamp_with_conv:
-            raise NotImplementedError("resamp_with_conv=False is not ported")
         self.cfg = cfg
         ch = cfg.ch
         emb_ch = ch * 4
@@ -120,7 +127,7 @@ class CondUNet(nn.Module):
                 hs_ch.append(cur)
             level = _container(block=blocks, attn=attns)
             if i_level != num_res - 1:
-                level.downsample = Downsample(cur)
+                level.downsample = Downsample(cur, cfg.resamp_with_conv)
                 hs_ch.append(cur)
                 res //= 2
             self.down.append(level)
@@ -139,7 +146,7 @@ class CondUNet(nn.Module):
                     attns.append(SelfAttention2D(cur))
             level = _container(block=blocks, attn=attns)
             if i_level != 0:
-                level.upsample = Upsample(cur)
+                level.upsample = Upsample(cur, cfg.resamp_with_conv)
                 res *= 2
             up[i_level] = level
         self.up = nn.ModuleList(up)
@@ -165,23 +172,25 @@ class CondUNet(nn.Module):
         cemb = self.cemb.dense[1](swish(self.cemb.dense[0](cemb.to(dtype))))
         emb = torch.cat([temb, cemb], dim=-1)
 
+        run = self._remat if cfg.remat and torch.is_grad_enabled() else (
+            lambda blk, *a: blk(*a))
         hs = [self.conv_in(x)]
         for level in self.down:
             for i_block, blk in enumerate(level.block):
-                h = blk(hs[-1], emb, generator)
+                h = run(blk, hs[-1], emb, generator)
                 if len(level.attn):
                     h = level.attn[i_block](h)
                 hs.append(h)
             if hasattr(level, "downsample"):
                 hs.append(level.downsample(hs[-1]))
 
-        h = self.mid.block_1(hs[-1], emb, generator)
+        h = run(self.mid.block_1, hs[-1], emb, generator)
         h = self.mid.attn_1(h)
-        h = self.mid.block_2(h, emb, generator)
+        h = run(self.mid.block_2, h, emb, generator)
 
         for level in reversed(self.up):
             for i_block, blk in enumerate(level.block):
-                h = blk(torch.cat([h, hs.pop()], dim=1), emb, generator)
+                h = run(blk, torch.cat([h, hs.pop()], dim=1), emb, generator)
                 if len(level.attn):
                     h = level.attn[i_block](h)
             if hasattr(level, "upsample"):
@@ -190,6 +199,35 @@ class CondUNet(nn.Module):
         h = swish(self.norm_out(h))
         h = self.conv_out(h.float())
         return h.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def _remat(blk: ResnetBlockDDPM, x: torch.Tensor, emb: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+        """``blk(x, emb, generator)`` whose activations are recomputed in
+        the backward. ``preserve_rng_state`` would save only the default
+        CPU and CUDA generators, but dropout draws from ``generator``: its
+        state before the forward is kept here and set again for the
+        recompute (and the state the forward left restored after it), so
+        the recompute draws the forward's mask."""
+        if generator is None:
+            return checkpoint(blk, x, emb, None, use_reentrant=False,
+                              preserve_rng_state=False)
+        before = generator.get_state()
+        ran = []
+
+        def fn(x, emb):
+            if not ran:                      # the forward
+                ran.append(True)
+                return blk(x, emb, generator)
+            after = generator.get_state()    # the recompute
+            generator.set_state(before)
+            try:
+                return blk(x, emb, generator)
+            finally:
+                generator.set_state(after)
+
+        return checkpoint(fn, x, emb, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:

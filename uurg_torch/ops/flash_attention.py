@@ -1,22 +1,30 @@
 """Attention: softmax(q k^T / sqrt(D)) v on (B, H, T, D), and its gradient.
 
 Port of ``uurg_tpu/ops/flash_attention.py``. ``attention`` is the
-dispatcher. For a CUDA tensor it launches the hand-written kernel in
-``uurg_torch/csrc/flash_attention_fwd.cu`` (which replaces the Pallas
-``_attn_kernel``) at every T, the T = 16 mid site included; for a CPU tensor
-it runs :func:`attention_plain`, the ``_reference_attention`` formulation.
-When a gradient is wanted it goes through one ``torch.autograd.Function``
-whose backward is :func:`attention_bwd`: the kernels of
-``uurg_torch/csrc/flash_attention_bwd.cu`` (which replace the Pallas
-``_attn_bwd_kernel``) for a CUDA tensor, :func:`attention_bwd_plain` for a
-CPU tensor. Nothing falls back from a kernel to a plain version.
+dispatcher. For a CUDA tensor it launches a hand-written kernel (which
+replaces the Pallas ``_attn_kernel``) at every T, the T = 16 mid site
+included: ``uurg_torch/csrc/flash_attention_fwd.cu`` for bfloat16,
+``uurg_torch/csrc/flash_attention_f32.cu`` for float32 (the ViT
+classifiers' default); for a CPU tensor it runs :func:`attention_plain`, the
+``_reference_attention`` formulation. When a gradient is wanted it goes
+through one ``torch.autograd.Function`` whose backward is
+:func:`attention_bwd`: the kernels of ``uurg_torch/csrc/flash_attention_bwd.cu``
+(bfloat16) or ``flash_attention_f32.cu`` (float32), which replace the Pallas
+``_attn_bwd_kernel``, for a CUDA tensor, :func:`attention_bwd_plain` for a
+CPU tensor. Nothing falls back from a kernel to a plain version, and no
+other dtype reaches a kernel: a CUDA tensor of any other dtype raises.
 
-The kernels are Hopper designs (``sm_90a``): persistent warp-specialised
-blocks, tiles loaded by TMA through tensor maps that the C launchers encode
-at every call, every product a ``wgmma``; see the notes at the head of the
-two sources and ``uurg_torch/csrc/hopper_mma.cuh``. A launcher returns the
-CUDA error code of its launch, or -1 if a tensor map could not be encoded;
-the wrappers raise on either.
+The bfloat16 kernels are Hopper designs (``sm_90a``): persistent
+warp-specialised blocks, tiles loaded by TMA through tensor maps that the C
+launchers encode at every call, every product a ``wgmma``; see the notes at
+the head of the two sources and ``uurg_torch/csrc/hopper_mma.cuh``. The
+float32 kernels are register-tiled FFMA on the CUDA cores (``wgmma`` takes
+no float32 operands and TF32 would cost ~1e-3 of precision). A launcher
+returns the CUDA error code of its launch, or -1 if a tensor map could not
+be encoded; the wrappers raise on either. Each wrapper counts its launches
+per route: ``attention.launches`` and ``attention_bwd.launches`` for
+bfloat16, ``attention.launches_f32`` and ``attention_bwd.launches_f32`` for
+float32.
 
 Head widths: the kernels are compiled for D in {64, 128, 192, 256}. Other
 widths up to 256 are zero-padded to the next multiple of 64 (padded k
@@ -36,14 +44,20 @@ from uurg_torch.ops import _build
 _KERNEL_D = (64, 128, 192, 256)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 for float64 inputs (precision references)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: fp32 scores and softmax, p cast to v's dtype
-    before the PV product, fp32 accumulation, output in q's dtype."""
+    before the PV product, fp32 accumulation, output in q's dtype (float64
+    throughout for float64 inputs)."""
     scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return torch.matmul(_wide(p.to(v.dtype)), _wide(v)).to(q.dtype)
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,16 +66,17 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autograd of :func:`attention_plain`): P recomputed in fp32,
     dP = g v^T, delta = rowsum(P * dP), dS = P (dP - delta) / sqrt(D);
     dq = dS k and dk = dS^T q with dS in q's dtype, dv = P^T g with P in g's
-    dtype, fp32 accumulation. Returns (dq, dk, dv) in q's, k's, v's dtype."""
+    dtype, fp32 accumulation (float64 throughout for float64 inputs).
+    Returns (dq, dk, dv) in q's, k's, v's dtype."""
     scale = q.shape[-1] ** -0.5
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    qf, kf, vf, gf = _wide(q), _wide(k), _wide(v), _wide(g)
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     delta = (p * dp).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
-    dq = torch.matmul(ds.to(k.dtype).float(), kf)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
-    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), gf)
+    dq = torch.matmul(_wide(ds.to(k.dtype)), kf)
+    dk = torch.matmul(_wide(ds.to(q.dtype)).transpose(-1, -2), qf)
+    dv = torch.matmul(_wide(p.to(g.dtype)).transpose(-1, -2), gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -83,8 +98,9 @@ def _check(*ts):
 
 def _kernel_width(q: torch.Tensor) -> int:
     """The padded head width the kernels take, after the checks they need."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernels take bfloat16, not {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the attention kernels take bfloat16 or float32, "
+                        f"not {q.dtype}")
     Dp = -(-q.shape[-1] // 64) * 64
     if Dp not in _KERNEL_D:
         raise ValueError(f"the attention kernels take head width <= 256, "
@@ -118,20 +134,40 @@ def _bwd_fn():
                                                        ctypes.c_void_p])
 
 
+def _fwd_f32_fn():
+    return _build.function(
+        "flash_attention_f32", "uurg_attention_fwd_f32",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                      ctypes.c_void_p])
+
+
+def _bwd_f32_fn():
+    return _build.function(
+        "flash_attention_f32", "uurg_attention_bwd_f32",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                       ctypes.c_void_p])
+
+
 def _attention_kernel(q, k, v, with_lse: bool):
-    """Launch the forward kernel: (o, lse or None), lse fp32 (B*H, T)."""
+    """Launch the forward kernel of q's dtype: (o, lse or None), lse fp32
+    (B*H, T)."""
     B, H, T, D = q.shape
     Dp = _kernel_width(q)
+    f32 = q.dtype == torch.float32
     q, k, v = _padded((q, k, v), Dp)
     o = torch.empty_like(q)
     lse = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr() if with_lse else None, B * H, T, Dp,
-                    D ** -0.5, _stream(q))
+    fn = _fwd_f32_fn() if f32 else _fwd_fn()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr() if with_lse else None, B * H, T, Dp, D ** -0.5,
+             _stream(q))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    attention.launches += 1
+    if f32:
+        attention.launches_f32 += 1
+    else:
+        attention.launches += 1
     return (o if Dp == D else o[..., :D]), lse
 
 
@@ -140,9 +176,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of attention at (q, k, v) for the output gradient g.
 
     CPU tensors: :func:`attention_bwd_plain` (o and lse are not needed).
-    CUDA tensors: the kernels, which take the forward's output o and its
-    fp32 (B*H, T) log-sum-exp ``lse``; all of q, k, v, o, g contiguous
-    (B, H, T, D) bf16."""
+    CUDA tensors: the kernels of q's dtype, which take the forward's output
+    o and its fp32 (B*H, T) log-sum-exp ``lse``; all of q, k, v, o, g
+    contiguous (B, H, T, D), bf16 or fp32."""
     _check(q, k, v, o, g)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, g)
@@ -152,17 +188,22 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the attention backward kernels need the forward's "
                          "contiguous fp32 (B*H, T) log-sum-exp")
     Dp = _kernel_width(q)
+    f32 = q.dtype == torch.float32
     q, k, v, o, g = _padded((q, k, v, o, g), Dp)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, T, Dp,
-                    D ** -0.5, _stream(q))
+    fn = _bwd_f32_fn() if f32 else _bwd_fn()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B * H, T, Dp, D ** -0.5,
+             _stream(q))
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: CUDA error {err}")
-    attention_bwd.launches += 1
+    if f32:
+        attention_bwd.launches_f32 += 1
+    else:
+        attention_bwd.launches += 1
     if Dp != D:
         dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
     return dq, dk, dv
@@ -203,4 +244,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
 
 attention.launches = 0
+attention.launches_f32 = 0
 attention_bwd.launches = 0
+attention_bwd.launches_f32 = 0

@@ -28,7 +28,7 @@ from uurg_torch.data.splits import class_forget_split, random_forget_split
 from uurg_torch.eval.features import softmax
 from uurg_torch.eval.js_div import get_js_divergence
 from uurg_torch.eval.mia import membership_attack_prob, svc_mia
-from uurg_torch.models.resnet import init_classifier
+from uurg_torch.models.init import init_classifier
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.methods.classification import (UnlearnContext,
                                                        unlearn_method_registry)
@@ -151,8 +151,8 @@ def run_comparison(model: torch.nn.Module, train_ds: ArrayDataset,
 
     def init_fn(s: int) -> torch.nn.Module:
         fresh = copy.deepcopy(model).cpu()
-        return init_classifier(torch.Generator().manual_seed(s),
-                               fresh).to(dev)
+        return init_classifier(torch.Generator().manual_seed(s), fresh,
+                               resolution=train_ds.images.shape[1]).to(dev)
 
     if not pretrained:
         model = init_fn(seed)

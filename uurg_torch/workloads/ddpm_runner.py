@@ -262,7 +262,10 @@ def sfron_forget(args, config, ckpt_dir: str, mask: dict | None = None,
     if mask is None and getattr(args, "mask_path", None):
         mask = load_mask(args.mask_path, model,
                          getattr(args, "pack_mask", False))
-    opt = build_reference_optimizer(config, model.parameters())
+    # nu_dtype (a torch dtype or None): the Adam second moment's storage,
+    # the memory knob of the JAX runner
+    opt = build_reference_optimizer(
+        config, model.parameters(), nu_dtype=getattr(args, "nu_dtype", None))
     sf_cfg = SFRonConfig(
         n_iters=config.training.n_iters,
         forget_alpha=args.forget_alpha,

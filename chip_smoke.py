@@ -133,12 +133,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    row, the rate it logs at iteration 250); the SVC attack's fit at 4,000 +
    4,000 on the host. The float32 attention counters must read 0 too.
 16. The float32 attention kernels (``uurg_torch/csrc/flash_attention_f32.cu``)
-   with TF32 off: at ViT-B/16's (64, 12, 197, 64) and main_random's
-   (256, 12, 5, 64), at D = 40 and 160 (padded) and at the ragged shapes
+   with TF32 off: at ViT-B/16's (64, 12, 197, 64) (the tiled route) and
+   main_random's (256, 12, 5, 64) (the packed route), at D = 40 and 160
+   (padded), at the edges of the packed and tiled routes (T = 5, 16, 17,
+   31, 33, 63, 65, 196, 197, 208 at D = 64 and 40) and at the ragged shapes
    of phase 9, the forward (relative L2 1e-5), its log-sum-exp against
-   ``torch.logsumexp`` and the backward (1e-4) against the plain versions;
-   at the two ViT shapes the kernel, the plain version and float32 SDPA
-   with its backward timed by CUDA-graph replay.
+   ``torch.logsumexp`` and the backward (1e-4) against the plain versions,
+   each three times with equal bits; at the two ViT shapes the kernel,
+   the plain version and float32 SDPA with its backward timed by
+   CUDA-graph replay.
 17. ViT-B/16 and Swin-T classification at 224 px. ViT_B in fp32 on the
    card against the CPU at batch 2 from the same weights (logits and all
    parameter gradients, each side's distance from float64 printed), its
@@ -254,13 +257,21 @@ RAGGED_SHAPES = ((16, 72), (77, 40), (100, 72), (130, 160), (256, 192),
                  (1024, 64), (1024, 256))
 RAGGED_REPEATS = 3
 # the float32 attention kernels (phase 16): (B, H, T, D) of ViT-B/16 at
-# 224 px (batch 64, the phase-17 SFR-on batch) and at main_random's 32 px
-# (batch 256, 5 tokens), then head widths the wrapper pads (40 -> 64,
-# 160 -> 192); RAGGED_SHAPES follow at batch 4 x 2 heads
+# 224 px (batch 64, the phase-17 SFR-on batch; the tiled route) and at
+# main_random's 32 px (batch 256, 5 tokens; the packed route), then head
+# widths the wrapper pads (40 -> 64, 160 -> 192: the wide route), then the
+# edges of the packed and tiled routes (ops/flash_attention.py, _f32_plan):
+# T within one packed warp, the packing bound 16 and one past it, one past
+# and short of a 16-row group, a 32-query tile and a 64-key tile, and ViT's
+# T with its neighbours, at D = 64 and padded from 40 (batch 4 x 3 heads:
+# 12 heads, so packed chunks are ragged at the end); RAGGED_SHAPES follow
+# at batch 4 x 2 heads. Every shape runs three times with equal bits.
 F32_VIT_SHAPE = (64, 12, 197, 64)
 VIT_BLOCKS = 12          # attention launches per ViT-B/16 forward
-F32_SHAPES = (F32_VIT_SHAPE, (256, 12, 5, 64), (8, 12, 197, 40),
-              (8, 12, 197, 160))
+F32_EDGE_T = (5, 16, 17, 31, 33, 63, 65, 196, 197, 208)
+F32_SHAPES = ((F32_VIT_SHAPE, (256, 12, 5, 64), (8, 12, 197, 40),
+               (8, 12, 197, 160))
+              + tuple((4, 3, T, D) for T in F32_EDGE_T for D in (64, 40)))
 # float32 kernel vs plain version, both float32 (TF32 off), relative L2:
 # the kernel sums the D-term scores, the softmax and the T-term products in
 # another order and in base 2 (the scale folded with log2 e), so each output
@@ -912,10 +923,11 @@ def check_ragged(gen) -> list[dict]:
 def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
     """Phase 16: the float32 attention kernels against their plain versions
     on the card (TF32 off) at F32_SHAPES and RAGGED_SHAPES: the forward,
-    its log-sum-exp against ``torch.logsumexp`` and the backward; then at
-    the two ViT shapes the kernel, the plain version and float32 SDPA (and
-    SDPA's backward) timed by CUDA-graph replay. Returns (summary rows of
-    the 224 px shape for the kernels line, per-shape details)."""
+    its log-sum-exp against ``torch.logsumexp`` and the backward, each
+    three times with equal bits; then at the two ViT shapes the kernel, the
+    plain version and float32 SDPA (and SDPA's backward) timed by
+    CUDA-graph replay. Returns (summary rows of the 224 px shape for the
+    kernels line, per-shape details)."""
     import torch
     import torch.nn.functional as F
 
@@ -928,7 +940,8 @@ def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
     for B, H, T, D in shapes:
         q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda")
                       for _ in range(4))
-        tag = f"f32 B={B} H={H} T={T} D={D}"
+        route = FA._f32_plan(B, H, T, D).route
+        tag = f"f32 {route} B={B} H={H} T={T} D={D}"
         before = (FA.attention.launches, FA.attention_bwd.launches)
         o, lse = FA._attention_kernel(q, k, v, with_lse=True)
         o = o.contiguous()             # a column slice where D was padded
@@ -942,7 +955,14 @@ def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
         want = FA.attention_bwd_plain(q, k, v, g)
         bwd_abs = max(rel_l2(f"attention bwd d{n} {tag}", a, b, F32_BWD_REL)
                       for n, a, b in zip("qkv", got, want))
+        for _ in range(RAGGED_REPEATS - 1):
+            o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
+            again = FA.attention_bwd(q, k, v, o, lse, g)
+            if not (torch.equal(o2.contiguous(), o) and torch.equal(lse2, lse)
+                    and all(torch.equal(a, b) for a, b in zip(got, again))):
+                fail(f"attention {tag}: repeated runs differ in their bits")
         info = {"shape": {"B": B, "H": H, "T": T, "D": D},
+                "route": route,
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
                 "bwd_max_abs_err": bwd_abs}
         detail.append(info)
@@ -982,7 +1002,8 @@ def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
                   f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
                   flush=True)
     print(f"  {len(detail)} shapes held (forward {F32_FWD_REL:g}, backward "
-          f"{F32_BWD_REL:g})", flush=True)
+          f"{F32_BWD_REL:g}), {RAGGED_REPEATS} runs each with equal bits",
+          flush=True)
     return rows, detail
 
 

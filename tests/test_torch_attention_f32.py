@@ -1,8 +1,10 @@
 """The float32 route of the attention dispatcher (CPU): the plain versions
 against the JAX package's Pallas kernels in interpret mode at float32 (the
-configuration the ViT classifiers give them), the dispatcher's counters and
-the widths and dtypes the CUDA kernels take. The kernels themselves are held
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 16)."""
+configuration the ViT classifiers give them), the dispatcher's counters,
+the widths and dtypes the CUDA kernels take, the route plan of the float32
+kernels, and models of the packed and key-tiled routes' decompositions
+against the plain versions. The kernels themselves are held on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 16)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -103,3 +105,94 @@ def test_kernel_width_refuses_other_dtypes(dtype):
 def test_kernel_width_refuses_wide_heads():
     with pytest.raises(ValueError, match="head width"):
         FA._kernel_width(torch.empty(1, 1, 4, 320))
+
+
+# -- the float32 kernels' route plan ----------------------------------------
+
+@pytest.mark.parametrize("T,route,scratch", [
+    (5, "packed", None), (16, "packed", None),
+    (17, "tiled", (64 * 12, 64, 64)),
+    (197, "tiled", (64 * 12, 256, 256)),
+    (1024, "tiled", (64 * 12, 1024, 1024))])
+def test_f32_plan_route_and_scratch(T, route, scratch):
+    assert FA._f32_plan(64, 12, T, 64) == (route, scratch)
+
+
+@pytest.mark.parametrize("D", [40, 64, 72, 160, 192, 256])
+@pytest.mark.parametrize("T", [5, 197])
+def test_f32_plan_routes_by_the_kernels_width(T, D):
+    # the padded widths the tiled and packed kernels do not take (above 64)
+    # go to the wide route, and only those
+    route = FA._f32_plan(2, 3, T, D).route
+    width = FA._kernel_width(torch.empty(1, 1, T, D))
+    assert route in FA._F32_ROUTES
+    assert (route == "wide") == (width > 64)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 4, 320), (1, 1, 0, 64),
+                                   (0, 2, 16, 64), (1, 1, 16, 0)])
+def test_f32_plan_refuses_what_the_kernels_refuse(shape):
+    with pytest.raises(ValueError):
+        FA._f32_plan(*shape)
+
+
+def _heads(B, H, T, D, seed):
+    return [torch.from_numpy(a.astype(np.float64))
+            for a in _inputs(T, D, seed, B=B, H=H)]
+
+
+@pytest.mark.parametrize("T", [1, 3, 5, 16])
+def test_packed_chunks_are_per_head_attention(T):
+    """The packed route's layout: (B*H, T, D) heads lie back to back, so a
+    chunk of floor(16 / T) heads is one run of rows of the flat (B*H*T, D)
+    array, and attention over a chunk with a block-diagonal mask (and the
+    last chunk's missing heads left out) is each head's own attention.
+    B*H = 7 leaves the last chunk short but for T = 1 and 16."""
+    q, k, v, g = _heads(7, 1, T, 40, T)
+    plan = FA._f32_plan(7, 1, T, 40)
+    assert plan.route == "packed"
+    G = FA._PACK_T // T
+    flat = [t.reshape(-1, 40) for t in (q, k, v)]
+    out = torch.empty_like(flat[0])
+    for r0 in range(0, 7 * T, G * T):
+        qc, kc, vc = (t[r0:r0 + G * T] for t in flat)
+        head = torch.arange(qc.shape[0]) // T
+        s = qc @ kc.T * 40 ** -0.5
+        s = s.masked_fill(head[:, None] != head[None, :], float("-inf"))
+        out[r0:r0 + G * T] = torch.softmax(s, -1) @ vc
+    want = FA.attention_plain(q, k, v)
+    assert _rel(out.reshape(want.shape).numpy(), want.numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("T", [17, 65, 197])
+def test_tiled_backward_from_key_tiles_and_the_ds_scratch(T):
+    """The tiled backward's decomposition: a 64-key tile's dk and dv need
+    only its own columns of dS and P over all query tiles of 32, which it
+    writes as rows of the plan's dS^T scratch ([head][key][query], T padded
+    to Tp, the padding never read); dq = dS K summed from the scratch over
+    32-key tiles in order is the plain version's dq."""
+    q, k, v, g = _heads(2, 3, T, 64, T)
+    BH, Tp, Tp2 = FA._f32_plan(2, 3, T, 64).scratch
+    assert (BH, Tp) == (6, Tp2) and Tp >= T and Tp % 64 == 0
+    scale = 64 ** -0.5
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, -1)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    scratch = torch.full((BH, Tp, Tp), float("nan"), dtype=torch.float64)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, T, 64):
+        ks = slice(k0, min(k0 + 64, T))
+        dk[..., ks, :] = ds[..., ks].transpose(-1, -2) @ q
+        dv[..., ks, :] = p[..., ks].transpose(-1, -2) @ g
+        for q0 in range(0, T, 32):
+            qs = slice(q0, min(q0 + 32, T))
+            scratch[:, ks, qs] = ds[..., qs, ks].transpose(-1, -2).reshape(
+                BH, ks.stop - k0, qs.stop - q0)
+    dq = torch.zeros(BH, T, 64, dtype=torch.float64)
+    kf = k.reshape(BH, T, 64)
+    for k0 in range(0, T, 32):
+        ks = slice(k0, min(k0 + 32, T))
+        dq = dq + scratch[:, ks, :T].transpose(-1, -2) @ kf[:, ks]
+    want = FA.attention_bwd_plain(q, k, v, g)
+    for name, got, w in zip("qkv", (dq.reshape(q.shape), dk, dv), want):
+        assert _rel(got.numpy(), w.numpy()) <= 1e-12, name

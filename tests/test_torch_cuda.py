@@ -252,16 +252,21 @@ def test_backward_kernels_at_the_ragged_fisher_batch(gen):
 
 
 # the float32 route (the ViT classifiers): ViT-B/16 at 224 and 32 px, padded
-# head widths, then the ragged shapes above at D in {40, 72, 160, 192}
-F32_SHAPES = [(4, 12, 197, 64), (8, 12, 5, 64), (2, 12, 197, 40),
-              (2, 12, 197, 160)] + [(2, 2, T, D) for T, D in SHAPES[4:]]
+# head widths, then the ragged shapes above at D in {40, 72, 160, 192}, then
+# the edges of the packed and tiled routes (chip_smoke.py F32_EDGE_T) at
+# D = 64 and padded from 40
+F32_SHAPES = ([(4, 12, 197, 64), (8, 12, 5, 64), (2, 12, 197, 40),
+               (2, 12, 197, 160)] + [(2, 2, T, D) for T, D in SHAPES[4:]]
+              + [(2, 3, T, D) for T in (5, 16, 17, 31, 33, 63, 65, 196, 197,
+                                        208) for D in (64, 40)])
 
 
 @pytest.mark.parametrize("B,H,T,D", F32_SHAPES)
 def test_attention_f32_kernels_match_plain(gen, B, H, T, D):
     """float32 on both sides (TF32 off): relative L2 1e-5 forward and 1e-4
-    backward, as chip_smoke.py phase 16; one launch of each on its own
-    counter and none on the bf16 counters."""
+    backward, as chip_smoke.py phase 16, and the same bits from two more
+    runs; one launch of each on its own counter and none on the bf16
+    counters."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda")
                   for _ in range(4))
@@ -282,3 +287,9 @@ def test_attention_f32_kernels_match_plain(gen, B, H, T, D):
     assert rel(out, attention_plain(q, k, v)) <= 1e-5
     for t, w in zip(ts, attention_bwd_plain(q, k, v, g)):
         assert rel(t.grad, w) <= 1e-4
+    for _ in range(2):
+        again = [t.clone().requires_grad_() for t in (q, k, v)]
+        out2 = attention(*again)
+        out2.backward(g)
+        assert torch.equal(out2, out)
+        assert all(torch.equal(a.grad, t.grad) for a, t in zip(again, ts))

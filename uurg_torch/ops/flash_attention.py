@@ -18,13 +18,18 @@ The bfloat16 kernels are Hopper designs (``sm_90a``): persistent
 warp-specialised blocks, tiles loaded by TMA through tensor maps that the C
 launchers encode at every call, every product a ``wgmma``; see the notes at
 the head of the two sources and ``uurg_torch/csrc/hopper_mma.cuh``. The
-float32 kernels are register-tiled FFMA on the CUDA cores (``wgmma`` takes
-no float32 operands and TF32 would cost ~1e-3 of precision). A launcher
+float32 kernels are FFMA on the CUDA cores (``wgmma`` takes no float32
+operands and TF32 would cost ~1e-3 of precision), on one of three routes
+that :func:`_f32_plan` picks from the shape: ``tiled`` (head width 64:
+warps own 16 whole rows, the streamed operand in a cp.async ring, five
+products backward with dS^T through fp32 scratch for dq), ``packed``
+(width 64 and T <= 16: several heads share a warp's rows) and ``wide``
+(padded widths 128-256: the first register-tiled design). A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for
 bfloat16, ``attention.launches_f32`` and ``attention_bwd.launches_f32`` for
-float32.
+float32 (one a call, whatever the route).
 
 Head widths: the kernels are compiled for D in {64, 128, 192, 256}. Other
 widths up to 256 are zero-padded to the next multiple of 64 (padded k
@@ -35,6 +40,7 @@ the true ``D ** -0.5`` scale, so no pre-scaling of q is needed.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +48,39 @@ import torch.nn.functional as F
 from uurg_torch.ops import _build
 
 _KERNEL_D = (64, 128, 192, 256)
+# float32 routes (the launchers' route codes) and their bounds: heads of
+# T <= _PACK_T are packed floor(_PACK_T / T) to a warp's 16 rows; the tiled
+# backward's dS^T scratch pads T to a multiple of _DS_PAD (the dq kernel's
+# query block)
+_F32_ROUTES = {"wide": 0, "tiled": 1, "packed": 2}
+_PACK_T = 16
+_DS_PAD = 64
+
+
+class F32Plan(NamedTuple):
+    route: str                              # "tiled", "packed" or "wide"
+    scratch: tuple[int, int, int] | None    # dS^T (B*H, Tp, Tp), fp32
+
+
+def _f32_plan(B: int, H: int, T: int, D: int) -> F32Plan:
+    """The float32 kernels' route for (B, H, T, D) and the backward's fp32
+    scratch shape; raises where the C launchers would refuse the shape.
+    The tiled backward writes dS^T there ([head][key][query], T padded to
+    Tp), which a second kernel reads for dq = dS K: B*H*Tp^2 floats, 154 MB
+    at ViT-B/16's (64, 12, 197, 64)."""
+    if min(B, H, T, D) < 1:
+        raise ValueError(f"attention needs a non-empty (B, H, T, D), got "
+                         f"{(B, H, T, D)}")
+    Dp = -(-D // 64) * 64
+    if Dp not in _KERNEL_D:
+        raise ValueError(f"the attention kernels take head width <= 256, "
+                         f"got {D}")
+    if Dp > 64:
+        return F32Plan("wide", None)
+    if T <= _PACK_T:
+        return F32Plan("packed", None)
+    Tp = -(-T // _DS_PAD) * _DS_PAD
+    return F32Plan("tiled", (B * H, Tp, Tp))
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -137,15 +176,15 @@ def _bwd_fn():
 def _fwd_f32_fn():
     return _build.function(
         "flash_attention_f32", "uurg_attention_fwd_f32",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                      ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _bwd_f32_fn():
     return _build.function(
         "flash_attention_f32", "uurg_attention_bwd_f32",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                       ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _attention_kernel(q, k, v, with_lse: bool):
@@ -158,10 +197,13 @@ def _attention_kernel(q, k, v, with_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    fn = _fwd_f32_fn() if f32 else _fwd_fn()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr() if with_lse else None, B * H, T, Dp, D ** -0.5,
-             _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, B * H, T, Dp, D ** -0.5)
+    if f32:
+        route = _F32_ROUTES[_f32_plan(B, H, T, D).route]
+        err = _fwd_f32_fn()(*args, route, _stream(q))
+    else:
+        err = _fwd_fn()(*args, _stream(q))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     if f32:
@@ -192,11 +234,19 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, g = _padded((q, k, v, o, g), Dp)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    fn = _bwd_f32_fn() if f32 else _bwd_fn()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B * H, T, Dp, D ** -0.5,
-             _stream(q))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, T, Dp,
+            D ** -0.5)
+    if f32:
+        plan = _f32_plan(B, H, T, D)
+        scratch = (torch.empty(plan.scratch, dtype=torch.float32,
+                               device=q.device) if plan.scratch else None)
+        err = _bwd_f32_fn()(*head, scratch.data_ptr() if scratch is not None
+                            else None, *tail, _F32_ROUTES[plan.route],
+                            _stream(q))
+    else:
+        err = _bwd_fn()(*head, *tail, _stream(q))
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: CUDA error {err}")

@@ -164,6 +164,29 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    ``sfron_forget`` for 4 steps with remat and an Adam second moment in
    bf16 against the same without remat (exact launch counts, step times,
    peak memory).
+18. DiT-XL/2 class forgetting on pre-encoded ImageNet-256 latents (32 x 32
+   x 4, T = 256 tokens, 16 heads of width 72, which the attention
+   dispatcher pads to 128). The bf16 attention kernels at (32, 16, 256, 72)
+   (forward with and without its log-sum-exp, the log-sum-exp, backward)
+   and the fp32 pair at (2, 16, 256, 72) (the wide route) against the plain
+   versions, three runs with equal bits, timed beside SDPA at D = 72 and
+   the bound of the true width. The full-width model (seeded init, then
+   perturbed so that every adaLN gate is O(0.1-1)) in bf16 at batch 4,
+   kernels against its plain path: the forward (a zeroed attention must
+   move it) and the hybrid loss's gradients through full remat; four of its
+   blocks in fp32 card against CPU at batch 2 (output and gradients, each
+   side's distance from float64). Then on a stand-in of 2,048 seeded
+   latents over 10 classes in 4 shards (``write_latent_shards``), each in a
+   subprocess, from a reference ``.pt`` of the seeded model perturbed
+   (``--ckpt``): ``dit_generate_fisher`` (class 0, 8 batches of 1),
+   ``dit_generate_mask`` (threshold 1.0), ``forget`` (the mask packed,
+   adaga, 3 steps, snapshot and checkpoints at step 3; ``final.pt`` read
+   back). ``dit_forget`` at batch 32 + 32 under that mask, 2 warm-up steps
+   and one profiled, then 10 counted and timed, under full and ``attn``
+   remat (attention launches exactly 28 + 28 or 28 forwards and 28
+   backwards a phase; GroupNorm's 0; steps/s, busy share, peak memory);
+   ``dit_sample_grid`` (50 steps, CFG 4.0, 16 labels; 28 forward launches
+   a step).
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -398,6 +421,35 @@ CLS_CLI_ITERS, VIT_CLI_ITERS = 250, 10
 # where that spread is 0, as both readings were on an H100
 REMAT_SPREAD = 4
 REMAT_STEPS = 4
+# DiT-XL/2 class forgetting (phase 18): 32x32x4 latents, patch 2 (T = 256
+# tokens), hidden 1152 in 16 heads of width 72 (padded to 128 by the
+# attention dispatcher), 28 blocks. The attention kernels at the training
+# batch (DiT/forget.py's 32; the CFG sample grid's 2 x 16 is the same
+# shape), and the float32 pair at the 4-block card-vs-CPU check's batch 2
+DIT_NAME, DIT_BLOCKS, DIT_BATCH = "DiT-XL/2", 28, 32
+DIT_ATTN_SHAPE = (DIT_BATCH, 16, 256, 72)
+DIT_F32_SHAPE = (2, 16, 256, 72)
+DIT_CHECK_BATCH = 4
+# the whole DiT-XL/2 in fp32 (TF32 off) would not fit a CPU check's time,
+# so four blocks at full width, card against CPU at batch 2. On an H100 the
+# output read 1.6e-6 and the gradients 3.2e-6 (each side 1.4e-6 to 3.2e-6
+# from float64): the gates sit six and nine times above, low enough that a
+# TF32 product (~1e-3) would fail them
+DIT_F32_BLOCKS, DIT_F32_BATCH = 4, 2
+DIT_REL, DIT_GRAD_REL = 1e-5, 3e-5
+# the stand-in: 2,048 seeded latents over 10 of the 1,000 classes (class 0
+# ~ 200), 4 shards, and the seeded DiT-XL/2 perturbed (so its gates are
+# open and its Fisher and mask mean something) as a reference .pt that the
+# CLIs read with --ckpt; the CLIs cut (dit_generate_fisher 8 of 2,000
+# batches, forget 3 of 600 steps: one snapshot and one checkpoint round,
+# 21.6 GB written); the timed run 2 warm-up + 1 profiled, then 10 counted
+# steps under each remat policy; the sample grid DiT's 50 respaced steps,
+# CFG 4.0, 16 labels
+DIT_LATENTS, DIT_SHARDS, DIT_STANDIN_CLASSES = 2048, 4, 10
+DIT_FISHER_ITERS, DIT_CLI_ITERS = 8, 3
+DIT_WARMUP, DIT_STEPS = 2, 10
+DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
+DIT_CLI_TIMEOUT = 600
 
 
 def banner(msg: str) -> None:
@@ -621,20 +673,22 @@ def summarise(rows: list[dict], launches: dict, meta: dict) -> list[dict]:
 
 @contextlib.contextmanager
 def plain_layers():
-    """Route the model's attention and GroupNorm through their plain
-    versions for the duration (the whole-model checks' reference)."""
-    from uurg_torch.models import layers
+    """Route the models' attention and GroupNorm through their plain
+    versions for the duration (the whole-model checks' reference): the
+    UNet's layers and the transformers' ``uurg_torch.models.dit``, each of
+    which imports ``attention`` by name."""
+    from uurg_torch.models import dit, layers
     from uurg_torch.ops.flash_attention import attention_plain
     from uurg_torch.ops.group_norm import group_norm_plain
 
-    kernels = (layers.attention, layers.group_norm)
-    layers.attention = attention_plain
+    kernels = (layers.attention, layers.group_norm, dit.attention)
+    layers.attention = dit.attention = attention_plain
     layers.group_norm = (lambda x, s, b, *, groups, eps:
                          group_norm_plain(x, s, b, groups, eps))
     try:
         yield
     finally:
-        layers.attention, layers.group_norm = kernels
+        layers.attention, layers.group_norm, dit.attention = kernels
 
 
 def model_check(model, gen) -> float:
@@ -3007,6 +3061,591 @@ def remat_path(config, card: str, n_attn: int, n_gn: int) -> dict:
                          for k in steps["remat"]["launches"]}}
 
 
+def perturb_dit_(model, seed: int = SEED):
+    """Add a seeded normal draw to every parameter (matrices by 0.5 /
+    sqrt(fan_in), vectors by 0.05), so every adaLN gate is O(0.1-1): a
+    fresh DiT's adaLN-Zero layers make its output 0 and its attention
+    invisible to any comparison. Returns ``model``."""
+    import torch
+
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            std = 0.5 / p[0].numel() ** 0.5 if p.ndim >= 2 else 0.05
+            p.add_(torch.randn(p.shape, generator=gen, device=dev) * std)
+    return model
+
+
+def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
+    """Phase 18: the attention kernels at DiT-XL/2's shape. bf16 at
+    DIT_ATTN_SHAPE: the forward with and without its log-sum-exp (training
+    and sampling), the log-sum-exp and the backward against the plain
+    versions, three runs with equal bits, then the kernel, the plain
+    version and bf16 SDPA (which takes D = 72 unpadded) with its backward
+    timed by CUDA-graph replay. float32 at DIT_F32_SHAPE (the wide route,
+    D = 72 -> 128) the same way against float32 SDPA (TF32 off). Bounds
+    count the true D = 72. Returns (bf16 rows, float32 rows), per launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for shape, dtype in ((DIT_ATTN_SHAPE, torch.bfloat16),
+                         (DIT_F32_SHAPE, torch.float32)):
+        B, H, T, D = shape
+        f32 = dtype == torch.float32
+        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda",
+                                  dtype=dtype) for _ in range(4))
+        route = FA._f32_plan(B, H, T, D).route if f32 else "bf16"
+        tag = f"{route} B={B} H={H} T={T} D={D}"
+
+        def run():
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            o = o.contiguous()         # a column slice: D is padded
+            with torch.no_grad():
+                sample = FA.attention(q, k, v)
+            return (o, lse, sample, *FA.attention_bwd(q, k, v, o, lse, g))
+
+        first = run()
+        torch.cuda.synchronize()
+        o, lse, sample = first[:3]
+        plain = FA.attention_plain(q, k, v)
+        want = FA.attention_bwd_plain(q, k, v, g)
+        if f32:
+            fwd_err = max(rel_l2(f"attention {tag}", o, plain, F32_FWD_REL),
+                          rel_l2(f"attention, no lse, {tag}", sample, plain,
+                                 F32_FWD_REL))
+            bwd_err = max(rel_l2(f"attention bwd d{n} {tag}", a, b,
+                                 F32_BWD_REL)
+                          for n, a, b in zip("qkv", first[3:], want))
+        else:
+            fwd_err = max(compare(f"attention {tag}", o, plain),
+                          compare(f"attention, no lse, {tag}", sample,
+                                  plain))
+            bwd_err = max(rel_l2(f"attention bwd d{n} {tag}", a, b,
+                                 BWD_REL_L2)
+                          for n, a, b in zip("qkv", first[3:], want))
+        check_lse(f"attention {tag}", lse, q, k)
+        for _ in range(RAGGED_REPEATS - 1):
+            if not all(torch.equal(a, b) for a, b in zip(run(), first)):
+                fail(f"attention {tag}: repeated runs differ in their bits")
+        print(f"  {tag}: {RAGGED_REPEATS} runs with equal bits; SDPA "
+              f"kernels: {sdpa_backend_names(q, k, v, g)}", flush=True)
+        lib, stream = library_bwd(F.scaled_dot_product_attention, (q, k, v),
+                                  g)
+        times = {
+            "fwd": (time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                         with_lse=True)),
+                    time_ms(lambda: FA.attention_plain(q, k, v))[0],
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v))[0]),
+            "bwd": (time_ms(lambda: FA.attention_bwd(q, k, v, o, lse, g)),
+                    time_ms(lambda: FA.attention_bwd_plain(q, k, v, g))[0],
+                    time_ms(lib, stream=stream)[0])}
+        nolse_ms = time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                        with_lse=False))[0]
+        # what the layout costs around the kernel: the dispatcher's padding
+        # of q, k and v to the kernels' width, and MHSA's heads made
+        # contiguous from the fused qkv projection's (B, T, 3, H, D)
+        qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda",
+                          dtype=dtype)
+        layout_ms = {
+            "pad_ms": time_ms(lambda: FA._padded(
+                (q, k, v), FA._kernel_width(q)))[0],
+            "heads_ms": time_ms(lambda: [qkv[:, :, i].transpose(1, 2)
+                                         .contiguous() for i in range(3)])[0]}
+        print(f"  layout around the kernel: pad q, k, v {D} -> "
+              f"{FA._kernel_width(q)}: {layout_ms['pad_ms']:.4f} ms; three "
+              f"heads made contiguous: {layout_ms['heads_ms']:.4f} ms",
+              flush=True)
+        n = B * H * T * D
+        peak = FP32_FLOPS if f32 else BF16_TC_FLOPS
+        suffix = "_f32" if f32 else ""
+        for kind, nbytes, ops, err in (("fwd", 4 * n, 4 * n * T, fwd_err),
+                                       ("bwd", 7 * n, 10 * n * T, bwd_err)):
+            (ms, eager), plain_ms, lib_ms = times[kind]
+            bytes_ms = nbytes * q.element_size() / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / peak * 1e3
+            row = {"name": f"attention_{kind}{suffix}",
+                   "shape": {"B": B, "H": H, "T": T, "D": D},
+                   "route": route, "ms": ms, "eager_ms": eager,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                else "operations"),
+                   "max_abs_err": err}
+            if kind == "fwd":
+                row.update(no_lse_ms=nolse_ms, **layout_ms)
+            out.append(row)
+            print(f"  attention_{kind}{suffix} {row['shape']}: kernel "
+                  f"{ms:.4f} ms (eager {eager:.4f} ms"
+                  + (f"; no lse {nolse_ms:.4f} ms" if kind == "fwd" else "")
+                  + f"), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"D = {D})", flush=True)
+    return ([r for r in out if not r["name"].endswith("_f32")],
+            [r for r in out if r["name"].endswith("_f32")])
+
+
+def dit_bf16_check(gen) -> dict:
+    """Phase 18: the full-width DiT-XL/2 in bf16 (seeded init, perturbed)
+    at batch DIT_CHECK_BATCH on the card, kernels against the same model on
+    its plain path: a forward (MODEL_REL_L2) that a zeroed attention must
+    move by more than that gate, and the gradients of the hybrid loss at
+    fixed t and noise through full remat (MODEL_GRAD_REL_L2); exact launch
+    counts, GroupNorm's 0."""
+    import torch
+
+    from uurg_torch.models import dit as TDm
+    from uurg_torch.workloads.dit import DiTWorkload
+
+    wl = DiTWorkload.build(DIT_NAME)            # CUDA, bf16, full remat
+    model = perturb_dit_(wl.init_params(SEED))
+    n, dev = DIT_CHECK_BATCH, wl.device
+    x = torch.randn(n, 32, 32, 4, generator=gen, device=dev)
+    noise = torch.randn(n, 32, 32, 4, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    keep = torch.arange(n, device=dev) % 2 == 0
+    _zero_launches()
+    with torch.inference_mode():
+        got = model(x, t, y, keep)
+        fwd_launches = _read_all_launches()
+        with plain_layers():
+            want = model(x, t, y, keep)
+        kernel = TDm.attention
+        TDm.attention = lambda q, k, v: torch.zeros_like(q)
+        try:
+            blind = model(x, t, y, keep)
+        finally:
+            TDm.attention = kernel
+    if not torch.isfinite(got).all():
+        fail("DiT forward with kernels is not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    seen = ((blind - got).norm() / got.norm()).item()
+    print(f"  batch-{n} bf16 forward, kernels vs plain path: rel L2 "
+          f"{rel:.3e} (tolerance {MODEL_REL_L2:g}); a zeroed attention "
+          f"moves it by {seen:.3e}", flush=True)
+    if rel > MODEL_REL_L2:
+        fail("the DiT with kernels disagrees with its plain path")
+    if not seen > MODEL_REL_L2:
+        fail("the DiT's output does not see its attention")
+    params = list(model.parameters())
+
+    def grads():
+        loss = wl.per_sample_loss(model, x, y, t, noise).mean()
+        return torch.cat([a.float().reshape(-1) for a in torch.autograd.grad(
+            loss, params)])
+
+    _zero_launches()
+    g_kernel = grads()
+    torch.cuda.synchronize()
+    grad_launches = _read_all_launches()
+    with plain_layers():
+        g_plain = grads()
+    grad_rel = rel_l2(f"batch-{n} bf16 gradients (hybrid loss, full remat),"
+                      f" kernels vs plain path", g_kernel, g_plain,
+                      MODEL_GRAD_REL_L2, "the plain path")
+    zero = {k: 0 for k in fwd_launches}
+    _expect_launches("DiT bf16 forward", fwd_launches,
+                     {**zero, "attention_fwd": DIT_BLOCKS})
+    _expect_launches("DiT bf16 gradients (full remat)", grad_launches,
+                     {**zero, "attention_fwd": 2 * DIT_BLOCKS,
+                      "attention_bwd": DIT_BLOCKS})
+    return {"forward_rel_l2": rel, "zeroed_attention_rel_l2": seen,
+            "gradients_max_abs_err": grad_rel}
+
+
+def dit_f32_card_vs_cpu(dev) -> dict:
+    """Phase 18: DIT_F32_BLOCKS blocks of DiT-XL/2 at full width in fp32
+    (TF32 off, seeded init, perturbed), at batch DIT_F32_BATCH: the output
+    and all parameter gradients on the card against the CPU from the same
+    weights, each side's distance from float64 on the CPU; the card's call
+    exactly one float32 attention forward and backward a block."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.models.dit import DiT, DiT_configs, init_dit
+
+    cfg = dataclasses.replace(DiT_configs[DIT_NAME](), depth=DIT_F32_BLOCKS,
+                              dtype=torch.float32, remat=False)
+    base = perturb_dit_(init_dit(SEED, cfg, "cpu"))
+    f64 = DiT(dataclasses.replace(cfg, dtype=torch.float64,
+                                  norm_dtype=torch.float64)).double()
+    f64.load_state_dict(base.state_dict())
+    rng = np.random.default_rng(SEED)
+    n = DIT_F32_BATCH
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 4)))
+    w = torch.from_numpy(rng.standard_normal((n, 32, 32, 8)))
+    t, y = torch.tensor([10, 700][:n]), torch.tensor([3, 999][:n])
+    keep = torch.tensor([True, False][:n])
+    out = {}
+    for tag, model, where in (("cpu", base, "cpu"), ("card", base, dev),
+                              ("float64", f64, "cpu")):
+        m = model if where == "cpu" else copy.deepcopy(model).to(where)
+        dt = torch.float64 if tag == "float64" else torch.float32
+        _zero_launches()
+        o = m(x.to(where, dt), t.to(where), y.to(where), keep.to(where))
+        (o * w.to(where, dt)).sum().backward()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        out[tag] = {"out": o.detach().cpu().double(),
+                    "launches": _read_all_launches(),
+                    "gradients": torch.cat([p.grad.reshape(-1).cpu().double()
+                                            for p in m.parameters()])}
+        del m
+    errs = {"out": rel_l2(f"{DIT_F32_BLOCKS}-block DiT-XL/2 output (fp32, "
+                          f"card vs CPU, batch {n})", out["card"]["out"],
+                          out["cpu"]["out"], DIT_REL, "the CPU"),
+            "gradients": rel_l2("its parameter gradients (fp32, card vs "
+                                "CPU)", out["card"]["gradients"],
+                                out["cpu"]["gradients"], DIT_GRAD_REL,
+                                "the CPU")}
+    for where in ("cpu", "card"):
+        gaps = {}
+        for key in ("out", "gradients"):
+            ref = out["float64"][key]
+            gaps[key] = ((out[where][key] - ref).norm() / ref.norm()).item()
+        errs[f"fp32 on {where} vs float64"] = gaps
+        print(f"  fp32 on {where} against float64 on the CPU: output rel L2 "
+              f"{gaps['out']:.3e}, gradients {gaps['gradients']:.3e}",
+              flush=True)
+    launches = out["card"]["launches"]
+    _expect_launches("DiT fp32 card check (1 forward, 1 backward)", launches,
+                     {**{k: 0 for k in launches},
+                      "attention_fwd_f32": DIT_F32_BLOCKS,
+                      "attention_bwd_f32": DIT_F32_BLOCKS})
+    return {"errors": errs, "card_launches": launches}
+
+
+def dit_stand_in(work: str) -> str:
+    """DIT_LATENTS seeded (32, 32, 4) float32 latents with labels uniform
+    over DIT_STANDIN_CLASSES classes, written by the port's
+    ``write_latent_shards`` into DIT_SHARDS shards; returns their
+    directory."""
+    import numpy as np
+
+    from uurg_torch.data.lazy import write_latent_shards
+
+    rng = np.random.default_rng(SEED)
+    n = DIT_LATENTS // DIT_SHARDS
+    batches = ((rng.standard_normal((n, 32, 32, 4)).astype(np.float32),
+                rng.integers(0, DIT_STANDIN_CLASSES, n))
+               for _ in range(DIT_SHARDS))
+    paths = write_latent_shards(os.path.join(work, "latents", "shard"),
+                                batches, n)
+    if len(paths) != DIT_SHARDS:
+        fail(f"write_latent_shards wrote {len(paths)} shards")
+    return os.path.dirname(paths[0])
+
+
+def dit_checkpoint(work: str) -> str:
+    """The seeded DiT-XL/2, perturbed as the checks' models are, written by
+    the port's ``save_dit_checkpoint`` as a reference ``.pt``; returns its
+    path."""
+    from uurg_torch.io.dit_interop import save_dit_checkpoint
+    from uurg_torch.models.dit import DiT_configs, init_dit
+
+    model = perturb_dit_(init_dit(SEED, DiT_configs[DIT_NAME](), "cuda"))
+    path = os.path.join(work, "dit_xl2_seeded.pt")
+    save_dit_checkpoint(path, model)
+    return path
+
+
+def _run_cli(name: str, args: list[str]) -> tuple[float, str]:
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"uurg_torch.cli.{name}",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=DIT_CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+        fail(f"{name} exited {proc.returncode}")
+    print(f"  {name}: exit 0 in {secs:.3f} s", flush=True)
+    return secs, proc.stdout + proc.stderr
+
+
+def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
+    """Phase 18: the three DiT CLIs on the stand-in, each in a subprocess
+    on the card (DiT-XL/2 from ``ckpt``): ``dit_generate_fisher`` (class 0,
+    DIT_FISHER_ITERS batches of 1), ``dit_generate_mask`` (threshold 1.0),
+    ``forget`` (the mask packed, adaga, DIT_CLI_ITERS steps, snapshots and
+    checkpoints every 3). The Fishers finite, non-negative and not all
+    zero; the mask 0/1 and not all one value; the logged losses finite;
+    ``final.pt`` and the sample grids written, and ``final.pt`` read back by
+    the port's ``load_dit_reference_checkpoint``."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.core.tree import sparsity
+    from uurg_torch.io.checkpoint import restore_checkpoint
+    from uurg_torch.io.dit_interop import load_dit_reference_checkpoint
+    from uurg_torch.models.dit import build_dit
+
+    masks = os.path.join(work, "masks")
+    fdir = os.path.join(masks, "0")
+    res = {}
+    res["fisher_s"], _ = _run_cli("dit_generate_fisher", [
+        "--data-path", data, "--ckpt", ckpt, "--forget-class", "0",
+        "--n-iters", str(DIT_FISHER_ITERS), "--mask-path", masks])
+    for name in ("forget_fisher", "remain_fisher"):
+        f = restore_checkpoint(os.path.join(fdir, name))
+        total = sum(float(v.double().sum()) for v in f.values())
+        if not (all(bool(torch.isfinite(v).all() and (v >= 0).all())
+                    for v in f.values()) and total > 0):
+            fail(f"{name}: not finite and non-negative, or all zero")
+        res[f"{name}_sum"] = total
+        del f
+    res["mask_s"], _ = _run_cli("dit_generate_mask", [
+        "--mask-path", masks, "--forget-class", "0", "--thresholds", "1.0"])
+    for name in ("forget_fisher", "remain_fisher"):     # 2.7 GB each
+        os.remove(os.path.join(fdir, name))
+    mask_path = os.path.join(fdir, "fisher_1.0")
+    mask = restore_checkpoint(mask_path)
+    if not all(v.dtype == torch.bool for v in mask.values()):
+        fail("the mask file holds leaves that are not 0/1")
+    res["mask_sparsity"] = sparsity(mask)
+    print(f"  mask fisher_1.0: sparsity {res['mask_sparsity']:.4f}",
+          flush=True)
+    if not 0.0 < res["mask_sparsity"] < 1.0:
+        fail("the mask is all one value")
+    del mask
+    results = os.path.join(work, "results")
+    res["forget_s"], log_text = _run_cli("forget", [
+        "--data-path", data, "--ckpt", ckpt, "--mask-path", mask_path,
+        "--pack_mask",
+        "--unlearn-loss", "adaga", "--n-iters", str(DIT_CLI_ITERS),
+        "--snapshot-every", "3", "--ckpt-every", "3", "--log-every", "1",
+        "--results-dir", results])
+    losses = [(float(a), float(b)) for a, b in re.findall(
+        r"step \d+ forget (\S+) remain (\S+)", log_text)]
+    run = os.path.join(results, "forget_0")
+    print(f"  forget: logged losses {losses}; wrote "
+          f"{sorted(os.listdir(run))}", flush=True)
+    if len(losses) != DIT_CLI_ITERS or not np.isfinite(losses).all():
+        fail("the forget CLI's logged losses are missing or not finite")
+    for name in ("final.pt", "train_state.pt", "ckpt_0000002.pt",
+                 "vis_step000002.npz"):
+        if not os.path.exists(os.path.join(run, name)):
+            fail(f"the forget CLI wrote no {name}")
+    with np.load(os.path.join(run, "vis_step000002.npz")) as d:
+        lat = d["latents"]
+    if lat.shape != (2 * DIT_GRID_CLASSES, 32, 32, 4) or \
+            not np.isfinite(lat).all():
+        fail(f"vis_step000002.npz holds {lat.shape} latents, or not finite")
+    model, _ = build_dit(DIT_NAME, device="cuda")
+    load_dit_reference_checkpoint(os.path.join(run, "final.pt"), model)
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        fail("final.pt holds non-finite weights")
+    res["losses"] = losses
+    del model
+    shutil.rmtree(results)
+    torch.cuda.empty_cache()
+    return res, mask_path
+
+
+@contextlib.contextmanager
+def dit_clock(runner, profile_step: int | None = None):
+    """Wrap the SFR-on step that ``runner.make_sfron_step`` builds: after
+    each step, wait for the device and read the clock, and keep the losses;
+    the step numbered ``profile_step`` runs under the profiler instead (its
+    device busy ms and its wall ms kept). The run still goes through the
+    runner's own entry point and step."""
+    import torch
+
+    record = {"t": [], "loss": [], "busy_ms": None, "profiled_ms": None}
+    make = runner.make_sfron_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(state, *batches):
+            out = {}
+            if state.step == profile_step:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                record["busy_ms"] = device_busy_ms(
+                    "a DiT SFR-on step",
+                    lambda: out.update(step(state, *batches)))
+                record["profiled_ms"] = (time.perf_counter() - t0) * 1e3
+            else:
+                out = step(state, *batches)
+                torch.cuda.synchronize()
+                record["t"].append(time.perf_counter())
+            record["loss"].append((float(out["forget_loss"]),
+                                   float(out["remain_loss"])))
+            return out
+
+        return timed
+
+    runner.make_sfron_step = timed_make
+    try:
+        yield record
+    finally:
+        runner.make_sfron_step = make
+
+
+def dit_train(data: str, ckpt: str, mask_path: str, policy, card: str):
+    """Phase 18: ``dit_forget`` on DiT-XL/2 (from ``ckpt``, bf16) at batch
+    DIT_BATCH + DIT_BATCH from the stand-in's shards under the CLI's mask,
+    packed (adaga, AdamW 1e-4, forget clip 1.0, EMA 0.9999), with
+    ``remat_policy`` ``policy``: DIT_WARMUP warm-up steps and one profiled,
+    then DIT_STEPS counted and timed steps in a second call, with the
+    launch counters zeroed just before and read just after. Returns (its
+    numbers, the last state)."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.data.lazy import list_latent_shards, sharded_latent_batches
+    from uurg_torch.io.dit_interop import load_dit_reference_checkpoint
+    from uurg_torch.workloads import ddpm_runner
+    from uurg_torch.workloads import dit_runner as DR
+    from uurg_torch.workloads.dit import DiTWorkload
+
+    wl = DiTWorkload.build(DIT_NAME, remat_policy=policy)
+    model = load_dit_reference_checkpoint(ckpt, wl.init_params(SEED))
+    mask = ddpm_runner.load_mask(mask_path, model)
+    shards = list_latent_shards(data)
+    f_it = sharded_latent_batches(shards, DIT_BATCH, seed=SEED,
+                                  keep_label=lambda y: y == 0)
+    r_it = sharded_latent_batches(shards, DIT_BATCH, seed=SEED + 1,
+                                  keep_label=lambda y: y != 0)
+    kw = dict(lr=1e-4, forget_alpha=1e-3, unlearn_loss="adaga", mask=mask,
+              pack_mask=True, seed=SEED, log_freq=10 ** 6)
+    tag = f"remat {policy or 'full'}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with dit_clock(DR, profile_step=DIT_WARMUP) as warm:
+        DR.dit_forget(wl, model, f_it, r_it, n_iters=DIT_WARMUP + 1, **kw)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()
+              if k in ("blocks.0.attn.qkv.weight", "final_layer.linear.weight",
+                       "blocks.27.adaLN_modulation.1.weight")}
+    with dit_clock(DR) as rec:
+        _zero_launches()
+        t0 = time.perf_counter()
+        state = DR.dit_forget(wl, model, f_it, r_it, n_iters=DIT_STEPS,
+                              **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = rec["loss"]
+    if len(losses) != DIT_STEPS or not np.isfinite(losses + warm["loss"]).all():
+        fail(f"DiT SFR-on ({tag}): losses {losses}")
+    params = dict(model.named_parameters())
+    ema = dict(state.ema_model.named_parameters())
+    for k, v in before.items():
+        if torch.equal(params[k].detach(), v) or torch.equal(ema[k], v):
+            fail(f"DiT SFR-on ({tag}): {k} or its EMA did not move")
+    phases = 2 * DIT_STEPS
+    want = {k: 0 for k in launches}
+    want["attention_fwd"] = DIT_BLOCKS * phases * (2 if policy is None else 1)
+    want["attention_bwd"] = DIT_BLOCKS * phases
+    _expect_launches(f"DiT SFR-on ({tag}, {DIT_STEPS} steps)", launches, want)
+    step_ms = np.diff(rec["t"]) * 1e3
+    med = float(np.median(step_ms))
+    share = warm["busy_ms"] / med
+    print(f"  {tag}: steps {np.round(step_ms, 3).tolist()} ms, median "
+          f"{med:.3f} ms ({1e3 / med:.3f} steps/s), call {wall:.3f} s; "
+          f"profiled step {warm['profiled_ms']:.3f} ms with {warm['busy_ms']:.3f}"
+          f" ms of device work ({100 * share:.1f}% of the median step); peak "
+          f"{peak:.3f} GiB; losses first {losses[0]}, last {losses[-1]}; on "
+          f"{card}", flush=True)
+    return ({"launches": launches, "step_ms": step_ms.tolist(),
+             "median_step_ms": med, "steps_per_s": 1e3 / med,
+             "busy_ms_profiled_step": warm["busy_ms"],
+             "profiled_step_ms": warm["profiled_ms"],
+             "busy_share_of_median": share, "peak_gib": peak,
+             "call_s": wall, "losses": losses}, wl, state)
+
+
+def dit_grid(wl, model, work: str, card: str) -> dict:
+    """Phase 18: ``dit_sample_grid`` (DIT_GRID_STEPS respaced ancestral
+    steps, CFG DIT_COND_SCALE, 2 labels of each of DIT_GRID_CLASSES
+    classes) from the EMA model, one forward launch a block a step."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.workloads import dit_runner as DR
+
+    out = os.path.join(work, "grid.npz")
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    DR.dit_sample_grid(wl, model, out, n_per_class=2,
+                       classes=list(range(DIT_GRID_CLASSES)),
+                       respacing=str(DIT_GRID_STEPS),
+                       cond_scale=DIT_COND_SCALE, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_all_launches()
+    with np.load(out) as d:
+        lat = d["latents"]
+    if lat.shape != (2 * DIT_GRID_CLASSES, 32, 32, 4) or \
+            not np.isfinite(lat).all() or lat.std() == 0:
+        fail(f"the sample grid holds {lat.shape} latents, not finite or "
+             f"constant")
+    _expect_launches(f"DiT sample grid ({DIT_GRID_STEPS} steps)", launches,
+                     {**{k: 0 for k in launches},
+                      "attention_fwd": DIT_BLOCKS * DIT_GRID_STEPS})
+    print(f"  {2 * DIT_GRID_CLASSES} latents in {secs:.3f} s "
+          f"({1e3 * secs / DIT_GRID_STEPS:.3f} ms a step at CFG batch "
+          f"{4 * DIT_GRID_CLASSES}) on {card}", flush=True)
+    return {"launches": launches, "seconds": secs}
+
+
+def dit_path(card: str, gen) -> dict:
+    """Phase 18: DiT-XL/2 class forgetting on pre-encoded ImageNet-256
+    latents."""
+    import shutil
+
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    out = {}
+    out["rows"], out["rows_f32"] = dit_attention_kernels(gen)
+    out["bf16_check"] = dit_bf16_check(gen)
+    torch.cuda.empty_cache()
+    out["f32_check"] = dit_f32_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="uurg_dit_")
+    try:
+        data = dit_stand_in(work)
+        ckpt = dit_checkpoint(work)
+        torch.cuda.empty_cache()
+        out["clis"], mask_path = dit_clis(work, data, ckpt)
+        runs = {}
+        for policy in (None, "attn"):
+            runs[policy or "full"], wl, state = dit_train(
+                data, ckpt, mask_path, policy, card)
+            if policy is None:
+                del wl, state
+                torch.cuda.empty_cache()
+        out["train"] = runs
+        out["grid"] = dit_grid(wl, state.ema_model, work, card)
+        del wl, state
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {"dit_full": runs["full"]["launches"],
+                       "dit_attn": runs["attn"]["launches"],
+                       "dit_grid": out["grid"]["launches"]}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3176,6 +3815,14 @@ def main() -> int:
           f"{TRAIN_BATCH}, Adam nu in bf16) against no remat")
     remat = remat_path(Config(SFRON_CONFIG), card, n_attn, n_gn)
     rows += rows_f32
+    torch.cuda.empty_cache()
+    banner(f"main path: {DIT_NAME} class forgetting on {DIT_LATENTS} "
+           f"stand-in latents: the attention kernels at "
+           f"{DIT_ATTN_SHAPE} (bf16) and {DIT_F32_SHAPE} (fp32), the model "
+           f"vs its plain path and card vs CPU, the three DiT CLIs, "
+           f"{DIT_WARMUP} + {DIT_STEPS} SFR-on steps at batch {DIT_BATCH} "
+           f"under full and attn remat, the sample grid")
+    dit = dit_path(card, gen)
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -3212,7 +3859,7 @@ def main() -> int:
                  "vit_f32": vit["vit_sfron_f32"]["launches"],
                  "vit_bf16": vit["vit_sfron_bf16"]["launches"],
                  "swin": vit["swin_sfron"]["launches"],
-                 "remat": remat["launches"]}
+                 "remat": remat["launches"], **dit["launches"]}
     by_path = {}
     for name in meta:
         paths = {}
@@ -3222,6 +3869,25 @@ def main() -> int:
         paths.update({p: got[name] for p, got in all_paths.items()})
         by_path[name] = paths
     kernels = summarise(rows, by_path, meta)
+    # the bf16 pair at DiT-XL/2's shape, per DiT pass (DIT_BLOCKS launches
+    # at DIT_ATTN_SHAPE); launches over phase 18's main-path runs
+    for row in dit["rows"]:
+        name = row["name"]
+        paths = {p: dit["launches"][p][name] for p in dit["launches"]}
+        kernels.append({
+            "name": f"{name}_dit", "route": "cuda",
+            "source": meta[name]["source"],
+            "replaces": meta[name]["replaces"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": row["max_abs_err"],
+            **{k: DIT_BLOCKS * row[k] for k in ("ms", "eager_ms", "plain_ms",
+                                                "bound_ms", "library_ms")},
+            "bound_by": row["bound_by"],
+            "per": f"{DIT_NAME} {'forward' if 'fwd' in name else 'backward'}"
+                   f" at batch {DIT_BATCH}: {DIT_BLOCKS} launches at "
+                   f"{DIT_ATTN_SHAPE} (head width 72, padded to 128), "
+                   f"device ms by CUDA-graph replay; library: bf16 SDPA",
+        })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
@@ -3238,7 +3904,7 @@ def main() -> int:
                    "sa": sa, "evaluation": evaluation, "parity": parity,
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
-                   "remat": remat,
+                   "remat": remat, "dit": dit,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)

@@ -293,3 +293,77 @@ def test_attention_f32_kernels_match_plain(gen, B, H, T, D):
         out2.backward(g)
         assert torch.equal(out2, out)
         assert all(torch.equal(a.grad, t.grad) for a, t in zip(again, ts))
+
+
+# DiT-XL/2's attention: T = 256 tokens, 16 heads of width 72 (padded to 128
+# by the dispatcher), at the training batch 32 in bf16 and at the fp32
+# card-vs-CPU check's batch 2 (the wide route), as chip_smoke.py phase 18
+DIT_SHAPES = [(torch.bfloat16, (32, 16, 256, 72)),
+              (torch.float32, (2, 16, 256, 72))]
+
+
+@pytest.mark.parametrize("dtype,shape", DIT_SHAPES)
+def test_attention_kernels_at_the_dit_shape(gen, dtype, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda",
+                              dtype=dtype) for _ in range(4))
+    f32 = dtype == torch.float32
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (attention.launches_f32 if f32 else attention.launches,
+              attention_bwd.launches_f32 if f32 else attention_bwd.launches)
+    out = attention(*ts)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert ((attention.launches_f32 if f32 else attention.launches),
+            (attention_bwd.launches_f32 if f32 else attention_bwd.launches)
+            ) == (counts[0] + 1, counts[1] + 1)
+    assert out.shape == shape and out.dtype == dtype
+    if f32:
+        assert _rel_l2(out, attention_plain(q, k, v)) <= 1e-5
+    else:
+        torch.testing.assert_close(out.float(),
+                                   attention_plain(q, k, v).float(),
+                                   atol=ATOL, rtol=RTOL)
+    for t, w in zip(ts, attention_bwd_plain(q, k, v, g)):
+        assert _rel_l2(t.grad, w) <= (1e-4 if f32 else BWD_REL_L2)
+    again = [t.clone().requires_grad_() for t in (q, k, v)]
+    out2 = attention(*again)
+    out2.backward(g)
+    assert torch.equal(out2, out)
+    assert all(torch.equal(a.grad, t.grad) for a, t in zip(again, ts))
+
+
+@pytest.mark.parametrize("policy", [None, "attn"])
+def test_dit_launches_the_kernels_per_remat_policy(gen, policy):
+    """A 2-block DiT at head width 72 (T = 256) in bf16, perturbed so its
+    adaLN gates are non-zero: the output against its plain path, and one
+    attention forward a block (two under full remat) and one backward in
+    a training step."""
+    from uurg_torch.models import dit as TD
+
+    cfg = TD.DiTConfig(input_size=32, patch_size=2, hidden_size=144,
+                       depth=2, num_heads=2, num_classes=10,
+                       remat_policy=policy)
+    model = TD.init_dit(0, cfg, "cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            std = 0.5 / p[0].numel() ** 0.5 if p.ndim >= 2 else 0.05
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * std)
+    x = torch.randn(4, 32, 32, 4, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (4,), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (4,), generator=gen, device="cuda")
+    fwd, bwd = attention.launches, attention_bwd.launches
+    out = model(x, t, y)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    per_block = 2 if policy is None else 1
+    assert attention.launches - fwd == per_block * cfg.depth
+    assert attention_bwd.launches - bwd == cfg.depth
+    kernel = TD.attention
+    TD.attention = attention_plain
+    try:
+        with torch.no_grad():
+            want = model(x, t, y)
+    finally:
+        TD.attention = kernel
+    assert _rel_l2(out.detach(), want) < 2e-2

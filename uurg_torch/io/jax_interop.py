@@ -8,7 +8,9 @@ It takes a nested dict of numpy arrays, so no JAX is needed to call it.
 ``jax_resnet_variables_to_torch`` does the same for the JAX package's
 ResNet (``params`` and ``batch_stats``) under torchvision's names, and
 ``jax_vit_params_to_torch`` / ``jax_swin_params_to_torch`` for its ViT and
-Swin, whose port keeps the Flax module names.
+Swin, whose port keeps the Flax module names, and ``jax_dit_params_to_torch``
+for its DiT under facebookresearch DiT's names (the inverse of
+``uurg_tpu/io/dit_interop.py::torch_dit_state_to_flax``).
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
@@ -179,6 +181,62 @@ def jax_swin_params_to_torch(params: Mapping[str, Any]
     state dict of :class:`uurg_torch.models.swin.Swin`: ``rel_pos_bias`` as
     it is, the rest as :func:`_flax_names_to_torch`."""
     return _flax_names_to_torch(params)
+
+
+# the JAX DiT's module names -> the reference DiT's (DiT/models.py)
+_DIT_TOP = {"patch_embed": "x_embedder.proj", "t_mlp1": "t_embedder.mlp.0",
+            "t_mlp2": "t_embedder.mlp.2",
+            "final_adaLN": "final_layer.adaLN_modulation.1",
+            "final_linear": "final_layer.linear"}
+_DIT_BLOCK = {("adaLN_modulation",): "adaLN_modulation.1",
+              ("attn", "qkv"): "attn.qkv", ("attn", "proj"): "attn.proj",
+              ("mlp_fc1",): "mlp.fc1", ("mlp_fc2",): "mlp.fc2"}
+
+
+def _dit_leaf(name: str, leaf: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        return f"{name}.weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4
+                                  else v.T)
+    return f"{name}.{leaf}", v
+
+
+def jax_dit_params_to_torch(params: Mapping[str, Any],
+                            depth: int | None = None
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX package's DiT params (``uurg_tpu/models/dit.py``), as nested
+    dicts of arrays, -> a state dict of :class:`uurg_torch.models.dit.DiT`
+    under the reference names. Reads both block layouts: one subtree a
+    block (``block_{i}``, ``scan_blocks=False``) and the depth-stacked
+    ``blocks`` of ``nn.scan`` (leading axis = block index). Dense kernels
+    are transposed, the patch convolution goes HWIO -> OIHW. ``depth``, when
+    given, must be the number of blocks found."""
+    out: dict[str, np.ndarray] = {}
+    n_blocks = 0
+    for path, v in _flatten(params).items():
+        v = np.asarray(v, np.float32)
+        head, *rest = path
+        if head in _DIT_TOP and len(rest) == 1:
+            key, val = _dit_leaf(_DIT_TOP[head], rest[0], v)
+            out[key] = val
+        elif head == "y_embed" and rest == ["embedding"]:
+            out["y_embedder.embedding_table.weight"] = v
+        elif head == "blocks" or re.fullmatch(r"block_\d+", head):
+            inner = _DIT_BLOCK.get(tuple(rest[:-1]))
+            if inner is None:
+                raise KeyError(f"Unmapped flax DiT path: {path}")
+            if head == "blocks":
+                slices = list(enumerate(v))
+            else:
+                slices = [(int(head.removeprefix("block_")), v)]
+            for i, vi in slices:
+                key, val = _dit_leaf(f"blocks.{i}.{inner}", rest[-1], vi)
+                out[key] = val
+                n_blocks = max(n_blocks, i + 1)
+        else:
+            raise KeyError(f"Unmapped flax DiT path: {path}")
+    if depth is not None and n_blocks != depth:
+        raise ValueError(f"found {n_blocks} DiT blocks, expected {depth}")
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
 def load_reference_checkpoint(path: str, model: torch.nn.Module,

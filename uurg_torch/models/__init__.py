@@ -1,7 +1,8 @@
 """The classifier registry and factory (port of
 ``uurg_tpu/models/__init__.py``: ``model_registry`` and ``create_model``
 under the JAX names, without ``eval()``): the ResNets, ViT-B/16 and
-Swin-T/S/B. ``init_classifier`` is re-exported beside them."""
+Swin-T/S/B. ``init_classifier`` is re-exported beside them, and so are the
+DiT names of :mod:`uurg_torch.models.dit`."""
 from uurg_torch.core.registry import Registry
 
 model_registry = Registry("model")
@@ -12,6 +13,9 @@ from uurg_torch.models.resnet import (  # noqa: E402
 from uurg_torch.models.init import init_classifier  # noqa: E402,F401
 from uurg_torch.models.swin import Swin_B, Swin_S, Swin_T  # noqa: E402
 from uurg_torch.models.vit import ViT_B  # noqa: E402
+from uurg_torch.models.dit import (  # noqa: E402,F401
+    DiT, DiTConfig, DiT_configs, build_dit, init_dit, init_dit_,
+)
 
 for _name, _fn in [
     ("ResNet18", ResNet18), ("ResNet34", ResNet34), ("ResNet50", ResNet50),

@@ -1,0 +1,240 @@
+"""Host-side DiT runners: class forgetting, Fisher, masks and the sample
+grid.
+
+Port of ``uurg_tpu/workloads/dit_runner.py`` on one device: ``dit_forget``
+(DiT/forget.py:151-361, SFR-on with the EMA shadow), ``dit_generate_fisher``
+(DiT/generate_fisher.py:131-317), ``dit_generate_mask``
+(DiT/generate_mask.py:16-57) and ``dit_sample_grid`` (the snapshot sample
+sheets of DiT/forget.py:344-345). The multi-device paths (``mesh``,
+``parallelism`` other than ``"dp"``, ``pp_microbatches``) raise: they come
+with the multi-device slice (ROADMAP Queue 1 item 8). ``dit_sample_fid``
+comes with the VAE (item 6(b)).
+
+Checkpoints are ``torch.save`` files in the reference DiT layout
+(:mod:`uurg_torch.io.dit_interop`): ``<ckpt_dir>/ckpt_{i:07d}.pt`` and
+``final.pt`` as ``{"model": sd, "ema": sd}``, which the port's and the JAX
+package's ``load_dit_reference_checkpoint`` both read, and
+``train_state.pt`` (step, model, optimizer, EMA), from which a run resumes.
+Fishers and masks are the port's files of named tensors
+(:mod:`uurg_torch.io.checkpoint`) keyed by the reference parameter names.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from uurg_torch.core.rng import step_seed
+from uurg_torch.core.tree import PackedMask, pack_mask as _pack
+from uurg_torch.io.checkpoint import save_checkpoint
+from uurg_torch.io.dit_interop import save_dit_checkpoint
+from uurg_torch.models.dit import DiT
+from uurg_torch.train.optim import make_optimizer
+from uurg_torch.unlearn.fisher import accumulate_fisher
+from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
+                                      make_sfron_step, stack_microbatches)
+from uurg_torch.workloads import ddpm_runner
+from uurg_torch.workloads.dit import DiTWorkload
+
+log = logging.getLogger("uurg_torch.dit")
+
+
+def refuse_multi_device(mesh=None, parallelism: str = "dp",
+                        pp_microbatches: int | None = None) -> None:
+    """Raise for the multi-device knobs, which the port does not run yet."""
+    if mesh is not None or parallelism != "dp" or pp_microbatches:
+        raise NotImplementedError(
+            f"mesh={mesh!r}, parallelism={parallelism!r}, pp_microbatches="
+            f"{pp_microbatches!r}: the port runs DiT on one device; the "
+            f"multi-device paths come with ROADMAP Queue 1 item 8")
+
+
+def device_batch(batch, device: torch.device):
+    """(latents, labels) from the host or the device -> float32 latents and
+    int64 labels on ``device``."""
+    x, y = batch
+    return (torch.as_tensor(x).to(device=device, dtype=torch.float32),
+            torch.as_tensor(y).to(device=device, dtype=torch.int64))
+
+
+def _save_train_state(path: str, state: SFRonState) -> None:
+    payload = {"step": int(state.step),
+               "model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "ema": state.ema_model.state_dict()}
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _load_train_state(path: str, state: SFRonState) -> int:
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(ck["model"], strict=True)
+    state.optimizer.load_state_dict(ck["optimizer"])
+    state.ema_model.load_state_dict(ck["ema"], strict=True)
+    state.step = int(ck["step"])
+    return state.step
+
+
+def dit_forget(
+    wl: DiTWorkload,
+    model: DiT,
+    forget_batches: Iterator,   # yields (latents, labels), pre-encoded
+    remain_batches: Iterator,
+    *,
+    n_iters: int = 600,
+    lr: float = 1e-4,
+    forget_alpha: float = 1e-3,
+    remain_alpha: float = 1.0,
+    unlearn_loss: str = "ga",
+    method: str = "ron",
+    label_to_forget: int = 0,
+    mask: dict | None = None,
+    ema_decay: float = 0.9999,
+    decay_forget_alpha: bool = False,
+    grad_clip: float | None = 1.0,
+    seed: int = 0,
+    log_freq: int = 100,
+    ckpt_dir: str | None = None,
+    ckpt_freq: int = 10000,
+    sample_hook: Callable | None = None,
+    snapshot_freq: int = 500,
+    mesh=None,
+    parallelism: str = "dp",
+    pp_microbatches: int | None = None,
+    grad_accum: int = 1,
+    mu_dtype: torch.dtype | None = None,
+    nu_dtype: torch.dtype | None = None,
+    pack_mask: bool = False,
+) -> SFRonState:
+    """SFR-on for DiT (DiT/forget.py:256-345): masked ascent on the forget
+    batch (gradients clipped at ``grad_clip``), remain descent (unclipped),
+    both through one AdamW (weight decay 0, moments in ``mu_dtype`` /
+    ``nu_dtype``), then the EMA shadow ``ema = decay * ema + (1 - decay) *
+    params``, every step. ``forget_alpha`` cosine-decays only with
+    ``decay_forget_alpha``. ``mask`` is the saliency mask keyed by
+    parameter name (0/1, bool or :class:`PackedMask` leaves), bit-packed
+    on the device with ``pack_mask``. ``sample_hook(state, step)`` fires
+    every ``snapshot_freq`` steps. ``model`` is updated in place; the
+    returned state holds it, the optimizer and the EMA model. With
+    ``ckpt_dir`` the run resumes from its ``train_state.pt`` when one is
+    there. Batches are placed on the workload's device; the generator of
+    step i is seeded from ``(seed, i)``."""
+    refuse_multi_device(mesh, parallelism, pp_microbatches)
+    dev = wl.device
+    opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=0.0,
+                         mu_dtype=mu_dtype, nu_dtype=nu_dtype)
+    if mask is not None:
+        mask = ddpm_runner._device_mask(mask, dev)
+        if pack_mask:
+            mask = {k: v if isinstance(v, PackedMask) else _pack({k: v})[k]
+                    for k, v in mask.items()}
+    cfg = SFRonConfig(
+        n_iters=n_iters, forget_alpha=forget_alpha,
+        remain_alpha=remain_alpha,
+        alpha_sched="cosine" if decay_forget_alpha else "const",
+        forget_freq=1, forget_clip=grad_clip, remain_clip=None,
+        method=method, ema_mu=ema_decay, grad_accum=grad_accum)
+    step = make_sfron_step(cfg, wl.forget_loss_fn(unlearn_loss,
+                                                  label_to_forget),
+                           wl.train_loss_fn())
+    forget_batches = (device_batch(b, dev) for b in forget_batches)
+    remain_batches = (device_batch(b, dev) for b in remain_batches)
+    if grad_accum > 1:  # effective batch = grad_accum x batch size
+        forget_batches = stack_microbatches(forget_batches, grad_accum)
+        remain_batches = stack_microbatches(remain_batches, grad_accum)
+    state = init_state(model, opt, ema=True, mask=mask)
+    start_step = 0
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        resume = os.path.join(ckpt_dir, "train_state.pt")
+        if os.path.exists(resume):
+            start_step = _load_train_state(resume, state)
+            log.info("resumed from %s at step %d", resume, start_step)
+    gen = torch.Generator(device=dev)
+    model.train()
+    start = time.time()
+    for i in range(start_step, n_iters):
+        fb, rb = next(forget_batches), next(remain_batches)
+        gen.manual_seed(step_seed(seed, i))
+        metrics = step(state, fb, rb, gen)
+        if (i + 1) % log_freq == 0:
+            log.info("step %d forget %.4f remain %.4f (%.2f steps/s)", i,
+                     float(metrics["forget_loss"]),
+                     float(metrics["remain_loss"]),
+                     log_freq / (time.time() - start))
+            start = time.time()
+        if sample_hook is not None and (i + 1) % snapshot_freq == 0:
+            sample_hook(state, i)
+        if ckpt_dir and (i + 1) % ckpt_freq == 0:
+            save_dit_checkpoint(os.path.join(ckpt_dir, f"ckpt_{i:07d}.pt"),
+                                state.model, state.ema_model)
+            _save_train_state(os.path.join(ckpt_dir, "train_state.pt"),
+                              state)
+    if ckpt_dir:
+        save_dit_checkpoint(os.path.join(ckpt_dir, "final.pt"), state.model,
+                            state.ema_model)
+    return state
+
+
+def _take(it: Iterable, n: int):
+    it = iter(it)
+    for _ in range(n):
+        yield next(it)
+
+
+def dit_generate_fisher(wl: DiTWorkload, model: DiT, forget_batches,
+                        remain_batches, *, n_iters: int, out_dir: str,
+                        seed: int = 0) -> str:
+    """Fisher diagonals (the squared batch-mean gradient of the training
+    loss, averaged over ``n_iters`` batches) of the forget and the remain
+    stream (DiT/generate_fisher.py:217-291), written to
+    ``<out_dir>/{forget,remain}_fisher``. Both passes draw from generators
+    seeded from ``(seed, batch index)``."""
+    os.makedirs(out_dir, exist_ok=True)
+    loss = wl.train_loss_fn()
+    for name, it in (("forget", forget_batches), ("remain", remain_batches)):
+        batches = (device_batch(b, wl.device) for b in _take(it, n_iters))
+        fisher = accumulate_fisher(loss, model, batches, seed)
+        save_checkpoint(os.path.join(out_dir, f"{name}_fisher"), fisher)
+        log.info("saved %s fisher", name)
+        del fisher
+    return out_dir
+
+
+def dit_generate_mask(fisher_dir: str, thresholds, params_like=None,
+                      device: str | torch.device | None = None
+                      ) -> dict[float, dict]:
+    """Ratio-threshold masks, one a threshold, written to
+    ``<fisher_dir>/fisher_<th>`` (DiT/generate_mask.py): the DDPM runner's
+    :func:`~uurg_torch.workloads.ddpm_runner.generate_fisher_mask`, which
+    computes on ``device`` (CUDA unless "cpu" is asked for)."""
+    return ddpm_runner.generate_fisher_mask(fisher_dir, thresholds,
+                                            like=params_like, device=device)
+
+
+def dit_sample_grid(wl: DiTWorkload, model: DiT, out_path: str, *,
+                    n_per_class: int = 2, classes=None,
+                    respacing: str = "50", cond_scale: float = 4.0,
+                    seed: int = 0, decode_fn: Callable | None = None) -> str:
+    """A small CFG sample sheet (DiT/forget.py:344-345): ``n_per_class``
+    samples of each class, the respaced ancestral sampler, written to
+    ``out_path`` as npz: decoded uint8 ``images`` when a ``decode_fn``
+    (latents -> images in [-1, 1]) is given, else the raw ``latents``;
+    ``labels`` beside them."""
+    classes = list(classes if classes is not None else range(8))
+    labels = np.repeat(classes, n_per_class)
+    sampler = wl.make_sampler(respacing=respacing, cond_scale=cond_scale)
+    gen = torch.Generator(device=wl.device).manual_seed(seed)
+    lat = sampler(model, torch.as_tensor(labels, device=wl.device), gen)
+    if decode_fn is not None:
+        img = torch.clamp((decode_fn(lat) + 1) / 2, 0, 1)
+        np.savez(out_path, images=(img * 255).to(torch.uint8).cpu().numpy(),
+                 labels=labels)
+    else:
+        np.savez(out_path, latents=lat.float().cpu().numpy(), labels=labels)
+    return out_path

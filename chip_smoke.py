@@ -165,12 +165,15 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    bf16 against the same without remat (exact launch counts, step times,
    peak memory).
 18. DiT-XL/2 class forgetting on pre-encoded ImageNet-256 latents (32 x 32
-   x 4, T = 256 tokens, 16 heads of width 72, which the attention
-   dispatcher pads to 128). The bf16 attention kernels at (32, 16, 256, 72)
-   (forward with and without its log-sum-exp, the log-sum-exp, backward)
-   and the fp32 pair at (2, 16, 256, 72) (the wide route) against the plain
-   versions, three runs with equal bits, timed beside SDPA at D = 72 and
-   the bound of the true width. The full-width model (seeded init, then
+   x 4, T = 256 tokens, 16 heads of width 72, which the bf16 kernels read
+   at that width and the fp32 dispatcher pads to 128). The bf16 attention
+   kernels at (32, 16, 256, 72) (forward with and without its
+   log-sum-exp, the log-sum-exp, backward) and the fp32 pair at
+   (2, 16, 256, 72) (the wide route) against the plain versions, three runs
+   with equal bits, the same bits on MHSA's layout (q, k, v views of one
+   fused projection, a token-major gradient) as on contiguous inputs, no
+   pad op on the bf16 route, timed on both layouts beside SDPA at D = 72
+   and the bound of the true width. The full-width model (seeded init, then
    perturbed so that every adaLN gate is O(0.1-1)) in bf16 at batch 4,
    kernels against its plain path: the forward (a zeroed attention must
    move it) and the hybrid loss's gradients through full remat; four of its
@@ -274,8 +277,9 @@ LSE_ATOL = 1e-4
 # CUgraphNodeType (cuda.h) of a kernel node
 GRAPH_KERNEL_NODE = 0
 # (T, D) off the main path, at batch 4 x 2 heads: T below, across and far
-# above one tile, not a multiple of 8; D padded by the wrapper to 64, 128,
-# 192 and unpadded
+# above one tile, not a multiple of 8; D not a multiple of 64 (the bf16
+# kernels read it at its true width, with a narrow last chunk; the fp32
+# wrapper pads it to 64, 128, 192) and a multiple
 RAGGED_SHAPES = ((16, 72), (77, 40), (100, 72), (130, 160), (256, 192),
                  (1024, 64), (1024, 256))
 RAGGED_REPEATS = 3
@@ -422,8 +426,8 @@ CLS_CLI_ITERS, VIT_CLI_ITERS = 250, 10
 REMAT_SPREAD = 4
 REMAT_STEPS = 4
 # DiT-XL/2 class forgetting (phase 18): 32x32x4 latents, patch 2 (T = 256
-# tokens), hidden 1152 in 16 heads of width 72 (padded to 128 by the
-# attention dispatcher), 28 blocks. The attention kernels at the training
+# tokens), hidden 1152 in 16 heads of width 72 (read at that width, as
+# views of the fused projection, by the bf16 attention kernels), 28 blocks. The attention kernels at the training
 # batch (DiT/forget.py's 32; the CFG sample grid's 2 x 16 is the same
 # shape), and the float32 pair at the 4-block card-vs-CPU check's batch 2
 DIT_NAME, DIT_BLOCKS, DIT_BATCH = "DiT-XL/2", 28, 32
@@ -940,6 +944,34 @@ def check_lse(name: str, lse, q, k) -> float:
     return err
 
 
+def mhsa_views(B: int, H: int, T: int, D: int, gen, dtype=None):
+    """(q, k, v, g) in the layout DiT's MHSA hands the dispatcher: q, k, v
+    the (B, H, T, D) views that ``MHSA.heads`` takes of one fused
+    (B, T, 3, H, D) projection, g the (B, H, T, D) view of a token-major
+    (B, T, H, D) gradient that ``MHSA.merge``'s backward gives. Seeded
+    normal values, bf16 unless ``dtype`` says otherwise."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda",
+                      dtype=dtype)
+    g = torch.randn(B, T, H, D, generator=gen, device="cuda", dtype=dtype)
+    return (*(t.transpose(1, 2) for t in qkv.unbind(2)), g.transpose(1, 2))
+
+
+def pad_ops(fn) -> int:
+    """How many zero pads (``aten::constant_pad_nd``, what ``F.pad`` runs)
+    one call of ``fn`` makes, from torch.profiler's CPU operator records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "aten::constant_pad_nd")
+
+
 def check_ragged(gen) -> list[dict]:
     """Phase 9: both attention kernels at shapes off the main path."""
     import torch
@@ -952,7 +984,6 @@ def check_ragged(gen) -> list[dict]:
                                   dtype=torch.bfloat16) for _ in range(4))
         tag = f"B=4 H=2 T={T} D={D}"
         o, lse = FA._attention_kernel(q, k, v, with_lse=True)
-        o = o.contiguous()             # a column slice where D was padded
         torch.cuda.synchronize()
         fwd_err = compare(f"attention {tag}", o, FA.attention_plain(q, k, v))
         lse_err = check_lse(f"attention {tag}", lse, q, k)
@@ -964,7 +995,7 @@ def check_ragged(gen) -> list[dict]:
         for _ in range(RAGGED_REPEATS - 1):
             o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
             again = FA.attention_bwd(q, k, v, o, lse, g)
-            if not (torch.equal(o2.contiguous(), o) and torch.equal(lse2, lse)
+            if not (torch.equal(o2, o) and torch.equal(lse2, lse)
                     and all(torch.equal(a, b) for a, b in zip(got, again))):
                 fail(f"attention {tag}: repeated runs differ in their bits")
         rows.append({"T": T, "D": D, "fwd_max_abs_err": fwd_err,
@@ -3079,13 +3110,17 @@ def perturb_dit_(model, seed: int = SEED):
 
 def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
     """Phase 18: the attention kernels at DiT-XL/2's shape. bf16 at
-    DIT_ATTN_SHAPE: the forward with and without its log-sum-exp (training
-    and sampling), the log-sum-exp and the backward against the plain
-    versions, three runs with equal bits, then the kernel, the plain
-    version and bf16 SDPA (which takes D = 72 unpadded) with its backward
-    timed by CUDA-graph replay. float32 at DIT_F32_SHAPE (the wide route,
-    D = 72 -> 128) the same way against float32 SDPA (TF32 off). Bounds
-    count the true D = 72. Returns (bf16 rows, float32 rows), per launch."""
+    DIT_ATTN_SHAPE, at the true width D = 72: the forward with and without
+    its log-sum-exp (training and sampling), the log-sum-exp and the
+    backward against the plain versions, three runs with equal bits; the
+    same calls on MHSA's layout (q, k, v views of one fused projection, a
+    token-major gradient) with the same bits as on contiguous inputs, and
+    no pad op in a forward and backward through the dispatcher; then the
+    kernels on both layouts, the plain version and bf16 SDPA with its
+    backward timed by CUDA-graph replay. float32 at DIT_F32_SHAPE (the wide
+    route, D = 72 -> 128) the same way against float32 SDPA (TF32 off).
+    Bounds count the true D = 72. Returns (bf16 rows, float32 rows), per
+    launch."""
     import torch
     import torch.nn.functional as F
 
@@ -3098,14 +3133,13 @@ def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
                          (DIT_F32_SHAPE, torch.float32)):
         B, H, T, D = shape
         f32 = dtype == torch.float32
-        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda",
-                                  dtype=dtype) for _ in range(4))
+        views = mhsa_views(B, H, T, D, gen, dtype)
+        q, k, v, g = (t.contiguous() for t in views)
         route = FA._f32_plan(B, H, T, D).route if f32 else "bf16"
         tag = f"{route} B={B} H={H} T={T} D={D}"
 
-        def run():
+        def run(q=q, k=k, v=v, g=g):
             o, lse = FA._attention_kernel(q, k, v, with_lse=True)
-            o = o.contiguous()         # a column slice: D is padded
             with torch.no_grad():
                 sample = FA.attention(q, k, v)
             return (o, lse, sample, *FA.attention_bwd(q, k, v, o, lse, g))
@@ -3133,8 +3167,21 @@ def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
         for _ in range(RAGGED_REPEATS - 1):
             if not all(torch.equal(a, b) for a, b in zip(run(), first)):
                 fail(f"attention {tag}: repeated runs differ in their bits")
-        print(f"  {tag}: {RAGGED_REPEATS} runs with equal bits; SDPA "
-              f"kernels: {sdpa_backend_names(q, k, v, g)}", flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(run(*views), first)):
+            fail(f"attention {tag}: MHSA's views and contiguous inputs "
+                 f"differ in their bits")
+
+        def fwd_bwd():
+            leaves = [t.detach().requires_grad_() for t in views[:3]]
+            FA.attention(*leaves).backward(views[3])
+
+        backends = sdpa_backend_names(q, k, v, g)
+        pads = pad_ops(fwd_bwd)
+        print(f"  {tag}: {RAGGED_REPEATS} runs with equal bits, MHSA's "
+              f"views the same bits; pad ops in a forward and backward on "
+              f"the views: {pads}; SDPA kernels: {backends}", flush=True)
+        if not f32 and pads:
+            fail(f"attention {tag}: the bf16 route pads")
         lib, stream = library_bwd(F.scaled_dot_product_attention, (q, k, v),
                                   g)
         times = {
@@ -3148,20 +3195,19 @@ def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
                     time_ms(lib, stream=stream)[0])}
         nolse_ms = time_ms(lambda: FA._attention_kernel(q, k, v,
                                                         with_lse=False))[0]
-        # what the layout costs around the kernel: the dispatcher's padding
-        # of q, k and v to the kernels' width, and MHSA's heads made
-        # contiguous from the fused qkv projection's (B, T, 3, H, D)
-        qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda",
-                          dtype=dtype)
-        layout_ms = {
-            "pad_ms": time_ms(lambda: FA._padded(
-                (q, k, v), FA._kernel_width(q)))[0],
-            "heads_ms": time_ms(lambda: [qkv[:, :, i].transpose(1, 2)
-                                         .contiguous() for i in range(3)])[0]}
-        print(f"  layout around the kernel: pad q, k, v {D} -> "
-              f"{FA._kernel_width(q)}: {layout_ms['pad_ms']:.4f} ms; three "
-              f"heads made contiguous: {layout_ms['heads_ms']:.4f} ms",
-              flush=True)
+        # the dispatcher and SDPA on MHSA's layout, as DiT calls them
+        qv, kv, vv, gv = views
+        ov, lsev = FA._attention_kernel(qv, kv, vv, with_lse=True)
+        lib_v, stream_v = library_bwd(F.scaled_dot_product_attention,
+                                      (qv, kv, vv), gv)
+        on_views = {
+            "fwd": (time_ms(lambda: FA._attention_kernel(qv, kv, vv,
+                                                         with_lse=True)),
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        qv, kv, vv))[0]),
+            "bwd": (time_ms(lambda: FA.attention_bwd(qv, kv, vv, ov, lsev,
+                                                     gv)),
+                    time_ms(lib_v, stream=stream_v)[0])}
         n = B * H * T * D
         peak = FP32_FLOPS if f32 else BF16_TC_FLOPS
         suffix = "_f32" if f32 else ""
@@ -3170,22 +3216,27 @@ def dit_attention_kernels(gen) -> tuple[list[dict], list[dict]]:
             (ms, eager), plain_ms, lib_ms = times[kind]
             bytes_ms = nbytes * q.element_size() / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / peak * 1e3
+            (views_ms, views_eager), lib_views_ms = on_views[kind]
             row = {"name": f"attention_{kind}{suffix}",
                    "shape": {"B": B, "H": H, "T": T, "D": D},
                    "route": route, "ms": ms, "eager_ms": eager,
+                   "views_ms": views_ms, "views_eager_ms": views_eager,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_views_ms": lib_views_ms,
                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": ("bytes" if bytes_ms >= ops_ms
                                 else "operations"),
-                   "max_abs_err": err}
+                   "max_abs_err": err, "pad_ops": pads}
             if kind == "fwd":
-                row.update(no_lse_ms=nolse_ms, **layout_ms)
+                row.update(no_lse_ms=nolse_ms)
             out.append(row)
             print(f"  attention_{kind}{suffix} {row['shape']}: kernel "
                   f"{ms:.4f} ms (eager {eager:.4f} ms"
                   + (f"; no lse {nolse_ms:.4f} ms" if kind == "fwd" else "")
-                  + f"), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                  + f"), on MHSA's views {views_ms:.4f} ms (eager "
+                  f"{views_eager:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+                  f"{lib_ms:.4f} ms (on the views {lib_views_ms:.4f} ms), "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
                   f"D = {D})", flush=True)
     return ([r for r in out if not r["name"].endswith("_f32")],
@@ -3880,13 +3931,17 @@ def main() -> int:
             "replaces": meta[name]["replaces"],
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"],
-            **{k: DIT_BLOCKS * row[k] for k in ("ms", "eager_ms", "plain_ms",
-                                                "bound_ms", "library_ms")},
-            "bound_by": row["bound_by"],
+            "ms": DIT_BLOCKS * row["views_ms"],
+            "eager_ms": DIT_BLOCKS * row["views_eager_ms"],
+            "library_ms": DIT_BLOCKS * row["library_views_ms"],
+            **{k: DIT_BLOCKS * row[k] for k in ("plain_ms", "bound_ms")},
+            "bound_by": row["bound_by"], "pad_ops": row["pad_ops"],
             "per": f"{DIT_NAME} {'forward' if 'fwd' in name else 'backward'}"
                    f" at batch {DIT_BATCH}: {DIT_BLOCKS} launches at "
-                   f"{DIT_ATTN_SHAPE} (head width 72, padded to 128), "
-                   f"device ms by CUDA-graph replay; library: bf16 SDPA",
+                   f"{DIT_ATTN_SHAPE} (head width 72 at its true width, "
+                   f"q, k, v views of MHSA's fused projection), device ms "
+                   f"by CUDA-graph replay; library: bf16 SDPA on the "
+                   f"same views",
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),

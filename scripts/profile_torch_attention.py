@@ -5,12 +5,15 @@
 
 Builds the kernels (the full nvcc / ptxas output goes to
 ``chiprun_out/build_<source>.log``), then holds the forward and backward
-kernels against their plain PyTorch versions at the main path's shapes and
-at ragged ones (T not a multiple of the tile, head width padded), each
-run three times with equal bits, and then times kernel,
-plain version and PyTorch's SDPA at the main path's shapes (CUDA-graph
-replay, as ``chip_smoke.py`` does), with the backward's device time split by
-kernel (``torch.profiler``). A quick check for work on
+kernels against their plain PyTorch versions at the main paths' shapes and
+at ragged ones (T not a multiple of the tile, head widths that are not a
+multiple of 64), each run three times with equal bits, and each run again
+on the layout DiT's MHSA gives (q, k, v views of one fused projection, a
+token-major gradient), which must give the same bits as contiguous inputs.
+Then it times kernel, plain version and PyTorch's SDPA at the main paths'
+shapes (CUDA-graph replay, as ``chip_smoke.py`` does), DiT-XL/2's in turns
+on contiguous inputs and on MHSA's views, with the backward's device time
+split by kernel (``torch.profiler``). A quick check for work on
 ``uurg_torch/csrc/flash_attention_*.cu``; ``chip_smoke.py`` stays the whole
 proof.
 """
@@ -22,14 +25,18 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (batch, heads, T, D): the UNet's sites first, then ragged T and padded D
+# (batch, heads, T, D): the UNet's sites first, then ragged T and head
+# widths that are not a multiple of 64, then DiT-XL/2's attention
 CHECK_SHAPES = ((4, 2, 256, 64), (4, 2, 256, 256), (4, 2, 16, 256),
                 (4, 2, 77, 40), (4, 2, 100, 72), (4, 2, 130, 160),
                 (4, 2, 256, 192), (4, 2, 1024, 64), (2, 1, 1024, 256),
-                (256, 1, 256, 256), (128, 1, 256, 256))
+                (4, 2, 20, 20), (4, 3, 33, 8), (4, 2, 70, 248),
+                (256, 1, 256, 256), (128, 1, 256, 256), (32, 16, 256, 72))
 # (batch, T, D, with_lse): sampling forward, training forward, mid site
 TIMED_SHAPES = ((256, 256, 256, False), (128, 256, 256, True),
                 (256, 16, 256, False), (128, 16, 256, True))
+# DiT-XL/2's attention (B, H, T, D), timed in turns on two layouts
+DIT_SHAPE = (32, 16, 256, 72)
 
 
 def kernel_split(fn, iters: int = 20) -> dict[str, float]:
@@ -50,6 +57,84 @@ def kernel_split(fn, iters: int = 20) -> dict[str, float]:
             split[name.group(0) if name else e.key[:40]] = \
                 e.device_time_total / iters / 1e3
     return split
+
+
+def check_shape(cs, FA, B, H, T, D, gen) -> None:
+    """Kernels vs plain at (B, H, T, D), three runs with equal bits, and
+    MHSA's views against contiguous copies of the same values."""
+    import torch
+
+    views = cs.mhsa_views(B, H, T, D, gen)
+    q, k, v, g = (t.contiguous() for t in views)
+    tag = f"B={B} H={H} T={T} D={D}"
+    o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    cs.compare(f"fwd {tag}", o, FA.attention_plain(q, k, v))
+    cs.check_lse(f"fwd {tag}", lse, q, k)
+    got = FA.attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    want = FA.attention_bwd_plain(q, k, v, g)
+    for n, a, b in zip("qkv", got, want):
+        cs.rel_l2(f"bwd d{n} {tag}", a, b, cs.BWD_REL_L2)
+    for _ in range(cs.RAGGED_REPEATS - 1):
+        again = FA.attention_bwd(q, k, v, o, lse, g)
+        o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(o2, o) and torch.equal(lse2, lse)):
+            cs.fail(f"{tag}: repeated runs differ in their bits")
+    ov, lsev = FA._attention_kernel(*views[:3], with_lse=True)
+    gotv = FA.attention_bwd(*views[:3], ov, lsev, views[3])
+    torch.cuda.synchronize()
+    if not (torch.equal(ov, o) and torch.equal(lsev, lse)
+            and all(torch.equal(a, b) for a, b in zip(gotv, got))):
+        cs.fail(f"{tag}: MHSA's views and contiguous inputs differ in "
+                f"their bits")
+    print(f"  {tag}: views == contiguous (o {tuple(ov.stride())})",
+          flush=True)
+
+
+def time_dit(cs, FA, gen) -> None:
+    """DiT-XL/2's attention on contiguous inputs and on MHSA's views, in
+    turns (contiguous, views, views, contiguous), beside bf16 SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, T, D = DIT_SHAPE
+    views = cs.mhsa_views(B, H, T, D, gen)
+    dense = tuple(t.contiguous() for t in views)
+    n = B * H * T * D
+    bounds = {"fwd": max(4 * n * 2 / cs.HBM_BYTES_PER_S,
+                         4 * n * T / cs.BF16_TC_FLOPS) * 1e3,
+              "bwd": max(7 * n * 2 / cs.HBM_BYTES_PER_S,
+                         10 * n * T / cs.BF16_TC_FLOPS) * 1e3}
+    for layout in ("contiguous", "views", "views", "contiguous"):
+        q, k, v, g = dense if layout == "contiguous" else views
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        fwd = cs.time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                      with_lse=True))
+        bwd = cs.time_ms(lambda: FA.attention_bwd(q, k, v, o, lse, g))
+        pads = cs.pad_ops(lambda: FA.attention_bwd(
+            q, k, v, *FA._attention_kernel(q, k, v, with_lse=True), g))
+        print(f"  DiT {DIT_SHAPE} {layout}: fwd {fwd[0]:.4f} (eager "
+              f"{fwd[1]:.4f}), bwd {bwd[0]:.4f} (eager {bwd[1]:.4f}); "
+              f"pad ops {pads}", flush=True)
+    for layout, (q, k, v, g) in (("contiguous", dense), ("views", views)):
+        lib_f = cs.time_ms(lambda: F.scaled_dot_product_attention(q, k, v))[0]
+        fn, stream = cs.library_bwd(F.scaled_dot_product_attention,
+                                    (q, k, v), g)
+        lib_b = cs.time_ms(fn, stream=stream)[0]
+        print(f"  DiT {DIT_SHAPE} {layout}: SDPA fwd {lib_f:.4f}, bwd "
+              f"{lib_b:.4f}", flush=True)
+    q, k, v, g = dense
+    plain_f = cs.time_ms(lambda: FA.attention_plain(q, k, v))[0]
+    print(f"  DiT {DIT_SHAPE}: plain fwd {plain_f:.4f}; bound fwd "
+          f"{bounds['fwd']:.4f}, bwd {bounds['bwd']:.4f} (bytes at D = {D})",
+          flush=True)
+    q, k, v, g = views
+    o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    split = kernel_split(lambda: FA.attention_bwd(q, k, v, o, lse, g))
+    print("    views bwd by kernel: " + ", ".join(
+        f"{name} {t:.4f}" for name, t in sorted(split.items())), flush=True)
 
 
 def main() -> int:
@@ -74,37 +159,18 @@ def main() -> int:
             with open(os.path.join(out_dir, f"build_{name}.log"), "w") as f:
                 f.write(log)
             for line in log.splitlines():
-                if any(w in line for w in ("registers", "spill", "warning",
-                                           "error", "Warning", "(C75")):
+                if any(w in line for w in ("spill", "warning", "error",
+                                           "Warning", "(C75")):
                     print(f"  [{name}] {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = []
     for B, H, T, D in CHECK_SHAPES:
-        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda",
-                                  dtype=torch.bfloat16) for _ in range(4))
-        tag = f"B={B} H={H} T={T} D={D}"
         try:
-            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
-            torch.cuda.synchronize()
-            cs.compare(f"fwd {tag}", o, FA.attention_plain(q, k, v))
-            cs.check_lse(f"fwd {tag}", lse, q, k)
-            o = o.contiguous()
-            got = FA.attention_bwd(q, k, v, o, lse, g)
-            torch.cuda.synchronize()
-            want = FA.attention_bwd_plain(q, k, v, g)
-            for n, a, b in zip("qkv", got, want):
-                cs.rel_l2(f"bwd d{n} {tag}", a, b, cs.BWD_REL_L2)
-            for _ in range(cs.RAGGED_REPEATS - 1):
-                again = FA.attention_bwd(q, k, v, o, lse, g)
-                o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
-                if not (all(torch.equal(a, b) for a, b in zip(got, again))
-                        and torch.equal(o2.contiguous(), o)
-                        and torch.equal(lse2, lse)):
-                    cs.fail(f"{tag}: repeated runs differ in their bits")
+            check_shape(cs, FA, B, H, T, D, gen)
         except RuntimeError as e:
-            print(f"  FAILED {tag}: {e}", flush=True)
-            failed.append(tag)
+            print(f"  FAILED B={B} H={H} T={T} D={D}: {e}", flush=True)
+            failed.append((B, H, T, D))
             if "CUDA error" in str(e) or "cuda" in str(e).lower():
                 break      # the context is gone after a device fault
     if failed:
@@ -112,6 +178,7 @@ def main() -> int:
         return 1
 
     print("== times (device ms per call, CUDA-graph replay)", flush=True)
+    time_dit(cs, FA, gen)
     for B, T, D, with_lse in TIMED_SHAPES:
         q, k, v, g = (torch.randn(B, 1, T, D, generator=gen, device="cuda",
                                   dtype=torch.bfloat16) for _ in range(4))

@@ -114,7 +114,6 @@ def test_attention_bwd_kernel_matches_plain(gen, T, D):
     q, k, v, g = (torch.randn(4, 2, T, D, generator=gen, device="cuda",
                               dtype=torch.bfloat16) for _ in range(4))
     o, lse = FA._attention_kernel(q, k, v, with_lse=True)
-    o = o.contiguous()                               # a column slice at D = 40
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
     torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(-1, T),
                                atol=1e-4, rtol=1e-4)
@@ -129,7 +128,7 @@ def test_attention_bwd_kernel_matches_plain(gen, T, D):
         again = attention_bwd(q, k, v, o, lse, g)
         o2, lse2 = FA._attention_kernel(q, k, v, with_lse=True)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-        assert torch.equal(o2.contiguous(), o) and torch.equal(lse2, lse)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
 def test_attention_autograd_uses_both_kernels(gen):
@@ -295,9 +294,10 @@ def test_attention_f32_kernels_match_plain(gen, B, H, T, D):
         assert all(torch.equal(a.grad, t.grad) for a, t in zip(again, ts))
 
 
-# DiT-XL/2's attention: T = 256 tokens, 16 heads of width 72 (padded to 128
-# by the dispatcher), at the training batch 32 in bf16 and at the fp32
-# card-vs-CPU check's batch 2 (the wide route), as chip_smoke.py phase 18
+# DiT-XL/2's attention: T = 256 tokens, 16 heads of width 72 (the bf16
+# kernels' true width; the fp32 dispatcher pads it to 128), at the training
+# batch 32 in bf16 and at the fp32 card-vs-CPU check's batch 2 (the wide
+# route), as chip_smoke.py phase 18
 DIT_SHAPES = [(torch.bfloat16, (32, 16, 256, 72)),
               (torch.float32, (2, 16, 256, 72))]
 
@@ -367,3 +367,81 @@ def test_dit_launches_the_kernels_per_remat_policy(gen, policy):
     finally:
         TD.attention = kernel
     assert _rel_l2(out.detach(), want) < 2e-2
+
+
+def _mhsa_views(B, H, T, D, gen):
+    """q, k, v as (B, H, T, D) views of one fused (B, T, 3, H, D)
+    projection and g as a view of a token-major (B, T, H, D) gradient: the
+    layout DiT's MHSA hands the dispatcher."""
+    qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    g = torch.randn(B, T, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    return (*(t.transpose(1, 2) for t in qkv.unbind(2)), g.transpose(1, 2))
+
+
+def _fwd_bwd(q, k, v, g):
+    """The forward's output and the three gradients through the dispatcher's
+    autograd route."""
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attention(*ts)
+    out.backward(g)
+    return (out.detach(), *(t.grad for t in ts))
+
+
+def _pad_ops(fn) -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "aten::constant_pad_nd")
+
+
+def test_dit_views_and_contiguous_inputs_give_equal_bits(gen):
+    """At DiT-XL/2's shape the kernels read MHSA's views where they lie:
+    the same bits as contiguous copies, forward and backward, and the
+    output written token-major (so MHSA's merge is a view)."""
+    views = _mhsa_views(32, 16, 256, 72, gen)
+    dense = [t.contiguous() for t in views]
+    got, want = _fwd_bwd(*views), _fwd_bwd(*dense)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].transpose(1, 2).is_contiguous()
+    assert want[0].is_contiguous()
+    o, lse = FA._attention_kernel(*views[:3], with_lse=True)
+    o2, lse2 = FA._attention_kernel(*dense[:3], with_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(
+        attention_bwd(*views[:3], o, lse, views[3]),
+        attention_bwd(*dense[:3], o2, lse2, dense[3])))
+
+
+def test_no_pad_on_the_bf16_route_at_width_72(gen):
+    views = _mhsa_views(4, 16, 256, 72, gen)
+    for ts in (views, [t.contiguous() for t in views]):
+        fwd, bwd = attention.launches, attention_bwd.launches
+        assert _pad_ops(lambda: _fwd_bwd(*ts)) == 0
+        assert (attention.launches, attention_bwd.launches) == (fwd + 1,
+                                                                bwd + 1)
+
+
+@pytest.mark.parametrize("T,D", [(77, 40), (100, 72), (130, 160)])
+def test_ragged_widths_take_the_true_width_route(gen, T, D):
+    """The widths of the ragged shapes that are not a multiple of 64 run
+    unpadded (a narrow last chunk), on views as on contiguous inputs."""
+    views = _mhsa_views(4, 2, T, D, gen)
+    dense = [t.contiguous() for t in views]
+    plan = FA._bf16_plan(*views)
+    assert (plan.width, plan.pad, plan.token_major) == (D, False, True)
+    assert _pad_ops(lambda: _fwd_bwd(*views)) == 0
+    got = _fwd_bwd(*views)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, _fwd_bwd(*dense)))
+    q, k, v, g = dense
+    torch.testing.assert_close(got[0].float(),
+                               attention_plain(q, k, v).float(),
+                               atol=ATOL, rtol=RTOL)
+    for a, b in zip(got[1:], attention_bwd_plain(q, k, v, g)):
+        assert _rel_l2(a, b) < BWD_REL_L2

@@ -1,4 +1,5 @@
-// Attention forward: o = softmax(q k^T * scale) v on (B*H, T, D) bf16.
+// Attention forward: o = softmax(q k^T * scale) v on (B, H, T, D) bf16, each
+// of q, k, v and o in any layout whose last dimension is contiguous.
 //
 // Replaces: uurg_tpu/ops/flash_attention.py::_attn_kernel (launched by
 // _fused_attention_fwd_impl). Scores, softmax and both accumulations are fp32;
@@ -36,7 +37,7 @@
 //   the score accumulator in registers, and its bf16 rounding is at once the
 //   A operand of O += P V. V is used as it lies in memory: the MN-major
 //   operand form takes the keys as the contraction, so there is no
-//   transposed copy. O is kept as D / 64 accumulators of 64 x 64, each fed by
+//   transposed copy. O is kept as ceil(D / 64) accumulators of 64 x 64, each fed by
 //   a 64-column instruction (one 256-column instruction gave the same bits
 //   and the same time on the card, and would need a form of its own for
 //   every D).
@@ -44,6 +45,27 @@
 //   a quad have swapped their column pairs (hopper_mma.cuh, store_acc).
 // - Keys past T are masked to -inf; rows past T are computed on zeros and not
 //   stored.
+//
+// Head widths and layouts. The kernel reads q, k and v where they lie and at
+// their true width D (a multiple of 8): the tensor maps have four dimensions
+// (D, T, H, B) with the tensor's own strides, so a (B, H, T, D) view of a
+// fused (B, T, 3, H, D) projection is read as it is, and the box that runs
+// past column D of a head (D = 72: columns 72-127 of the second chunk's box)
+// is zero-filled by TMA, never read from the neighbouring head. The template
+// argument KS = ceil(D / 16) is the number of 16-deep contraction steps of
+// S = Q K^T (5 at D = 72, not the 8 of the padded 128), and the shared-memory
+// tiles are ceil(D / 64) chunks wide. O += P V runs one n64 instruction a
+// whole chunk and a narrower one (n16, n32 or n48) over the last chunk's
+// columns below 16 KS (D = 72: n64 + n16, not 2 x n64), and only columns
+// below D are stored, at the output's own row and head strides: a
+// token-major (B, T, H, D) buffer, so that the caller's merge of the heads
+// is a view, or a contiguous (B, H, T, D) one.
+//
+// Issuing tile j + 1's score product before tile j's softmax, so that the
+// tensor cores run it under the softmax (as FlashAttention-3 does), was
+// tried at D <= 128: ptxas serialised the wgmmas (C7514: the rescale of O
+// reads its accumulator inside the pipeline stage) and the forward at
+// (32, 16, 256, 72) took 0.0545 ms against 0.0467 without.
 //
 // When a gradient is wanted the caller passes an lse buffer: the kernel then
 // also writes each row's natural log-sum-exp of the scaled scores, fp32
@@ -59,26 +81,36 @@ using namespace hopper;
 
 constexpr int kBQ = 128;          // query rows per block (two consumer warpgroups)
 constexpr int kBK = 64;           // keys per tile
-constexpr int kStages = 2;
 constexpr int kConsumers = 2;     // warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;
 
-template <int D>
+// stages of the K/V ring: four at narrow widths (more loads in flight for
+// the few products a tile of a narrow head gives: 0.0541 -> 0.0520 ms at
+// (32, 16, 256, 72) on contiguous inputs; scripts/profile_torch_attention.py
+// in turns, NVIDIA H100 80GB HBM3, 700 W), two at 192 and 256 columns
+// (shared memory)
+template <int KS>
+constexpr int kRing = Width<KS>::kNarrow ? 4 : 2;
+
+template <int KS>
 constexpr size_t smem_bytes() {
   // q tile, kStages of (K tile, V tile), room to align to 1024 bytes
-  return static_cast<size_t>(kBQ + kStages * 2 * kBK) * D * 2 + 1024;
+  return static_cast<size_t>(kBQ + kRing<KS> * 2 * kBK) * Width<KS>::kCols * 2 + 1024;
 }
 
 // grid: min(work items, SMs); block: kThreads. Work item w is q tile
-// w % n_qtiles of head w / n_qtiles.
-template <int D>
+// w % n_qtiles of head w / n_qtiles; head = b * H + h.
+template <int KS>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
-                int n_qtiles, int n_work, float scale_log2) {
-  constexpr int NC = D / kChunkCols;                 // 64-column chunks
+                __nv_bfloat16* __restrict__ o, const Strides os,
+                float* __restrict__ lse, int T, int H, int D, int n_qtiles,
+                int n_work, float scale_log2) {
+  using W = Width<KS>;
+  constexpr int NC = W::NC;                          // 64-column chunks
+  constexpr int kStages = kRing<KS>;
   constexpr uint32_t kQChunk = kBQ * kRowBytes;      // bytes of a q chunk
   constexpr uint32_t kKVChunk = kBK * kRowBytes;
   constexpr uint32_t kQBytes = NC * kQChunk;
@@ -114,18 +146,19 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       uint32_t it = 0;                               // K/V tiles loaded so far
       for (int w = blockIdx.x, item = 0; w < n_work; w += gridDim.x, ++item) {
         const int head = w / n_qtiles, q0 = (w % n_qtiles) * kBQ;
+        const int hh = head % H, b = head / H;
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const uint32_t s = it % kStages;
           mbar_wait(kv_empty + 8 * s, ((it / kStages) & 1) ^ 1);
           const uint32_t k_s = kv_s + s * 2 * kKVBytes;
           mbar_expect_tx(kv_full + 8 * s, 2 * kKVBytes);
-          tma_load_tile<D>(k_s, &tm_k, kv_full + 8 * s, kBK, j * kBK, head);
-          tma_load_tile<D>(k_s + kKVBytes, &tm_v, kv_full + 8 * s, kBK, j * kBK, head);
+          tma_load_tile<NC>(k_s, &tm_k, kv_full + 8 * s, kBK, j * kBK, hh, b);
+          tma_load_tile<NC>(k_s + kKVBytes, &tm_v, kv_full + 8 * s, kBK, j * kBK, hh, b);
           if (j == 0) {
             // after the first K/V tile, which needs no free q buffer
             mbar_wait(q_empty, (item & 1) ^ 1);
             mbar_expect_tx(q_full, kQBytes);
-            tma_load_tile<D>(q_s, &tm_q, q_full, kBQ, q0, head);
+            tma_load_tile<NC>(q_s, &tm_q, q_full, kBQ, q0, hh, b);
           }
         }
       }
@@ -159,16 +192,15 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint64_t v_desc = mma_desc(k_s + kKVBytes);
         mbar_wait(kv_full + 8 * s, (it / kStages) & 1);
 
-        // S = Q K^T for this warpgroup's 64 rows and the tile's 64 keys
+        // S = Q K^T for this warpgroup's 64 rows and the tile's 64 keys, over
+        // the KS steps that hold columns below D
         float sc[32];
         wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64(sc, q_desc + ((c * kQChunk + kk * kStepKMajor) >> 4),
-                         k_desc + ((c * kKVChunk + kk * kStepKMajor) >> 4),
-                         (c | kk) != 0);
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_ss_n64(sc, q_desc + ((ks / 4 * kQChunk + ks % 4 * kStepKMajor) >> 4),
+                       k_desc + ((ks / 4 * kKVChunk + ks % 4 * kStepKMajor) >> 4),
+                       ks != 0);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(sc);
@@ -213,25 +245,20 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int c = 0; c < NC; ++c)
 #pragma unroll
-          for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+          for (int i = 0; i < W::live(c); ++i) acc[c][i] *= alpha[(i >> 1) & 1];
 
         // O += P V: the rounded scores are the A operand, V's rows the contraction
         uint32_t pa[4][4];
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) acc_to_a(pa[ks], sc + 8 * ks);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        reg_fence_acc<KS>(acc);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            wgmma_rs_n64(acc[c], pa[ks],
-                         v_desc + ((c * kKVChunk + ks * kStepMNMajor) >> 4));
+          wgmma_rs_acc<KS>(acc, pa[ks], v_desc, kKVChunk, ks * kStepMNMajor);
         wgmma_commit();
         wgmma_wait<0>();
-#pragma unroll
-        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        reg_fence_acc<KS>(acc);
         if (lane == 0) mbar_arrive(kv_empty + 8 * s);
       }
 
@@ -248,21 +275,22 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (row0 < T) lh[row0] = (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
         if (row1 < T) lh[row1] = (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
       }
-      store_acc<NC>(o + static_cast<size_t>(head) * T * D, acc, row0, T, tq, inv[0],
-                    inv[1]);
+      store_acc<NC, W::kLast>(o + (head / H) * os.b + (head % H) * os.h, acc, row0, T,
+                    os.t, D, tq, inv[0], inv[1]);
     }
   }
 }
 
-template <int D>
+template <int KS>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int T, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+           int B, int H, int T, int D, const Strides* st, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<KS>();
   // at every call, not once: with the attribute set by an earlier call only, a
   // launch from autograd's thread after launches from the main thread was
   // refused (cudaErrorInvalidValue) on the card; setting it is cheap
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
@@ -271,35 +299,45 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   // built at every call, since the pointers change; passed by value, so a
   // CUDA graph captures them with the launch
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_tile_map(&tm_q, q, BH, T, D, kBQ) ||
-      !make_tile_map(&tm_k, k, BH, T, D, kBK) ||
-      !make_tile_map(&tm_v, v, BH, T, D, kBK))
+  if (!make_tile_map(&tm_q, q, B, H, T, D, st[0], kBQ) ||
+      !make_tile_map(&tm_k, k, B, H, T, D, st[1], kBK) ||
+      !make_tile_map(&tm_v, v, B, H, T, D, st[2], kBK))
     return kTensorMapFailed;
   const int n_qtiles = (T + kBQ - 1) / kBQ;
-  const int n_work = BH * n_qtiles;
-  attn_fwd_kernel<D><<<n_work < sms ? n_work : sms, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, T, n_qtiles,
-      n_work, scale * 1.4426950408889634f);
+  const int n_work = B * H * n_qtiles;
+  attn_fwd_kernel<KS><<<n_work < sms ? n_work : sms, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), st[3], lse, T, H, D,
+      n_qtiles, n_work, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous (BH, T, D) bf16, 16-byte aligned, D in
-// {64, 128, 192, 256} (the caller zero-pads other head widths and passes the
-// true scale). lse: fp32 (BH, T), or null when no gradient is wanted.
+// q, k, v, o: bf16 (B, H, T, D), D a multiple of 8 up to 256, each with a
+// contiguous last dimension, its other strides in `strides` (elements: over
+// T, over H, over B; q's, k's, v's, then o's), every stride a multiple of 8
+// and every pointer 16-byte aligned (the caller checks; widths that are not
+// a multiple of 8 are zero-padded by the caller, which passes the true
+// scale). lse: fp32 contiguous (B*H, T), or null when no gradient is wanted.
 // Returns cudaGetLastError() after the launch; -1 if a tensor map could not be
 // encoded.
 extern "C" int uurg_attention_fwd(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int BH, int T, int D,
-                                  float scale, void* stream) {
+                                  void* o, void* lse, int B, int H, int T,
+                                  int D, const long long* strides, float scale,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 64: return launch<64>(q, k, v, o, l, BH, T, scale, s);
-    case 128: return launch<128>(q, k, v, o, l, BH, T, scale, s);
-    case 192: return launch<192>(q, k, v, o, l, BH, T, scale, s);
-    case 256: return launch<256>(q, k, v, o, l, BH, T, scale, s);
+  if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+#define UURG_FWD(ks) \
+  case ks: return launch<ks>(q, k, v, o, l, B, H, T, D, st, scale, s);
+  switch ((D + 15) / 16) {
+    UURG_FWD(1) UURG_FWD(2) UURG_FWD(3) UURG_FWD(4) UURG_FWD(5) UURG_FWD(6)
+    UURG_FWD(7) UURG_FWD(8) UURG_FWD(9) UURG_FWD(10) UURG_FWD(11) UURG_FWD(12)
+    UURG_FWD(13) UURG_FWD(14) UURG_FWD(15) UURG_FWD(16)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef UURG_FWD
 }

@@ -87,8 +87,10 @@ class WideLinear(nn.Linear):
 
 
 class MHSA(nn.Module):
-    """(B, T, dim) -> (B, T, dim). The dispatcher wants contiguous
-    (B, H, T, D) q, k and v, so the transposed heads are made contiguous."""
+    """(B, T, dim) -> (B, T, dim). q, k and v go to the attention dispatcher
+    as (B, H, T, D) views of the fused projection's (B, T, 3, H, D), with no
+    copy: the bfloat16 kernels read them where they lie, write the output
+    token-major, and :meth:`merge` is then a view as well."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -99,12 +101,13 @@ class MHSA(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def heads(self, x: torch.Tensor):
-        """q, k, v as contiguous (B, H, T, D / H)."""
+        """q, k, v as (B, H, T, D / H) views of the projection (one stack
+        into its gradient in the backward, where a select each would fill a
+        whole (B, T, 3, H, D) tensor)."""
         B, T, D = x.shape
         H = self.num_heads
         qkv = self.qkv(x).reshape(B, T, 3, H, D // H)
-        return tuple(qkv[:, :, i].transpose(1, 2).contiguous()
-                     for i in range(3))
+        return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
 
     def merge(self, out: torch.Tensor) -> torch.Tensor:
         """The attention output (B, H, T, D / H) back to (B, T, dim),

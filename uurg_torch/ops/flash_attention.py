@@ -31,11 +31,20 @@ per route: ``attention.launches`` and ``attention_bwd.launches`` for
 bfloat16, ``attention.launches_f32`` and ``attention_bwd.launches_f32`` for
 float32 (one a call, whatever the route).
 
-Head widths: the kernels are compiled for D in {64, 128, 192, 256}. Other
-widths up to 256 are zero-padded to the next multiple of 64 (padded k
-columns add zero to the scores, padded v columns are sliced off, and the
-padded gradient columns are zero and sliced off) and the kernels are given
-the true ``D ** -0.5`` scale, so no pre-scaling of q is needed.
+Head widths and layouts. The bfloat16 kernels take any head width D that
+is a multiple of 8, up to 256, as it is: their tensor maps have the true
+width as their first dimension and each tensor's own strides, and TMA fills
+the part of a 64-column tile past D with zeros (:func:`_bf16_plan`). So q,
+k, v, the forward's output and the output gradient are read where they lie,
+in any layout whose last dimension is contiguous: DiT's heads are views of
+its fused qkv projection, and for such token-major q the output is written
+into a (B, T, H, D) buffer, so that merging the heads back is a view too.
+Only a width that is not a multiple of 8 (no model of the repository has
+one) is zero-padded to the next multiple of 64 first. The float32 kernels
+take contiguous tensors of width 64, 128, 192 or 256: their dispatcher
+copies strided inputs and zero-pads other widths (padded k columns add zero
+to the scores, padded v columns and gradient columns are zero and sliced
+off). Every kernel is given the true ``D ** -0.5`` scale.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ import torch.nn.functional as F
 from uurg_torch.ops import _build
 
 _KERNEL_D = (64, 128, 192, 256)
+# the bfloat16 kernels' tensor maps: every stride a multiple of 16 bytes
+_STRIDE_ELEMS = 8
 # float32 routes (the launchers' route codes) and their bounds: heads of
 # T <= _PACK_T are packed floor(_PACK_T / T) to a warp's 16 rows; the tiled
 # backward's dS^T scratch pads T to a multiple of _DS_PAD (the dq kernel's
@@ -119,6 +130,29 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _layout_error(t: torch.Tensor) -> str | None:
+    """Why the kernels cannot read ``t`` where it lies, or None. The last
+    dimension must be contiguous. Where the width is a multiple of 8 (the
+    kernels read such tensors unpadded), every other stride of a dimension
+    longer than 1 must be a positive multiple of 8 elements and the data
+    16-byte aligned, as TMA wants; other widths are padded into a fresh
+    contiguous tensor first, which meets both."""
+    shape, stride = t.shape, t.stride()
+    if stride[-1] != 1 and shape[-1] > 1:
+        return f"must be contiguous in the last dimension (strides {stride})"
+    if shape[-1] % _STRIDE_ELEMS:
+        return None
+    if any(n > 1 and (st <= 0 or st % _STRIDE_ELEMS)
+           for n, st in zip(shape[:-1], stride[:-1])):
+        return (f"must be contiguous in the last dimension with its other "
+                f"strides positive multiples of {_STRIDE_ELEMS} elements "
+                f"(strides {stride})")
+    if t.data_ptr() % 16:
+        return ("must be contiguous in the last dimension with 16-byte "
+                "aligned data")
+    return None
+
+
 def _check(*ts):
     q = ts[0]
     if q.ndim != 4:
@@ -129,10 +163,60 @@ def _check(*ts):
         raise TypeError("q, k and v must share one floating dtype")
     if any(t.device != q.device for t in ts):
         raise ValueError("q, k and v must be on one device")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("q, k and v must be contiguous")
+    _check_layout(ts)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+
+
+def _check_layout(ts):
+    for t in ts:
+        err = _layout_error(t)
+        if err is not None:
+            raise ValueError(f"q, k and v {err}")
+
+
+Strides = tuple[int, int, int]
+
+
+class Bf16Plan(NamedTuple):
+    Dp: int                    # the template width: shared-memory tiles
+    D: int                     # the true head width
+    width: int                 # the width the kernels are handed: D, or Dp
+    pad: bool                  # zero-pad to Dp first (D % 8 != 0)
+    strides: tuple[Strides, ...]   # each tensor's (over T, H, B), elements
+    token_major: bool          # the forward writes o into (B, T, H, D)
+    out: Strides               # the forward output's strides
+
+
+def _bf16_plan(*ts) -> Bf16Plan:
+    """How the bfloat16 kernels take (B, H, T, D) tensors ``ts`` (q, k, v,
+    or q, k, v, o, g): the template width, the true width, whether a pad is
+    needed (only where D % 8 != 0, to the template width), each tensor's
+    element strides over T, H and B as the tensor maps get them (a
+    dimension of length 1 gets its contiguous stride, which it never
+    steps), and the layout of the forward's output: token-major (B, T, H, D)
+    where q is (a view of a fused projection), else contiguous. Raises,
+    with "contiguous" in the message, where the kernels cannot read a
+    tensor where it lies (the rest of :func:`_check` is the caller's).
+    Plain Python: the CPU tests reach it."""
+    _check_layout(ts)
+    B, H, T, D = ts[0].shape
+    Dp = _kernel_width(ts[0])
+    pad = D % _STRIDE_ELEMS != 0
+    width = Dp if pad else D
+    dense = (width, T * width, H * T * width)
+
+    def strides(t) -> Strides:
+        if pad:
+            return dense
+        sb, sh, st = t.stride()[:3]
+        return (st if T > 1 else dense[0], sh if H > 1 else dense[1],
+                sb if B > 1 else dense[2])
+
+    st = tuple(strides(t) for t in ts)
+    token_major = st[0][1] < st[0][0]
+    out = (H * width, width, T * H * width) if token_major else dense
+    return Bf16Plan(Dp, D, width, pad, st, token_major, out)
 
 
 def _kernel_width(q: torch.Tensor) -> int:
@@ -162,15 +246,22 @@ def _stream(t: torch.Tensor) -> int:
 def _fwd_fn():
     return _build.function(
         "flash_attention_fwd", "uurg_attention_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                      ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
 
 
 def _bwd_fn():
     return _build.function(
         "flash_attention_bwd", "uurg_attention_bwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                       ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+
+
+def _c_strides(strides) -> ctypes.Array:
+    flat = [x for st in strides for x in st]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _fwd_f32_fn():
@@ -192,25 +283,39 @@ def _attention_kernel(q, k, v, with_lse: bool):
     (B*H, T)."""
     B, H, T, D = q.shape
     Dp = _kernel_width(q)
-    f32 = q.dtype == torch.float32
-    q, k, v = _padded((q, k, v), Dp)
-    o = torch.empty_like(q)
     lse = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None, B * H, T, Dp, D ** -0.5)
+    lse_ptr = lse.data_ptr() if with_lse else None
+    f32 = q.dtype == torch.float32
     if f32:
+        # the float32 kernels take contiguous tensors of the template width
+        # until their redesign at the true width: strided inputs are copied
+        q, k, v = _padded([t.contiguous() for t in (q, k, v)], Dp)
+        o = torch.empty_like(q)
         route = _F32_ROUTES[_f32_plan(B, H, T, D).route]
-        err = _fwd_f32_fn()(*args, route, _stream(q))
+        err = _fwd_f32_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), lse_ptr, B * H, T, Dp, D ** -0.5,
+                            route, _stream(q))
     else:
-        err = _fwd_fn()(*args, _stream(q))
+        plan = _bf16_plan(q, k, v)
+        if plan.pad:
+            q, k, v = _padded((q, k, v), Dp)
+        o = (torch.empty((B, T, H, plan.width), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+             if plan.token_major else
+             torch.empty((B, H, T, plan.width), dtype=q.dtype,
+                         device=q.device))
+        err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse_ptr, B, H, T, plan.width,
+                        _c_strides(plan.strides + (plan.out,)), D ** -0.5,
+                        _stream(q))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     if f32:
         attention.launches_f32 += 1
     else:
         attention.launches += 1
-    return (o if Dp == D else o[..., :D]), lse
+    return (o if o.shape[-1] == D else o[..., :D]), lse
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -219,8 +324,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors: :func:`attention_bwd_plain` (o and lse are not needed).
     CUDA tensors: the kernels of q's dtype, which take the forward's output
-    o and its fp32 (B*H, T) log-sum-exp ``lse``; all of q, k, v, o, g
-    contiguous (B, H, T, D), bf16 or fp32."""
+    o and its fp32 (B*H, T) log-sum-exp ``lse``; q, k, v, o, g (B, H, T, D),
+    bf16 or fp32, in any layout :func:`_check` accepts. The gradients are
+    contiguous (B, H, T, D)."""
     _check(q, k, v, o, g)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, g)
@@ -230,23 +336,32 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the attention backward kernels need the forward's "
                          "contiguous fp32 (B*H, T) log-sum-exp")
     Dp = _kernel_width(q)
-    f32 = q.dtype == torch.float32
-    q, k, v, o, g = _padded((q, k, v, o, g), Dp)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, T, Dp,
-            D ** -0.5)
+    f32 = q.dtype == torch.float32
     if f32:
+        # contiguous tensors of the template width, as in the forward
+        q, k, v, o, g = _padded([t.contiguous() for t in (q, k, v, o, g)], Dp)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         plan = _f32_plan(B, H, T, D)
         scratch = (torch.empty(plan.scratch, dtype=torch.float32,
                                device=q.device) if plan.scratch else None)
-        err = _bwd_f32_fn()(*head, scratch.data_ptr() if scratch is not None
-                            else None, *tail, _F32_ROUTES[plan.route],
-                            _stream(q))
+        err = _bwd_f32_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, T, Dp,
+            D ** -0.5, _F32_ROUTES[plan.route], _stream(q))
     else:
-        err = _bwd_fn()(*head, *tail, _stream(q))
+        plan = _bf16_plan(q, k, v, o, g)
+        if plan.pad:
+            q, k, v, o, g = _padded((q, k, v, o, g), Dp)
+        dq, dk, dv = (torch.empty((B, H, T, plan.width), dtype=q.dtype,
+                                  device=q.device) for _ in range(3))
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), B, H, T, plan.width,
+                        _c_strides(plan.strides), D ** -0.5, _stream(q))
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: CUDA error {err}")
@@ -254,7 +369,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attention_bwd.launches_f32 += 1
     else:
         attention_bwd.launches += 1
-    if Dp != D:
+    if dq.shape[-1] != D:
         dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
     return dq, dk, dv
 
@@ -275,9 +390,13 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        # the gradient may arrive in any stride order (reshape, permute); o
-        # is a column slice of the kernel's output where D was padded
-        return attention_bwd(q, k, v, o.contiguous(), lse, g.contiguous())
+        # the kernels read g where it lies (MHSA's merge hands back a
+        # token-major view); a layout they cannot read (the expanded
+        # gradient of a sum, a permutation that moves the last dimension)
+        # is copied into a fresh contiguous tensor
+        if _layout_error(g) is not None:
+            g = g.clone(memory_format=torch.contiguous_format)
+        return attention_bwd(q, k, v, o, lse, g)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -190,6 +190,25 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    backwards a phase; GroupNorm's 0; steps/s, busy share, peak memory);
    ``dit_sample_grid`` (50 steps, CFG 4.0, 16 labels; 28 forward launches
    a step).
+19. DiT's frozen VAE (``VAEConfig()``, the CompVis first stage, fp32, TF32
+   off, seeded init) at 256 px. (a) The float32 attention forward at head
+   widths above 256 (the ``xwide`` route of ``flash_attention_f32.cu``) at
+   T = 16, 100, 1024, 4096 and D = 512, 320 and 300 (padded to 320)
+   against the plain version (relative L2 1e-5), its log-sum-exp, three
+   runs with equal bits; at the VAE's (32, 1, 1024, 512) timed by
+   CUDA-graph replay and eagerly beside the plain version and fp32 SDPA.
+   (b) The GroupNorm forward at each of the VAE's fp32 site shapes at batch
+   32, the 2^31-byte (32, 256, 256, 256) one included, against the plain
+   version, three runs with equal bits, timed. (c) One image encoded with
+   fixed noise and decoded, card against CPU (1e-4); 32 images encoded and
+   32 latents decoded with exact launch counts (1 float32 attention and 22
+   GroupNorm forwards an encode, 1 and 30 a decode, every other counter 0),
+   images/s and peak memory. (d) On a seeded PNG folder (4 classes x 16):
+   ``encode_latents`` into shards (launches counted), ``forget`` one step
+   from those shards and one from the image folder (the VAE in the loop),
+   from phase 18's perturbed DiT-XL/2, then ``python -m
+   uurg_torch.cli.dit_sample --mode fid_npz`` (64 labels, 32 a batch, 4
+   respaced steps): 64 uint8 256 px images, not constant.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -454,6 +473,31 @@ DIT_FISHER_ITERS, DIT_CLI_ITERS = 8, 3
 DIT_WARMUP, DIT_STEPS = 2, 10
 DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
 DIT_CLI_TIMEOUT = 600
+# the frozen VAE (phase 19): VAEConfig(), the CompVis first stage DiT uses
+# (sd-vae-ft-ema), 83,653,863 parameters, fp32 (TF32 off), seeded init, at
+# 256 px (32 x 32 x 4 latents) and batch 32; its two mid-block attentions
+# are one head of width 512 at T = 1024 (the float32 xwide route), and it
+# runs 22 GroupNorm forwards an encode and 30 a decode
+VAE_RES, VAE_BATCH = 256, 32
+VAE_ATTN_SHAPE = (VAE_BATCH, 1, 1024, 512)
+VAE_GN_ENCODE, VAE_GN_DECODE = 22, 30
+# the width-512 forward off the main path at batch 2 x 1 head: T below one
+# 64-key tile, ragged, the VAE's and SD's (512 px), at D = 512 and at 320
+# (300 zero-padded to 320)
+XWIDE_SHAPES = tuple((T, D) for T in (16, 100, 1024, 4096)
+                     for D in (512, 320, 300))
+# the full VAE in fp32, card against CPU at batch 1 (TF32 off on both):
+# the convolutions and GroupNorm sums in other orders through ~60 layers
+VAE_REL = 1e-4
+# the entry points: a seeded PNG folder of VAE_PNG_CLASSES classes x
+# VAE_PNG_EACH images (Pillow is on the card's machine), encoded by
+# encode_latents into shards of VAE_BATCH; forget cut from 600 steps to one
+# at batch VAE_FORGET_BATCH (a class holds VAE_PNG_EACH images) from the
+# shards and from the folder; dit_sample --mode fid_npz with 64 labels in
+# batches of 32 at VAE_SAMPLE_STEPS respaced steps (cut from 250), CFG 4.0
+VAE_PNG_CLASSES, VAE_PNG_EACH = 4, 16
+VAE_FORGET_BATCH = 16
+VAE_FID_SAMPLES, VAE_SAMPLE_STEPS = 64, 4
 
 
 def banner(msg: str) -> None:
@@ -3697,6 +3741,427 @@ def dit_path(card: str, gen) -> dict:
     return out
 
 
+def xwide_attention(gen) -> dict:
+    """Phase 19 (a): the float32 attention forward at head widths above 256
+    (the xwide route) against the plain version, TF32 off: XWIDE_SHAPES at
+    batch 2 x 1 head (relative L2 F32_FWD_REL, the log-sum-exp, three runs
+    with equal bits), then the VAE's VAE_ATTN_SHAPE checked the same way and
+    timed by CUDA-graph replay and eagerly beside the plain version and
+    float32 SDPA. The bound is operations: 4 B H T^2 D over the fp32 rate.
+    Returns the timed row."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def check(B, H, T, D):
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        route = FA._f32_plan(B, H, T, D).route
+        if route != "xwide":
+            fail(f"attention at D = {D} takes the {route} route")
+        tag = f"{route} B={B} H={H} T={T} D={D}"
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        err = rel_l2(f"attention {tag}", o, FA.attention_plain(q, k, v),
+                     F32_FWD_REL)
+        check_lse(f"attention {tag}", lse, q, k)
+        for _ in range(RAGGED_REPEATS - 1):
+            again = FA._attention_kernel(q, k, v, with_lse=True)
+            if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+                fail(f"attention {tag}: repeated runs differ in their bits")
+        return err, (q, k, v)
+
+    errs = [check(2, 1, T, D)[0] for T, D in XWIDE_SHAPES]
+    print(f"  {len(XWIDE_SHAPES)} shapes, {RAGGED_REPEATS} runs each with "
+          f"equal bits", flush=True)
+    B, H, T, D = VAE_ATTN_SHAPE
+    err, (q, k, v) = check(B, H, T, D)
+    ms, eager = time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                     with_lse=False), 10)
+    plain_ms = time_ms(lambda: FA.attention_plain(q, k, v), 10)[0]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)[0]
+    n = B * H * T * D
+    bytes_ms = 4 * n * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * n * T / FP32_FLOPS * 1e3
+    row = {"name": "attention_fwd_f32", "route": "xwide",
+           "shape": {"B": B, "H": H, "T": T, "D": D}, "ms": ms,
+           "eager_ms": eager, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "max_abs_err": max(errs + [err])}
+    print(f"  attention_fwd_f32 (xwide) {row['shape']}: kernel {ms:.4f} ms "
+          f"(eager {eager:.4f} ms), plain {plain_ms:.4f} ms, fp32 SDPA "
+          f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def vae_sites():
+    """Record the (kind, shape) of every GroupNorm and attention call of
+    the models' layers while the block runs."""
+    from uurg_torch.models import layers
+
+    sites = []
+    gn, attn = layers.group_norm, layers.attention
+
+    def rec_gn(x, *a, **kw):
+        sites.append(("gn", tuple(x.shape)))
+        return gn(x, *a, **kw)
+
+    def rec_attn(q, k, v):
+        sites.append(("attn", tuple(q.shape)))
+        return attn(q, k, v)
+
+    layers.group_norm, layers.attention = rec_gn, rec_attn
+    try:
+        yield sites
+    finally:
+        layers.group_norm, layers.attention = gn, attn
+
+
+def vae_gn_sites(vae, gen) -> list[dict]:
+    """Phase 19 (b): the GroupNorm forward at every fp32 site shape of the
+    VAE's encode and decode at VAE_BATCH (found by one batch-1 pass of
+    each), the 2^31-byte (32, 256, 256, 256) site included: y, mean and
+    rstd against the plain version on the route the wrapper chooses, three
+    runs with equal bits, timed by CUDA-graph replay beside the plain
+    version and ``F.group_norm``. Returns one row a site shape, with its
+    sites an encode and a decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import group_norm as GN
+
+    with torch.inference_mode(), vae_sites() as sites:
+        z = vae.encode(torch.zeros(1, VAE_RES, VAE_RES, 3, device="cuda"))
+        n_enc = len(sites)
+        vae.decode(z)
+    count = {}
+    for i, (kind, shape) in enumerate(sites):
+        if kind == "gn":
+            key = (VAE_BATCH, *shape[1:])
+            enc, dec = count.get(key, (0, 0))
+            count[key] = (enc + (i < n_enc), dec + (i >= n_enc))
+    rows = []
+    for (B, H, W, C), (enc, dec) in sorted(count.items()):
+        x = torch.randn(B, H, W, C, generator=gen, device="cuda") * 2 + 0.5
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+        route = GN._fwd_route(H * W, C, 4, 32)
+        tag = (f"group_norm B={B} H={H} W={W} C={C} fp32 ({route[0]}, "
+               f"cluster {route[1]}; {x.numel() * 4} bytes)")
+        got = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+        torch.cuda.synchronize()
+        want = GN.group_norm_plain(x, scale, bias, 32, 1e-6, True)
+        err = compare(tag, got[0], want[0], GN_FP32_ATOL, GN_FP32_RTOL)
+        compare(f"{tag} mean", got[1], want[1], GN_FP32_ATOL, GN_FP32_RTOL)
+        compare(f"{tag} rstd", got[2], want[2], GN_RSTD_TOL, GN_RSTD_TOL)
+        del want
+        for _ in range(RAGGED_REPEATS - 1):
+            again = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{tag}: repeated runs differ in their bits")
+            del again
+        del got
+        x_nchw = x.permute(0, 3, 1, 2)
+        ms, eager = time_ms(
+            lambda: GN._group_norm_kernel(x, scale, bias, 32, 1e-6), 5)
+        plain_ms = time_ms(
+            lambda: GN.group_norm_plain(x, scale, bias, 32, 1e-6), 5)[0]
+        lib_ms = time_ms(lambda: F.group_norm(x_nchw, 32, scale, bias,
+                                              1e-6), 5)[0]
+        nbytes = 2 * x.numel() * 4 + 2 * C * 4 + 2 * B * 32 * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * x.numel() / FP32_FLOPS * 1e3
+        rows.append({"name": "group_norm_fwd", "shape": {
+            "B": B, "H": H, "W": W, "C": C, "G": 32}, "route": route[0],
+            "cluster": route[1], "sites_encode": enc, "sites_decode": dec,
+            "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err})
+        print(f"  group_norm_fwd {rows[-1]['shape']} x{enc} encode, x{dec} "
+              f"decode: kernel {ms:.4f} ms (eager {eager:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, F.group_norm {lib_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms (bytes)", flush=True)
+        del x, x_nchw
+        torch.cuda.empty_cache()
+    if sum(r["sites_encode"] for r in rows) != VAE_GN_ENCODE or \
+            sum(r["sites_decode"] for r in rows) != VAE_GN_DECODE:
+        fail("the VAE's GroupNorm sites are not 22 an encode and 30 a decode")
+    if not any(r["shape"]["H"] * r["shape"]["W"] * r["shape"]["C"] * 4
+               * VAE_BATCH == 2 ** 31 for r in rows):
+        fail("no VAE GroupNorm site of 2^31 bytes was checked")
+    return rows
+
+
+def vae_model(vae, card: str, gen) -> dict:
+    """Phase 19 (c): the full-width VAE (seeded init, fp32, TF32 off). A
+    256 px image encoded with fixed noise and decoded on the card against
+    the CPU from the same weights (latents and images within VAE_REL); then
+    VAE_BATCH seeded images encoded (a posterior draw) and their latents
+    decoded, each after a warm-up call, with the launch counters zeroed
+    just before and read just after: exactly one float32 attention forward
+    and VAE_GN_ENCODE (VAE_GN_DECODE) GroupNorm forwards, every other
+    counter 0; images/s on the host clock and peak memory."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    x1 = torch.from_numpy(rng.uniform(-1, 1, (1, VAE_RES, VAE_RES, 3))
+                          .astype(np.float32))
+    noise1 = torch.from_numpy(rng.standard_normal(
+        (1, VAE_RES // 8, VAE_RES // 8, 4)).astype(np.float32))
+    cpu = copy.deepcopy(vae).to("cpu")
+    out = {}
+    with torch.inference_mode():
+        z_card = vae.encode(x1.cuda(), noise=noise1.cuda())
+        img_card = vae.decode(z_card)
+        z_cpu = cpu.encode(x1, noise=noise1)
+        img_cpu = cpu.decode(z_cpu)
+    del cpu
+    out["latents_max_abs_err"] = rel_l2("VAE latents (fp32, card vs CPU, batch "
+                                   "1, 256 px)", z_card.cpu(), z_cpu,
+                                   VAE_REL, "the CPU")
+    out["images_max_abs_err"] = rel_l2("VAE decoded images (fp32, card vs CPU)",
+                                  img_card.cpu(), img_cpu, VAE_REL, "the CPU")
+    x = torch.rand(VAE_BATCH, VAE_RES, VAE_RES, 3, generator=gen,
+                   device="cuda") * 2 - 1
+    for kind in ("encode", "decode"):
+        with torch.inference_mode():
+            if kind == "encode":
+                def call():
+                    return vae.encode(x, generator=gen)
+            else:
+                lat = z.clone()
+
+                def call():
+                    return vae.decode(lat)
+            call()                                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _read_all_launches()
+        want_shape = ((VAE_BATCH, VAE_RES // 8, VAE_RES // 8, 4)
+                      if kind == "encode" else (VAE_BATCH, VAE_RES, VAE_RES,
+                                                3))
+        if tuple(res.shape) != want_shape or not torch.isfinite(res).all() \
+                or res.std() == 0:
+            fail(f"VAE {kind}: {tuple(res.shape)}, not finite or constant")
+        if kind == "encode":
+            z = res
+        _expect_launches(f"VAE {kind} (batch {VAE_BATCH})", launches,
+                         {**{k: 0 for k in launches},
+                          "attention_fwd_f32": 1,
+                          "group_norm_fwd": (VAE_GN_ENCODE if kind == "encode"
+                                             else VAE_GN_DECODE)})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[kind] = {"launches": launches, "seconds": secs,
+                     "images_per_s": VAE_BATCH / secs, "peak_gib": peak}
+        print(f"  VAE {kind} at batch {VAE_BATCH}, {VAE_RES} px: "
+              f"{secs:.4f} s, {VAE_BATCH / secs:.3f} images/s, peak "
+              f"{peak:.3f} GiB on {card}", flush=True)
+    return out
+
+
+def vae_png_folder(work: str) -> str:
+    """VAE_PNG_CLASSES x VAE_PNG_EACH seeded noise PNGs, a subdirectory a
+    class, of varying size around VAE_RES (the center crop cuts them)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    root = os.path.join(work, "images")
+    for c in range(VAE_PNG_CLASSES):
+        os.makedirs(os.path.join(root, f"n{c:02d}"))
+        for i in range(VAE_PNG_EACH):
+            h, w = VAE_RES + 8 * (i % 5), VAE_RES + 16 * (c % 3)
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(root, f"n{c:02d}",
+                                                   f"{i:03d}.png"))
+    return root
+
+
+def _forget_losses(argv: list[str]) -> tuple[list, dict, float]:
+    """``uurg_torch.cli.forget.main(argv)`` in this process (log lines kept),
+    with the launch counters zeroed before and read after: (the logged
+    losses, the counters, seconds)."""
+    import io
+    import logging
+    import re
+
+    import torch
+
+    from uurg_torch.cli import forget
+
+    buf = io.StringIO()
+    handler = logging.StreamHandler(buf)
+    logging.getLogger().addHandler(handler)
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        forget.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_all_launches()
+    finally:
+        logging.getLogger().removeHandler(handler)
+    losses = [(float(a), float(b)) for a, b in re.findall(
+        r"step \d+ forget (\S+) remain (\S+)", buf.getvalue())]
+    return losses, launches, secs
+
+
+def vae_entry_points(work: str, vae_file: str, card: str) -> dict:
+    """Phase 19 (d): the VAE's entry points at full width on a seeded PNG
+    folder. ``encode_latents`` (in this process, launches counted: one
+    float32 attention forward and VAE_GN_ENCODE GroupNorm forwards a batch
+    of VAE_BATCH) into shards, whose labels and order must be the folder's;
+    ``forget`` one step at batch VAE_FORGET_BATCH from those shards and
+    one from the image folder itself (the VAE in the loop: one encode of
+    each stream), both from the perturbed DiT-XL/2 ``.pt`` of phase 18
+    with the VAE file; then ``python -m uurg_torch.cli.dit_sample --mode
+    fid_npz`` (VAE_FID_SAMPLES labels, 32 a batch, VAE_SAMPLE_STEPS
+    respaced steps): a (64, 256, 256, 3) uint8 npz, not constant."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.cli import encode_latents
+    from uurg_torch.data.lazy import LazyImageFolder, list_latent_shards
+
+    out = {"launches": {}}
+    png = vae_png_folder(work)
+    ckpt = dit_checkpoint(work)
+    lat = os.path.join(work, "latents", "shard")
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    encode_latents.main(["--image_folder", png, "--out", lat, "--image_size",
+                         str(VAE_RES), "--batch_size", str(VAE_BATCH),
+                         "--shard_size", str(VAE_BATCH), "--vae_ckpt",
+                         vae_file])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_all_launches()
+    n_img = VAE_PNG_CLASSES * VAE_PNG_EACH
+    batches = -(-n_img // VAE_BATCH)
+    _expect_launches("encode_latents", launches,
+                     {**{k: 0 for k in launches},
+                      "attention_fwd_f32": batches,
+                      "group_norm_fwd": VAE_GN_ENCODE * batches})
+    out["launches"]["encode_latents"] = launches
+    shards = list_latent_shards(os.path.dirname(lat))
+    zs, ys = [], []
+    for path in shards:
+        with np.load(path) as d:
+            zs.append(d["latents"])
+            ys.append(d["labels"])
+    zs, ys = np.concatenate(zs), np.concatenate(ys)
+    if len(shards) != batches or \
+            zs.shape != (n_img, VAE_RES // 8, VAE_RES // 8, 4) or \
+            not np.isfinite(zs).all() or \
+            not np.array_equal(ys, LazyImageFolder(png, VAE_RES).labels):
+        fail(f"encode_latents wrote {len(shards)} shards of {zs.shape} "
+             f"latents, not finite or out of the folder's order")
+    out["encode_latents_s"] = secs
+    print(f"  encode_latents: {n_img} images in {secs:.3f} s "
+          f"({n_img / secs:.3f} images/s with PNG decoding), {len(shards)} "
+          f"shards of {VAE_BATCH}; launches {launches}", flush=True)
+    common = ["--ckpt", ckpt, "--n-iters", "1", "--global-batch-size",
+              str(VAE_FORGET_BATCH), "--snapshot-every", "10",
+              "--ckpt-every", "10", "--log-every", "1"]
+    for tag, data, extra in (("shards", os.path.dirname(lat), []),
+                             ("image_folder", png, ["--vae_ckpt", vae_file])):
+        results = os.path.join(work, f"results_{tag}")
+        losses, launches, secs = _forget_losses(
+            ["--data-path", data, *extra, *common, "--results-dir", results])
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  forget from the {tag.replace('_', ' ')}: {secs:.3f} s, "
+              f"losses {losses}; launches {launches}", flush=True)
+        if len(losses) != 1 or not np.isfinite(losses).all():
+            fail(f"forget from the {tag}: logged losses {losses}")
+        if not os.path.exists(os.path.join(results, "forget_0", "final.pt")):
+            fail(f"forget from the {tag} wrote no final.pt")
+        vae_calls = 2 if tag == "image_folder" else 0   # one a stream
+        if launches["attention_fwd_f32"] != vae_calls or \
+                launches["group_norm_fwd"] != VAE_GN_ENCODE * vae_calls:
+            fail(f"forget from the {tag}: the VAE ran {launches}")
+        out[f"forget_{tag}"] = {"losses": losses, "seconds": secs,
+                                "launches": launches}
+        out["launches"][f"forget_{tag}"] = launches
+        shutil.rmtree(results)
+    sample_dir = os.path.join(work, "samples")
+    secs, _ = _run_cli("dit_sample", [
+        "--mode", "fid_npz", "--ckpt", ckpt, "--vae-ckpt", vae_file,
+        "--num-fid-samples", str(VAE_FID_SAMPLES), "--per-proc-batch-size",
+        str(VAE_BATCH), "--num-sampling-steps", str(VAE_SAMPLE_STEPS),
+        "--cfg-scale", str(DIT_COND_SCALE), "--sample-dir", sample_dir])
+    with np.load(os.path.join(sample_dir, "samples_0.npz")) as d:
+        imgs, labels = d["arr_0"], d["labels"]
+    if imgs.dtype != np.uint8 or \
+            imgs.shape != (VAE_FID_SAMPLES, VAE_RES, VAE_RES, 3) or \
+            imgs.std() == 0 or \
+            not np.array_equal(labels, np.arange(VAE_FID_SAMPLES)):
+        fail(f"dit_sample wrote {imgs.dtype} {imgs.shape} images (std "
+             f"{imgs.std():.3f}) for labels {labels[:8]}..")
+    out["dit_sample"] = {"seconds": secs, "image_mean": float(imgs.mean()),
+                         "image_std": float(imgs.std())}
+    print(f"  dit_sample --mode fid_npz: {imgs.shape} uint8, mean "
+          f"{imgs.mean():.2f} std {imgs.std():.2f}, in {secs:.3f} s on "
+          f"{card}", flush=True)
+    return out
+
+
+def vae_path(card: str, gen) -> dict:
+    """Phase 19: DiT's frozen VAE on the card."""
+    import shutil
+
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+    from uurg_torch.io.vae_interop import save_vae
+    from uurg_torch.models.autoencoder_kl import init_vae
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    out = {"xwide": xwide_attention(gen)}
+    vae = init_vae(SEED, device=dev)
+    out["parameters"] = sum(p.numel() for p in vae.parameters())
+    out["gn_sites"] = vae_gn_sites(vae, gen)
+    out["model"] = vae_model(vae, card, gen)
+    work = tempfile.mkdtemp(prefix="uurg_vae_")
+    try:
+        vae_file = os.path.join(work, "vae.pt")
+        save_vae(vae_file, vae)
+        del vae
+        torch.cuda.empty_cache()
+        out["entry_points"] = vae_entry_points(work, vae_file, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {"vae_encode": out["model"]["encode"]["launches"],
+                       "vae_decode": out["model"]["decode"]["launches"],
+                       **out["entry_points"]["launches"]}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3874,6 +4339,14 @@ def main() -> int:
            f"{DIT_WARMUP} + {DIT_STEPS} SFR-on steps at batch {DIT_BATCH} "
            f"under full and attn remat, the sample grid")
     dit = dit_path(card, gen)
+    banner(f"main path: the frozen VAE (VAEConfig, fp32) at {VAE_RES} px: "
+           f"the float32 attention forward at head width 512 (xwide) vs "
+           f"plain at T up to 4096 and timed at {VAE_ATTN_SHAPE}, the "
+           f"GroupNorm forward at the VAE's sites at batch {VAE_BATCH}, "
+           f"encode and decode card vs CPU and at batch {VAE_BATCH}, "
+           f"encode_latents, forget from its shards and from an image "
+           f"folder, dit_sample --mode fid_npz")
+    vae = vae_path(card, gen)
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -3943,6 +4416,35 @@ def main() -> int:
                    f"by CUDA-graph replay; library: bf16 SDPA on the "
                    f"same views",
         })
+    # the frozen VAE (phase 19): the float32 forward at width 512 a launch,
+    # GroupNorm summed over an encode and a decode at batch VAE_BATCH;
+    # launches over phase 19's main-path runs
+    gn_rows = vae["gn_sites"]
+    for name, counter, rows_k, weights, per in (
+            ("attention_fwd_f32_vae", "attention_fwd_f32", [vae["xwide"]],
+             [1], f"one launch at {VAE_ATTN_SHAPE} fp32 (a VAE mid-block "
+             f"attention at batch {VAE_BATCH}, {VAE_RES} px; the xwide "
+             f"route), device ms by CUDA-graph replay; library: fp32 SDPA"),
+            ("group_norm_fwd_vae", "group_norm_fwd", gn_rows,
+             [r["sites_encode"] + r["sites_decode"] for r in gn_rows],
+             f"a VAE encode and decode at batch {VAE_BATCH}, {VAE_RES} px "
+             f"({VAE_GN_ENCODE} + {VAE_GN_DECODE} launches, fp32): the sum "
+             f"over the sites of the device ms per launch (CUDA-graph "
+             f"replay); library: F.group_norm")):
+        def total(k, rows_k=rows_k, weights=weights):
+            return sum(r[k] * w for r, w in zip(rows_k, weights))
+
+        paths = {p: got[counter] for p, got in vae["launches"].items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": meta[counter]["source"],
+            "replaces": meta[counter]["replaces"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            **{k: total(k) for k in ("ms", "eager_ms", "plain_ms",
+                                     "library_ms")},
+            "bound_ms": max(total("bytes_ms"), total("ops_ms")),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"), "per": per})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
@@ -3959,7 +4461,7 @@ def main() -> int:
                    "sa": sa, "evaluation": evaluation, "parity": parity,
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
-                   "remat": remat, "dit": dit,
+                   "remat": remat, "dit": dit, "vae": vae,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)

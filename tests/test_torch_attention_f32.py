@@ -103,8 +103,11 @@ def test_kernel_width_refuses_other_dtypes(dtype):
 
 
 def test_kernel_width_refuses_wide_heads():
+    # float32 takes widths up to 512 (a forward only), bfloat16 up to 256
     with pytest.raises(ValueError, match="head width"):
-        FA._kernel_width(torch.empty(1, 1, 4, 320))
+        FA._kernel_width(torch.empty(1, 1, 4, 576))
+    with pytest.raises(NotImplementedError, match="head width 320"):
+        FA._kernel_width(torch.empty(1, 1, 4, 320, dtype=torch.bfloat16))
 
 
 # -- the float32 kernels' route plan ----------------------------------------
@@ -129,7 +132,7 @@ def test_f32_plan_routes_by_the_kernels_width(T, D):
     assert (route == "wide") == (width > 64)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 4, 320), (1, 1, 0, 64),
+@pytest.mark.parametrize("shape", [(1, 1, 4, 576), (1, 1, 0, 64),
                                    (0, 2, 16, 64), (1, 1, 16, 0)])
 def test_f32_plan_refuses_what_the_kernels_refuse(shape):
     with pytest.raises(ValueError):

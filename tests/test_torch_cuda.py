@@ -445,3 +445,64 @@ def test_ragged_widths_take_the_true_width_route(gen, T, D):
                                atol=ATOL, rtol=RTOL)
     for a, b in zip(got[1:], attention_bwd_plain(q, k, v, g)):
         assert _rel_l2(a, b) < BWD_REL_L2
+
+
+# the float32 forward at head widths above 256 (route xwide): the VAE's
+# width 512, one padded and one unpadded narrower width, T below a key
+# tile, ragged, and the VAE's T = 1024; fp32 in another order: 1e-5
+XWIDE_SHAPES = [(16, 512), (100, 512), (1024, 512), (100, 320), (65, 300)]
+
+
+@pytest.mark.parametrize("T,D", XWIDE_SHAPES)
+def test_attention_xwide_forward_matches_plain(gen, T, D):
+    q, k, v = (torch.randn(2, 1, T, D, generator=gen, device="cuda")
+               for _ in range(3))
+    assert FA._f32_plan(2, 1, T, D).route == "xwide"
+    before = attention.launches_f32
+    got = attention(q, k, v)
+    again = attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launches_f32 == before + 2
+    assert torch.equal(got, again)
+    want = attention_plain(q, k, v)
+    rel = ((got - want).double().norm() / want.double().norm()).item()
+    assert rel <= 1e-5, rel
+    # no backward at these widths (ROADMAP.md): it raises, it does not fall
+    # back to a plain version
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attention(*leaves).sum().backward()
+
+
+def test_vae_on_the_card_matches_the_cpu_and_counts_its_launches(gen):
+    # the full VAE at 64 px: its mid attention is one head of width 512 at
+    # T = 64 (xwide); 22 GroupNorm forwards an encode and 30 a decode
+    import copy
+
+    from uurg_torch.models.autoencoder_kl import init_vae
+
+    torch.backends.cudnn.allow_tf32 = False
+    vae = init_vae(0, device="cuda")
+    cpu = copy.deepcopy(vae).to("cpu")
+    x = torch.rand(2, 64, 64, 3, generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn(2, 8, 8, 4, generator=gen, device="cuda")
+    counts = []
+
+    def counted(call):
+        before = (attention.launches_f32, group_norm.launches)
+        out = call()
+        torch.cuda.synchronize()
+        counts.append((attention.launches_f32 - before[0],
+                       group_norm.launches - before[1]))
+        return out
+
+    with torch.inference_mode():
+        z = counted(lambda: vae.encode(x, noise=noise))
+        img = counted(lambda: vae.decode(z))
+        z_cpu = cpu.encode(x.cpu(), noise=noise.cpu())
+        img_cpu = cpu.decode(z_cpu)
+    assert counts == [(1, 22), (1, 30)]
+    for got, want in ((z, z_cpu), (img, img_cpu)):
+        rel = ((got.cpu() - want).double().norm()
+               / want.double().norm()).item()
+        assert rel <= 1e-4, rel

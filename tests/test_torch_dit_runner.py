@@ -418,25 +418,37 @@ def test_the_three_clis_end_to_end(tmp_path, capsys):
     (["--mesh", "data=2"], "item 8"),
     (["--parallelism", "fsdp"], "item 8"),
     (["--pp_microbatches", "2"], "item 8"),
-    (["--vae_ckpt", "vae.npz"], "6\\(b\\)"),
+    (["--vae_ckpt", "orbax_vae_dir"], "Orbax"),
 ])
 def test_forget_cli_refuses_what_the_port_cannot_do(flags, match):
+    # the multi-device flags wait for item 8; a --vae_ckpt that is not a
+    # CompVis or port VAE file (an Orbax directory) cannot be read
     from uurg_torch.cli import forget
 
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if match == "Orbax" else NotImplementedError
+    with pytest.raises(exc, match=match):
         forget.main([*CLI, *flags, "--n-iters", "1"])
 
 
 def test_cli_data_and_checkpoint_tiers_refuse(tmp_path):
+    # an image folder is read (tests/test_torch_vae_cli.py runs the CLIs on
+    # one); here one without images and an Orbax --vae_ckpt directory raise
+    from PIL import Image
+
     from uurg_torch.cli import dit_generate_fisher
 
     folder = tmp_path / "images" / "n01"
     folder.mkdir(parents=True)
     base = [*CLI, "--forget-class", "0", "--mask-path", str(tmp_path / "m"),
             "--n-iters", "1"]
-    with pytest.raises(NotImplementedError, match="6\\(b\\)"):
+    with pytest.raises(FileNotFoundError, match="no images"):
         dit_generate_fisher.main([*base, "--data-path",
                                   str(tmp_path / "images")])
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(folder / "a.png")
+    with pytest.raises(ValueError, match="Orbax"):
+        dit_generate_fisher.main([*base, "--data-path",
+                                  str(tmp_path / "images"), "--vae_ckpt",
+                                  str(tmp_path)])
     with pytest.raises(ValueError, match="Orbax"):
         dit_generate_fisher.main([*base, "--ckpt", str(tmp_path / "orbax")])
     if not torch.cuda.is_available():    # the default device is the card

@@ -3,7 +3,8 @@
 the diffusion loss averaged over ``--n-iters`` forget and remain batches,
 saved as ``<mask-path>/<forget-class>/{forget,remain}_fisher`` (the
 reference layout, DiT/generate_fisher.py:251,291; the port's files of named
-tensors).
+tensors). ``--data-path`` takes the data tiers of
+:mod:`uurg_torch.cli.dit_common`, an image folder included.
 
     python -m uurg_torch.cli.dit_generate_fisher --data-path SHARDS \\
         --forget-class 0 --mask-path MASKS
@@ -41,8 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--mask-path", type=str, required=True,
                    help="Fisher files land in <mask-path>/<class>/")
     p.add_argument("--vae_ckpt", type=str, default="",
-                   help="VAE params for image-folder encoding (raises: "
-                        "the VAE comes with a later slice)")
+                   help="the frozen VAE that encodes an image folder: a "
+                        "CompVis first-stage .ckpt/.pth or the port's own "
+                        ".pt; a seeded init when empty")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
     return p.parse_args(argv)
@@ -56,7 +58,7 @@ def main(argv=None):
     from uurg_torch.workloads.dit_runner import dit_generate_fisher
 
     wl, model = build_workload(args, args.device)
-    forget_it, remain_it = forget_remain_iterators(args)
+    forget_it, remain_it = forget_remain_iterators(args, args.device)
     out_dir = os.path.join(args.mask_path, str(args.label_to_forget))
     dit_generate_fisher(wl, model, forget_it, remain_it,
                         n_iters=args.n_iters, out_dir=out_dir,

@@ -1,6 +1,7 @@
 """DiT class-forgetting CLI, the flags of ``cli/forget.py``
 (DiT/forget.py:364-397) plus ``--device``: SFR-on on DiT-XL/2 ImageNet-256
-latents.
+latents, pre-encoded (npz shards, ``encode_latents``) or encoded batch by
+batch from an image folder by the frozen VAE (``--vae_ckpt``).
 
     python -m uurg_torch.cli.forget --data-path SHARDS --mask-path \\
         MASKS/0/fisher_1.0 --pack_mask --unlearn-loss adaga
@@ -8,8 +9,8 @@ latents.
 Writes ``<results-dir>/forget_<class>/``: ``ckpt_{i:07d}.pt`` and
 ``train_state.pt`` every ``--ckpt-every`` steps, ``final.pt`` at the end
 (reference DiT layout, ``{"model", "ema"}``), and a CFG latent sample grid
-``vis_step{i:06d}.npz`` every ``--snapshot-every`` steps (latents: the
-VAE that decodes them comes with a later slice). A run resumes from its
+``vis_step{i:06d}.npz`` every ``--snapshot-every`` steps (latents, not
+decoded, as in the JAX CLI). A run resumes from its
 ``train_state.pt``. The multi-device flags (``--mesh``, ``--parallelism``
 other than dp, ``--pp_microbatches``) raise on a non-default value.
 """
@@ -52,8 +53,9 @@ def parse_args(argv=None):
                    help="accepted for reference parity (host pipeline)")
     p.add_argument("--mask-path", type=str, default="")
     p.add_argument("--vae_ckpt", type=str, default="",
-                   help="VAE params for image-folder encoding (raises: "
-                        "the VAE comes with a later slice)")
+                   help="the frozen VAE that encodes an image folder: a "
+                        "CompVis first-stage .ckpt/.pth or the port's own "
+                        ".pt; a seeded init when empty")
     p.add_argument("--global-batch-size", "--batch-size", type=int,
                    default=32)
     p.add_argument("--global-seed", type=int, default=0)
@@ -124,7 +126,7 @@ def main(argv=None):
     wl, model = build_workload(args, args.device)
     mask = (ddpm_runner.load_mask(args.mask_path, model)
             if args.mask_path else None)
-    forget_it, remain_it = forget_remain_iterators(args)
+    forget_it, remain_it = forget_remain_iterators(args, args.device)
     ckpt_dir = os.path.join(args.results_dir,
                             f"forget_{args.label_to_forget}")
     os.makedirs(ckpt_dir, exist_ok=True)

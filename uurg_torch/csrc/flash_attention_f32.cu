@@ -19,13 +19,15 @@
 // flops a byte forward, above the H100's 67e12 / 3.35e12 = 20 float32 flops
 // a byte. At main_random's 32 px ViT (T = 5) bytes: 1.25 flops a byte.
 //
-// Three routes, chosen by the caller (uurg_torch/ops/flash_attention.py,
+// Four routes, chosen by the caller (uurg_torch/ops/flash_attention.py,
 // _f32_plan) and checked here:
 // - tiled (D = 64, T > 16) and packed (D = 64, T <= 16): the designs below.
 // - wide (D = 128, 192, 256): the first design (register-tiled 4 x 4 FFMA,
 //   blocks of 256 threads owning 64 rows, loads and products alternating
 //   under __syncthreads, dq recomputing S and dP in a third kernel). No ViT
 //   or Swin configuration of the repository has heads wider than 64.
+// - xwide (D = 320, 384, 448, 512; forward only): the VAE's one head of
+//   width 512, which no tile of the wide route fits (see its section).
 //
 // What the first design lost at T = 197 and what the D = 64 routes do:
 // - Padding. 64-row tiles on both sides and a thread map that spread every
@@ -72,8 +74,9 @@
 // delta = rowsum(dO o) by a warp a row (exact to float32 rounding), then the
 // key-tile kernel, then (tiled) the dq kernel. Keys past T are masked (-inf
 // forward, P = 0 backward), rows past T are computed on zeros and not
-// stored. D is one of 64, 128, 192, 256 (the wrapper pads other widths with
-// zeros and passes the true D^-0.5 scale).
+// stored. D is one of 64, 128, 192, 256 and, forward only, 320, 384, 448,
+// 512 (the wrapper pads other widths with zeros and passes the true D^-0.5
+// scale).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -1210,6 +1213,291 @@ attn_bwd_dq_d64(const float* __restrict__ ds, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The extra-wide route (D = 320, 384, 448, 512; the forward only)
+// ---------------------------------------------------------------------------
+//
+// The VAE's mid-block attention (uurg_torch/models/autoencoder_kl.py): one
+// head of width 512 at T = 1024 (256 px images) or 4096 (512 px). The wide
+// route's tiles (64 resident rows and two 32-key tiles, each D wide) would
+// take (64 + 2 * 32) * 516 * 4 = 264 KB of shared memory at D = 512, above
+// the 227 KB a block may have. Here a block of 256 threads owns 32 query rows
+// (resident, 66 KB at D = 512) and walks the keys in tiles of 64. Two kinds
+// of chunk stream through a two-buffer cp.async ring (33 KB a buffer, the
+// next chunk in flight while one is multiplied): K in 64-key x 64-column
+// chunks, whose partial scores are summed in registers over the D / 64
+// chunks before the online-softmax update, and V in 16-key x D chunks for
+// O += P V. The P tile (64 keys x 32 rows, transposed) is 9 KB; 142 KB in
+// all at D = 512, one block an SM. The 32 x D fp32 output stays in
+// registers: 8 rows x 8 columns a thread (columns 4 c and 256 + 4 c). The
+// T x T scores never leave the block.
+//
+// Thread maps. Scores: warp w holds rows 8 (w / 2) .. + 7 and keys
+// 32 (w % 2) .. + 31 of the tile; lane (ry = lane / 8, kx = lane % 8) rows
+// ry + 4 i (i < 2) and keys kx + 8 j (j < 4); a row's max and sum are taken
+// over the 8 lanes by shuffles and over the two warps of a row through shared
+// memory. Output: thread t holds rows 8 (t / 64) .. + 7 and columns
+// 4 (t % 64) and 256 + 4 (t % 64) (the second only below D). Row strides
+// D + 4 (Q, V), 68 (K) and 36 (P) keep a warp's 16-byte loads on distinct
+// bank quads or broadcast.
+//
+// Bound: operations, 4 T^2 D flops a head on 16 T D bytes (256 flops a byte
+// at T = 1024), far above the card's 20 float32 flops a byte.
+
+constexpr int kXThreads = 256;
+constexpr int kXRows = 32;               // query rows of a block
+constexpr int kXKeys = 64;               // keys of a tile
+constexpr int kXKc = 64;                 // columns of a K chunk
+constexpr int kXLdK = kXKc + 4;          // row stride of a K chunk
+constexpr int kXVKeys = 16;              // keys of a V chunk
+constexpr int kXVChunks = kXKeys / kXVKeys;
+constexpr int kXLdP = kXRows + 4;        // row stride of the P tile [key][row]
+
+template <int D>
+struct XShape {
+  static_assert(D % 64 == 0 && D > 256 && D <= 512, "widths 320 to 512");
+  static constexpr int LD = D + 4;                     // Q and V chunk rows
+  static constexpr int NK = D / kXKc;                  // K chunks a tile
+  static constexpr int NS = NK + kXVChunks;            // chunks a tile
+  static constexpr int BUF = kXKeys * kXLdK > kXVKeys * LD ? kXKeys * kXLdK
+                                                           : kXVKeys * LD;
+};
+
+template <int D>
+constexpr size_t xwide_smem() {
+  using S = XShape<D>;
+  return sizeof(float) * (kXRows * S::LD + 2 * S::BUF + kXKeys * kXLdP +
+                          6 * kXRows);
+}
+
+// chunk `st` of a head's key walk into `buf`: K columns 64 c .. + 63 of keys
+// k0 .. k0 + 63 for c < NK, else V rows of 16 keys; zeros past T
+template <int D>
+__device__ __forceinline__ void xwide_issue(float* buf,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            int st, int T) {
+  using S = XShape<D>;
+  const int c = st % S::NS;
+  const int k0 = (st / S::NS) * kXKeys;
+  if (c < S::NK) {
+    constexpr int V4 = kXKc / 4;
+#pragma unroll
+    for (int n = 0; n < kXKeys * V4 / kXThreads; ++n) {
+      const int i = threadIdx.x + n * kXThreads;
+      const int r = i / V4, col = (i % V4) * 4;
+      const bool ok = k0 + r < T;
+      cp_async16(buf + r * kXLdK + col,
+                 ok ? k + static_cast<long long>(k0 + r) * D + c * kXKc + col
+                    : k,
+                 ok);
+    }
+  } else {
+    constexpr int V4 = D / 4;
+    const int kv0 = k0 + (c - S::NK) * kXVKeys;
+    for (int i = threadIdx.x; i < kXVKeys * V4; i += kXThreads) {
+      const int r = i / V4, col = (i % V4) * 4;
+      const bool ok = kv0 + r < T;
+      cp_async16(buf + r * S::LD + col,
+                 ok ? v + static_cast<long long>(kv0 + r) * D + col : v, ok);
+    }
+  }
+}
+
+// grid: BH * n_tiles blocks; block b owns query rows 32 (b % n_tiles) ..
+// + 31 of head b / n_tiles
+template <int D>
+__global__ void __launch_bounds__(kXThreads, 1)
+attn_fwd_xwide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int T, int n_tiles,
+               float scale_log2) {
+  using S = XShape<D>;
+  constexpr int LD = S::LD, NK = S::NK, NS = S::NS;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* ring = Qs + kXRows * LD;
+  float* Pt = ring + 2 * S::BUF;            // [key][row]
+  float* red_max = Pt + kXKeys * kXLdP;     // [key half][row]
+  float* red_sum = red_max + 2 * kXRows;
+  float* row_alpha = red_sum + 2 * kXRows;
+  float* row_l = row_alpha + kXRows;
+
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * kXRows;
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const float* kh = k + base;
+  const float* vh = v + base;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the score map
+  const int kx = lane % 8, wk = warp % 2;
+  const int srow = (warp / 2) * 8 + lane / 8;       // and srow + 4
+  const int skey = wk * 32 + kx;                    // and + 8, 16, 24
+  // the output map
+  const int orow = (tid / 64) * 8, ocol = 4 * (tid % 64);
+  const bool hi = ocol + 256 < D;                   // columns 256 + ocol ..
+
+  {
+    constexpr int V4 = D / 4;
+    for (int i = tid; i < kXRows * V4; i += kXThreads) {
+      const int r = i / V4, col = (i % V4) * 4;
+      const bool ok = q0 + r < T;
+      cp_async16(Qs + r * LD + col,
+                 ok ? q + base + static_cast<size_t>(q0 + r) * D + col : q,
+                 ok);
+    }
+  }
+  xwide_issue<D>(ring, kh, vh, 0, T);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[2][4];
+  float4 acc[8][2];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) acc[r][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int n_stages = (T + kXKeys - 1) / kXKeys * NS;
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages)
+      xwide_issue<D>(ring + ((st + 1) & 1) * S::BUF, kh, vh, st + 1, T);
+    cp_async_commit();
+    cp_async_wait<1>();                     // chunk st (and Q) has landed
+    __syncthreads();
+    const float* B = ring + (st & 1) * S::BUF;
+    const int c = st % NS;
+    const int k0 = (st / NS) * kXKeys;
+    if (c < NK) {
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      }
+      const float* Qc = Qs + c * kXKc;
+#pragma unroll 4
+      for (int d = 0; d < kXKc; d += 4) {
+        float4 a[2], b[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) a[i] = ld4(Qc + (srow + 4 * i) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ld4(B + (skey + 8 * j) * kXLdK + d);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
+      }
+      if (c == NK - 1) {
+        // the online softmax over this tile's 64 keys
+        float mx[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = k0 + skey + 8 * j < T ? s[i][j] * scale_log2 : -INFINITY;
+            mx[i] = fmaxf(mx[i], s[i][j]);
+          }
+          mx[i] = oct_max(mx[i]);
+          if (kx == 0) red_max[wk * kXRows + srow + 4 * i] = mx[i];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = srow + 4 * i;
+          // key k0 < T lies in every tile, so m_new is finite
+          const float m_new =
+              fmaxf(m[i], fmaxf(red_max[r], red_max[kXRows + r]));
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = exp2f(s[i][j] - m_new);
+            sum += p;
+            Pt[(skey + 8 * j) * kXLdP + r] = p;
+          }
+          sum = oct_sum(sum);
+          if (kx == 0) red_sum[wk * kXRows + r] = sum;
+          const float alpha = exp2f(m[i] - m_new);
+          if (kx == 0 && wk == 0) row_alpha[r] = alpha;
+          l[i] *= alpha;
+          m[i] = m_new;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = srow + 4 * i;
+          l[i] += red_sum[r] + red_sum[kXRows + r];
+        }
+      }
+    } else {
+      if (c == NK) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float a = row_alpha[orow + r];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[r][h].x *= a;
+            acc[r][h].y *= a;
+            acc[r][h].z *= a;
+            acc[r][h].w *= a;
+          }
+        }
+      }
+      const float* P = Pt + (c - NK) * kXVKeys * kXLdP + orow;
+#pragma unroll 4
+      for (int b = 0; b < kXVKeys; ++b) {
+        const float4 w0 = ld4(P + b * kXLdP), w1 = ld4(P + b * kXLdP + 4);
+        const float* xr = B + b * LD + ocol;
+        const float4 x0 = ld4(xr);
+        const float4 x1 = hi ? ld4(xr + 256) : make_float4(0.f, 0.f, 0.f, 0.f);
+        fma4(acc[0][0], w0.x, x0);
+        fma4(acc[1][0], w0.y, x0);
+        fma4(acc[2][0], w0.z, x0);
+        fma4(acc[3][0], w0.w, x0);
+        fma4(acc[4][0], w1.x, x0);
+        fma4(acc[5][0], w1.y, x0);
+        fma4(acc[6][0], w1.z, x0);
+        fma4(acc[7][0], w1.w, x0);
+        fma4(acc[0][1], w0.x, x1);
+        fma4(acc[1][1], w0.y, x1);
+        fma4(acc[2][1], w0.z, x1);
+        fma4(acc[3][1], w0.w, x1);
+        fma4(acc[4][1], w1.x, x1);
+        fma4(acc[5][1], w1.y, x1);
+        fma4(acc[6][1], w1.z, x1);
+        fma4(acc[7][1], w1.w, x1);
+      }
+    }
+    __syncthreads();                        // the buffer is refilled next
+  }
+
+  if (kx == 0 && wk == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = srow + 4 * i;
+      row_l[r] = l[i];
+      if (lse != nullptr && q0 + r < T)
+        lse[static_cast<size_t>(bh) * T + q0 + r] = (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + orow + r;
+    if (row >= T) continue;
+    const float inv = 1.f / row_l[orow + r];
+    float* dst = o + base + static_cast<size_t>(row) * D + ocol;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !hi) continue;
+      const float4 x = acc[r][h];
+      *reinterpret_cast<float4*>(dst + 256 * h) =
+          make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1218,7 +1506,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // the routes of uurg_torch/ops/flash_attention.py::_f32_plan
-constexpr int kRouteWide = 0, kRouteTiled = 1, kRoutePacked = 2;
+constexpr int kRouteWide = 0, kRouteTiled = 1, kRoutePacked = 2,
+              kRouteXWide = 3;
 
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
@@ -1228,6 +1517,19 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (T + kRows - 1) / kRows;
   attn_fwd_f32<D><<<BH * n_tiles, kThreads, smem, stream>>>(
+      q, k, v, o, lse, T, n_tiles, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd_xwide(const float* q, const float* k, const float* v,
+                     float* o, float* lse, int BH, int T, float scale,
+                     cudaStream_t stream) {
+  constexpr size_t smem = xwide_smem<D>();
+  cudaError_t err = allow_smem(attn_fwd_xwide<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (T + kXRows - 1) / kXRows;
+  attn_fwd_xwide<D><<<BH * n_tiles, kXThreads, smem, stream>>>(
       q, k, v, o, lse, T, n_tiles, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1321,14 +1623,15 @@ bool route_ok(int route, int T, int D) {
   if (T < 1) return false;
   if (route == kRouteWide) return D == 128 || D == 192 || D == 256;
   if (route == kRouteTiled) return D == kD;
+  if (route == kRouteXWide) return D == 320 || D == 384 || D == 448 || D == 512;
   return route == kRoutePacked && D == kD && T <= kPackT;
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous float32 (BH, T, D), 16-byte aligned; lse: float32
-// (BH, T) or null; route: 0 wide, 1 tiled, 2 packed. Returns the CUDA error
-// code of the launch (0 on success).
+// (BH, T) or null; route: 0 wide, 1 tiled, 2 packed, 3 xwide. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int uurg_attention_fwd_f32(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int BH, int T, int D, float scale,
@@ -1340,6 +1643,14 @@ extern "C" int uurg_attention_fwd_f32(const void* q, const void* k,
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!route_ok(route, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteXWide) {
+    switch (D) {
+      case 320: return launch_fwd_xwide<320>(qf, kf, vf, of, lf, BH, T, scale, s);
+      case 384: return launch_fwd_xwide<384>(qf, kf, vf, of, lf, BH, T, scale, s);
+      case 448: return launch_fwd_xwide<448>(qf, kf, vf, of, lf, BH, T, scale, s);
+      default: return launch_fwd_xwide<512>(qf, kf, vf, of, lf, BH, T, scale, s);
+    }
+  }
   if (route != kRouteWide)
     return launch_fwd_d64(qf, kf, vf, of, lf, BH, T, scale,
                           route == kRoutePacked, s);
@@ -1372,7 +1683,8 @@ extern "C" int uurg_attention_bwd_f32(const void* q, const void* k,
         *dqf = static_cast<float*>(dq), *dkf = static_cast<float*>(dk),
         *dvf = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!route_ok(route, T, D) || (route == kRouteTiled && sf == nullptr))
+  if (!route_ok(route, T, D) || route == kRouteXWide ||
+      (route == kRouteTiled && sf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = launch_delta(of, gf, df, BH, T, D, s);
   if (err != 0) return err;

@@ -1,14 +1,18 @@
-"""Latent shards: the disk-backed DiT dataset that never holds the corpus
-in RAM.
+"""Disk-backed DiT datasets that never hold the corpus in RAM.
 
-Port of the latent-shard part of ``uurg_tpu/data/lazy.py``, the same numpy
-code, so a reader given the same shards, seed and filter yields the same
-batches bit for bit. ``write_latent_shards`` streams (latents, labels)
-batches into fixed-size npz shard files; ``sharded_latent_batches`` is an
-infinite shuffled reader that holds ONE shard in RAM at a time (shard-order
-and in-shard shuffling, per-host strided slicing like DiT/sample_ddp.py:
-94-104 shards by rank). ``LazyImageFolder`` (images decoded per batch,
-encoded by the frozen VAE) comes with the VAE.
+Port of ``uurg_tpu/data/lazy.py``, the same numpy code, so a reader given
+the same files, seed and filter yields the same batches bit for bit:
+
+- ``LazyImageFolder``: a (path, label) index built up front, images
+  decoded per batch (Pillow, imported at the call); the same ``labels``,
+  ``subset`` and ``get_batch`` surface as ``ArrayDataset``, so
+  ``class_forget_split`` and the batchers take it unchanged. The DiT CLIs
+  encode its batches with the frozen VAE.
+- latent shards: ``write_latent_shards`` streams (latents, labels) batches
+  into fixed-size npz shard files; ``sharded_latent_batches`` is an
+  infinite shuffled reader that holds ONE shard in RAM at a time
+  (shard-order and in-shard shuffling, per-host strided slicing like
+  DiT/sample_ddp.py:94-104 shards by rank).
 """
 from __future__ import annotations
 
@@ -17,6 +21,70 @@ import os
 from typing import Iterator, Sequence
 
 import numpy as np
+
+_EXTS = (".png", ".jpg", ".jpeg", ".webp")
+
+
+class LazyImageFolder:
+    """ImageFolder with per-batch decoding: a subdirectory a class, the
+    global class -> index map kept under ``class_names`` (as
+    DiT/unlearn_dataset.py's TargetedImageFolder does)."""
+
+    def __init__(self, root: str, resolution: int,
+                 class_names: Sequence[str] | None = None,
+                 center_crop: bool = True,
+                 paths: np.ndarray | None = None,
+                 labels: np.ndarray | None = None):
+        self.resolution = resolution
+        self.center_crop = center_crop
+        if paths is not None:
+            self.paths, self.labels = paths, labels
+            return
+        all_classes = sorted(
+            d for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d)))
+        class_to_idx = {c: i for i, c in enumerate(all_classes)}
+        wanted = class_names if class_names is not None else all_classes
+        ps, ys = [], []
+        for cname in wanted:
+            cdir = os.path.join(root, cname)
+            for fname in sorted(os.listdir(cdir)):
+                if fname.lower().endswith(_EXTS):
+                    ps.append(os.path.join(cdir, fname))
+                    ys.append(class_to_idx[cname])
+        if not ps:
+            raise FileNotFoundError(f"no images under {root}")
+        self.paths = np.asarray(ps)
+        self.labels = np.asarray(ys, np.int64)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def subset(self, idx: np.ndarray) -> "LazyImageFolder":
+        return LazyImageFolder("", self.resolution,
+                               center_crop=self.center_crop,
+                               paths=self.paths[idx],
+                               labels=self.labels[idx])
+
+    def get_batch(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Decode just these indices -> (float32 [0, 1] NHWC, int32
+        labels): the ADM center crop, or a bicubic resize without
+        ``center_crop``."""
+        from PIL import Image
+
+        from uurg_torch.data.datasets import _center_crop_resize
+
+        out = np.empty((len(idx), self.resolution, self.resolution, 3),
+                       np.float32)
+        for i, j in enumerate(np.asarray(idx)):
+            img = Image.open(self.paths[j]).convert("RGB")
+            if self.center_crop:
+                img = _center_crop_resize(img, self.resolution)
+            else:
+                img = img.resize((self.resolution, self.resolution),
+                                 Image.BICUBIC)
+            out[i] = np.asarray(img, np.float32) / 255.0
+        return out, self.labels[np.asarray(idx)].astype(np.int32)
 
 
 def write_latent_shards(out_prefix: str,

@@ -10,7 +10,8 @@ ResNet (``params`` and ``batch_stats``) under torchvision's names, and
 ``jax_vit_params_to_torch`` / ``jax_swin_params_to_torch`` for its ViT and
 Swin, whose port keeps the Flax module names, and ``jax_dit_params_to_torch``
 for its DiT under facebookresearch DiT's names (the inverse of
-``uurg_tpu/io/dit_interop.py::torch_dit_state_to_flax``).
+``uurg_tpu/io/dit_interop.py::torch_dit_state_to_flax``), and
+``jax_vae_params_to_torch`` for its AutoencoderKL under the CompVis names.
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
@@ -237,6 +238,57 @@ def jax_dit_params_to_torch(params: Mapping[str, Any],
     if depth is not None and n_blocks != depth:
         raise ValueError(f"found {n_blocks} DiT blocks, expected {depth}")
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def _vae_module(side: str, head: str) -> tuple[str, bool]:
+    """The port's (CompVis) module name of a JAX AutoencoderKL submodule,
+    and whether it is the attention block."""
+    if head in ("conv_in", "conv_out", "norm_out"):
+        return f"{side}.{head}", False
+    if head == "mid_attn":
+        return f"{side}.mid.attn_1", True
+    if (m := re.fullmatch(r"mid_res_(\d)", head)):
+        return f"{side}.mid.block_{m.group(1)}", False
+    if (m := re.fullmatch(r"(down|up)_(\d+)_res_(\d+)", head)):
+        return f"{side}.{m.group(1)}.{m.group(2)}.block.{m.group(3)}", False
+    if (m := re.fullmatch(r"(down|up)_(\d+)_(down|up)sample", head)):
+        return f"{side}.{m.group(1)}.{m.group(2)}.{m.group(3)}sample.conv", \
+            False
+    raise KeyError(f"Unmapped flax VAE module: {side}/{head}")
+
+
+def jax_vae_params_to_torch(params: Mapping[str, Any]
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX package's AutoencoderKL params
+    (``uurg_tpu/models/autoencoder_kl.py``), as nested dicts of arrays, -> a
+    state dict of :class:`uurg_torch.models.autoencoder_kl.AutoencoderKL`
+    under the CompVis names. Conv kernels go HWIO -> OIHW, the attention's
+    Dense kernels become 1x1 conv weights, GroupNorm scales become
+    weights."""
+    out = {}
+    for path, v in _flatten(params).items():
+        v = np.asarray(v, np.float32)
+        head, rest = path[0], path[1:]
+        if head in ("quant_conv", "post_quant_conv") and len(rest) == 1:
+            tk, attn, inner = head, False, rest
+        elif head in ("encoder", "decoder"):
+            tk, attn = _vae_module(head, rest[0])
+            inner = rest[1:]
+        else:
+            raise KeyError(f"Unmapped flax VAE path: {path}")
+        if attn:
+            tk = f"{tk}.{_ATTN_INNER[inner]}"
+        elif len(inner) == 1:
+            tk = f"{tk}.{_param_name(inner)}"
+        elif inner[0] in ("norm1", "norm2", "conv1", "conv2", "shortcut"):
+            tk = f"{tk}.{_BLOCK_INNER[inner]}"
+        elif inner[:1] == ("GroupNorm_0",):             # norm_out
+            tk = f"{tk}.{_param_name(inner)}"
+        else:
+            raise KeyError(f"Unmapped flax VAE path: {path}")
+        out[tk] = torch.tensor(np.ascontiguousarray(
+            _kernel_to_torch(v, attn=attn)))
+    return out
 
 
 def load_reference_checkpoint(path: str, model: torch.nn.Module,

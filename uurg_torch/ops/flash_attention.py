@@ -19,12 +19,14 @@ warp-specialised blocks, tiles loaded by TMA through tensor maps that the C
 launchers encode at every call, every product a ``wgmma``; see the notes at
 the head of the two sources and ``uurg_torch/csrc/hopper_mma.cuh``. The
 float32 kernels are FFMA on the CUDA cores (``wgmma`` takes no float32
-operands and TF32 would cost ~1e-3 of precision), on one of three routes
+operands and TF32 would cost ~1e-3 of precision), on one of four routes
 that :func:`_f32_plan` picks from the shape: ``tiled`` (head width 64:
 warps own 16 whole rows, the streamed operand in a cp.async ring, five
 products backward with dS^T through fp32 scratch for dq), ``packed``
-(width 64 and T <= 16: several heads share a warp's rows) and ``wide``
-(padded widths 128-256: the first register-tiled design). A launcher
+(width 64 and T <= 16: several heads share a warp's rows), ``wide``
+(padded widths 128-256: the first register-tiled design) and ``xwide``
+(padded widths 320-512, the forward only: the VAE's one head of width 512;
+32 resident query rows, K and V streamed in chunks). A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for
@@ -41,7 +43,9 @@ its fused qkv projection, and for such token-major q the output is written
 into a (B, T, H, D) buffer, so that merging the heads back is a view too.
 Only a width that is not a multiple of 8 (no model of the repository has
 one) is zero-padded to the next multiple of 64 first. The float32 kernels
-take contiguous tensors of width 64, 128, 192 or 256: their dispatcher
+take contiguous tensors of a width that is a multiple of 64, up to 256 (up
+to 512 forward; ROADMAP.md lists the wider backward and a bfloat16 forward
+above 256 as capability items, which raise here): their dispatcher
 copies strided inputs and zero-pads other widths (padded k columns add zero
 to the scores, padded v columns and gradient columns are zero and sliced
 off). Every kernel is given the true ``D ** -0.5`` scale.
@@ -57,35 +61,47 @@ import torch.nn.functional as F
 from uurg_torch.ops import _build
 
 _KERNEL_D = (64, 128, 192, 256)
+# the float32 forward's extra-wide widths (the xwide route)
+_XWIDE_D = (320, 384, 448, 512)
+_WIDE_ITEM = ("is a capability item of ROADMAP.md (Queue 2); no path of the "
+              "port needs it (the VAE is frozen)")
 # the bfloat16 kernels' tensor maps: every stride a multiple of 16 bytes
 _STRIDE_ELEMS = 8
 # float32 routes (the launchers' route codes) and their bounds: heads of
 # T <= _PACK_T are packed floor(_PACK_T / T) to a warp's 16 rows; the tiled
 # backward's dS^T scratch pads T to a multiple of _DS_PAD (the dq kernel's
 # query block)
-_F32_ROUTES = {"wide": 0, "tiled": 1, "packed": 2}
+_F32_ROUTES = {"wide": 0, "tiled": 1, "packed": 2, "xwide": 3}
 _PACK_T = 16
 _DS_PAD = 64
 
 
 class F32Plan(NamedTuple):
-    route: str                              # "tiled", "packed" or "wide"
+    route: str                      # "tiled", "packed", "wide" or "xwide"
     scratch: tuple[int, int, int] | None    # dS^T (B*H, Tp, Tp), fp32
 
 
-def _f32_plan(B: int, H: int, T: int, D: int) -> F32Plan:
-    """The float32 kernels' route for (B, H, T, D) and the backward's fp32
-    scratch shape; raises where the C launchers would refuse the shape.
-    The tiled backward writes dS^T there ([head][key][query], T padded to
-    Tp), which a second kernel reads for dq = dS K: B*H*Tp^2 floats, 154 MB
-    at ViT-B/16's (64, 12, 197, 64)."""
+def _f32_plan(B: int, H: int, T: int, D: int,
+              backward: bool = False) -> F32Plan:
+    """The float32 kernels' route for (B, H, T, D) (of the backward with
+    ``backward``) and the backward's fp32 scratch shape; raises where the C
+    launchers would refuse the shape. The tiled backward writes dS^T there
+    ([head][key][query], T padded to Tp), which a second kernel reads for
+    dq = dS K: B*H*Tp^2 floats, 154 MB at ViT-B/16's (64, 12, 197, 64).
+    Widths above 256 have a forward only (``xwide``)."""
     if min(B, H, T, D) < 1:
         raise ValueError(f"attention needs a non-empty (B, H, T, D), got "
                          f"{(B, H, T, D)}")
     Dp = -(-D // 64) * 64
+    if Dp in _XWIDE_D:
+        if backward:
+            raise NotImplementedError(
+                f"the float32 attention backward at head width {D} (above "
+                f"256) {_WIDE_ITEM}")
+        return F32Plan("xwide", None)
     if Dp not in _KERNEL_D:
-        raise ValueError(f"the attention kernels take head width <= 256, "
-                         f"got {D}")
+        raise ValueError(f"the float32 attention kernels take head width "
+                         f"<= 512, got {D}")
     if Dp > 64:
         return F32Plan("wide", None)
     if T <= _PACK_T:
@@ -225,9 +241,15 @@ def _kernel_width(q: torch.Tensor) -> int:
         raise TypeError(f"the attention kernels take bfloat16 or float32, "
                         f"not {q.dtype}")
     Dp = -(-q.shape[-1] // 64) * 64
+    if Dp in _XWIDE_D:
+        if q.dtype == torch.float32:
+            return Dp
+        raise NotImplementedError(
+            f"the bfloat16 attention kernels at head width {q.shape[-1]} "
+            f"(above 256) {_WIDE_ITEM}")
     if Dp not in _KERNEL_D:
-        raise ValueError(f"the attention kernels take head width <= 256, "
-                         f"got {q.shape[-1]}")
+        raise ValueError(f"the attention kernels take head width <= 256 "
+                         f"(float32 forward: <= 512), got {q.shape[-1]}")
     return Dp
 
 
@@ -339,10 +361,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
     if f32:
+        plan = _f32_plan(B, H, T, D, backward=True)
         # contiguous tensors of the template width, as in the forward
         q, k, v, o, g = _padded([t.contiguous() for t in (q, k, v, o, g)], Dp)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        plan = _f32_plan(B, H, T, D)
         scratch = (torch.empty(plan.scratch, dtype=torch.float32,
                                device=q.device) if plan.scratch else None)
         err = _bwd_f32_fn()(

@@ -4,11 +4,12 @@ grid.
 Port of ``uurg_tpu/workloads/dit_runner.py`` on one device: ``dit_forget``
 (DiT/forget.py:151-361, SFR-on with the EMA shadow), ``dit_generate_fisher``
 (DiT/generate_fisher.py:131-317), ``dit_generate_mask``
-(DiT/generate_mask.py:16-57) and ``dit_sample_grid`` (the snapshot sample
-sheets of DiT/forget.py:344-345). The multi-device paths (``mesh``,
-``parallelism`` other than ``"dp"``, ``pp_microbatches``) raise: they come
-with the multi-device slice (ROADMAP Queue 1 item 8). ``dit_sample_fid``
-comes with the VAE (item 6(b)).
+(DiT/generate_mask.py:16-57), ``dit_sample_grid`` (the snapshot sample
+sheets of DiT/forget.py:344-345) and ``dit_sample_fid`` (DiT/sample.py and
+DiT/sample_ddp.py: class-conditional samples, decoded by the VAE). The
+multi-device paths (``mesh``, ``parallelism`` other than ``"dp"``,
+``pp_microbatches``) raise: they come with the multi-device slice (ROADMAP
+Queue 1 item 8).
 
 Checkpoints are ``torch.save`` files in the reference DiT layout
 (:mod:`uurg_torch.io.dit_interop`): ``<ckpt_dir>/ckpt_{i:07d}.pt`` and
@@ -232,9 +233,53 @@ def dit_sample_grid(wl: DiTWorkload, model: DiT, out_path: str, *,
     gen = torch.Generator(device=wl.device).manual_seed(seed)
     lat = sampler(model, torch.as_tensor(labels, device=wl.device), gen)
     if decode_fn is not None:
-        img = torch.clamp((decode_fn(lat) + 1) / 2, 0, 1)
-        np.savez(out_path, images=(img * 255).to(torch.uint8).cpu().numpy(),
+        np.savez(out_path, images=_uint8_images(decode_fn(lat)),
                  labels=labels)
     else:
         np.savez(out_path, latents=lat.float().cpu().numpy(), labels=labels)
     return out_path
+
+
+def _uint8_images(img: torch.Tensor) -> np.ndarray:
+    """Images in [-1, 1] -> uint8 on the host: clipped to [0, 1] after
+    (x + 1) / 2, then times 255 cut toward zero, as the JAX package
+    converts them."""
+    img = torch.clamp((img.float() + 1) / 2, 0, 1)
+    return (img * 255).to(torch.uint8).cpu().numpy()
+
+
+def dit_sample_fid(wl: DiTWorkload, model: DiT, class_labels: np.ndarray, *,
+                   respacing: str = "250", cond_scale: float = 1.5,
+                   batch_size: int = 32, seed: int = 0,
+                   decode_fn: Callable | None = None) -> np.ndarray:
+    """Class-conditional samples of ``class_labels`` in order
+    (DiT/sample_ddp.py), ``batch_size`` labels a sampler call, the last
+    batch padded with label 0 and its samples cut: uint8 NHWC images when a
+    ``decode_fn`` (latents -> images in [-1, 1]) is given, else the float32
+    latents. One process on one device: the JAX function's process striding
+    is index 0 of 1 here. Every batch draws from one generator on the
+    workload's device seeded with ``seed``; each batch's output is copied to
+    the host while the next one is sampled."""
+    labels = np.asarray(class_labels)
+    sampler = wl.make_sampler(respacing=respacing, cond_scale=cond_scale)
+    gen = torch.Generator(device=wl.device).manual_seed(seed)
+    outs, pending = [], None
+
+    def materialize(dev: torch.Tensor) -> np.ndarray:
+        if decode_fn is not None:
+            return _uint8_images(dev)
+        return dev.float().cpu().numpy()
+
+    for i in range(0, len(labels), batch_size):
+        chunk = labels[i:i + batch_size]
+        lab = torch.as_tensor(np.pad(chunk, (0, batch_size - len(chunk))),
+                              device=wl.device)
+        lat = sampler(model, lab, gen)[:len(chunk)]
+        dev = decode_fn(lat) if decode_fn is not None else lat
+        if pending is not None:
+            outs.append(materialize(pending))
+        pending = dev
+    if pending is not None:
+        outs.append(materialize(pending))
+    return np.concatenate(outs)
+

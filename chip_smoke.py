@@ -15,8 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``F.group_norm``) with CUDA events around a CUDA-graph replay (device
    time), and the kernel also launched eagerly from Python. The GroupNorm
    forward runs on the route its wrapper chooses by shape (``slab`` with its
-   cluster size, or ``sweep``); at every shape the ``sweep`` route is held
-   against the plain version and timed too (``sweep_ms``).
+   cluster size, or ``split`` with its runs a sample); at every shape the
+   ``split`` route (the wrapper's runs a sample at this batch) is held
+   against the plain version and timed too (``split_ms``).
 4. One forward at batch 8 with the kernels against the same model on its
    plain path.
 5. The sampling path: ``ddpm_runner.sample_images`` on the full-width
@@ -49,10 +50,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain versions, each run three times with equal bits.
 10. The GroupNorm forward off the main path: fp32, slices of unequal
    length (H W not a multiple of the cluster), a sample too large for a
-   cluster (the ``sweep`` route), narrow channels with halved groups, batch
+   cluster (the ``split`` route), narrow channels with halved groups, batch
    1, 2 and 3; y, mean and rstd against the plain version on the chosen
-   route, on ``sweep`` and at every cluster size that fits, each run three
-   times with equal bits.
+   route, on ``split`` (one run a sample, and the wrapper's count) and at
+   every cluster size that fits, each run three times with equal bits.
 11. The GroupNorm backward off the main path, the same way: fp32 and bf16,
    ragged slices (H = 5, 12), C = 24 with G = 8, a one-pixel sample, batch
    1, 3 and 40, and the main path's eleven shapes at batch 256 (the CFG
@@ -195,11 +196,16 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    widths above 256 (the ``xwide`` route of ``flash_attention_f32.cu``) at
    T = 16, 100, 1024, 4096 and D = 512, 320 and 300 (padded to 320)
    against the plain version (relative L2 1e-5), its log-sum-exp, three
-   runs with equal bits; at the VAE's (32, 1, 1024, 512) timed by
-   CUDA-graph replay and eagerly beside the plain version and fp32 SDPA.
-   (b) The GroupNorm forward at each of the VAE's fp32 site shapes at batch
-   32, the 2^31-byte (32, 256, 256, 256) one included, against the plain
-   version, three runs with equal bits, timed. (c) One image encoded with
+   runs with equal bits; at the VAE's (32, 1, 1024, 512) and SD's VAE's
+   (2, 1, 4096, 512) timed by CUDA-graph replay and eagerly beside the
+   plain version and fp32 SDPA under each backend that takes the shape
+   (``torch.nn.attention.sdpa_kernel``; the fastest is the library column).
+   (b) The GroupNorm forward (the ``split`` route, two launches a call) at
+   each of the VAE's fp32 site shapes at batch 32, the 2^31-byte
+   (32, 256, 256, 256) one included, against the plain version, three runs
+   with equal bits, timed beside ``F.group_norm``; then, off the path, at
+   SD's bf16 UNet sites that fit no cluster at batch 4 (``nsfw_removal``'s),
+   checked and timed the same way. (c) One image encoded with
    fixed noise and decoded, card against CPU (1e-4); 32 images encoded and
    32 latents decoded with exact launch counts (1 float32 attention and 22
    GroupNorm forwards an encode, 1 and 30 a decode, every other counter 0),
@@ -234,6 +240,7 @@ STARTED = time.time()
 # tensor-core rate, fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 SAMPLING_BATCH = 128     # configs/cifar10_sfron.yml sampling.batch_size
@@ -486,6 +493,12 @@ VAE_GN_ENCODE, VAE_GN_DECODE = 22, 30
 # (300 zero-padded to 320)
 XWIDE_SHAPES = tuple((T, D) for T in (16, 100, 1024, 4096)
                      for D in (512, 320, 300))
+# timed: the VAE's shape, and SD's VAE at 512 px (T = 4096) at batch 2
+XWIDE_TIMED = (VAE_ATTN_SHAPE, (2, 1, 4096, 512))
+# SD's bf16 UNet GroupNorm sites that fit no cluster (H, W, C), off the
+# path, at nsfw_removal's batch 4
+SD_GN_SITES, SD_GN_BATCH = ((64, 64, 320), (64, 64, 640), (64, 64, 960),
+                            (32, 32, 1280), (32, 32, 1920)), 4
 # the full VAE in fp32, card against CPU at batch 1 (TF32 off on both):
 # the convolutions and GroupNorm sums in other orders through ~60 layers
 VAE_REL = 1e-4
@@ -640,7 +653,8 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
                  + 0.5).to(torch.bfloat16)
             scale = torch.randn(C, generator=gen, device=dev) * 0.2 + 1.0
             bias = torch.randn(C, generator=gen, device=dev) * 0.2
-            route, cluster = GN._fwd_route(H * W, C, x.element_size(), groups)
+            route, cluster = GN._fwd_route(H * W, C, x.element_size(), groups,
+                                           batch)
             got = group_norm(x, scale, bias, groups=groups)
             torch.cuda.synchronize()
             tag = f"B={batch} H={H} W={W} C={C}"
@@ -648,13 +662,16 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
             max_abs = compare(f"group_norm {tag} ({route}, cluster {cluster})",
                               got, want)
 
-            def sweep():
-                return GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
-                                             route=("sweep", 1))
+            runs = GN._split_count(batch, H * W, C, x.element_size())
 
-            compare(f"group_norm {tag} (sweep)", sweep()[0], want)
+            def split():
+                return GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
+                                             route=("split", runs))
+
+            compare(f"group_norm {tag} (split, {runs} runs)", split()[0],
+                    want)
             extra = {"route": route, "cluster": cluster,
-                     "sweep_ms": time_ms(sweep)[0]}
+                     "split_ms": time_ms(split)[0]}
             x_nchw = x.permute(0, 3, 1, 2)
             s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
             run = (lambda: group_norm(x, scale, bias, groups=groups),
@@ -682,7 +699,7 @@ def check_kernels(sites, batch: int, gen) -> list[dict]:
               f"library {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
               f"ms ({rows[-1]['bound_by']})"
               + (f"; {extra['route']} route, cluster {extra['cluster']}, "
-                 f"sweep route {extra['sweep_ms']:.4f} ms" if extra else ""),
+                 f"split route {extra['split_ms']:.4f} ms" if extra else ""),
               flush=True)
     return rows
 
@@ -779,20 +796,69 @@ def rel_l2(name: str, got, want, tol: float,
     return max_abs
 
 
-def sdpa_backend_names(q, k, v, g) -> list[str]:
-    """Device kernels of one SDPA forward + backward, to say which backend
-    PyTorch picked at this shape."""
+def sdpa_backend_names(q, k, v, g=None) -> dict:
+    """What SDPA runs by default at this shape: ``"backend"``, the one its
+    dispatcher picks (``torch._fused_sdp_choice``), and ``"kernels"``, the
+    device kernels of one forward (+ backward for a gradient g), named by
+    the CUDA driver from a CUDA graph of the call. (A profile's device events
+    named none for fp32 SDPA late in a whole run of this script.)"""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
+    from torch.nn.attention import SDPBackend
 
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    ql, kl, vl = (t.detach().requires_grad_(g is not None) for t in (q, k, v))
+    choice = int(torch._fused_sdp_choice(ql, kl, vl))
+    backends = {int(b): name.lower()
+                for name, b in SDPBackend.__members__.items()}
+
+    def call():
         out = F.scaled_dot_product_attention(ql, kl, vl)
-        torch.autograd.grad(out, (ql, kl, vl), g)
-        torch.cuda.synchronize()
-    return sorted({e.key[:60] for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+        if g is not None:
+            torch.autograd.grad(out, (ql, kl, vl), g)
+
+    call()
+    torch.cuda.synchronize()
+    kernels = sorted({name[:80] for kind, name in
+                      enqueued_node_types(call, names=True)
+                      if kind == GRAPH_KERNEL_NODE})
+    return {"backend": backends.get(choice, str(choice)), "kernels": kernels}
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_by_backend(q, k, v, iters: int = 10) -> dict:
+    """Device ms of one SDPA forward (CUDA-graph replay) under each backend
+    of ``torch.nn.attention.sdpa_kernel`` that takes these inputs (a
+    backend that refuses them is left out), by lower-case backend name."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def run(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v)
+
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                run()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        out[name.lower()] = time_ms(run, iters)[0]
+    if not out:
+        fail("no SDPA backend takes these inputs")
+    return out
 
 
 def library_bwd(fwd, inputs, g):
@@ -931,13 +997,37 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
     return rows
 
 
-def enqueued_node_types(fn) -> list[int]:
+def enqueued_node_types(fn, names: bool = False) -> list:
     """The CUgraphNodeType of each operation that one call of ``fn``
     enqueues, read from a CUDA graph the call is captured into (the call is
-    not run)."""
+    not run). With ``names``, (type, name) pairs: a kernel node's function
+    name as the CUDA driver gives it (mangled; "?" where it gives none), None
+    for other nodes."""
     import ctypes
 
     import torch
+
+    class KernelParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                    ("kernel_params", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                    ("ctx", ctypes.c_void_p)]
+
+    def kernel_name(node) -> str:
+        params, name = KernelParams(), ctypes.c_char_p()
+        try:
+            if cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                  ctypes.byref(params)):
+                return "?"
+            if params.func and not cuda.cuFuncGetName(
+                    ctypes.byref(name), ctypes.c_void_p(params.func)):
+                return name.value.decode()
+            if params.kern and not cuda.cuKernelGetName(
+                    ctypes.byref(name), ctypes.c_void_p(params.kern)):
+                return name.value.decode()
+        except AttributeError:          # a driver without these entry points
+            pass
+        return "?"
 
     cuda = ctypes.CDLL("libcuda.so.1")
     graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -954,10 +1044,18 @@ def enqueued_node_types(fn) -> list[int]:
         kind = ctypes.c_int(-1)
         err = err or cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
                                              ctypes.byref(kind))
-        types.append(kind.value)
+        types.append((kind.value, kernel_name(node)
+                      if kind.value == GRAPH_KERNEL_NODE else None)
+                     if names else kind.value)
     if err:
         fail(f"reading a captured graph's nodes: CUDA driver error {err}")
     return types
+
+
+def kernels_a_call(fn) -> int:
+    """Kernels that one call of ``fn`` enqueues, counted in a CUDA graph of
+    the call."""
+    return enqueued_node_types(fn).count(GRAPH_KERNEL_NODE)
 
 
 def one_launch(name: str, fn) -> None:
@@ -1137,26 +1235,34 @@ def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
 
 
 def gn_routes(hw: int, c: int, itemsize: int, groups: int,
-              backward: bool = False) -> list:
+              backward: bool = False, batch: int = 1) -> list:
     """Every route of the GroupNorm forward (or backward) that can run this
-    shape: the wrapper's choice first, then ``sweep``, then ``slab`` at
-    every other cluster size whose block fits shared memory."""
+    shape: the wrapper's choice first, then the forward's ``split`` at its
+    count of runs for ``batch`` and at one run a sample (or the backward's
+    ``sweep``), then ``slab`` at every other cluster size whose block fits
+    shared memory."""
     from uurg_torch.ops import group_norm as GN
 
-    route, smem = ((GN._bwd_route, GN._bwd_slab_smem) if backward
-                   else (GN._fwd_route, GN._slab_smem))
+    if backward:
+        first = [GN._bwd_route(hw, c, itemsize, groups), ("sweep", 1)]
+        smem = GN._bwd_slab_smem
+    else:
+        first = [GN._fwd_route(hw, c, itemsize, groups, batch),
+                 ("split", GN._split_count(batch, hw, c, itemsize)),
+                 ("split", 1)]
+        smem = GN._slab_smem
     fit = [("slab", s) for s in GN._CLUSTERS if s < hw
            and c * itemsize % 16 == 0
            and smem(hw, c, itemsize, groups, s) <= GN._SMEM_MAX]
-    return list(dict.fromkeys(
-        [route(hw, c, itemsize, groups), ("sweep", 1)] + fit))
+    return list(dict.fromkeys(first + fit))
 
 
 def check_gn_offpath(gen) -> list[dict]:
     """Phase 10: the GroupNorm forward at shapes off the main path, on
-    every route that can run them (the wrapper's choice, ``sweep``, and
-    ``slab`` at each cluster size that fits: at H W = 25, 441 or 841 the
-    slices of a cluster differ in length)."""
+    every route that can run them (the wrapper's choice, ``split`` at the
+    wrapper's count of runs and at one run a sample, and ``slab`` at each
+    cluster size that fits: at H W = 25, 441 or 841 the slices of a cluster
+    differ in length, and so do a split's runs)."""
     import torch
 
     from uurg_torch.ops import group_norm as GN
@@ -1172,11 +1278,12 @@ def check_gn_offpath(gen) -> list[dict]:
         while C % groups:
             groups //= 2                 # as the dispatcher does
         want = GN.group_norm_plain(x, scale, bias, groups, 1e-6, True)
-        chosen = GN._fwd_route(H * H, C, x.element_size(), groups)
+        chosen = GN._fwd_route(H * H, C, x.element_size(), groups, B)
         tol = (ATOL, RTOL) if dtype == torch.bfloat16 else \
             (GN_FP32_ATOL, GN_FP32_RTOL)
         errs = {}
-        for route in gn_routes(H * H, C, x.element_size(), groups):
+        for route in gn_routes(H * H, C, x.element_size(), groups,
+                               batch=B):
             tag = (f"group_norm B={B} H=W={H} C={C} G={groups} {dtype_name} "
                    f"({route[0]}, cluster {route[1]})")
             got = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
@@ -3745,12 +3852,13 @@ def xwide_attention(gen) -> dict:
     """Phase 19 (a): the float32 attention forward at head widths above 256
     (the xwide route) against the plain version, TF32 off: XWIDE_SHAPES at
     batch 2 x 1 head (relative L2 F32_FWD_REL, the log-sum-exp, three runs
-    with equal bits), then the VAE's VAE_ATTN_SHAPE checked the same way and
-    timed by CUDA-graph replay and eagerly beside the plain version and
-    float32 SDPA. The bound is operations: 4 B H T^2 D over the fp32 rate.
-    Returns the timed row."""
+    with equal bits), then XWIDE_TIMED (the VAE's VAE_ATTN_SHAPE first)
+    checked the same way and timed by CUDA-graph replay and eagerly beside
+    the plain version and float32 SDPA under each backend that takes the
+    shape (the fastest is the library column). The bound is operations:
+    4 B H T^2 D over the fp32 rate. Returns the VAE shape's row, with the
+    other timed shapes under ``"timed"``."""
     import torch
-    import torch.nn.functional as F
 
     from uurg_torch.ops import flash_attention as FA
 
@@ -3778,27 +3886,44 @@ def xwide_attention(gen) -> dict:
     errs = [check(2, 1, T, D)[0] for T, D in XWIDE_SHAPES]
     print(f"  {len(XWIDE_SHAPES)} shapes, {RAGGED_REPEATS} runs each with "
           f"equal bits", flush=True)
-    B, H, T, D = VAE_ATTN_SHAPE
-    err, (q, k, v) = check(B, H, T, D)
-    ms, eager = time_ms(lambda: FA._attention_kernel(q, k, v,
-                                                     with_lse=False), 10)
-    plain_ms = time_ms(lambda: FA.attention_plain(q, k, v), 10)[0]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)[0]
-    n = B * H * T * D
-    bytes_ms = 4 * n * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * n * T / FP32_FLOPS * 1e3
-    row = {"name": "attention_fwd_f32", "route": "xwide",
-           "shape": {"B": B, "H": H, "T": T, "D": D}, "ms": ms,
-           "eager_ms": eager, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "max_abs_err": max(errs + [err])}
-    print(f"  attention_fwd_f32 (xwide) {row['shape']}: kernel {ms:.4f} ms "
-          f"(eager {eager:.4f} ms), plain {plain_ms:.4f} ms, fp32 SDPA "
-          f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
-    return row
+    rows = []
+    for B, H, T, D in XWIDE_TIMED:
+        err, (q, k, v) = check(B, H, T, D)
+        ms, eager = time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                         with_lse=False), 10)
+        plain_ms = time_ms(lambda: FA.attention_plain(q, k, v), 10)[0]
+        sdpa = sdpa_by_backend(q, k, v)
+        fastest = min(sdpa, key=sdpa.get)
+        n = B * H * T * D
+        bytes_ms = 4 * n * 4 / HBM_BYTES_PER_S * 1e3
+        # operations at the design's rate: three TF32 tensor-core products
+        # for each of the two (4 B H T^2 D); beside it the FFMA rate's
+        ops_ms = 3 * 4 * n * T / TF32_TC_FLOPS * 1e3
+        ffma_ops_ms = 4 * n * T / FP32_FLOPS * 1e3
+        rows.append({
+            "name": "attention_fwd_f32", "route": "xwide",
+            "shape": {"B": B, "H": H, "T": T, "D": D}, "ms": ms,
+            "eager_ms": eager, "plain_ms": plain_ms,
+            "library_ms": sdpa[fastest], "library_backend": fastest,
+            "sdpa_ms": sdpa, "sdpa_default": sdpa_backend_names(q, k, v),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "ffma_ops_ms": ffma_ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ffma_bound_ms": max(bytes_ms, ffma_ops_ms),
+            "kernels_per_call": kernels_a_call(
+                lambda: FA._attention_kernel(q, k, v, with_lse=False)),
+            "max_abs_err": max(errs + [err])})
+        r = rows[-1]
+        print(f"  attention_fwd_f32 (xwide) {r['shape']}: kernel {ms:.4f} ms "
+              f"(eager {eager:.4f} ms), plain {plain_ms:.4f} ms, fp32 SDPA "
+              + ", ".join(f"{b} {t:.4f}" for b, t in sdpa.items())
+              + f" ms (fastest {fastest}; by default {r['sdpa_default']}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: three TF32 "
+              f"products; at the FFMA rate {r['ffma_bound_ms']:.4f} ms), "
+              f"{r['kernels_per_call']} kernel(s) a call", flush=True)
+        del q, k, v
+    return {**rows[0], "timed": rows[1:]}
 
 
 @contextlib.contextmanager
@@ -3825,18 +3950,11 @@ def vae_sites():
         layers.group_norm, layers.attention = gn, attn
 
 
-def vae_gn_sites(vae, gen) -> list[dict]:
-    """Phase 19 (b): the GroupNorm forward at every fp32 site shape of the
-    VAE's encode and decode at VAE_BATCH (found by one batch-1 pass of
-    each), the 2^31-byte (32, 256, 256, 256) site included: y, mean and
-    rstd against the plain version on the route the wrapper chooses, three
-    runs with equal bits, timed by CUDA-graph replay beside the plain
-    version and ``F.group_norm``. Returns one row a site shape, with its
-    sites an encode and a decode."""
+def vae_gn_site_counts(vae) -> dict:
+    """(H, W, C) of each GroupNorm site shape of the VAE's encode and decode
+    at VAE_RES -> its (encode, decode) site counts, from one batch-1 pass
+    of each."""
     import torch
-    import torch.nn.functional as F
-
-    from uurg_torch.ops import group_norm as GN
 
     with torch.inference_mode(), vae_sites() as sites:
         z = vae.encode(torch.zeros(1, VAE_RES, VAE_RES, 3, device="cuda"))
@@ -3845,17 +3963,37 @@ def vae_gn_sites(vae, gen) -> list[dict]:
     count = {}
     for i, (kind, shape) in enumerate(sites):
         if kind == "gn":
-            key = (VAE_BATCH, *shape[1:])
-            enc, dec = count.get(key, (0, 0))
-            count[key] = (enc + (i < n_enc), dec + (i >= n_enc))
+            enc, dec = count.get(shape[1:], (0, 0))
+            count[shape[1:]] = (enc + (i < n_enc), dec + (i >= n_enc))
+    return count
+
+
+def vae_gn_sites(vae, gen) -> list[dict]:
+    """Phase 19 (b): the GroupNorm forward at every fp32 site shape of the
+    VAE's encode and decode at VAE_BATCH (found by one batch-1 pass of
+    each), the 2^31-byte (32, 256, 256, 256) site included: y, mean and
+    rstd against the plain version on the route the wrapper chooses (the
+    split route), three runs with equal bits, its kernels a call counted in
+    a CUDA graph of one call, timed by
+    CUDA-graph replay beside the plain version and ``F.group_norm``, with
+    its bound (one read of x and one write of y) and the split route's
+    floor (x read twice: 1.5 times the bytes). Returns one row a site
+    shape, with its sites an encode and a decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import group_norm as GN
+
+    count = vae_gn_site_counts(vae)
     rows = []
-    for (B, H, W, C), (enc, dec) in sorted(count.items()):
+    B = VAE_BATCH
+    for (H, W, C), (enc, dec) in sorted(count.items()):
         x = torch.randn(B, H, W, C, generator=gen, device="cuda") * 2 + 0.5
         scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
         bias = torch.randn(C, generator=gen, device="cuda") * 0.2
-        route = GN._fwd_route(H * W, C, 4, 32)
+        route = GN._fwd_route(H * W, C, 4, 32, B)
         tag = (f"group_norm B={B} H={H} W={W} C={C} fp32 ({route[0]}, "
-               f"cluster {route[1]}; {x.numel() * 4} bytes)")
+               f"{route[1]} blocks a sample; {x.numel() * 4} bytes)")
         got = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
         torch.cuda.synchronize()
         want = GN.group_norm_plain(x, scale, bias, 32, 1e-6, True)
@@ -3869,6 +4007,8 @@ def vae_gn_sites(vae, gen) -> list[dict]:
                 fail(f"{tag}: repeated runs differ in their bits")
             del again
         del got
+        per_call = kernels_a_call(
+            lambda: GN._group_norm_kernel(x, scale, bias, 32, 1e-6))
         x_nchw = x.permute(0, 3, 1, 2)
         ms, eager = time_ms(
             lambda: GN._group_norm_kernel(x, scale, bias, 32, 1e-6), 5)
@@ -3886,11 +4026,13 @@ def vae_gn_sites(vae, gen) -> list[dict]:
             "library_ms": lib_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "floor_ms": 1.5 * bytes_ms, "kernels_per_call": per_call,
             "max_abs_err": err})
         print(f"  group_norm_fwd {rows[-1]['shape']} x{enc} encode, x{dec} "
-              f"decode: kernel {ms:.4f} ms (eager {eager:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, F.group_norm {lib_ms:.4f} ms, bound "
-              f"{rows[-1]['bound_ms']:.4f} ms (bytes)", flush=True)
+              f"decode: kernel {ms:.4f} ms (eager {eager:.4f} ms; {per_call} "
+              f"kernels a call), plain {plain_ms:.4f} ms, F.group_norm "
+              f"{lib_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms (bytes; "
+              f"two-read floor {1.5 * bytes_ms:.4f} ms)", flush=True)
         del x, x_nchw
         torch.cuda.empty_cache()
     if sum(r["sites_encode"] for r in rows) != VAE_GN_ENCODE or \
@@ -3899,6 +4041,69 @@ def vae_gn_sites(vae, gen) -> list[dict]:
     if not any(r["shape"]["H"] * r["shape"]["W"] * r["shape"]["C"] * 4
                * VAE_BATCH == 2 ** 31 for r in rows):
         fail("no VAE GroupNorm site of 2^31 bytes was checked")
+    for key in ("ms", "library_ms", "bound_ms", "floor_ms"):
+        print(f"  over an encode and a decode, {key}: "
+              f"{sum(r[key] * (r['sites_encode'] + r['sites_decode']) for r in rows):.4f}",
+              flush=True)
+    return rows
+
+
+def sd_gn_sites(gen) -> list[dict]:
+    """Phase 19 (b), off the path: the GroupNorm forward at SD's bf16 UNet
+    sites that fit no cluster (SD_GN_SITES) at SD_GN_BATCH, on the split
+    route: y, mean and rstd against the plain version, three runs with equal
+    bits, timed by CUDA-graph replay beside ``F.group_norm`` (bf16 NCHW
+    view) and the bound. Returns one row a site."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import group_norm as GN
+
+    rows = []
+    B = SD_GN_BATCH
+    for H, W, C in SD_GN_SITES:
+        x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+        route = GN._fwd_route(H * W, C, 2, 32, B)
+        if route[0] != "split":
+            fail(f"SD's GroupNorm site {(H, W, C)} takes the {route[0]} route")
+        tag = (f"group_norm B={B} H={H} W={W} C={C} bf16 (split, "
+               f"{route[1]} blocks a sample)")
+        got = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+        torch.cuda.synchronize()
+        want = GN.group_norm_plain(x, scale, bias, 32, 1e-6, True)
+        err = compare(tag, got[0], want[0])
+        compare(f"{tag} mean", got[1], want[1], GN_FP32_ATOL, GN_FP32_RTOL)
+        compare(f"{tag} rstd", got[2], want[2], GN_RSTD_TOL, GN_RSTD_TOL)
+        for _ in range(RAGGED_REPEATS - 1):
+            again = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{tag}: repeated runs differ in their bits")
+        x_nchw = x.permute(0, 3, 1, 2)
+        s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        ms, eager = time_ms(
+            lambda: GN._group_norm_kernel(x, scale, bias, 32, 1e-6))
+        plain_ms = time_ms(
+            lambda: GN.group_norm_plain(x, scale, bias, 32, 1e-6))[0]
+        lib_ms = time_ms(lambda: F.group_norm(x_nchw, 32, s16, b16,
+                                              1e-6))[0]
+        bytes_ms = (2 * x.numel() * 2 + 2 * C * 4 + 2 * B * 32 * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        rows.append({"name": "group_norm_fwd", "shape": {
+            "B": B, "H": H, "W": W, "C": C, "G": 32}, "dtype": "bfloat16",
+            "route": route[0], "cluster": route[1], "ms": ms,
+            "eager_ms": eager, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bytes_ms, "bound_by": "bytes",
+            "floor_ms": 1.5 * bytes_ms, "max_abs_err": err})
+        print(f"  group_norm_fwd {rows[-1]['shape']} bf16, off the path: "
+              f"kernel {ms:.4f} ms (eager {eager:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, F.group_norm {lib_ms:.4f} ms, bound "
+              f"{bytes_ms:.4f} ms (bytes)", flush=True)
+        if not ms < lib_ms:
+            print(f"  (slower than F.group_norm at {rows[-1]['shape']})",
+                  flush=True)
     return rows
 
 
@@ -4145,6 +4350,7 @@ def vae_path(card: str, gen) -> dict:
     vae = init_vae(SEED, device=dev)
     out["parameters"] = sum(p.numel() for p in vae.parameters())
     out["gn_sites"] = vae_gn_sites(vae, gen)
+    out["sd_gn_sites"] = sd_gn_sites(gen)
     out["model"] = vae_model(vae, card, gen)
     work = tempfile.mkdtemp(prefix="uurg_vae_")
     try:
@@ -4160,6 +4366,51 @@ def vae_path(card: str, gen) -> dict:
                        "vae_decode": out["model"]["decode"]["launches"],
                        **out["entry_points"]["launches"]}
     return out
+
+
+def vae_kernel_rows(vae: dict, meta: dict) -> list[dict]:
+    """The ``kernels`` rows of the frozen VAE (phase 19): the float32
+    forward at width 512 a launch, GroupNorm summed over an encode and a
+    decode at VAE_BATCH; launches over phase 19's main-path runs.
+    ``meta``: each counter's source and the TPU kernel it replaces."""
+    rows = []
+    gn_rows = vae["gn_sites"]
+    for name, counter, rows_k, weights, per in (
+            ("attention_fwd_f32_vae", "attention_fwd_f32", [vae["xwide"]],
+             [1], f"one launch at {VAE_ATTN_SHAPE} fp32 (a VAE mid-block "
+             f"attention at batch {VAE_BATCH}, {VAE_RES} px; the xwide "
+             f"route; bound: three TF32 products, as the kernel does them, "
+             f"and ffma_bound_ms at the FFMA rate), device ms by CUDA-graph "
+             f"replay; library: fp32 SDPA, its fastest backend at this "
+             f"shape"),
+            ("group_norm_fwd_vae", "group_norm_fwd", gn_rows,
+             [r["sites_encode"] + r["sites_decode"] for r in gn_rows],
+             f"a VAE encode and decode at batch {VAE_BATCH}, {VAE_RES} px "
+             f"({VAE_GN_ENCODE} + {VAE_GN_DECODE} calls, fp32, on the split "
+             f"route; kernels_per_call counted in a CUDA graph of one call "
+             f"at each site shape): the sum over the sites of the "
+             f"device ms per call (CUDA-graph replay); library: "
+             f"F.group_norm")):
+        def total(k, rows_k=rows_k, weights=weights):
+            return sum(r[k] * w for r, w in zip(rows_k, weights))
+
+        paths = {p: got[counter] for p, got in vae["launches"].items()}
+        per_call = sorted({r["kernels_per_call"] for r in rows_k})
+        rows.append({
+            "name": name, "route": "cuda", "source": meta[counter]["source"],
+            "replaces": meta[counter]["replaces"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
+            **{k: total(k) for k in ("ms", "eager_ms", "plain_ms",
+                                     "library_ms")},
+            "bound_ms": max(total("bytes_ms"), total("ops_ms")),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"), "per": per,
+            "kernels_per_call": per_call[0] if len(per_call) == 1
+            else per_call})
+    rows[0]["library_backend"] = vae["xwide"]["library_backend"]
+    rows[0]["ffma_bound_ms"] = vae["xwide"]["ffma_bound_ms"]
+    return rows
 
 
 def main() -> int:
@@ -4284,7 +4535,7 @@ def main() -> int:
     ragged = check_ragged(gen)
 
     banner("GroupNorm forward off the main path (fp32, ragged slices, "
-          "sweep route, small batches)")
+          "split route, small batches)")
     gn_offpath = check_gn_offpath(gen)
 
     banner("GroupNorm backward off the main path (fp32, ragged slices, "
@@ -4416,35 +4667,7 @@ def main() -> int:
                    f"by CUDA-graph replay; library: bf16 SDPA on the "
                    f"same views",
         })
-    # the frozen VAE (phase 19): the float32 forward at width 512 a launch,
-    # GroupNorm summed over an encode and a decode at batch VAE_BATCH;
-    # launches over phase 19's main-path runs
-    gn_rows = vae["gn_sites"]
-    for name, counter, rows_k, weights, per in (
-            ("attention_fwd_f32_vae", "attention_fwd_f32", [vae["xwide"]],
-             [1], f"one launch at {VAE_ATTN_SHAPE} fp32 (a VAE mid-block "
-             f"attention at batch {VAE_BATCH}, {VAE_RES} px; the xwide "
-             f"route), device ms by CUDA-graph replay; library: fp32 SDPA"),
-            ("group_norm_fwd_vae", "group_norm_fwd", gn_rows,
-             [r["sites_encode"] + r["sites_decode"] for r in gn_rows],
-             f"a VAE encode and decode at batch {VAE_BATCH}, {VAE_RES} px "
-             f"({VAE_GN_ENCODE} + {VAE_GN_DECODE} launches, fp32): the sum "
-             f"over the sites of the device ms per launch (CUDA-graph "
-             f"replay); library: F.group_norm")):
-        def total(k, rows_k=rows_k, weights=weights):
-            return sum(r[k] * w for r, w in zip(rows_k, weights))
-
-        paths = {p: got[counter] for p, got in vae["launches"].items()}
-        kernels.append({
-            "name": name, "route": "cuda", "source": meta[counter]["source"],
-            "replaces": meta[counter]["replaces"],
-            "launches": sum(paths.values()), "launches_by_path": paths,
-            "max_abs_err": max(r["max_abs_err"] for r in rows_k),
-            **{k: total(k) for k in ("ms", "eager_ms", "plain_ms",
-                                     "library_ms")},
-            "bound_ms": max(total("bytes_ms"), total("ops_ms")),
-            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
-                         else "operations"), "per": per})
+    kernels += vae_kernel_rows(vae, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:

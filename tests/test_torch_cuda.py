@@ -62,8 +62,9 @@ def test_attention_kernel_matches_plain(gen, T, D):
 # (batch, H = W, C): sites of the UNet, narrow channels with halved groups,
 # then the shapes off the main path that chip_smoke.py holds too: H W not a
 # multiple of the cluster (slices of unequal length), a sample too large
-# for a cluster in fp32 (the sweep route), batch 1 and 2, and a single pixel.
-# Each runs on the wrapper's route, on sweep and at every cluster that fits
+# for a cluster in fp32 (the split route), batch 1 and 2, and a single pixel.
+# Each runs on the wrapper's route, on split (the wrapper's count of runs a
+# sample and one run) and at every cluster that fits
 GN_SHAPES = [(3, 32, 128), (3, 16, 384), (3, 4, 512), (3, 8, 24), (3, 4, 256),
              (3, 32, 384), (3, 5, 256), (3, 12, 384), (3, 32, 512),
              (1, 16, 256), (1, 1, 64), (3, 21, 384), (2, 29, 640)]
@@ -83,12 +84,13 @@ def test_group_norm_kernel_matches_plain(gen, dtype, B, H, C):
     want, mean_p, rstd_p = group_norm_plain(x, scale, bias, groups, 1e-6, True)
     tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
         dict(atol=1e-5, rtol=1e-5)
-    chosen = GN._fwd_route(H * H, C, x.element_size(), groups)
+    chosen = GN._fwd_route(H * H, C, x.element_size(), groups, B)
     fit = [("slab", s) for s in GN._CLUSTERS if s < H * H
            and C * x.element_size() % 16 == 0
            and GN._slab_smem(H * H, C, x.element_size(), groups, s)
            <= GN._SMEM_MAX]
-    for route in dict.fromkeys([chosen, ("sweep", 1)] + fit):
+    split = ("split", GN._split_count(B, H * H, C, x.element_size()))
+    for route in dict.fromkeys([chosen, split, ("split", 1)] + fit):
         out = GN._group_norm_kernel(x, scale, bias, groups, 1e-6, route=route)
         torch.cuda.synchronize()
         torch.testing.assert_close(out[0].float(), want.float(), **tol)
@@ -101,6 +103,38 @@ def test_group_norm_kernel_matches_plain(gen, dtype, B, H, C):
             again = GN._group_norm_kernel(x, scale, bias, groups, 1e-6,
                                           route=route)
             assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+# the split route where the wrapper takes it: the VAE's batch 32 (fp32,
+# 17 runs a sample), SD's bf16 sites at batch 1 and 4 (264 and 132 runs), a
+# one-pixel sample at batch 1, 4 and 32, and a sample of 225 pixels of 8 KB
+# cut into runs of one pixel
+SPLIT_SHAPES = [(32, 32, 32, 512, torch.float32), (4, 64, 64, 320, torch.bfloat16),
+                (1, 32, 32, 1280, torch.bfloat16), (4, 32, 32, 1920, torch.bfloat16),
+                (1, 1, 1, 64, torch.float32), (4, 1, 1, 512, torch.bfloat16),
+                (32, 1, 1, 512, torch.float32), (1, 15, 15, 4096, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,W,C,dtype", SPLIT_SHAPES)
+def test_group_norm_split_route_matches_plain(gen, B, H, W, C, dtype):
+    x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+    bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+    route = GN._fwd_route(H * W, C, x.element_size(), 32, B)
+    assert route[0] == "split"
+    before = group_norm.launches
+    got = group_norm(x, scale, bias, return_stats=True)
+    torch.cuda.synchronize()
+    assert group_norm.launches == before + 1          # one call, two kernels
+    want = group_norm_plain(x, scale, bias, 32, 1e-6, True)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
+        dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=1e-4)
+    for _ in range(2):                                 # no atomics: same bits
+        again = group_norm(x, scale, bias, return_stats=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _rel_l2(got, want):
@@ -449,8 +483,10 @@ def test_ragged_widths_take_the_true_width_route(gen, T, D):
 
 # the float32 forward at head widths above 256 (route xwide): the VAE's
 # width 512, one padded and one unpadded narrower width, T below a key
-# tile, ragged, and the VAE's T = 1024; fp32 in another order: 1e-5
-XWIDE_SHAPES = [(16, 512), (100, 512), (1024, 512), (100, 320), (65, 300)]
+# tile, ragged, the VAE's T = 1024 and SD's VAE's 4096 (512 px); fp32 in
+# another order: 1e-5
+XWIDE_SHAPES = [(16, 512), (100, 512), (1024, 512), (100, 320), (65, 300),
+                (4096, 512)]
 
 
 @pytest.mark.parametrize("T,D", XWIDE_SHAPES)
@@ -472,6 +508,29 @@ def test_attention_xwide_forward_matches_plain(gen, T, D):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         attention(*leaves).sum().backward()
+
+
+def test_attention_xwide_forward_takes_more_heads_than_a_grid_row(gen):
+    # B * H = 65538 heads, above the 65535 of grid dimension y that holds
+    # them: the launcher splits the heads over two launches, one call
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (torch.randn(2, 32769, 16, 320, generator=gen, device="cuda")
+               for _ in range(3))
+    assert FA._f32_plan(2, 32769, 16, 320).route == "xwide"
+    before = attention.launches_f32
+    got, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.launches_f32 == before + 1
+    want = attention_plain(q, k, v)
+    rel = ((got - want).double().norm() / want.double().norm()).item()
+    assert rel <= 1e-5, rel
+    tail = slice(65530, None)          # the heads of the second launch
+    got_t, want_t = (t.reshape(-1, 16, 320)[tail] for t in (got, want))
+    rel = ((got_t - want_t).double().norm() / want_t.double().norm()).item()
+    assert rel <= 1e-5, rel
+    s = torch.matmul(q, k.transpose(-1, -2)).reshape(-1, 16, 16) * 320 ** -0.5
+    torch.testing.assert_close(lse[tail], torch.logsumexp(s[tail], -1),
+                               atol=1e-4, rtol=0)
 
 
 def test_vae_on_the_card_matches_the_cpu_and_counts_its_launches(gen):

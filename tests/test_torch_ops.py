@@ -101,15 +101,16 @@ def test_fwd_route_main_path_shapes_take_the_slab_route(H, C, S):
 
 
 @pytest.mark.parametrize("hw,C,itemsize,want", [
-    (1024, 512, 4, ("sweep", 1)),   # 2 MB: 256 KB a slice of eight
-    (1, 64, 2, ("sweep", 1)),       # one pixel: nothing to hold
+    (1024, 512, 4, ("split", 256)),  # 2 MB: 256 KB a slice of eight; at
+                                     # batch 1, 256 runs of 8 KB
+    (1, 64, 2, ("split", 1)),       # one pixel: nothing to hold
     (1024, 384, 4, ("slab", 8)),    # 192 KB slices
     (25, 256, 2, ("slab", 1)),
     (441, 384, 2, ("slab", 2)),     # 220 and 221 pixels
     (729, 512, 2, ("slab", 4)),     # 182, 182, 182 and 183 pixels
     (841, 640, 2, ("slab", 8)),     # 105 and 106 pixels
     (64, 24, 4, ("slab", 1)),
-    (64, 12, 2, ("sweep", 1)),      # a pixel of 24 bytes: not whole chunks
+    (64, 12, 2, ("split", 1)),      # a pixel of 24 bytes: not whole chunks
 ])
 def test_fwd_route_off_the_main_path(hw, C, itemsize, want):
     route = GN._fwd_route(hw, C, itemsize)

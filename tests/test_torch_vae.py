@@ -252,6 +252,11 @@ def test_f32_plan_sends_widths_above_256_to_the_xwide_forward(D, Dp):
     assert "xwide" in FA._F32_ROUTES
 
 
+def test_f32_plan_takes_xwide_at_more_heads_than_a_grid_row():
+    # the launcher splits B * H above 65535 over launches: no limit here
+    assert FA._f32_plan(2, 32769, 16, 320) == ("xwide", None)
+
+
 def test_width_512_backward_and_bf16_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FA._f32_plan(32, 1, 1024, 512, backward=True)

@@ -8,11 +8,12 @@
 // in float32 throughout, which is what the ViT classifiers (fp32 by default)
 // give them. The bf16 designs of flash_attention_{fwd,bwd}.cu take bf16 only.
 //
-// Precision: true float32 FFMA on the CUDA cores. No TF32 and no tensor
-// cores: wgmma takes no float32 operands, and TF32 would leave ~1e-3 relative
-// error against a reference that is exact float32. Sums are taken in another
-// order than torch.matmul's, so results agree to float32 rounding, not bits;
-// no atomics, so a launch repeats its bits.
+// Precision: float32 throughout. The routes up to width 256 are FFMA on the
+// CUDA cores; the xwide route splits each operand into two TF32 halves and
+// runs three TF32 tensor-core products a float32 product (plain TF32 would
+// leave ~1e-3 relative error against a reference that is exact float32).
+// Sums are taken in another order than torch.matmul's, so results agree to
+// float32 rounding, not bits; no atomics, so a launch repeats its bits.
 //
 // Bound. At ViT-B/16's shape (T = 197, D = 64) operations: a head does
 // 4 T^2 D flops forward (10 T^2 D backward) on 16 T D bytes (28 T D), ~49
@@ -27,7 +28,8 @@
 //   under __syncthreads, dq recomputing S and dP in a third kernel). No ViT
 //   or Swin configuration of the repository has heads wider than 64.
 // - xwide (D = 320, 384, 448, 512; forward only): the VAE's one head of
-//   width 512, which no tile of the wide route fits (see its section).
+//   width 512, which no tile of the wide route fits; 3xTF32 on the tensor
+//   cores (see its section).
 //
 // What the first design lost at T = 197 and what the D = 64 routes do:
 // - Padding. 64-row tiles on both sides and a thread map that spread every
@@ -1218,68 +1220,165 @@ attn_bwd_dq_d64(const float* __restrict__ ds, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 //
 // The VAE's mid-block attention (uurg_torch/models/autoencoder_kl.py): one
-// head of width 512 at T = 1024 (256 px images) or 4096 (512 px). The wide
-// route's tiles (64 resident rows and two 32-key tiles, each D wide) would
-// take (64 + 2 * 32) * 516 * 4 = 264 KB of shared memory at D = 512, above
-// the 227 KB a block may have. Here a block of 256 threads owns 32 query rows
-// (resident, 66 KB at D = 512) and walks the keys in tiles of 64. Two kinds
-// of chunk stream through a two-buffer cp.async ring (33 KB a buffer, the
-// next chunk in flight while one is multiplied): K in 64-key x 64-column
-// chunks, whose partial scores are summed in registers over the D / 64
-// chunks before the online-softmax update, and V in 16-key x D chunks for
-// O += P V. The P tile (64 keys x 32 rows, transposed) is 9 KB; 142 KB in
-// all at D = 512, one block an SM. The 32 x D fp32 output stays in
-// registers: 8 rows x 8 columns a thread (columns 4 c and 256 + 4 c). The
-// T x T scores never leave the block.
+// head of width 512 at T = 1024 (256 px images) or 4096 (512 px). Both
+// products run on the tensor cores as three TF32 products a float32 product
+// (mma.sync.m16n8k8.tf32, "3xTF32"): x = hi + lo with hi = tf32(x) (cvt.rna)
+// and lo = x - hi, and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi with
+// fp32 accumulation. The dropped a_lo b_lo is ~2^-22 of a b, the TF32 part
+// of lo ~2^-21 of x. The tensor cores' own accumulation truncates, which
+// over D = 512 and T = 4096 keys biased the sums (relative L2 3.2e-5 at
+// T = 4096 on an H100, against 1.5e-6 for an FFMA design): so S is summed
+// by the tensor cores over a 64-column chunk only (24 steps) and the chunks
+// by rounding fp32 adds, and each 8-key step's three products of O are
+// formed in a fresh accumulator and added to O by rounding fp32 adds. The
+// result keeps float32's accuracy (the gate: relative L2 1e-5 against the
+// exact fp32 plain version), at a third of the TF32 rate: 2.5 times the
+// FFMA rate. The online softmax (m, l, the rescale of O) stays in fp32 on
+// the CUDA cores. The route's first design (FFMA, 32 rows a block of 8
+// warps, one block an SM, a K chunk serving 32 rows, two barriers a chunk)
+// took 1.8 times fp32 SDPA's time.
 //
-// Thread maps. Scores: warp w holds rows 8 (w / 2) .. + 7 and keys
-// 32 (w % 2) .. + 31 of the tile; lane (ry = lane / 8, kx = lane % 8) rows
-// ry + 4 i (i < 2) and keys kx + 8 j (j < 4); a row's max and sum are taken
-// over the 8 lanes by shuffles and over the two warps of a row through shared
-// memory. Output: thread t holds rows 8 (t / 64) .. + 7 and columns
-// 4 (t % 64) and 256 + 4 (t % 64) (the second only below D). Row strides
-// D + 4 (Q, V), 68 (K) and 36 (P) keep a warp's 16-byte loads on distinct
-// bank quads or broadcast.
+// A block of 256 threads (8 warps) owns 64 query rows, resident in shared
+// memory (128 KB at D = 512), and walks the keys in tiles of 128:
+//   - S = Q K^T over the tile: K streams in 128-key x 64-column chunks
+//     (32 KB) through a two-buffer cp.async ring; warp w holds the scores of
+//     rows 32 (w / 4) .. + 31 and keys 32 (w % 4) .. + 31 (2 x 4 m16n8
+//     accumulators), summed over the D / 64 chunks;
+//   - the online softmax in base 2: a row's max and sum are taken over a
+//     quad's lanes by shuffles and over the four warps of its rows through
+//     shared memory; P (64 x 128) and the rescale factors go to shared memory;
+//   - O += P V: V streams in 16-key x D chunks (32 KB) through the same ring;
+//     warp w holds O rows 32 (w / 4) .. + 31 and columns (w % 4) D / 4 ..
+//     + D / 4 - 1 (2 x D / 32 m16n8 accumulators, 128 registers a thread at
+//     D = 512).
+// One block barrier a chunk (and one more a tile for the row maxima): a
+// chunk's copy is issued right after the barrier that frees its buffer and
+// lands while the chunk before it is multiplied. Shared memory: Q, two
+// chunks, P and 640 floats, all 227 KB of a block at D = 512: one block an
+// SM. Eight warps of up to 255 registers hold these tiles without spilling
+// (16 warps of 128 spilled, and split each operand more often: a 32 x 32
+// score tile splits 2 values a product where 16 x 32 split 3); the tensor
+// cores' mma.sync TF32 rate (~313 TFLOP/s on the card, 63% of wgmma's) needs
+// only a few independent products in flight a scheduler, which the 8 and 32
+// accumulator tiles a warp give.
+//
+// Fragments. The sum over the inner index of an m16n8k8 product does not
+// depend on which index pairs with which, so a lane's logical k = t and
+// t + 4 (t = lane % 4) are the physical columns 2 t and 2 t + 1 of each
+// 8-wide step, for A and B alike: a lane's two A values of a row (and its two
+// B values of a key of K) are one 8-byte load, and the P tile written from
+// the score accumulators (columns 2 t, 2 t + 1) is read back the same way; V
+// gives the rows 2 t and 2 t + 1. Q, K and P are stored without padding
+// under an XOR swizzle of their 16-byte chunks (row r's chunk c at
+// c ^ 2 (r % 4)), V chunks with a row stride of D + 4: the fragment loads,
+// the P stores and the cp.async stores are free of bank conflicts, and the
+// addresses of the scores' and of V's fragments are linear in the loop
+// indices (an XOR per load cost registers that ptxas spilled).
 //
 // Bound: operations, 4 T^2 D flops a head on 16 T D bytes (256 flops a byte
-// at T = 1024), far above the card's 20 float32 flops a byte.
+// at T = 1024), far above the card's 20 float32 flops a byte. The table's
+// bound is the FFMA rate (67 TFLOP/s); this design's own floor is three TF32
+// products at 495 TFLOP/s.
 
 constexpr int kXThreads = 256;
-constexpr int kXRows = 32;               // query rows of a block
-constexpr int kXKeys = 64;               // keys of a tile
+constexpr int kXRows = 64;               // query rows of a block
+constexpr int kMaxGridY = 65535;         // heads a launch: grid y's limit
+constexpr int kXKeys = 128;              // keys of a tile
 constexpr int kXKc = 64;                 // columns of a K chunk
-constexpr int kXLdK = kXKc + 4;          // row stride of a K chunk
 constexpr int kXVKeys = 16;              // keys of a V chunk
 constexpr int kXVChunks = kXKeys / kXVKeys;
-constexpr int kXLdP = kXRows + 4;        // row stride of the P tile [key][row]
 
 template <int D>
 struct XShape {
   static_assert(D % 64 == 0 && D > 256 && D <= 512, "widths 320 to 512");
-  static constexpr int LD = D + 4;                     // Q and V chunk rows
+  static constexpr int LDV = D + 4;                    // row stride of a V chunk
   static constexpr int NK = D / kXKc;                  // K chunks a tile
   static constexpr int NS = NK + kXVChunks;            // chunks a tile
-  static constexpr int BUF = kXKeys * kXLdK > kXVKeys * LD ? kXKeys * kXLdK
-                                                           : kXVKeys * LD;
+  static constexpr int NJ = D / 32;                    // O n-blocks a warp
+  static constexpr int BUF = kXKeys * kXKc > kXVKeys * LDV ? kXKeys * kXKc
+                                                           : kXVKeys * LDV;
 };
 
+// Q, two ring buffers, P and the row vectors: 232,448 bytes at D = 512, all
+// of a block's shared memory
 template <int D>
 constexpr size_t xwide_smem() {
   using S = XShape<D>;
-  return sizeof(float) * (kXRows * S::LD + 2 * S::BUF + kXKeys * kXLdP +
-                          6 * kXRows);
+  return sizeof(float) *
+         (kXRows * D + 2 * S::BUF + kXRows * kXKeys + 10 * kXRows);
 }
 
-// chunk `st` of a head's key walk into `buf`: K columns 64 c .. + 63 of keys
-// k0 .. k0 + 63 for c < NK, else V rows of 16 keys; zeros past T
+// float index of (r, c) in a swizzled tile of rows of ld floats (Q, K, P):
+// row r's 16-byte chunk c / 4 at (c / 4) ^ 2 (r % 4)
+__device__ __forceinline__ int xsw(int r, int c, int ld) {
+  return r * ld + ((((c >> 2) ^ ((r & 3) << 1))) << 2) + (c & 3);
+}
+
+// x = hi + lo: hi = tf32(x) rounded to nearest, lo = x - hi exactly (an
+// fp32 value; the tensor core reads its TF32 part, the low 13 bits ignored,
+// as CUTLASS's fast 3xTF32 conversion relies on: ~2^-21 of x)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b (first) or c += a b, issued in program order: volatile, and a
+// memory clobber so that the loads around it stay where they are written
+__device__ __forceinline__ void mma_tf32_seq(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1, bool first) {
+  if (first) {
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+                 : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+                   "f"(0.f)
+                 : "memory");
+  } else {
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1)
+                 : "memory");
+  }
+}
+
+// an A fragment, split, from its two 8-byte halves: rows g and g + 8 at
+// logical columns t (.x) and t + 4 (.y)
+__device__ __forceinline__ void split_a(float2 x0, float2 x1, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_tf32(x0.x, hi[0], lo[0]);
+  split_tf32(x1.x, hi[1], lo[1]);
+  split_tf32(x0.y, hi[2], lo[2]);
+  split_tf32(x1.y, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// chunk c of the key tile at k0 of head blockIdx.y into `buf`: K columns
+// 64 c .. + 63 of keys k0 .. k0 + 127 for c < NK (swizzled), else V rows
+// k0 + 16 (c - NK) .. + 15 (stride D + 4); zeros past T. The head's offset
+// is recomputed here and no index is divided by a width that is not a power
+// of two: registers held across the key walk, or that index arithmetic
+// unrolled, cost spills
 template <int D>
 __device__ __forceinline__ void xwide_issue(float* buf,
                                             const float* __restrict__ k,
                                             const float* __restrict__ v,
-                                            int st, int T) {
+                                            int c, int k0, int T) {
   using S = XShape<D>;
-  const int c = st % S::NS;
-  const int k0 = (st / S::NS) * kXKeys;
+  const size_t head = static_cast<size_t>(blockIdx.y) * T * D;
+  k += head;
+  v += head;
   if (c < S::NK) {
     constexpr int V4 = kXKc / 4;
 #pragma unroll
@@ -1287,215 +1386,321 @@ __device__ __forceinline__ void xwide_issue(float* buf,
       const int i = threadIdx.x + n * kXThreads;
       const int r = i / V4, col = (i % V4) * 4;
       const bool ok = k0 + r < T;
-      cp_async16(buf + r * kXLdK + col,
+      cp_async16(buf + xsw(r, col, kXKc),
                  ok ? k + static_cast<long long>(k0 + r) * D + c * kXKc + col
                     : k,
                  ok);
     }
   } else {
+    // two rows at a time, a thread a 16-byte column chunk of each
     constexpr int V4 = D / 4;
     const int kv0 = k0 + (c - S::NK) * kXVKeys;
-    for (int i = threadIdx.x; i < kXVKeys * V4; i += kXThreads) {
-      const int r = i / V4, col = (i % V4) * 4;
-      const bool ok = kv0 + r < T;
-      cp_async16(buf + r * S::LD + col,
-                 ok ? v + static_cast<long long>(kv0 + r) * D + col : v, ok);
+    const int r0 = threadIdx.x / 128, col = (threadIdx.x % 128) * 4;
+    if (col < D) {
+#pragma unroll
+      for (int r = r0; r < kXVKeys; r += kXThreads / 128) {
+        const bool ok = kv0 + r < T;
+        cp_async16(buf + r * S::LDV + col,
+                   ok ? v + static_cast<long long>(kv0 + r) * D + col : v, ok);
+      }
     }
+    static_assert(V4 <= 128, "a V row in one pass of 128 threads");
   }
 }
 
-// grid: BH * n_tiles blocks; block b owns query rows 32 (b % n_tiles) ..
-// + 31 of head b / n_tiles
+// grid: (ceil(T / 64), BH) blocks; block (x, y) owns query rows 64 x ..
+// + 63 of head y
 template <int D>
 __global__ void __launch_bounds__(kXThreads, 1)
 attn_fwd_xwide(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int T, int n_tiles,
-               float scale_log2) {
+               float* __restrict__ lse, int T, float scale_log2) {
   using S = XShape<D>;
-  constexpr int LD = S::LD, NK = S::NK, NS = S::NS;
+  constexpr int NK = S::NK, NS = S::NS, LDV = S::LDV, NJ = S::NJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* ring = Qs + kXRows * LD;
-  float* Pt = ring + 2 * S::BUF;            // [key][row]
-  float* red_max = Pt + kXKeys * kXLdP;     // [key half][row]
-  float* red_sum = red_max + 2 * kXRows;
-  float* row_alpha = red_sum + 2 * kXRows;
+  float* ring = Qs + kXRows * D;
+  float* Ps = ring + 2 * S::BUF;            // [row][key]
+  float* red_max = Ps + kXRows * kXKeys;    // [key quarter][row]
+  float* red_sum = red_max + 4 * kXRows;    // [key quarter][row]
+  float* row_alpha = red_sum + 4 * kXRows;
   float* row_l = row_alpha + kXRows;
 
-  const int bh = blockIdx.x / n_tiles;
-  const int q0 = (blockIdx.x % n_tiles) * kXRows;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const float* kh = k + base;
-  const float* vh = v + base;
+  const int q0 = blockIdx.x * kXRows;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  // the score map
-  const int kx = lane % 8, wk = warp % 2;
-  const int srow = (warp / 2) * 8 + lane / 8;       // and srow + 4
-  const int skey = wk * 32 + kx;                    // and + 8, 16, 24
-  // the output map
-  const int orow = (tid / 64) * 8, ocol = 4 * (tid % 64);
-  const bool hi = ocol + 256 < D;                   // columns 256 + ocol ..
+  const int g = lane / 4, t = lane % 4;
+  // warp w's rows: 32 (w / 4) + 16 i + g (+ 8), i < 2, for the scores and
+  // for O; its keys: 32 (w % 4) + 8 j + 2 t (+ 1), j < 4; its O columns:
+  // (w % 4) D / 4 + 8 j + 2 t (+ 1), j < D / 32
+  const int kq = warp % 4;
+  const int row0 = (warp / 4) * 32 + g;
+  const int skey = kq * 32;
+  const int ocol = kq * (D / 4);
+  // the scores' fragments: a lane's rows of Q and of K (row0 + 8 h,
+  // skey + 8 j + g) are all g modulo 4, so one swizzled offset serves its
+  // A and B loads of a k-step: logical columns 8 p + 2 t, + 1 lie at
+  // 8 (p ^ (g % 4)) + 2 t, + 1
+  const int gq = g & 3;
+  const float* qa = Qs + row0 * D + 2 * t;
+  const int kb = (skey + g) * kXKc + 2 * t;
+  // this lane's scores in the P tile: row row0 + 16 i + 8 h, keys
+  // skey + 8 j + 2 t, + 1 at srun + (16 i + 8 h) kXKeys + 8 (j ^ (g % 4))
+  const int srun = row0 * kXKeys + skey + 2 * t;
 
   {
-    constexpr int V4 = D / 4;
-    for (int i = tid; i < kXRows * V4; i += kXThreads) {
-      const int r = i / V4, col = (i % V4) * 4;
-      const bool ok = q0 + r < T;
-      cp_async16(Qs + r * LD + col,
-                 ok ? q + base + static_cast<size_t>(q0 + r) * D + col : q,
-                 ok);
+    // two rows at a time, as xwide_issue copies V
+    const float* qh = q + static_cast<size_t>(blockIdx.y) * T * D;
+    const int col = (tid % 128) * 4;
+    if (col < D) {
+      for (int r = tid / 128; r < kXRows; r += kXThreads / 128) {
+        const bool ok = q0 + r < T;
+        cp_async16(Qs + xsw(r, col, D),
+                   ok ? qh + static_cast<size_t>(q0 + r) * D + col : q, ok);
+      }
     }
   }
-  xwide_issue<D>(ring, kh, vh, 0, T);
+  if (tid < kXRows) row_l[tid] = 0.f;
+  xwide_issue<D>(ring, k, v, 0, 0, T);
   cp_async_commit();
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float s[2][4];
-  float4 acc[8][2];
+  float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+  float oacc[2][NJ][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) acc[r][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[i][j][e] = 0.f;
 
-  const int n_stages = (T + kXKeys - 1) / kXKeys * NS;
-  for (int st = 0; st < n_stages; ++st) {
-    if (st + 1 < n_stages)
-      xwide_issue<D>(ring + ((st + 1) & 1) * S::BUF, kh, vh, st + 1, T);
-    cp_async_commit();
-    cp_async_wait<1>();                     // chunk st (and Q) has landed
+  const int n_ktiles = (T + kXKeys - 1) / kXKeys;
+  // the chunk in flight: chunk nc of the tile at nk0, in buffer nb
+  int nc = 0, nk0 = 0, nb = 0;
+  // wait for the chunk in flight (every thread's copies), then start the
+  // next one in the other buffer, which the chunk before held: the barrier
+  // says every warp is done with it. Returns the arrived chunk's buffer.
+  auto next_chunk = [&]() -> const float* {
+    cp_async_wait<0>();
     __syncthreads();
-    const float* B = ring + (st & 1) * S::BUF;
-    const int c = st % NS;
-    const int k0 = (st / NS) * kXKeys;
-    if (c < NK) {
-      if (c == 0) {
+    const float* buf = ring + nb * S::BUF;
+    nb ^= 1;
+    if (++nc == NS) {
+      nc = 0;
+      nk0 += kXKeys;
+    }
+    if (nk0 < T) {
+      xwide_issue<D>(ring + nb * S::BUF, k, v, nc, nk0, T);
+      cp_async_commit();
+    }
+    return buf;
+  };
+
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    const int k0 = kt * kXKeys;
+    // S = Q K^T over the tile. A chunk's products accumulate in the tensor
+    // cores (24 steps); the running sum over the chunks is kept in fp32 in
+    // the P tile's shared memory, each lane at the places of its own scores,
+    // so that it costs no registers (O holds 128)
+    float sacc[2][4][4];
+#pragma unroll 1
+    for (int c = 0; c < NK; ++c) {
+      const float* B = next_chunk() + kb;
+      const float* A = qa + c * kXKc;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[i][j][e] = 0.f;
+#pragma unroll 1
+      for (int p = 0; p < kXKc / 8; ++p) {
+        const int off = 8 * (p ^ gq);
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
+          split_a(ld2(A + 16 * i * D + off), ld2(A + (16 * i + 8) * D + off),
+                  ah[i], al[i]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      }
-      const float* Qc = Qs + c * kXKc;
-#pragma unroll 4
-      for (int d = 0; d < kXKc; d += 4) {
-        float4 a[2], b[4];
+        for (int j = 0; j < 4; ++j) {
+          const float2 b = ld2(B + 8 * j * kXKc + off);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b.x, bh0, bl0);
+          split_tf32(b.y, bh1, bl1);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = ld4(Qc + (srow + 4 * i) * LD + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ld4(B + (skey + 8 * j) * kXLdK + d);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
-      }
-      if (c == NK - 1) {
-        // the online softmax over this tile's 64 keys
-        float mx[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = k0 + skey + 8 * j < T ? s[i][j] * scale_log2 : -INFINITY;
-            mx[i] = fmaxf(mx[i], s[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            mma_tf32(sacc[i][j], al[i], bh0, bh1);
+            mma_tf32(sacc[i][j], ah[i], bl0, bl1);
+            mma_tf32(sacc[i][j], ah[i], bh0, bh1);
           }
-          mx[i] = oct_max(mx[i]);
-          if (kx == 0) red_max[wk * kXRows + srow + 4 * i] = mx[i];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = srow + 4 * i;
-          // key k0 < T lies in every tile, so m_new is finite
-          const float m_new =
-              fmaxf(m[i], fmaxf(red_max[r], red_max[kXRows + r]));
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float p = exp2f(s[i][j] - m_new);
-            sum += p;
-            Pt[(skey + 8 * j) * kXLdP + r] = p;
-          }
-          sum = oct_sum(sum);
-          if (kx == 0) red_sum[wk * kXRows + r] = sum;
-          const float alpha = exp2f(m[i] - m_new);
-          if (kx == 0 && wk == 0) row_alpha[r] = alpha;
-          l[i] *= alpha;
-          m[i] = m_new;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = srow + 4 * i;
-          l[i] += red_sum[r] + red_sum[kXRows + r];
         }
       }
-    } else {
-      if (c == NK) {
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float a = row_alpha[orow + r];
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            acc[r][h].x *= a;
-            acc[r][h].y *= a;
-            acc[r][h].z *= a;
-            acc[r][h].w *= a;
+            float2* run = reinterpret_cast<float2*>(
+                Ps + srun + (16 * i + 8 * h) * kXKeys + 8 * (j ^ gq));
+            if (c > 0) {
+              const float2 r = *run;
+              sacc[i][j][2 * h] += r.x;
+              sacc[i][j][2 * h + 1] += r.y;
+            }
+            if (c + 1 < NK) *run = make_float2(sacc[i][j][2 * h], sacc[i][j][2 * h + 1]);
           }
+    }
+    // the online softmax over this tile's keys; row r = row0 + 16 i + 8 h
+    // of the lane, its values sacc[i][j][2 h], [2 h + 1]
+    float mx[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[i][h] = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const int key = k0 + skey + 8 * j + 2 * t + (e & 1);
+            sacc[i][j][e] = key < T ? sacc[i][j][e] * scale_log2 : -INFINITY;
+            mx[i][h] = fmaxf(mx[i][h], sacc[i][j][e]);
+          }
+        mx[i][h] = fmaxf(mx[i][h], __shfl_xor_sync(kFull, mx[i][h], 1));
+        mx[i][h] = fmaxf(mx[i][h], __shfl_xor_sync(kFull, mx[i][h], 2));
+        if (t == 0) red_max[kq * kXRows + row0 + 16 * i + 8 * h] = mx[i][h];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + 8 * h;
+        // key k0 < T lies in every tile, so m_new is finite
+        const float m_new =
+            fmaxf(fmaxf(m[i][h], fmaxf(red_max[r], red_max[kXRows + r])),
+                  fmaxf(red_max[2 * kXRows + r], red_max[3 * kXRows + r]));
+        if (kq == 0 && t == 0) row_alpha[r] = exp2f(m[i][h] - m_new);
+        m[i][h] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p0 = exp2f(sacc[i][j][2 * h] - m_new);
+          const float p1 = exp2f(sacc[i][j][2 * h + 1] - m_new);
+          sum += p0 + p1;
+          *reinterpret_cast<float2*>(Ps + xsw(r, skey + 8 * j + 2 * t, kXKeys)) =
+              make_float2(p0, p1);
+        }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        if (t == 0) red_sum[kq * kXRows + r] = sum;
+      }
+
+    // O += P V over the tile, V chunk by chunk
+#pragma unroll 1
+    for (int vc = 0; vc < kXVChunks; ++vc) {
+      const float* B = next_chunk();
+      if (vc == 0) {
+        // the tile's P, row sums and rescale factors are visible now; row
+        // r's sum is kept by the thread that wrote its rescale factor
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = row0 + 16 * i + 8 * h;
+            const float a = row_alpha[r];
+            if (kq == 0 && t == 0)
+              row_l[r] = row_l[r] * a +
+                         ((red_sum[r] + red_sum[kXRows + r]) +
+                          (red_sum[2 * kXRows + r] + red_sum[3 * kXRows + r]));
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              oacc[i][j][2 * h] *= a;
+              oacc[i][j][2 * h + 1] *= a;
+            }
+          }
+      }
+#pragma unroll 1
+      for (int ks = 0; ks < kXVKeys / 8; ++ks) {
+        uint32_t ah[2][4], al[2][4];
+        const int key = vc * kXVKeys + 8 * ks + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + 16 * i;
+          split_a(ld2(Ps + xsw(r, key, kXKeys)),
+                  ld2(Ps + xsw(r + 8, key, kXKeys)), ah[i], al[i]);
+        }
+        // V rows 8 ks + 2 t and + 1 (logical k = t, t + 4), column
+        // ocol + 8 j + g; two n-blocks at a time, the next two loaded while
+        // these are multiplied. The products are issued in program order
+        // (mma_tf32_seq): left to itself ptxas interleaved all 32 of a
+        // k-step and spilled their accumulators.
+        const float* vb = B + (8 * ks + 2 * t) * LDV + ocol + g;
+        float x[2][2] = {{vb[0], vb[LDV]}, {vb[8], vb[LDV + 8]}};
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int w = 0; w < 2; ++w) split_tf32(x[u][w], bh[u][w], bl[u][w]);
+          if (j + 2 < NJ) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              x[u][0] = vb[8 * (j + 2 + u)];
+              x[u][1] = vb[LDV + 8 * (j + 2 + u)];
+            }
+          }
+          float c4[2][2][4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], al[i], bh[u][0], bh[u][1], true);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bl[u][0], bl[u][1], false);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bh[u][0], bh[u][1], false);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) oacc[i][j + u][e] += c4[u][i][e];
         }
       }
-      const float* P = Pt + (c - NK) * kXVKeys * kXLdP + orow;
-#pragma unroll 4
-      for (int b = 0; b < kXVKeys; ++b) {
-        const float4 w0 = ld4(P + b * kXLdP), w1 = ld4(P + b * kXLdP + 4);
-        const float* xr = B + b * LD + ocol;
-        const float4 x0 = ld4(xr);
-        const float4 x1 = hi ? ld4(xr + 256) : make_float4(0.f, 0.f, 0.f, 0.f);
-        fma4(acc[0][0], w0.x, x0);
-        fma4(acc[1][0], w0.y, x0);
-        fma4(acc[2][0], w0.z, x0);
-        fma4(acc[3][0], w0.w, x0);
-        fma4(acc[4][0], w1.x, x0);
-        fma4(acc[5][0], w1.y, x0);
-        fma4(acc[6][0], w1.z, x0);
-        fma4(acc[7][0], w1.w, x0);
-        fma4(acc[0][1], w0.x, x1);
-        fma4(acc[1][1], w0.y, x1);
-        fma4(acc[2][1], w0.z, x1);
-        fma4(acc[3][1], w0.w, x1);
-        fma4(acc[4][1], w1.x, x1);
-        fma4(acc[5][1], w1.y, x1);
-        fma4(acc[6][1], w1.z, x1);
-        fma4(acc[7][1], w1.w, x1);
-      }
     }
-    __syncthreads();                        // the buffer is refilled next
   }
 
-  if (kx == 0 && wk == 0) {
+  if (kq == 0 && t == 0 && lse != nullptr) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = srow + 4 * i;
-      row_l[r] = l[i];
-      if (lse != nullptr && q0 + r < T)
-        lse[static_cast<size_t>(bh) * T + q0 + r] = (m[i] + log2f(l[i])) * kLn2;
-    }
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + 8 * h;
+        if (q0 + r < T)
+          lse[static_cast<size_t>(blockIdx.y) * T + q0 + r] =
+              (m[i][h] + log2f(row_l[r])) * kLn2;
+      }
   }
   __syncthreads();
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = q0 + orow + r;
-    if (row >= T) continue;
-    const float inv = 1.f / row_l[orow + r];
-    float* dst = o + base + static_cast<size_t>(row) * D + ocol;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (h == 1 && !hi) continue;
-      const float4 x = acc[r][h];
-      *reinterpret_cast<float4*>(dst + 256 * h) =
-          make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
+      const int row = row0 + 16 * i + 8 * h;
+      if (q0 + row >= T) continue;
+      const float inv = 1.f / row_l[row];
+      float* dst = o + (static_cast<size_t>(blockIdx.y) * T + q0 + row) * D +
+                   ocol + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(oacc[i][j][2 * h] * inv, oacc[i][j][2 * h + 1] * inv);
+      }
     }
-  }
 }
 
 template <typename Kernel>
@@ -1528,10 +1733,17 @@ int launch_fwd_xwide(const float* q, const float* k, const float* v,
   constexpr size_t smem = xwide_smem<D>();
   cudaError_t err = allow_smem(attn_fwd_xwide<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (T + kXRows - 1) / kXRows;
-  attn_fwd_xwide<D><<<BH * n_tiles, kXThreads, smem, stream>>>(
-      q, k, v, o, lse, T, n_tiles, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  // heads on blockIdx.y, whose limit is 65535: more heads take more launches
+  for (int h0 = 0; h0 < BH; h0 += kMaxGridY) {
+    const size_t at = static_cast<size_t>(h0) * T;
+    const dim3 grid((T + kXRows - 1) / kXRows, min(BH - h0, kMaxGridY));
+    attn_fwd_xwide<D><<<grid, kXThreads, smem, stream>>>(
+        q + at * D, k + at * D, v + at * D, o + at * D,
+        lse ? lse + at : nullptr, T, scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 int launch_fwd_d64(const float* q, const float* k, const float* v, float* o,

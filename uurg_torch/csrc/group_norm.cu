@@ -32,9 +32,22 @@
 //      the same bits in every block and on every run; rank 0 writes them;
 //   4. y = x a + b from shared memory, 16 bytes a thread, straight to device
 //      memory. x came from device memory once.
-// Route "sweep" is for a sample too large for eight slices (32 x 32 x 512
-// fp32): one block a sample reads x twice from device memory, a statistics
-// sweep and a normalise sweep, with the same folds.
+// Route "split" is for a sample too large for eight slices (32 x 32 x 512
+// fp32 and up: the VAE's sites, SD's widest) and for a one-pixel sample. x is
+// read twice from device memory, but by enough blocks to fill the card at
+// any batch: a sample is cut into S runs of whole pixels, one a block
+// (grid B S), S chosen by ops/group_norm.py::_split_count from the batch
+// and the sample's bytes (B S near four blocks an SM). Two launches:
+//   1. statistics: each block sums its run (a thread's 16-byte column chunk
+//      down the run, the loop unrolled four times), folds as the slab route does and
+//      writes its 2 G group sums to an fp32 scratch part[B][S][2][G] that
+//      the wrapper allocates (no float atomics, no counters);
+//   2. normalise: every block folds its sample's S rows of part in one fixed
+//      order (fold_runs), so every block and every run derives the same mean
+//      and rstd bits; block 0 of the sample writes them; then y = x a + b
+//      over the run, walked from its end, so that the first reads are the
+//      tail that launch 1 read last and L2 may still hold.
+//   Its floor is two reads of x and one write of y: 1.5 times the bound.
 //
 // Backward (replaces _gn_bwd_kernel, launched by _bwd): the Pallas kernel's
 // analytic formula, with x_hat = (x - mean) * rstd from the saved fp32 mean
@@ -44,14 +57,13 @@
 // all fp32, dx in x's dtype. Bound: bytes (read x and g once, write dx once).
 // Scale is constant over a channel, so s1 and s2 are the scale-weighted group
 // sums of the per-channel sums of g and g * x_hat, which are also the
-// sample's dbias and dscale terms. The same two routes as the forward:
-// route "slab" holds a slice of x AND of g in each block of a cluster of S
+// sample's dbias and dscale terms. Two routes: route "slab", as the forward's, holds a slice of x AND of g in each block of a cluster of S
 // (twice the forward's bytes, so S doubles where the forward's slice was
 // the limit), brought in by the same bulk copies, one barrier for both
 // halves of a copy; the sums, the fold and the exchange of the 2 G group
 // sums are the forward's, and dx is written from shared memory, so x and g
-// come from device memory once. Route "sweep" (one block a sample) reads x
-// and g twice. The TPU kernel adds
+// come from device memory once. Route "sweep" (one block a sample, where
+// the forward has split) reads x and g twice. The TPU kernel adds
 // dscale and dbias across its sequential grid. Here, in the same launch, with
 // no float atomics and equal bits on every run: each sample's per-channel
 // sums go to an fp32 scratch row (a cluster's S blocks first hand each other
@@ -105,6 +117,8 @@ constexpr int kMaxThreads = 512;
 constexpr int kSlabThreads = 256;     // ops/group_norm.py mirrors it (_SLAB_THREADS)
 constexpr int kSlabChunks = 4;        // bulk copies (and barriers) a slice, at most
 constexpr int kSlabChunkBytes = 16384;  // ... each at least this long
+constexpr int kSplitThreads = 256;    // tests/test_torch_gn_split.py mirrors it
+constexpr int kSplitUnroll = 4;       // 16-byte loads in flight a thread, split normalise
 
 // ---- what the routes share: one source of the arithmetic ----
 
@@ -212,30 +226,43 @@ __device__ __forceinline__ void affine(float* a, float* b, const float* stat, in
   }
 }
 
-// ---- route "sweep": one block a sample, x read twice from device memory ----
-// grid: one block per sample; block: rows * (C / N) threads, where the
-// thread's chunk is tid % (C / N) and its first pixel is tid / (C / N).
+// ---- route "split": S blocks a sample, x read twice from device memory ----
+// grid: B * S blocks, block j of sample b (blockIdx.x = b S + j) takes the
+// pixels [run_begin(j), run_begin(j + 1)) (S runs of HW / S or HW / S + 1
+// whole pixels); block: rows * (C / N) threads,
+// where the thread's chunk is tid % (C / N) and its first pixel is
+// tid / (C / N) from the run's start.
+
+// the first pixel of run j: the first HW % S runs are one pixel longer
+// (32-bit arithmetic: a 64-bit division is a call, whose saved registers
+// ptxas reported as spills)
+__device__ __forceinline__ int run_begin(int j, int HW, int S) {
+  const int q = HW / S, r = HW - q * S;
+  return j * q + (j < r ? j : r);
+}
+
+// launch 1: this block's 2 G group sums of x and x^2 into part[blockIdx.x]
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_fwd_sweep_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                    const float* __restrict__ bias, T* __restrict__ y,
-                    float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                    int HW, int C, int G, float eps) {
+gn_fwd_split_stats(const T* __restrict__ x, float* __restrict__ part, int HW, int C,
+                   int G, int S) {
   constexpr int N = Chunk<T>::N;
   extern __shared__ float smem[];
   const int nchunk = C / N;
   const int rows = blockDim.x / nchunk;
   const int cc = threadIdx.x % nchunk;
   const int r0 = threadIdx.x / nchunk;
-  const size_t base = static_cast<size_t>(blockIdx.x) * HW * C + cc * N;
+  const int sample = blockIdx.x / S, run = blockIdx.x - sample * S;
+  const int p1 = run_begin(run + 1, HW, S);
+  const T* src = x + static_cast<size_t>(sample) * HW * C + cc * N;
 
   float s[N], q[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) { s[i] = 0.f; q[i] = 0.f; }
 #pragma unroll 4
-  for (int p = r0; p < HW; p += rows) {
+  for (int p = run_begin(run, HW, S) + r0; p < p1; p += rows) {
     float v[N];
-    Chunk<T>::load(x + base + static_cast<size_t>(p) * C, v);
+    Chunk<T>::load(src + static_cast<size_t>(p) * C, v);
 #pragma unroll
     for (int i = 0; i < N; ++i) { s[i] += v[i]; q[i] += v[i] * v[i]; }
   }
@@ -243,26 +270,89 @@ gn_fwd_sweep_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   float* red = smem;                   // [2][rows][C]
   float* ch = red + 2 * rows * C;      // [2][C]
   float* grp = ch + 2 * C;             // [2][G]
-  float* stat = grp + 2 * G;           // [2][G] mean, rstd
   store_partials<N>(red, rows, C, r0, cc, s, q);
   fold_partials(red, ch, grp, rows, C, G);
+  float* dst = part + static_cast<size_t>(blockIdx.x) * 2 * G;
+  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) dst[j] = grp[j];
+}
 
-  const int cg = C / G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    group_stats(grp[g], grp[G + g], static_cast<float>(HW) * cg, eps, &stat[g],
-                &stat[G + g]);
-    mean_out[blockIdx.x * G + g] = stat[g];
-    rstd_out[blockIdx.x * G + g] = stat[G + g];
+// out[j] = the sum over r < S of rows[r][j], j < n, in one fixed order: lane
+// u of a quad adds rows u, u + 4, ... in index order, then the quad adds its
+// four sums by shuffles ((a0 + a1) + (a2 + a3): the adds commute, so every
+// lane, block and run gets the same bits). Eight columns a warp at a time,
+// full warps only (a block of rows * (C / N) threads may end in a part of
+// one). The rows come from L2 (launch 1 wrote them).
+__device__ __forceinline__ void fold_runs(const float* rows, int S, int n, float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, u = lane % 4;
+  const int nwarps = blockDim.x / 32;
+  if (warp >= nwarps) return;
+  for (int j0 = warp * 8; j0 < n; j0 += nwarps * 8) {    // uniform in a warp
+    const int j = j0 + lane / 4;
+    float acc = 0.f;
+    if (j < n) {
+#pragma unroll 8
+      for (int r = u; r < S; r += 4) acc += rows[static_cast<size_t>(r) * n + j];
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (u == 0 && j < n) out[j] = acc;
   }
-  __syncthreads();
+}
+
+// launch 2: mean and rstd from the sample's S rows of part, then y over the run
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_fwd_split_norm(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, const float* __restrict__ part,
+                  T* __restrict__ y, float* __restrict__ mean_out,
+                  float* __restrict__ rstd_out, int HW, int C, int G, int S,
+                  float eps) {
+  constexpr int N = Chunk<T>::N;
+  extern __shared__ float smem[];
+  const int nchunk = C / N;
+  const int rows = blockDim.x / nchunk;
+  const int cc = threadIdx.x % nchunk;
+  const int r0 = threadIdx.x / nchunk;
+  const int cg = C / G;
+  const int sample = blockIdx.x / S, run = blockIdx.x - sample * S;
 
   float a[N], b[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) { a[i] = scale[cc * N + i]; b[i] = bias[cc * N + i]; }
+  float* sums = smem;                  // [2][G]
+  float* stat = sums + 2 * G;          // [2][G] mean, rstd
+  fold_runs(part + static_cast<size_t>(sample) * S * 2 * G, S, 2 * G, sums);
+  __syncthreads();
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    group_stats(sums[g], sums[G + g], static_cast<float>(HW) * cg, eps, &stat[g],
+                &stat[G + g]);
+    if (run == 0) {
+      mean_out[sample * G + g] = stat[g];
+      rstd_out[sample * G + g] = stat[G + g];
+    }
+  }
+  __syncthreads();
   affine<N>(a, b, stat, G, cg, cc);
-#pragma unroll 4
-  for (int p = r0; p < HW; p += rows) {
-    const size_t off = base + static_cast<size_t>(p) * C;
+
+  const int p0 = run_begin(run, HW, S) + r0;
+  const int p1 = run_begin(run + 1, HW, S);
+  if (p0 >= p1) return;
+  const size_t base = static_cast<size_t>(sample) * HW * C + cc * N;
+  int k = (p1 - 1 - p0) / rows;        // this thread's last pixel: p0 + k rows
+  for (; k >= kSplitUnroll - 1; k -= kSplitUnroll) {
+    float v[kSplitUnroll][N];
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u)
+      Chunk<T>::load(x + base + static_cast<size_t>(p0 + (k - u) * rows) * C, v[u]);
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[u][i] = v[u][i] * a[i] + b[i];
+      Chunk<T>::store(y + base + static_cast<size_t>(p0 + (k - u) * rows) * C, v[u]);
+    }
+  }
+  for (; k >= 0; --k) {
+    const size_t off = base + static_cast<size_t>(p0 + k * rows) * C;
     float v[N];
     Chunk<T>::load(x + off, v);
 #pragma unroll
@@ -380,22 +470,29 @@ inline size_t stats_floats(int rows, int C, int G) {
 }
 
 template <typename T>
-int launch_sweep(const void* x, const void* scale, const void* bias, void* y,
-                 void* mean, void* rstd, int B, int HW, int C, int G, float eps,
-                 cudaStream_t stream) {
+int launch_split(const void* x, const void* scale, const void* bias, void* y,
+                 void* mean, void* rstd, void* part, int B, int HW, int C, int G,
+                 float eps, int S, cudaStream_t stream) {
+  if (S < 1 || S > HW || part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int nchunk = C / Chunk<T>::N;
-  int rows = kMaxThreads / nchunk;
+  int rows = kSplitThreads / nchunk;
   if (rows < 1) rows = 1;
   const int threads = rows * nchunk;
-  const size_t smem = stats_floats(rows, C, G) * sizeof(float);
+  const unsigned blocks = static_cast<unsigned>(B) * S;
+  const size_t smem = (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gn_fwd_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gn_fwd_split_stats<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gn_fwd_sweep_kernel<T><<<B, threads, smem, stream>>>(
+  float* pf = static_cast<float*>(part);
+  gn_fwd_split_stats<T><<<blocks, threads, smem, stream>>>(static_cast<const T*>(x), pf,
+                                                           HW, C, G, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_fwd_split_norm<T><<<blocks, threads, 4 * G * sizeof(float), stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), HW, C, G, eps);
+      static_cast<const float*>(bias), pf, static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), HW, C, G, S, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -440,10 +537,11 @@ int launch_slab(const void* x, const void* scale, const void* bias, void* y,
 
 template <typename T>
 int launch(const void* x, const void* scale, const void* bias, void* y,
-           void* mean, void* rstd, int B, int HW, int C, int G, float eps,
+           void* mean, void* rstd, void* part, int B, int HW, int C, int G, float eps,
            int route, int cluster, cudaStream_t stream) {
   if (route == 0)
-    return launch_sweep<T>(x, scale, bias, y, mean, rstd, B, HW, C, G, eps, stream);
+    return launch_split<T>(x, scale, bias, y, mean, rstd, part, B, HW, C, G, eps,
+                           cluster, stream);
   if (route == 1)
     return launch_slab<T>(x, scale, bias, y, mean, rstd, B, HW, C, G, eps, cluster,
                           stream);
@@ -596,7 +694,9 @@ __device__ __forceinline__ void dx_terms(float* sc, float* s1, float* s2,
 __device__ __forceinline__ float* part_rows(float* work, int C) { return work + 2 * C; }
 
 // ---- backward route "sweep": one block a sample, x and g read twice ----
-// grid: one block per sample; block as the forward's sweep route.
+// grid: one block per sample; block: rows * (C / N) threads with rows =
+// kMaxThreads / (C / N), the thread's chunk tid % (C / N) and its first
+// pixel tid / (C / N).
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_bwd_sweep_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -841,24 +941,27 @@ int launch_bwd(const void* x, const void* g, const void* scale, const void* mean
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. route: 0 = sweep, 1 = slab with clusters
-// of `cluster` blocks (1, 2, 4 or 8, at most HW); the caller chooses the route
-// by shape so that a slab's slice and scratch fit a block's shared memory. The
-// caller guarantees contiguous NHWC x, 16-byte aligned pointers, C % G == 0,
+// dtype: 0 = bfloat16, 1 = float32. route: 0 = split, two launches on
+// B * cluster blocks (cluster = S runs a sample, 1 <= S <= HW; part: fp32
+// scratch of B * S * 2 * G floats that the caller allocates and no other
+// launch in flight shares), 1 = slab with clusters of `cluster` blocks (1, 2,
+// 4 or 8, at most HW; part unused); the caller chooses the route by shape so
+// that a slab's slice and scratch fit a block's shared memory. The caller
+// guarantees contiguous NHWC x, 16-byte aligned pointers, C % G == 0,
 // C % (16 / sizeof(x)) == 0 and C / (16 / sizeof(x)) <= 512. Returns the
 // launch's CUDA error code (0 = launched); nothing falls back.
 extern "C" int uurg_group_norm_fwd(const void* x, const void* scale,
                                    const void* bias, void* y, void* mean,
-                                   void* rstd, int B, int HW, int C, int G,
-                                   float eps, int dtype, int route, int cluster,
-                                   void* stream) {
+                                   void* rstd, void* part, int B, int HW, int C,
+                                   int G, float eps, int dtype, int route,
+                                   int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(x, scale, bias, y, mean, rstd, B, HW, C, G, eps,
-                                 route, cluster, s);
+    return launch<__nv_bfloat16>(x, scale, bias, y, mean, rstd, part, B, HW, C, G,
+                                 eps, route, cluster, s);
   if (dtype == 1)
-    return launch<float>(x, scale, bias, y, mean, rstd, B, HW, C, G, eps, route,
-                         cluster, s);
+    return launch<float>(x, scale, bias, y, mean, rstd, part, B, HW, C, G, eps,
+                         route, cluster, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,15 +18,16 @@ The bfloat16 kernels are Hopper designs (``sm_90a``): persistent
 warp-specialised blocks, tiles loaded by TMA through tensor maps that the C
 launchers encode at every call, every product a ``wgmma``; see the notes at
 the head of the two sources and ``uurg_torch/csrc/hopper_mma.cuh``. The
-float32 kernels are FFMA on the CUDA cores (``wgmma`` takes no float32
-operands and TF32 would cost ~1e-3 of precision), on one of four routes
-that :func:`_f32_plan` picks from the shape: ``tiled`` (head width 64:
-warps own 16 whole rows, the streamed operand in a cp.async ring, five
-products backward with dS^T through fp32 scratch for dq), ``packed``
-(width 64 and T <= 16: several heads share a warp's rows), ``wide``
-(padded widths 128-256: the first register-tiled design) and ``xwide``
-(padded widths 320-512, the forward only: the VAE's one head of width 512;
-32 resident query rows, K and V streamed in chunks). A launcher
+float32 kernels keep float32 precision (plain TF32 would cost ~1e-3) on one
+of four routes that :func:`_f32_plan` picks from the shape, the first three
+FFMA on the CUDA cores: ``tiled`` (head width 64: warps own 16 whole rows,
+the streamed operand in a cp.async ring, five products backward with dS^T
+through fp32 scratch for dq), ``packed`` (width 64 and T <= 16: several
+heads share a warp's rows), ``wide`` (padded widths 128-256: the first
+register-tiled design) and ``xwide`` (padded widths 320-512, the forward
+only: the VAE's one head of width 512; 64 resident query rows, K and V
+streamed in chunks, both products on the tensor cores as three TF32
+products of split operands, "3xTF32"). A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for

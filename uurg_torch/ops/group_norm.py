@@ -11,16 +11,20 @@ never falls back from one to the other. Both compute ``_gn_reference``:
 The forward kernel has two routes, chosen here by shape alone
 (:func:`_fwd_route`), never by a failed launch: ``slab`` holds a sample in
 the shared memory of a cluster of 1, 2, 4 or 8 thread blocks and reads x
-from device memory once; ``sweep`` (a sample too large for that) reads it
-twice.
+from device memory once; ``split`` (a sample too large for that, or a
+single pixel) cuts each sample into S runs of pixels, one a block, with S
+from the batch and the sample's bytes (:func:`_split_count`), and reads x
+twice in two launches: partial sums into an fp32 scratch that the wrapper
+allocates, then the statistics and y.
 
 When a gradient is wanted the op goes through one
 ``torch.autograd.Function``. It saves x, scale and the forward's (B, G)
 mean and rstd, and its backward is :func:`group_norm_bwd`: the backward
 kernel of the same source (which replaces the Pallas ``_gn_bwd_kernel``)
 for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor. The
-backward has the same two routes (:func:`_bwd_route`; a slab holds x and g,
-so twice the forward's bytes) and folds dscale and dbias over the batch in
+backward has two routes (:func:`_bwd_route`): ``slab`` (which holds x and g,
+so twice the forward's bytes) and ``sweep`` (one block a sample, x and g
+read twice), and folds dscale and dbias over the batch in
 the same launch: one launch a call.
 """
 from __future__ import annotations
@@ -35,10 +39,18 @@ from uurg_torch.ops import _build
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _CHUNK_BYTES = 16
 _MAX_CHUNKS = 512   # C / (16 / itemsize): one thread per 16-byte column chunk
-_ROUTE_CODE = {"sweep": 0, "slab": 1}
+# route codes of the C launchers: the forward's split and the backward's
+# sweep share code 0
+_ROUTE_CODE = {"split": 0, "sweep": 0, "slab": 1}
 _CLUSTERS = (1, 2, 4, 8)     # 8: the largest cluster every launch may ask for
 _SMEM_MAX = 226 * 1024       # a block's 227 KB on sm_90 less the kernel's static part
 _SLAB_THREADS = 256          # kSlabThreads of csrc/group_norm.cu
+_SMS = 132                   # an H100's SMs
+# the split route's runs a sample: B S near four blocks an SM, at most two
+# an SM's worth a sample (every block of the normalise launch folds its
+# sample's S rows), at least _SPLIT_MIN_BYTES of the sample a run (two
+# 16-byte loads a thread) and at least a pixel
+_SPLIT_BLOCKS, _SPLIT_MAX, _SPLIT_MIN_BYTES = 4 * _SMS, 2 * _SMS, 8192
 # the backward's batch fold: groups of at least _FOLD_ROWS samples, at most
 # _FOLD_GROUPS groups, so 1 + _FOLD_GROUPS arrival counters serve any batch
 _FOLD_ROWS, _FOLD_GROUPS = 16, 64
@@ -152,31 +164,54 @@ def _bwd_slab_smem(hw: int, c: int, itemsize: int, groups: int, s: int) -> int:
     return 2 * -(-hw // s) * c * itemsize + 4 * floats
 
 
-def _route(smem, hw: int, c: int, itemsize: int, groups: int):
-    """``("slab", S)`` with the smallest cluster S whose block (a slice of
-    ``ceil(hw / S)`` whole pixels and the scratch, ``smem`` bytes) fits
-    shared memory, else ``("sweep", 1)``. A cluster never has as many
-    blocks as the sample has pixels (a one-pixel sample has nothing to
-    hold), and a pixel must be whole 16-byte chunks for the bulk copy."""
+def _slab_cluster(smem, hw: int, c: int, itemsize: int, groups: int):
+    """The smallest cluster S whose slab block (a slice of ``ceil(hw / S)``
+    whole pixels and the scratch, ``smem`` bytes) fits shared memory, else
+    None. A cluster never has as many blocks as the sample has pixels (a
+    one-pixel sample has nothing to hold), and a pixel must be whole 16-byte
+    chunks for the bulk copy."""
     if c * itemsize % _CHUNK_BYTES == 0:
         for s in _CLUSTERS:
             if s < hw and smem(hw, c, itemsize, groups, s) <= _SMEM_MAX:
-                return "slab", s
-    return "sweep", 1
+                return s
+    return None
+
+
+def _split_count(batch: int, hw: int, c: int, itemsize: int) -> int:
+    """Runs a sample (S) of the forward's split route: ``_SPLIT_BLOCKS``
+    blocks in all, at most ``_SPLIT_MAX`` a sample, at most one a
+    ``_SPLIT_MIN_BYTES`` of the sample and one a pixel; at least 1. A pure
+    function of the shape, so a shape's bits repeat from run to run."""
+    want = -(-_SPLIT_BLOCKS // batch)
+    return max(1, min(want, _SPLIT_MAX, hw,
+                      hw * c * itemsize // _SPLIT_MIN_BYTES))
+
+
+def _split_scratch(batch: int, s: int, groups: int) -> int:
+    """fp32 floats of the split route's partial sums, part[B][S][2][G]."""
+    return batch * s * 2 * groups
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
-    """(route, cluster) of the forward kernel for a sample of ``hw`` pixels
-    of ``c`` channels (:func:`_route`)."""
-    return _route(_slab_smem, hw, c, itemsize, groups)
+def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32,
+               batch: int = 1):
+    """(route, blocks a sample) of the forward kernel for ``batch`` samples
+    of ``hw`` pixels of ``c`` channels: ``("slab", S)`` with the smallest
+    cluster that fits (:func:`_slab_cluster`, whatever the batch), else
+    ``("split", S)`` with S runs a sample (:func:`_split_count`)."""
+    s = _slab_cluster(_slab_smem, hw, c, itemsize, groups)
+    if s is not None:
+        return "slab", s
+    return "split", _split_count(batch, hw, c, itemsize)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
-    """(route, cluster) of the backward kernel: the slab holds x and g, so
-    S is the forward's doubled where the forward's slice was the limit."""
-    return _route(_bwd_slab_smem, hw, c, itemsize, groups)
+    """(route, cluster) of the backward kernel: ``("slab", S)`` as the
+    forward's, but the slab holds x and g, so S is the forward's doubled
+    where the forward's slice was the limit; else ``("sweep", 1)``."""
+    s = _slab_cluster(_bwd_slab_smem, hw, c, itemsize, groups)
+    return ("slab", s) if s is not None else ("sweep", 1)
 
 
 def _fold_rows(b: int) -> int:
@@ -195,33 +230,41 @@ def _load(symbol: str, n_ptr: int, ints: tuple):
 
 
 _I, _F = ctypes.c_int, ctypes.c_float
-_FWD_INTS = (_I,) * 4 + (_F,) + (_I,) * 3   # B, HW, C, G, eps, dtype, route, cluster
+_FWD_INTS = (_I,) * 4 + (_F,) + (_I,) * 3   # B, HW, C, G, eps, dtype, route, S
 _BWD_INTS = (_I,) * 8   # B, HW, C, G, fold, dtype, route, cluster
 _fold_counters: dict = {}
 
 
 def _group_norm_kernel(x, scale, bias, groups, eps, route=None):
     """Launch the forward kernel: (y, mean, rstd). ``route`` overrides
-    :func:`_fwd_route` (to time one route beside the other)."""
+    :func:`_fwd_route` (to time one route beside the other). One fp32
+    allocation holds mean, rstd (returned as views of it) and, on the split
+    route, its partial sums: every call has its own, so calls captured in
+    one CUDA graph share no scratch."""
     _check_kernel(x)
     b, h, w, c = x.shape
-    name, cluster = route or _fwd_route(h * w, c, x.element_size(), groups)
+    name, cluster = route or _fwd_route(h * w, c, x.element_size(), groups,
+                                        b)
     y = torch.empty_like(x)
-    stats = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
+    stats = 2 * b * groups
+    work = torch.empty(stats + (_split_scratch(b, cluster, groups)
+                                if name == "split" else 0),
+                       dtype=torch.float32, device=x.device)
     if not scale.is_contiguous():
         scale = scale.contiguous()
     if not bias.is_contiguous():
         bias = bias.contiguous()
-    err = _load("uurg_group_norm_fwd", 6, _FWD_INTS)(
+    err = _load("uurg_group_norm_fwd", 7, _FWD_INTS)(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), stats.data_ptr() + 4 * b * groups, b, h * w, c,
-        groups, eps, _DTYPE_CODE[x.dtype], _ROUTE_CODE[name], cluster,
+        work.data_ptr(), work.data_ptr() + 4 * b * groups,
+        work.data_ptr() + 4 * stats, b, h * w, c, groups, eps,
+        _DTYPE_CODE[x.dtype], _ROUTE_CODE[name], cluster,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"GroupNorm kernel launch failed ({name} route, "
-                           f"cluster {cluster}): CUDA error {err}")
+                           f"{cluster} blocks a sample): CUDA error {err}")
     group_norm.launches += 1
-    mean, rstd = stats.unbind(0)
+    mean, rstd = work[:stats].view(2, b, groups).unbind(0)
     return y, mean, rstd
 
 
@@ -316,7 +359,9 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     ``return_stats``. The group count is halved until it divides C, as the
     JAX dispatcher does for narrow test configs. Differentiable in x, scale
     and bias when grad mode is on and one of them requires grad; otherwise
-    (sampling, ``torch.inference_mode``) one forward launch."""
+    (sampling, ``torch.inference_mode``) one call of the forward kernel
+    (two launches on the split route; ``group_norm.launches`` counts
+    calls)."""
     c = x.shape[-1]
     while c % groups != 0:
         groups //= 2

@@ -215,6 +215,28 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    from phase 18's perturbed DiT-XL/2, then ``python -m
    uurg_torch.cli.dit_sample --mode fid_npz`` (64 labels, 32 a batch, 4
    respaced steps): 64 uint8 256 px images, not constant.
+20. Stable Diffusion (the CompVis v1 UNet, 859,520,964 parameters, bf16,
+   remat on; CLIP ViT-L/14's text tower, fp32; phase 19's VAE at 512 px;
+   seeded init). (a) The bf16 attention kernels at the UNet's three
+   self-attention shapes, (4, 8, T, D) at (4096, 40), (1024, 80) and (256,
+   160), on CrossAttention's layout (views of the q, k, v projections):
+   forward with and without its log-sum-exp, the log-sum-exp, backward,
+   against the plain versions, three runs with equal bits, the same bits
+   on contiguous copies, timed beside bf16 SDPA and the bound; GroupNorm
+   forward and backward at the UNet's 14 bf16 site shapes at batch 4 (the
+   route of each printed), as phase 3 and 6 time them, three runs with
+   equal bits, and the backward's ``sweep`` sites summed on a line of
+   their own beside ``F.group_norm``'s backward and the bound. (b) The
+   whole UNet at batch 4 (64 x 64 x 4 latents, a 77 x 768 context),
+   kernels against its plain path: the forward and the eps loss's
+   gradients under full and ``"dots"`` remat, exact launch counts, peak
+   memory. (c) One Fisher batch on the host clock and its device time by
+   kernel family; ``sd_generate_fisher`` in this process on two seeded PNG
+   folders of 8 images at 512 px, 2 of its 50 batches a folder, threshold
+   0.5: exact launch counts, its three files, the Fishers finite,
+   non-negative and not all zero, the mask's sparsity. (d) ``make_sampler``
+   with ddim, plms and lms at 4 of 50 steps on 4 prompts (CFG batch 8),
+   decoded by the VAE: exact launch counts, finite images, images/s.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -511,6 +533,38 @@ VAE_REL = 1e-4
 VAE_PNG_CLASSES, VAE_PNG_EACH = 4, 16
 VAE_FORGET_BATCH = 16
 VAE_FID_SAMPLES, VAE_SAMPLE_STEPS = 64, 4
+# Stable Diffusion (phase 20): the CompVis v1 UNet
+# (configs/stable-diffusion/v1-inference.yaml: ch 320, mult 1-2-4-4, 2 res
+# blocks, attention at ds 1, 2 and 4, 8 heads, context 768; 859,520,964
+# parameters) in bf16 with remat on, at 512 px (64 x 64 x 4 latents), seeded
+# init; CLIP ViT-L/14's text tower (123,060,480 parameters, fp32) on the
+# tokenizer tier the machine has (the crc32 stand-in without vocab files);
+# phase 19's VAE at 512 px. A forward runs the attention kernels at its 15
+# self-attention sites of T % 128 == 0 (T = 4096, 1024, 256 at D = 40, 80,
+# 160) and GroupNorm at 61 sites. SD_BATCH is generate_fisher's and
+# nsfw_removal's batch; the Fisher CLI cut from 50 batches to
+# SD_FISHER_BATCHES over SD_PNG_EACH seeded PNGs a folder; the samplers cut
+# from 50 steps to SD_SAMPLE_STEPS on SD_PROMPTS prompts (CFG batch 8)
+SD_BATCH, SD_LATENT, SD_HEADS, SD_CONTEXT = 4, 64, 8, (77, 768)
+SD_RES = 8 * SD_LATENT
+SD_ATTN_SITES, SD_UNET_GN_SITES = 15, 61
+SD_PNG_EACH, SD_FISHER_BATCHES, SD_THRESHOLD = 8, 2, 0.5
+SD_GUIDANCE, SD_FISHER_GUIDANCE = 7.5, 3.0
+SD_SAMPLE_STEPS, SD_PROMPTS = 4, 4
+# UNet forwards a sampler makes at SD_SAMPLE_STEPS (PLMS: one more, its
+# warm-up's second call)
+SD_SAMPLER_FORWARDS = {"ddim": SD_SAMPLE_STEPS, "plms": SD_SAMPLE_STEPS + 1,
+                       "lms": SD_SAMPLE_STEPS}
+# device time of a Fisher batch by kernel family: the first match wins, on
+# the lower-cased kernel name
+SD_FAMILIES = (
+    ("attention", ("attn_",)),
+    ("GroupNorm", ("gn_",)),
+    ("GEMM / conv", ("gemm", "cutlass", "cudnn", "xmma", "sm90_", "nvjet",
+                     "conv", "fprop", "dgrad", "wgrad", "implicit")),
+    ("casts", ("copy", "cast")),
+    ("elementwise", ("",)),
+)
 
 
 def banner(msg: str) -> None:
@@ -740,20 +794,23 @@ def summarise(rows: list[dict], launches: dict, meta: dict) -> list[dict]:
 def plain_layers():
     """Route the models' attention and GroupNorm through their plain
     versions for the duration (the whole-model checks' reference): the
-    UNet's layers and the transformers' ``uurg_torch.models.dit``, each of
-    which imports ``attention`` by name."""
-    from uurg_torch.models import dit, layers
+    UNet's layers, the transformers' ``uurg_torch.models.dit`` and SD's
+    ``uurg_torch.models.sd_unet``, each of which imports ``attention`` by
+    name."""
+    from uurg_torch.models import dit, layers, sd_unet
     from uurg_torch.ops.flash_attention import attention_plain
     from uurg_torch.ops.group_norm import group_norm_plain
 
-    kernels = (layers.attention, layers.group_norm, dit.attention)
-    layers.attention = dit.attention = attention_plain
+    kernels = (layers.attention, layers.group_norm, dit.attention,
+               sd_unet.attention)
+    layers.attention = dit.attention = sd_unet.attention = attention_plain
     layers.group_norm = (lambda x, s, b, *, groups, eps:
                          group_norm_plain(x, s, b, groups, eps))
     try:
         yield
     finally:
-        layers.attention, layers.group_norm, dit.attention = kernels
+        (layers.attention, layers.group_norm, dit.attention,
+         sd_unet.attention) = kernels
 
 
 def model_check(model, gen) -> float:
@@ -4413,6 +4470,576 @@ def vae_kernel_rows(vae: dict, meta: dict) -> list[dict]:
     return rows
 
 
+def sd_sites(model) -> tuple[list, list]:
+    """(attention calls, GroupNorm calls) of one SD UNet forward at batch
+    1: each attention dispatcher call's (T, D) and each GroupNorm32 site's
+    (C, H, W), groups, read by hooks."""
+    import torch
+
+    from uurg_torch.models import layers
+    from uurg_torch.models import sd_unet as TU
+
+    attn, gn, hooks = [], [], []
+    for m in model.modules():
+        if isinstance(m, layers.GroupNorm32):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: gn.append(
+                    ("gn", tuple(args[0].shape[1:]), mod.num_groups))))
+    kernel = TU.attention
+
+    def counted(q, k, v):
+        attn.append(tuple(q.shape[2:]))
+        return kernel(q, k, v)
+
+    TU.attention = counted
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, SD_LATENT, SD_LATENT, 4, device="cuda"),
+                  torch.tensor([500], device="cuda"),
+                  torch.zeros(1, *SD_CONTEXT, device="cuda"))
+    finally:
+        TU.attention = kernel
+        for h in hooks:
+            h.remove()
+    if len(attn) != SD_ATTN_SITES or len(gn) != SD_UNET_GN_SITES:
+        fail(f"the SD UNet made {len(attn)} attention and {len(gn)} GroupNorm "
+             f"calls a forward, not {SD_ATTN_SITES} and {SD_UNET_GN_SITES}")
+    return attn, gn
+
+
+def sd_attention_kernels(attn_sites, gen) -> list[dict]:
+    """Phase 20 (a): the bf16 attention kernels at each of the SD UNet's
+    (T, D) at batch SD_BATCH x SD_HEADS heads on CrossAttention's layout
+    (q, k, v, g the (B, H, T, D) views of (B, T, H D) tensors): the forward
+    with and without its log-sum-exp, the log-sum-exp, the backward against
+    the plain versions, three runs with equal bits, the same bits on
+    contiguous copies; the kernel, the plain version and bf16 SDPA (and
+    their backwards) timed by CUDA-graph replay beside the bound. One row a
+    shape and direction, per launch, with its sites a UNet pass."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+
+    rows = []
+    for (T, D) in sorted(set(attn_sites), reverse=True):
+        count = attn_sites.count((T, D))
+        B, H = SD_BATCH, SD_HEADS
+        views = tuple(torch.randn(B, T, H * D, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16)
+                      .reshape(B, T, H, D).transpose(1, 2) for _ in range(4))
+        q, k, v, g = views
+        tag = f"B={B} H={H} T={T} D={D}"
+
+        def run(q, k, v, g):
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            with torch.no_grad():
+                sample = FA.attention(q, k, v)
+            return (o, lse, sample, *FA.attention_bwd(q, k, v, o, lse, g))
+
+        first = run(*views)
+        torch.cuda.synchronize()
+        o, lse, sample = first[:3]
+        plain = FA.attention_plain(q, k, v)
+        fwd_err = max(compare(f"attention {tag}", o, plain),
+                      compare(f"attention, no lse, {tag}", sample, plain))
+        check_lse(f"attention {tag}", lse, q, k)
+        bwd_err = max(rel_l2(f"attention bwd d{n} {tag}", a, b, BWD_REL_L2)
+                      for n, a, b in zip("qkv", first[3:],
+                                         FA.attention_bwd_plain(q, k, v, g)))
+        del plain
+        for _ in range(RAGGED_REPEATS - 1):
+            if not all(torch.equal(a, b) for a, b in zip(run(*views), first)):
+                fail(f"attention {tag}: repeated runs differ in their bits")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(run(*(t.contiguous() for t in views)), first)):
+            fail(f"attention {tag}: the views and contiguous copies differ "
+                 f"in their bits")
+        print(f"  attention {tag}: {RAGGED_REPEATS} runs with equal bits, "
+              f"the same bits on contiguous copies; SDPA kernels: "
+              f"{sdpa_backend_names(q, k, v, g)}", flush=True)
+        lib, stream = library_bwd(F.scaled_dot_product_attention, (q, k, v),
+                                  g)
+        times = {
+            "fwd": (time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                         with_lse=True)),
+                    time_ms(lambda: FA.attention_plain(q, k, v), 5)[0],
+                    time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v))[0]),
+            "bwd": (time_ms(lambda: FA.attention_bwd(q, k, v, o, lse, g)),
+                    time_ms(lambda: FA.attention_bwd_plain(q, k, v, g),
+                            5)[0],
+                    time_ms(lib, stream=stream)[0])}
+        nolse_ms = time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                        with_lse=False))[0]
+        n = B * H * T * D
+        for kind, nbytes, ops, err in (("fwd", 4 * n * 2, 4 * n * T,
+                                        fwd_err),
+                                       ("bwd", 7 * n * 2, 10 * n * T,
+                                        bwd_err)):
+            (ms, eager), plain_ms, lib_ms = times[kind]
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / BF16_TC_FLOPS * 1e3
+            row = {"name": f"attention_{kind}",
+                   "shape": {"B": B, "H": H, "T": T, "D": D},
+                   "sites_per_forward": count, "ms": ms, "eager_ms": eager,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "max_abs_err": err}
+            if kind == "fwd":
+                row["no_lse_ms"] = nolse_ms
+            rows.append(row)
+            print(f"  attention_{kind} {row['shape']} x{count}/pass: kernel "
+                  f"{ms:.4f} ms (eager {eager:.4f} ms"
+                  + (f"; no lse {nolse_ms:.4f} ms" if kind == "fwd" else "")
+                  + f"), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.2f}x), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}; {row['bound_ms'] / ms:.1%} of it)",
+                  flush=True)
+        del views, q, k, v, g, first, o, lse, sample, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sd_gn_repeats(gn_sites, gen) -> None:
+    """Phase 20 (a): the GroupNorm forward (y, mean, rstd) and backward
+    (dx, dscale, dbias) at each of the SD UNet's bf16 site shapes at
+    SD_BATCH, three runs with equal bits on the wrapper's routes."""
+    import torch
+
+    from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
+
+    for _, (C, H, W), groups in sorted(set(gn_sites)):
+        x = (torch.randn(SD_BATCH, H, W, C, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        g = torch.randn(SD_BATCH, H, W, C, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+
+        def run():
+            y, mean, rstd = group_norm(x, scale, bias, groups=groups,
+                                       return_stats=True)
+            return (y, mean, rstd, *group_norm_bwd(x, scale, mean, rstd, g))
+
+        first = run()
+        for _ in range(RAGGED_REPEATS - 1):
+            if not all(torch.equal(a, b) for a, b in zip(run(), first)):
+                fail(f"GroupNorm B={SD_BATCH} H={H} W={W} C={C}: repeated "
+                     f"runs differ in their bits")
+    print(f"  GroupNorm forward and backward at the "
+          f"{len(set(gn_sites))} site shapes: {RAGGED_REPEATS} runs with "
+          f"equal bits each", flush=True)
+
+
+def sd_sweep_line(gn_bwd_rows) -> dict:
+    """The GroupNorm backward's ``sweep`` sites (one block a sample) of
+    phase 20 (a), summed over a UNet backward: device ms against
+    ``F.group_norm``'s backward and the bound."""
+    rows = [r for r in gn_bwd_rows if r["route"] == "sweep"]
+    out = {k: sum(r[k] * r["sites_per_forward"] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out.update(sites=sum(r["sites_per_forward"] for r in rows),
+               shapes=[r["shape"] for r in rows],
+               slower_than_library=[r["shape"] for r in rows
+                                    if r["ms"] >= r["library_ms"]])
+    print(f"  GroupNorm backward on the sweep route (one block a sample) at "
+          f"batch {SD_BATCH}: {out['sites']} of {SD_UNET_GN_SITES} sites a "
+          f"backward at {len(rows)} shapes, {out['ms']:.4f} ms against "
+          f"F.group_norm backward's {out['library_ms']:.4f} ms "
+          f"({out['ms'] / out['library_ms']:.2f}x) and the bound "
+          f"{out['bound_ms']:.4f} ms ({out['ms'] / out['bound_ms']:.2f}x); "
+          f"slower than the library at {out['slower_than_library']}",
+          flush=True)
+    for r in rows:
+        print(f"    sweep {r['shape']} x{r['sites_per_forward']}: "
+              f"{r['ms']:.4f} ms, F.group_norm backward "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
+              flush=True)
+    return out
+
+
+def _rel(got, want) -> float:
+    """Relative L2 error in float64."""
+    got, want = got.detach().double(), want.detach().double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def sd_inputs(gen):
+    """(z, ctx, ctx0, t, noise) of SD_BATCH seeded samples on the card."""
+    import torch
+
+    n = SD_BATCH
+    z = torch.randn(n, SD_LATENT, SD_LATENT, 4, generator=gen, device="cuda")
+    ctx = torch.randn(n, *SD_CONTEXT, generator=gen, device="cuda")
+    ctx0 = torch.randn(n, *SD_CONTEXT, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (n,), generator=gen, device="cuda")
+    noise = torch.randn(n, SD_LATENT, SD_LATENT, 4, generator=gen,
+                        device="cuda")
+    return z, ctx, ctx0, t, noise
+
+
+def sd_model_check(wl, unet, gen) -> dict:
+    """Phase 20 (b): the full-width UNet (seeded init, bf16) at SD_BATCH on
+    the card, kernels against the same model on its plain path: the
+    forward (MODEL_REL_L2) and the eps loss's gradients at fixed t and
+    noise (MODEL_GRAD_REL_L2, all parameters concatenated) under both remat
+    policies; exact launch counts (a forward: 15 attention and 61
+    GroupNorm; a remat'd backward runs each block's forward again: 30 + 15
+    and 121 + 61) and peak memory."""
+    import dataclasses
+
+    import torch
+
+    z, ctx, _, t, noise = sd_inputs(gen)
+    _zero_launches()
+    with torch.inference_mode():
+        got = unet(z, t, ctx)
+        fwd_launches = _read_all_launches()
+        with plain_layers():
+            want = unet(z, t, ctx)
+    zero = {k: 0 for k in fwd_launches}
+    _expect_launches("SD UNet forward", fwd_launches,
+                     {**zero, "attention_fwd": SD_ATTN_SITES,
+                      "group_norm_fwd": SD_UNET_GN_SITES})
+    out = {"forward_max_abs_err": rel_l2(
+        f"SD UNet batch-{SD_BATCH} bf16 forward, kernels vs plain path",
+        got, want, MODEL_REL_L2, "the plain path"),
+        "forward_rel_l2": _rel(got, want)}
+    params = list(unet.parameters())
+    base = unet.cfg
+    for policy in (None, "dots"):
+        unet.cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
+
+        def grads():
+            loss = wl.p_losses(unet, z, ctx, t, noise)
+            return torch.cat([g.float().reshape(-1) for g in
+                              torch.autograd.grad(loss, params)])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        g_kernel = grads()
+        torch.cuda.synchronize()
+        launches = _read_all_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with plain_layers():
+            g_plain = grads()
+        name = "full" if policy is None else policy
+        err = rel_l2(f"SD UNet batch-{SD_BATCH} bf16 gradients (eps loss, "
+                     f"{name} remat), kernels vs plain path", g_kernel,
+                     g_plain, MODEL_GRAD_REL_L2, "the plain path")
+        _expect_launches(f"SD UNet gradients ({name} remat)", launches,
+                         {**zero, "attention_fwd": 2 * SD_ATTN_SITES,
+                          "attention_bwd": SD_ATTN_SITES,
+                          "group_norm_fwd": 2 * SD_UNET_GN_SITES - 1,
+                          "group_norm_bwd": SD_UNET_GN_SITES})
+        print(f"  {name} remat: peak {peak:.3f} GiB", flush=True)
+        out[name] = {"gradients_max_abs_err": err,
+                     "gradients_rel_l2": _rel(g_kernel, g_plain),
+                     "launches": launches, "peak_gib": peak}
+        del g_kernel, g_plain
+    unet.cfg = base
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    return next(fam for fam, keys in SD_FAMILIES
+                if any(k in low for k in keys))
+
+
+def sd_fisher_batch(wl, unet, gen, card: str) -> dict:
+    """Phase 20 (c): one Fisher batch (``fisher_loss_fn``: two forwards at
+    SD_BATCH and their backward through full remat, the squared gradient
+    folded into fp32 accumulators) on the host clock over 3 batches after a
+    warm-up, and its device time by kernel family from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uurg_torch.unlearn.fisher import make_fisher_batch_step
+
+    z, ctx, ctx0, _, _ = sd_inputs(gen)
+    step = make_fisher_batch_step(wl.fisher_loss_fn(SD_FISHER_GUIDANCE))
+    fisher = {n: torch.zeros_like(p) for n, p in unet.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    step(fisher, unet, (z, ctx, ctx0), g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(fisher, unet, (z, ctx, ctx0), g)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(fisher, unet, (z, ctx, ctx0), g)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    key = ("self_device_time_total" if events
+           and hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    by_family: dict[str, float] = {}
+    for e in events:
+        fam = kernel_family(e.key)
+        by_family[fam] = by_family.get(fam, 0.0) + getattr(e, key) / 1e3
+    busy = sum(by_family.values())
+    if busy <= 0:
+        fail("the profiler saw no device time in a Fisher batch")
+    print(f"  one Fisher batch (CFG-composed eps, 2 forwards + backward at "
+          f"batch {SD_BATCH}, full remat): {secs:.4f} s on the host clock, "
+          f"device busy {busy:.3f} ms ({busy / 1e3 / secs:.1%}) on {card}",
+          flush=True)
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"    {fam:22s} {ms:10.3f} ms  {ms / busy:6.1%}", flush=True)
+    top = sorted(events, key=lambda e: -getattr(e, key))[:8]
+    for e in top:
+        print(f"    top: {getattr(e, key) / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    del fisher
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "device_busy_ms": busy,
+            "device_ms_by_family": by_family}
+
+
+def sd_png_folders(work: str) -> tuple[str, str]:
+    """Two seeded PNG folders (nsfw and not-nsfw stand-ins, one class
+    subdirectory each) of SD_PNG_EACH noise images around SD_RES px (the
+    center crop cuts them)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    roots = []
+    for name in ("nsfw", "not-nsfw"):
+        root = os.path.join(work, name)
+        os.makedirs(os.path.join(root, "c0"))
+        for i in range(SD_PNG_EACH):
+            img = rng.integers(0, 256, (SD_RES + 8 * (i % 3),
+                                        SD_RES + 16 * (i % 2), 3),
+                               dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "c0",
+                                                   f"{i:03d}.png"))
+        roots.append(root)
+    return roots[0], roots[1]
+
+
+def sd_fisher_cli(work: str, card: str) -> dict:
+    """Phase 20 (c): ``sd_generate_fisher`` in this process, the launch
+    counters zeroed just before and read just after, on SD_PNG_EACH +
+    SD_PNG_EACH seeded PNGs at SD_RES px, SD_FISHER_BATCHES of its 50
+    batches at SD_BATCH, threshold SD_THRESHOLD. Its three files must be
+    written, the Fishers finite, non-negative and not all zero; the mask's
+    sparsity printed. Launches: a Fisher batch is two forwards and their
+    remat'd backward; each folder is one VAE encode of its images."""
+    import torch
+
+    from uurg_torch.cli import sd_generate_fisher
+    from uurg_torch.io.checkpoint import restore_checkpoint
+    from uurg_torch.models.clip_text import active_tokenizer
+    from uurg_torch.unlearn.saliency import mask_sparsity
+
+    nsfw, clothed = sd_png_folders(work)
+    out_dir = os.path.join(work, "fisher")
+    argv = ["--nsfw_data", nsfw, "--not_nsfw_data", clothed, "--n_batches",
+            str(SD_FISHER_BATCHES), "--batch_size", str(SD_BATCH),
+            "--image_size", str(SD_RES), "--threshold", str(SD_THRESHOLD),
+            "--seed", str(SEED), "--save_path", out_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    sd_generate_fisher.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = 2 * SD_FISHER_BATCHES
+    encodes = 2 * -(-SD_PNG_EACH // 8)             # encode_image_folder's 8
+    _expect_launches("sd_generate_fisher", launches, {
+        **{k: 0 for k in launches},
+        "attention_fwd": batches * 4 * SD_ATTN_SITES,
+        "attention_bwd": batches * 2 * SD_ATTN_SITES,
+        "group_norm_fwd": batches * 2 * (2 * SD_UNET_GN_SITES - 1)
+        + encodes * VAE_GN_ENCODE,
+        "group_norm_bwd": batches * 2 * SD_UNET_GN_SITES,
+        "attention_fwd_f32": encodes})
+    files = sorted(os.listdir(out_dir))
+    want = ["nude_forget", f"nude_mask_{SD_THRESHOLD}", "nude_remain"]
+    if files != want:
+        fail(f"sd_generate_fisher wrote {files}, not {want}")
+    stats = {}
+    for name in ("forget", "remain"):
+        fisher = restore_checkpoint(os.path.join(out_dir, f"nude_{name}"))
+        flat = torch.cat([v.reshape(-1) for v in fisher.values()])
+        if not (torch.isfinite(flat).all() and flat.min() >= 0
+                and flat.max() > 0):
+            fail(f"the {name} Fisher is not finite, non-negative and "
+                 f"non-zero")
+        stats[name] = {"leaves": len(fisher),
+                       "sum": float(flat.double().sum()),
+                       "nonzero": float((flat > 0).double().mean())}
+        del fisher, flat
+    mask = restore_checkpoint(os.path.join(out_dir,
+                                           f"nude_mask_{SD_THRESHOLD}"))
+    sparsity = mask_sparsity(mask)
+    sizes = {f: os.path.getsize(os.path.join(out_dir, f)) for f in files}
+    print(f"  sd_generate_fisher ({batches} Fisher batches of batch "
+          f"{SD_BATCH}, {SD_PNG_EACH} + {SD_PNG_EACH} PNGs at {SD_RES} px, "
+          f"tokenizer {active_tokenizer()}): {secs:.3f} s, peak {peak:.3f} "
+          f"GiB on {card}; files {sizes}; Fishers {stats}; mask "
+          f"{SD_THRESHOLD} sparsity {sparsity:.4%}", flush=True)
+    return {"seconds": secs, "launches": launches, "peak_gib": peak,
+            "files": sizes, "fishers": stats, "mask_sparsity": sparsity,
+            "tokenizer": active_tokenizer()}
+
+
+def sd_samplers(wl, unet, gen, card: str) -> dict:
+    """Phase 20 (d): ``make_sampler`` with ddim, plms and lms at
+    SD_SAMPLE_STEPS steps, guidance SD_GUIDANCE, on SD_PROMPTS prompts (one
+    batched CFG double forward a step, batch 2 x SD_PROMPTS), the latents
+    decoded by the VAE at SD_RES px: launch counters zeroed just before
+    and read just after (15 attention and 61 GroupNorm forwards a UNet
+    forward, the decode's 30 GroupNorm and one float32 attention), finite
+    images, images/s on the host clock."""
+    import torch
+
+    prompts = ["a photo of a nude person", "a photo of a person wearing "
+               "clothes", "a photo of a church", "a photo of a parachute"]
+    ctx = wl.get_learned_conditioning(prompts[:SD_PROMPTS])
+    out = {}
+    for method, forwards in SD_SAMPLER_FORWARDS.items():
+        sample = wl.make_sampler(num_steps=SD_SAMPLE_STEPS,
+                                 guidance_scale=SD_GUIDANCE,
+                                 latent_size=SD_LATENT, method=method)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        lat = sample(unet, ctx, generator=g)
+        with torch.inference_mode():
+            imgs = wl.vae.decode(lat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_all_launches()
+        _expect_launches(f"make_sampler {method}", launches, {
+            **{k: 0 for k in launches},
+            "attention_fwd": forwards * SD_ATTN_SITES,
+            "group_norm_fwd": forwards * SD_UNET_GN_SITES + VAE_GN_DECODE,
+            "attention_fwd_f32": 1})
+        if tuple(imgs.shape) != (SD_PROMPTS, SD_RES, SD_RES, 3) \
+                or not torch.isfinite(imgs).all() or imgs.std() == 0:
+            fail(f"make_sampler {method}: images {tuple(imgs.shape)} not "
+                 f"finite or constant")
+        out[method] = {"seconds": secs, "images_per_s": SD_PROMPTS / secs,
+                       "launches": launches,
+                       "latent_std": float(lat.std()),
+                       "image_mean": float(imgs.mean()),
+                       "image_std": float(imgs.std())}
+        print(f"  make_sampler {method}: {SD_SAMPLE_STEPS} steps, "
+              f"{forwards} UNet forwards at batch {2 * SD_PROMPTS}, decode at "
+              f"{SD_RES} px: {secs:.3f} s, {SD_PROMPTS / secs:.3f} images/s "
+              f"on {card}; images finite, mean {imgs.mean().item():.3f} "
+              f"std {imgs.std().item():.3f}", flush=True)
+    return out
+
+
+def sd_path(card: str, gen) -> dict:
+    """Phase 20: Stable Diffusion on the card."""
+    import shutil
+
+    import torch
+
+    from uurg_torch.core.device import resolve_device
+    from uurg_torch.models.autoencoder_kl import init_vae
+    from uurg_torch.models.clip_text import init_clip_text
+    from uurg_torch.workloads.sd import SDWorkload
+
+    dev = resolve_device("cuda")           # TF32 off, as every entry point
+    wl = SDWorkload.build(device=dev)
+    t0 = time.perf_counter()
+    unet = wl.init_unet(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    print(f"  SD UNet: {n_params} parameters (CompVis v1: 859,520,964), "
+          f"seeded init on the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    attn_sites, gn_sites = sd_sites(unet)
+    out = {"parameters": n_params,
+           "attention_sites": sorted(set(attn_sites)),
+           "gn_site_shapes": len(set(gn_sites))}
+    out["attention_rows"] = sd_attention_kernels(attn_sites, gen)
+    out["gn_fwd_rows"] = check_kernels(gn_sites, SD_BATCH, gen)
+    out["gn_bwd_rows"] = check_bwd_kernels(gn_sites, SD_BATCH, gen)
+    sd_gn_repeats(gn_sites, gen)
+    out["sweep"] = sd_sweep_line(out["gn_bwd_rows"])
+    out["model"] = sd_model_check(wl, unet, gen)
+    out["fisher_batch"] = sd_fisher_batch(wl, unet, gen, card)
+    wl.vae = init_vae(1, wl.vae_cfg, dev)
+    wl.text = init_clip_text(2, wl.text_cfg, dev)
+    out["samplers"] = sd_samplers(wl, unet, gen, card)
+    del unet, wl
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="uurg_sd_")
+    try:
+        out["cli"] = sd_fisher_cli(work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {"sd_generate_fisher": out["cli"]["launches"],
+                       **{f"sd_{m}": s["launches"]
+                          for m, s in out["samplers"].items()}}
+    return out
+
+
+def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
+    """The ``kernels`` rows of Stable Diffusion (phase 20): each kernel
+    summed over an SD UNet forward (or backward) at SD_BATCH, the sum over
+    its sites of the device ms a launch at the site's shape (CUDA-graph
+    replay); the GroupNorm backward's sweep sites again on their own row;
+    launches over phase 20's main-path runs (sd_generate_fisher and the
+    three samplers)."""
+    rows = []
+    attn = sd["attention_rows"]
+    groups = (
+        ("attention_fwd", [r for r in attn if r["name"] == "attention_fwd"],
+         "forward"),
+        ("attention_bwd", [r for r in attn if r["name"] == "attention_bwd"],
+         "backward"),
+        ("group_norm_fwd", sd["gn_fwd_rows"], "forward"),
+        ("group_norm_bwd", sd["gn_bwd_rows"], "backward"),
+        ("group_norm_bwd", [r for r in sd["gn_bwd_rows"]
+                            if r["route"] == "sweep"], "backward, sweep"))
+    for i, (counter, mine, per) in enumerate(groups):
+        if not mine:                        # no sweep site at this batch
+            continue
+
+        def total(k, mine=mine):
+            return sum(r[k] * r["sites_per_forward"] for r in mine)
+
+        paths = {p: got[counter] for p, got in sd["launches"].items()}
+        name = f"{counter}_sd" + ("_sweep" if i == 4 else "")
+        rows.append({
+            "name": name, "route": "cuda", "source": meta[counter]["source"],
+            "replaces": meta[counter]["replaces"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            **{k: total(k) for k in ("ms", "eager_ms", "plain_ms",
+                                     "library_ms")},
+            "bound_ms": max(total("bytes_ms"), total("ops_ms")),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"),
+            "per": f"SD UNet {per} at batch {SD_BATCH}, 64 x 64 latents: "
+                   f"{sum(r['sites_per_forward'] for r in mine)} launches "
+                   f"at {len(mine)} shapes, device ms by CUDA-graph replay; "
+                   f"library: " + ("bf16 SDPA" if "attention" in counter
+                                   else "F.group_norm")
+                   + (" backward" if "bwd" in counter else "")})
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4598,6 +5225,16 @@ def main() -> int:
            f"encode_latents, forget from its shards and from an image "
            f"folder, dit_sample --mode fid_npz")
     vae = vae_path(card, gen)
+    torch.cuda.empty_cache()
+    banner(f"main path: Stable Diffusion (the CompVis v1 UNet, bf16, remat; "
+           f"CLIP ViT-L/14 text; the VAE at {SD_RES} px; seeded init): the "
+           f"attention kernels at its three (T, D) and GroupNorm at its site "
+           f"shapes at batch {SD_BATCH}, the UNet vs its plain path under "
+           f"both remat policies, a Fisher batch by kernel family, "
+           f"make_sampler ddim / plms / lms ({SD_SAMPLE_STEPS} steps, "
+           f"{SD_PROMPTS} prompts) and decode, sd_generate_fisher "
+           f"({SD_FISHER_BATCHES} of 50 batches)")
+    sd = sd_path(card, gen)
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -4668,6 +5305,7 @@ def main() -> int:
                    f"same views",
         })
     kernels += vae_kernel_rows(vae, meta)
+    kernels += sd_kernel_rows(sd, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
@@ -4684,7 +5322,7 @@ def main() -> int:
                    "sa": sa, "evaluation": evaluation, "parity": parity,
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
-                   "remat": remat, "dit": dit, "vae": vae,
+                   "remat": remat, "dit": dit, "vae": vae, "sd": sd,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)

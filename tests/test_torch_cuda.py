@@ -565,3 +565,103 @@ def test_vae_on_the_card_matches_the_cpu_and_counts_its_launches(gen):
         rel = ((got.cpu() - want).double().norm()
                / want.double().norm()).item()
         assert rel <= 1e-4, rel
+
+
+# Stable Diffusion's UNet (LDM v1, 64 x 64 latents): its self-attention
+# sites (T, D) at 8 heads, q, k and v the (B, H, T, D) views of three
+# (B, T, H D) projections, as CrossAttention hands them over
+SD_ATTN = [(4096, 40), (1024, 80), (256, 160)]
+
+
+def _sd_views(B, H, T, D, gen):
+    q, k, v, g = (torch.randn(B, T, H * D, generator=gen, device="cuda",
+                              dtype=torch.bfloat16)
+                  .reshape(B, T, H, D).transpose(1, 2) for _ in range(4))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("T,D", SD_ATTN)
+def test_attention_kernels_at_the_sd_shapes(gen, T, D):
+    """Forward (with its log-sum-exp) and backward at batch 4 x 8 heads on
+    CrossAttention's views against the plain versions, the same bits on
+    contiguous copies, three runs with equal bits."""
+    views = _sd_views(4, 8, T, D, gen)
+    q, k, v, g = views
+
+    def run(q, k, v, g):
+        o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+        return (o, lse, *attention_bwd(q, k, v, o, lse, g))
+
+    first = run(*views)
+    torch.cuda.synchronize()
+    o, lse = first[:2]
+    torch.testing.assert_close(o.float(), attention_plain(q, k, v).float(),
+                               atol=ATOL, rtol=RTOL)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(-1, T),
+                               atol=1e-4, rtol=1e-4)
+    for name, a, b in zip("qkv", first[2:], attention_bwd_plain(q, k, v, g)):
+        assert _rel_l2(a, b) < BWD_REL_L2, name
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(run(*views), first))
+    contiguous = run(*(t.contiguous() for t in views))
+    assert all(torch.equal(a, b) for a, b in zip(contiguous, first))
+
+
+# the largest of SD's bf16 GroupNorm sites at batch 4 (by bytes a sample,
+# and by channels): the forward's split route and the backward's sweep
+SD_GN_SWEEP = [(4, 64, 64, 960), (4, 32, 32, 2560)]
+
+
+@pytest.mark.parametrize("B,H,W,C", SD_GN_SWEEP)
+def test_group_norm_kernels_at_the_largest_sd_sites(gen, B, H, W, C):
+    x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2
+         + 0.5).to(torch.bfloat16)
+    g = torch.randn(B, H, W, C, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+    bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+    assert GN._fwd_route(H * W, C, 2, 32, B)[0] == "split"
+    assert GN._bwd_route(H * W, C, 2, 32) == ("sweep", 1)
+    y, mean, rstd = group_norm(x, scale, bias, return_stats=True)
+    want = group_norm_plain(x, scale, bias, 32, 1e-6, True)
+    torch.testing.assert_close(y.float(), want[0].float(), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(mean, want[1], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, want[2], atol=1e-4, rtol=1e-4)
+    got = group_norm_bwd(x, scale, mean, rstd, g)
+    dx, dscale, dbias = group_norm_bwd_plain(x, scale, mean, rstd, g)
+    torch.testing.assert_close(got[0].float(), dx.float(), atol=ATOL,
+                               rtol=RTOL)
+    assert _rel_l2(got[1], dscale) < 1e-4 and _rel_l2(got[2], dbias) < 1e-4
+    for _ in range(2):
+        again = group_norm_bwd(x, scale, mean, rstd, g)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_sd_unet_forward_matches_its_plain_path(gen):
+    """The full-width SD UNet (seeded init, bf16) at batch 1 on 64 x 64
+    latents and a 77 x 768 context: 15 attention and 61 GroupNorm launches
+    a forward, the output within 2e-2 of the same model on its plain
+    path."""
+    from uurg_torch.models import layers
+    from uurg_torch.models import sd_unet as TU
+
+    model = TU.init_sd_unet(0, device="cuda")
+    x = torch.randn(1, 64, 64, 4, generator=gen, device="cuda")
+    t = torch.tensor([500], device="cuda")
+    ctx = torch.randn(1, 77, 768, generator=gen, device="cuda")
+    fwd, gn = attention.launches, group_norm.launches
+    with torch.inference_mode():
+        got = model(x, t, ctx)
+        torch.cuda.synchronize()
+        assert (attention.launches - fwd, group_norm.launches - gn) == (15, 61)
+        kernels = TU.attention, layers.group_norm
+        TU.attention = attention_plain
+        layers.group_norm = (lambda x, s, b, *, groups, eps:
+                             group_norm_plain(x, s, b, groups, eps))
+        try:
+            want = model(x, t, ctx)
+        finally:
+            TU.attention, layers.group_norm = kernels
+    assert got.shape == (1, 64, 64, 4) and got.dtype == torch.float32
+    assert _rel_l2(got, want) < 2e-2

@@ -62,3 +62,20 @@ def test_chip_smoke_refuses_to_run_outside_a_checkout(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# the Stable Diffusion slice: each module is among the files both tests
+# above read and import
+SD_MODULES = ("models/sd_unet", "models/clip_text", "workloads/sd",
+              "workloads/sd_runner", "io/sd_interop", "io/vae_clip_interop",
+              "cli/sd_common", "cli/sd_generate_fisher")
+
+
+@pytest.mark.parametrize("module", SD_MODULES)
+def test_sd_modules_are_covered(module):
+    path = os.path.join(ROOT, "uurg_torch", *module.split("/")) + ".py"
+    assert path in _port_files()
+    tree = ast.parse(open(path).read(), path)
+    imported = [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in imported if m.split(".")[0] in FORBIDDEN]

@@ -11,7 +11,9 @@ ResNet (``params`` and ``batch_stats``) under torchvision's names, and
 Swin, whose port keeps the Flax module names, and ``jax_dit_params_to_torch``
 for its DiT under facebookresearch DiT's names (the inverse of
 ``uurg_tpu/io/dit_interop.py::torch_dit_state_to_flax``), and
-``jax_vae_params_to_torch`` for its AutoencoderKL under the CompVis names.
+``jax_vae_params_to_torch`` for its AutoencoderKL under the CompVis names,
+and ``jax_sd_unet_params_to_torch`` / ``jax_clip_text_params_to_torch`` for
+its SD UNet and CLIP text encoder, whose port keeps the Flax module names.
 
 A JAX run's Orbax checkpoint cannot be read without JAX; export it first
 with ``cli/export_torch.py`` to the reference ``ckpt.pth`` list format,
@@ -288,6 +290,41 @@ def jax_vae_params_to_torch(params: Mapping[str, Any]
             raise KeyError(f"Unmapped flax VAE path: {path}")
         out[tk] = torch.tensor(np.ascontiguousarray(
             _kernel_to_torch(v, attn=attn)))
+    return out
+
+
+def sd_unet_torch_name(path: tuple) -> str:
+    """The port's parameter name of a Flax SD UNet parameter path: the
+    modules '.'-joined without the GroupNorm shim's ``GroupNorm_0``,
+    ``kernel`` and ``scale`` become ``weight``."""
+    *mods, leaf = path
+    leaf = "weight" if leaf in ("kernel", "scale") else leaf
+    return ".".join([*(m for m in mods if m != "GroupNorm_0"), leaf])
+
+
+def jax_sd_unet_params_to_torch(params: Mapping[str, Any]
+                                ) -> dict[str, torch.Tensor]:
+    """The JAX package's SD UNet params (``uurg_tpu/models/sd_unet.py``),
+    as nested dicts of arrays, -> a state dict of
+    :class:`uurg_torch.models.sd_unet.SDUNet` (:func:`sd_unet_torch_name`):
+    HWIO conv kernels become OIHW, Dense kernels are transposed."""
+    out = {}
+    for path, v in _flatten(params).items():
+        v = np.asarray(v, np.float32)
+        if path[-1] == "kernel":
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+        out[sd_unet_torch_name(path)] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def jax_clip_text_params_to_torch(params: Mapping[str, Any]
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIP text encoder params
+    (``uurg_tpu/models/clip_text.py``) -> a state dict of
+    :class:`uurg_torch.models.clip_text.CLIPTextEncoder`: the token table
+    as ``token_embed.weight``, the rest as :func:`_flax_names_to_torch`."""
+    out = _flax_names_to_torch(params)
+    out["token_embed.weight"] = out.pop("token_embed.embedding")
     return out
 
 

@@ -45,7 +45,8 @@ class Linear(nn.Linear):
     """Linear whose float32 parameters are cast to the input dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class Conv2d(nn.Conv2d):

@@ -126,12 +126,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by its ``n_iters`` override), losses finite, parameters and running
    statistics moved, forget and test accuracy and peak memory printed;
    the other eight methods through the registry at one epoch each in bf16
-   (finite, parameters moved but for Baseline, running statistics moved
-   where the model trains, the context's model untouched);
-   ``python -m uurg_torch.cli.main_random --unlearn_method SFRon
-   --svc_mia --dtype bf16`` on its own 2,048 / 512-image stand-in in a
-   subprocess, its SFRon cut from 1,500 iterations to 250 (exit 0, its CSV
-   row, the rate it logs at iteration 250); the SVC attack's fit at 4,000 +
+   on a tenth of the retain and forget splits (4,500 + 500 images; finite,
+   parameters moved but for Baseline, running statistics moved where the
+   model trains, the context's model untouched);
+   ``uurg_torch.cli.main_random --unlearn_method SFRon --svc_mia --dtype
+   bf16`` on its own 2,048 / 512-image stand-in in this process, its SFRon
+   cut from 1,500 iterations to 250 (its CSV row, the rate it logs at
+   iteration 250); the SVC attack's fit at 4,000 +
    4,000 on the host. The float32 attention counters must read 0 too.
 16. The float32 attention kernels (``uurg_torch/csrc/flash_attention_f32.cu``)
    with TF32 off: at ViT-B/16's (64, 12, 197, 64) (the tiled route) and
@@ -151,7 +152,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the mask, 3 + 20 of 1,500 iterations) in fp32 (float32 counters exactly
    12 a forward and 12 a backward, bf16 counters 0) and in bf16 (the
    reverse); Swin_T card against CPU and 3 SFR-on iterations with no
-   attention launch; then in subprocesses, each exit 0:
+   attention launch; then each in this process:
    ``main_random --unlearn SFRon --model ViT_B`` on its 32 px stand-in
    (SFRon cut from 1,500 iterations to 10),
    ``save_base_dataset --as_npz``, ``train_classifier`` for one epoch (32
@@ -180,8 +181,8 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    move it) and the hybrid loss's gradients through full remat; four of its
    blocks in fp32 card against CPU at batch 2 (output and gradients, each
    side's distance from float64). Then on a stand-in of 2,048 seeded
-   latents over 10 classes in 4 shards (``write_latent_shards``), each in a
-   subprocess, from a reference ``.pt`` of the seeded model perturbed
+   latents over 10 classes in 4 shards (``write_latent_shards``), each in
+   this process, from a reference ``.pt`` of the seeded model perturbed
    (``--ckpt``): ``dit_generate_fisher`` (class 0, 8 batches of 1),
    ``dit_generate_mask`` (threshold 1.0), ``forget`` (the mask packed,
    adaga, 3 steps, snapshot and checkpoints at step 3; ``final.pt`` read
@@ -212,9 +213,9 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    images/s and peak memory. (d) On a seeded PNG folder (4 classes x 16):
    ``encode_latents`` into shards (launches counted), ``forget`` one step
    from those shards and one from the image folder (the VAE in the loop),
-   from phase 18's perturbed DiT-XL/2, then ``python -m
-   uurg_torch.cli.dit_sample --mode fid_npz`` (64 labels, 32 a batch, 4
-   respaced steps): 64 uint8 256 px images, not constant.
+   from phase 18's perturbed DiT-XL/2, then ``uurg_torch.cli.dit_sample
+   --mode fid_npz`` in this process (64 labels, 32 a batch, 4 respaced
+   steps): 64 uint8 256 px images, not constant.
 20. Stable Diffusion (the CompVis v1 UNet, 859,520,964 parameters, bf16,
    remat on; CLIP ViT-L/14's text tower, fp32; phase 19's VAE at 512 px;
    seeded init). (a) The bf16 attention kernels at the UNet's three
@@ -237,6 +238,29 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    non-negative and not all zero, the mask's sparsity. (d) ``make_sampler``
    with ddim, plms and lms at 4 of 50 steps on 4 prompts (CFG batch 8),
    decoded by the VAE: exact launch counts, finite images, images/s.
+21. Stable Diffusion's unlearning methods, on phase 20's PNG folders and
+   Fisher folder. (a) ``generate_fisher_mask`` in this process on the
+   Fisher folder (the SD layout): its ``nude_mask_0.5`` bit-equal to the
+   mask ``sd_generate_fisher`` wrote. (b) ``sd_runner.nsfw_removal`` on the
+   full-width UNet at batch 4 + 4, train_method full, under that mask dense
+   and packed: 2 warm-up steps (the dense run's third step profiled: device
+   ms by kernel family), then 5 counted steps, each on the host clock,
+   with exact launch counts (a step: the forget phase's trained forward,
+   its pseudo target's ``no_grad`` forward and the remain phase's trained
+   forward, each trained one run again in the remat'd backward); losses
+   and weights finite, peak memory. One step under xattn: every parameter
+   outside the attn2 projections the same bits, Adam state for those only.
+   (c) One full-width ``make_prox_operator`` call timed. The five method
+   CLIs in this process with ``--device cuda`` and exact launch counts:
+   ``nsfw_removal`` under the mask, packed, 2 steps with a snapshot at the
+   last (``step_1.pt``, a CompVis checkpoint, and ``step_1_diffusers.npz``,
+   whose keys are diffusers' and whose values are the snapshot's through
+   the two key maps), then from its ``final.pt`` ``train_esd`` (2 steps,
+   xattn, DDIM-10: its launches from the ``t_enc`` it drew; nothing
+   outside attn2 moves), ``gradient_ascent``, ``proximal_gradient`` and
+   ``random_label`` (1 step each): every ``final.pt`` holds the CompVis
+   keys, finite, moved from its start. (d) The ``*_sd`` rows of the
+   kernels line count these runs' launches too.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -441,7 +465,10 @@ CLS_F64_REL = 1e-9
 # Retrain from 200, GradAscent from 9, SCRUB from 6 epochs and 2 max steps)
 CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 100
 CLS_ONE_EPOCH = {"epochs": 1, "sgda_epochs": 1, "msteps": 1}
-CLS_CLI_TIMEOUT = 600
+# the eight methods' epoch runs over every CLS_METHODS_EVERY-th image of the
+# retain and forget splits (4,500 + 500): depth cut to keep the script in
+# its call's time, at the same batch and model
+CLS_METHODS_EVERY = 10
 # ViT-B/16 and Swin-T classification (phase 17) at 224 px: the card against
 # the CPU at batch 2 from the same weights, fp32 (TF32 off), relative L2 of
 # the logits and of all parameter gradients (no BatchNorm here, but twelve
@@ -458,9 +485,8 @@ VIT_REL, VIT_GRAD_REL = 1e-4, 1e-5
 # SWIN_ITERS iterations without the Fisher mask
 VIT_BATCH, VIT_TRAIN = 64, 320
 VIT_WARMUP, VIT_TIMED, SWIN_ITERS = 3, 20, 3
-VIT_CLI_TIMEOUT = 600
-# main_random's SFRon in the CLI subprocesses, cut from its 1,500 iterations
-# through the method's n_iters override (sfron_cut_cli): the ResNet-18 run
+# main_random's SFRon in the CLI runs, cut from its 1,500 iterations
+# through the method's n_iters override (sfron_cut): the ResNet-18 run
 # of phase 15 to 250 (where it logs its rate), the ViT-B/16 run of phase 17
 # to 10
 CLS_CLI_ITERS, VIT_CLI_ITERS = 250, 10
@@ -501,7 +527,6 @@ DIT_LATENTS, DIT_SHARDS, DIT_STANDIN_CLASSES = 2048, 4, 10
 DIT_FISHER_ITERS, DIT_CLI_ITERS = 8, 3
 DIT_WARMUP, DIT_STEPS = 2, 10
 DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
-DIT_CLI_TIMEOUT = 600
 # the frozen VAE (phase 19): VAEConfig(), the CompVis first stage DiT uses
 # (sd-vae-ft-ema), 83,653,863 parameters, fp32 (TF32 off), seeded init, at
 # 256 px (32 x 32 x 4 latents) and batch 32; its two mid-block attentions
@@ -565,6 +590,21 @@ SD_FAMILIES = (
     ("casts", ("copy", "cast")),
     ("elementwise", ("",)),
 )
+
+
+# SD's unlearning methods (phase 21) on phase 20's model, PNG folders and
+# Fishers: the SFR-on step of nsfw_removal at SD_BATCH + SD_BATCH (of its
+# 1,000 steps, SD_SFRON_WARMUP warm-up and one profiled, then
+# SD_SFRON_TIMED counted) under the Fisher mask dense and packed, one step
+# under train_method xattn; the five CLIs in process at SD_CLI_ITERS of
+# their 1,000 steps (nsfw_removal snapshots at its last; the three
+# baselines at SD_BASELINE_ITERS), ESD's partial
+# denoise cut from 50 DDIM steps to SD_ESD_DDIM (a divisor of the 1,000
+# training steps, as LDM's DDIM grid needs); the prox at the CLI's top
+# ratio
+SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 5, 2
+SD_BASELINE_ITERS = 1          # gradient ascent, proximal, random label
+SD_ESD_DDIM, SD_TOP_RATIO = 10, 0.01
 
 
 def banner(msg: str) -> None:
@@ -2718,8 +2758,9 @@ def cls_sfron(dtype, data, dev, card: str) -> dict:
 
 
 def cls_methods(data, dev, card: str) -> dict:
-    """Phase 15: the other eight methods through the registry on the
-    stand-in at one epoch each, bf16."""
+    """Phase 15: the other eight methods through the registry at one epoch
+    each, bf16, on every CLS_METHODS_EVERY-th image of the stand-in's
+    retain and forget splits."""
     import numpy as np
     import torch
 
@@ -2727,6 +2768,8 @@ def cls_methods(data, dev, card: str) -> dict:
     from uurg_torch.workloads.classification import Classifier
 
     retain, forget, _, aug = data
+    retain, forget = (d.subset(np.arange(0, len(d), CLS_METHODS_EVERY))
+                      for d in (retain, forget))
     model = _cls_model(torch.bfloat16, dev)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     out = {}
@@ -2754,33 +2797,72 @@ def cls_methods(data, dev, card: str) -> dict:
                for k, v in before.items()):
             fail(f"{name} changed the context's model")
         out[name] = {"seconds": secs, "param_change": dp, "stat_change": ds}
-        print(f"  {name} (bf16, one epoch): {secs:.3f} s; max |change| "
+        print(f"  {name} (bf16, one epoch of {len(retain)} retain and "
+              f"{len(forget)} forget images): {secs:.3f} s; max |change| "
               f"parameters {dp:.3e}, running statistics {ds:.3e}",
               flush=True)
     print(f"  eight methods on {card}", flush=True)
     return out
 
 
-def sfron_cut_cli(n_iters: int) -> list[str]:
-    """The command that runs ``uurg_torch.cli.main_random``'s ``main`` on
-    the arguments that follow it, as ``python -m`` does, with the
-    registry's SFRon given the method's ``n_iters`` override (the CLI, like
-    the JAX package's, has no flag for it)."""
-    code = ("import dataclasses, sys\n"
-            "from uurg_torch.cli import main_random\n"
-            "from uurg_torch.unlearn.methods.classification import "
-            "unlearn_method_registry as reg\n"
-            "sfron = reg.get('SFRon')\n"
-            "reg.register('SFRon', lambda ctx: sfron(dataclasses.replace("
-            f"ctx, overrides={{**ctx.overrides, 'n_iters': {n_iters}}})))\n"
-            "main_random.main(sys.argv[1:])\n")
-    return [sys.executable, "-c", code]
+@contextlib.contextmanager
+def sfron_cut(n_iters: int):
+    """The registry's SFRon given the method's ``n_iters`` override while
+    the block runs (``main_random``, like the JAX package's CLI, has no
+    flag for it)."""
+    import dataclasses
+
+    from uurg_torch.unlearn.methods.classification import \
+        unlearn_method_registry as reg
+
+    sfron = reg.get("SFRon")
+    reg.register("SFRon", lambda ctx: sfron(dataclasses.replace(
+        ctx, overrides={**ctx.overrides, "n_iters": n_iters})))
+    try:
+        yield
+    finally:
+        reg.register("SFRon", sfron)
+
+
+def run_cli(name: str, args: list[str]) -> tuple[float, str, str]:
+    """``uurg_torch.cli.<name>``'s ``main(args)`` in this process, as
+    ``python -m`` calls it (a fault fails the run): (seconds, its standard
+    output, its log records at INFO and above)."""
+    import importlib
+    import io
+    import logging
+
+    import torch
+
+    main = importlib.import_module(f"uurg_torch.cli.{name}").main
+    out, log = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(log)
+    handler.setFormatter(logging.Formatter(
+        "%(levelname)s:%(name)s:%(message)s"))
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(args)
+        torch.cuda.synchronize()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    secs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    lines = out.getvalue().strip().splitlines()
+    print(f"  {name}: done in {secs:.3f} s [at {time.time() - STARTED:.1f} "
+          f"s]; {lines[-1][:300] if lines else ''}", flush=True)
+    return secs, out.getvalue(), log.getvalue()
 
 
 def cls_cli(card: str) -> dict:
     """Phase 15: ``main_random --unlearn_method SFRon --svc_mia --dtype
     bf16`` on the CLI's own stand-in fallback, cut to CLS_CLI_ITERS
-    iterations, in a subprocess."""
+    iterations, in this process."""
     import csv
     import shutil
 
@@ -2788,16 +2870,12 @@ def cls_cli(card: str) -> dict:
 
     work = tempfile.mkdtemp(prefix="uurg_cls_cli_")
     out = os.path.join(work, "out")
-    cmd = [*sfron_cut_cli(CLS_CLI_ITERS), "--unlearn_method", "SFRon",
-           "--svc_mia", "--dtype", "bf16", "--data_path", os.path.join(work, "no_data"), "--save_path", out]
     try:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=CLS_CLI_TIMEOUT)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
-            fail(f"main_random exited {proc.returncode}")
+        with sfron_cut(CLS_CLI_ITERS):
+            secs, _, log = run_cli("main_random", [
+                "--unlearn_method", "SFRon", "--svc_mia", "--dtype", "bf16",
+                "--data_path", os.path.join(work, "no_data"),
+                "--save_path", out])
         with open(os.path.join(out, "results.csv")) as f:
             rows = list(csv.DictReader(f))
         want = ["method", "unlearn_time", "retain_acc", "forget_acc",
@@ -2810,15 +2888,14 @@ def cls_cli(card: str) -> dict:
         if not all(np.isfinite(v) for k, v in row.items() if k != "method"):
             fail(f"main_random: a value is not finite: {row}")
         rates = re.findall(rf"sfron iter (\d+)/{CLS_CLI_ITERS} .*?"
-                           r"\(([\d.]+) it/s\)", proc.stderr)
+                           r"\(([\d.]+) it/s\)", log)
         if len(rates) != CLS_CLI_ITERS // 250:
             fail(f"main_random did not run {CLS_CLI_ITERS} iterations: "
                  f"{rates}")
         print(f"  main_random SFRon --svc_mia --dtype bf16 (2,048 / 512 "
-              f"stand-in images, {CLS_CLI_ITERS} iterations): exit 0 in "
-              f"{secs:.3f} s; "
-              f"row {json.dumps(row)}; logged rates {rates}; on {card}",
-              flush=True)
+              f"stand-in images, {CLS_CLI_ITERS} iterations): "
+              f"{secs:.3f} s; row {json.dumps(row)}; logged rates {rates}; "
+              f"on {card}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"seconds": secs, "row": row, "logged_rates": rates}
@@ -3051,7 +3128,7 @@ def vit_clis(card: str) -> dict:
     iterations), then the north-star
     helpers: ``save_base_dataset --as_npz``, ``train_classifier`` for one
     epoch (32 steps at batch 64, 224 px) and ``classifier_evaluation``
-    reading its ``.pth`` on the npz; each in a subprocess, exit 0."""
+    reading its ``.pth`` on the npz; each in this process."""
     import csv
     import shutil
 
@@ -3060,19 +3137,15 @@ def vit_clis(card: str) -> dict:
     work = tempfile.mkdtemp(prefix="uurg_vit_cli_")
     none = os.path.join(work, "no_data")
     probe = os.path.join(work, "probe")
-    module = [sys.executable, "-m"]
     runs = [
-        ("main_random", [*sfron_cut_cli(VIT_CLI_ITERS), "--unlearn", "SFRon",
-                         "--model", "ViT_B", "--data_path", none,
+        ("main_random", ["--unlearn", "SFRon", "--model", "ViT_B",
+                         "--data_path", none,
                          "--save_path", os.path.join(work, "cls")]),
-        ("save_base_dataset", [*module, "uurg_torch.cli.save_base_dataset",
-                               "--data_path", none, "--as_npz", "--out",
+        ("save_base_dataset", ["--data_path", none, "--as_npz", "--out",
                                os.path.join(work, "ref")]),
-        ("train_classifier", [*module, "uurg_torch.cli.train_classifier",
-                              "--data_path", none, "--epochs", "1",
+        ("train_classifier", ["--data_path", none, "--epochs", "1",
                               "--save_path", probe]),
         ("classifier_evaluation", [
-            *module, "uurg_torch.cli.classifier_evaluation",
             os.path.join(work, "ref.npz"), "--classifier_ckpt",
             os.path.join(probe, "cifar10_resnet34.pth"), "--csv",
             os.path.join(work, "ua.csv")]),
@@ -3080,17 +3153,9 @@ def vit_clis(card: str) -> dict:
     out = {}
     try:
         for name, args in runs:
-            t0 = time.perf_counter()
-            proc = subprocess.run(args, cwd=ROOT,
-                                  capture_output=True, text=True,
-                                  timeout=VIT_CLI_TIMEOUT)
-            secs = time.perf_counter() - t0
-            if proc.returncode != 0:
-                print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
-                fail(f"{name} exited {proc.returncode}")
+            with sfron_cut(VIT_CLI_ITERS):
+                secs, _, _ = run_cli(name, args)
             out[name] = {"seconds": secs}
-            print(f"  {name}: exit 0 in {secs:.3f} s; "
-                  f"{proc.stdout.strip().splitlines()[-1][:300]}", flush=True)
         with open(os.path.join(work, "cls", "results.csv")) as f:
             rows = list(csv.DictReader(f))
         if len(rows) != 1 or rows[0]["method"] != "SFRon" or not all(
@@ -3619,21 +3684,8 @@ def dit_checkpoint(work: str) -> str:
     return path
 
 
-def _run_cli(name: str, args: list[str]) -> tuple[float, str]:
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"uurg_torch.cli.{name}",
-                           *args], cwd=ROOT, capture_output=True, text=True,
-                          timeout=DIT_CLI_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
-        fail(f"{name} exited {proc.returncode}")
-    print(f"  {name}: exit 0 in {secs:.3f} s", flush=True)
-    return secs, proc.stdout + proc.stderr
-
-
 def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
-    """Phase 18: the three DiT CLIs on the stand-in, each in a subprocess
+    """Phase 18: the three DiT CLIs on the stand-in, each in this process
     on the card (DiT-XL/2 from ``ckpt``): ``dit_generate_fisher`` (class 0,
     DIT_FISHER_ITERS batches of 1), ``dit_generate_mask`` (threshold 1.0),
     ``forget`` (the mask packed, adaga, DIT_CLI_ITERS steps, snapshots and
@@ -3655,7 +3707,7 @@ def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
     masks = os.path.join(work, "masks")
     fdir = os.path.join(masks, "0")
     res = {}
-    res["fisher_s"], _ = _run_cli("dit_generate_fisher", [
+    res["fisher_s"], _, _ = run_cli("dit_generate_fisher", [
         "--data-path", data, "--ckpt", ckpt, "--forget-class", "0",
         "--n-iters", str(DIT_FISHER_ITERS), "--mask-path", masks])
     for name in ("forget_fisher", "remain_fisher"):
@@ -3666,7 +3718,7 @@ def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
             fail(f"{name}: not finite and non-negative, or all zero")
         res[f"{name}_sum"] = total
         del f
-    res["mask_s"], _ = _run_cli("dit_generate_mask", [
+    res["mask_s"], _, _ = run_cli("dit_generate_mask", [
         "--mask-path", masks, "--forget-class", "0", "--thresholds", "1.0"])
     for name in ("forget_fisher", "remain_fisher"):     # 2.7 GB each
         os.remove(os.path.join(fdir, name))
@@ -3681,7 +3733,7 @@ def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
         fail("the mask is all one value")
     del mask
     results = os.path.join(work, "results")
-    res["forget_s"], log_text = _run_cli("forget", [
+    res["forget_s"], _, log_text = run_cli("forget", [
         "--data-path", data, "--ckpt", ckpt, "--mask-path", mask_path,
         "--pack_mask",
         "--unlearn-loss", "adaga", "--n-iters", str(DIT_CLI_ITERS),
@@ -3715,15 +3767,18 @@ def dit_clis(work: str, data: str, ckpt: str) -> tuple[dict, str]:
 
 
 @contextlib.contextmanager
-def dit_clock(runner, profile_step: int | None = None):
+def dit_clock(runner, profile_step: int | None = None,
+              families: bool = False):
     """Wrap the SFR-on step that ``runner.make_sfron_step`` builds: after
     each step, wait for the device and read the clock, and keep the losses;
     the step numbered ``profile_step`` runs under the profiler instead (its
-    device busy ms and its wall ms kept). The run still goes through the
-    runner's own entry point and step."""
+    device busy ms, by kernel family with ``families``, and its wall ms
+    kept). The run still goes through the runner's own entry point and
+    step."""
     import torch
 
-    record = {"t": [], "loss": [], "busy_ms": None, "profiled_ms": None}
+    record = {"t": [], "loss": [], "busy_ms": None, "profiled_ms": None,
+              "by_family": None}
     make = runner.make_sfron_step
 
     def timed_make(*args, **kwargs):
@@ -3734,9 +3789,15 @@ def dit_clock(runner, profile_step: int | None = None):
             if state.step == profile_step:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                record["busy_ms"] = device_busy_ms(
-                    "a DiT SFR-on step",
-                    lambda: out.update(step(state, *batches)))
+                if families:
+                    record["by_family"] = device_ms_by_family(
+                        "an SFR-on step",
+                        lambda: out.update(step(state, *batches)))
+                    record["busy_ms"] = sum(record["by_family"].values())
+                else:
+                    record["busy_ms"] = device_busy_ms(
+                        "a DiT SFR-on step",
+                        lambda: out.update(step(state, *batches)))
                 record["profiled_ms"] = (time.perf_counter() - t0) * 1e3
             else:
                 out = step(state, *batches)
@@ -4371,7 +4432,7 @@ def vae_entry_points(work: str, vae_file: str, card: str) -> dict:
         out["launches"][f"forget_{tag}"] = launches
         shutil.rmtree(results)
     sample_dir = os.path.join(work, "samples")
-    secs, _ = _run_cli("dit_sample", [
+    secs, _, _ = run_cli("dit_sample", [
         "--mode", "fid_npz", "--ckpt", ckpt, "--vae-ckpt", vae_file,
         "--num-fid-samples", str(VAE_FID_SAMPLES), "--per-proc-batch-size",
         str(VAE_BATCH), "--num-sampling-steps", str(VAE_SAMPLE_STEPS),
@@ -4752,13 +4813,43 @@ def kernel_family(name: str) -> str:
                 if any(k in low for k in keys))
 
 
+def device_ms_by_family(name: str, run) -> dict:
+    """The device kernels' own ms over one ``run()``, by the profiler,
+    summed by kernel family (SD_FAMILIES); the families and the eight
+    longest kernels printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    key = ("self_device_time_total" if events
+           and hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    by_family: dict[str, float] = {}
+    for e in events:
+        fam = kernel_family(e.key)
+        by_family[fam] = by_family.get(fam, 0.0) + getattr(e, key) / 1e3
+    busy = sum(by_family.values())
+    if busy <= 0:
+        fail(f"the profiler saw no device time in {name}")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"    {fam:22s} {ms:10.3f} ms  {ms / busy:6.1%}", flush=True)
+    for e in sorted(events, key=lambda e: -getattr(e, key))[:8]:
+        print(f"    top: {getattr(e, key) / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    return by_family
+
+
 def sd_fisher_batch(wl, unet, gen, card: str) -> dict:
     """Phase 20 (c): one Fisher batch (``fisher_loss_fn``: two forwards at
     SD_BATCH and their backward through full remat, the squared gradient
     folded into fp32 accumulators) on the host clock over 3 batches after a
     warm-up, and its device time by kernel family from the profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from uurg_torch.unlearn.fisher import make_fisher_batch_step
 
@@ -4773,31 +4864,13 @@ def sd_fisher_batch(wl, unet, gen, card: str) -> dict:
         step(fisher, unet, (z, ctx, ctx0), g)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(fisher, unet, (z, ctx, ctx0), g)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    key = ("self_device_time_total" if events
-           and hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    by_family: dict[str, float] = {}
-    for e in events:
-        fam = kernel_family(e.key)
-        by_family[fam] = by_family.get(fam, 0.0) + getattr(e, key) / 1e3
+    by_family = device_ms_by_family(
+        "a Fisher batch", lambda: step(fisher, unet, (z, ctx, ctx0), g))
     busy = sum(by_family.values())
-    if busy <= 0:
-        fail("the profiler saw no device time in a Fisher batch")
     print(f"  one Fisher batch (CFG-composed eps, 2 forwards + backward at "
           f"batch {SD_BATCH}, full remat): {secs:.4f} s on the host clock, "
           f"device busy {busy:.3f} ms ({busy / 1e3 / secs:.1%}) on {card}",
           flush=True)
-    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"    {fam:22s} {ms:10.3f} ms  {ms / busy:6.1%}", flush=True)
-    top = sorted(events, key=lambda e: -getattr(e, key))[:8]
-    for e in top:
-        print(f"    top: {getattr(e, key) / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:90]}", flush=True)
     del fisher
     torch.cuda.empty_cache()
     return {"seconds": secs, "device_busy_ms": busy,
@@ -4946,10 +5019,10 @@ def sd_samplers(wl, unet, gen, card: str) -> dict:
     return out
 
 
-def sd_path(card: str, gen) -> dict:
-    """Phase 20: Stable Diffusion on the card."""
-    import shutil
-
+def sd_path(card: str, gen, work: str) -> dict:
+    """Phase 20: Stable Diffusion on the card; ``sd_generate_fisher``
+    writes its PNG folders and Fishers under ``work``, which phase 21
+    reads."""
     import torch
 
     from uurg_torch.core.device import resolve_device
@@ -4982,15 +5055,398 @@ def sd_path(card: str, gen) -> dict:
     out["samplers"] = sd_samplers(wl, unet, gen, card)
     del unet, wl
     torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="uurg_sd_")
-    try:
-        out["cli"] = sd_fisher_cli(work, card)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    out["cli"] = sd_fisher_cli(work, card)
     torch.cuda.empty_cache()
     out["launches"] = {"sd_generate_fisher": out["cli"]["launches"],
                        **{f"sd_{m}": s["launches"]
                           for m, s in out["samplers"].items()}}
+    return out
+
+
+def sd_launches(grad_passes: int = 0, forwards: int = 0,
+                xattn_passes: int = 0) -> dict:
+    """The four kernels' launches of SD UNet passes under full remat: a
+    forward with its backward runs each block's forward again in the
+    recompute (``norm_out``, outside the blocks, is not recomputed); a
+    forward under ``no_grad`` runs each site once. Under ``xattn`` (every
+    parameter but the attn2 projections frozen with ``requires_grad``
+    off) the first resnet block sees no gradient and is neither recomputed
+    nor differentiated, and the first transformer block is recomputed but
+    not differentiated below its attn2: 2 GroupNorm and no attention
+    launches fewer in the recompute, 3 GroupNorm and 1 attention fewer in
+    the backward."""
+    a, g = SD_ATTN_SITES, SD_UNET_GN_SITES
+    return {"attention_fwd": 2 * a * (grad_passes + xattn_passes)
+            + a * forwards,
+            "attention_bwd": a * grad_passes + (a - 1) * xattn_passes,
+            "group_norm_fwd": (2 * g - 1) * grad_passes + g * forwards
+            + (2 * g - 3) * xattn_passes,
+            "group_norm_bwd": g * grad_passes + (g - 3) * xattn_passes,
+            "attention_fwd_f32": 0, "attention_bwd_f32": 0}
+
+
+def _plus(a: dict, b: dict) -> dict:
+    return {k: a[k] + b.get(k, 0) for k in a}
+
+
+def sd_mask_cli(work: str) -> dict:
+    """Phase 21 (a): ``generate_fisher_mask`` in process on the Fisher
+    folder ``sd_generate_fisher`` wrote: its ``nude_mask_<th>`` must be the
+    same bits as the mask the Fisher CLI wrote from the same Fishers."""
+    import torch
+
+    from uurg_torch.cli import generate_fisher_mask
+    from uurg_torch.io.checkpoint import restore_checkpoint
+
+    folder = os.path.join(work, "fisher")
+    path = os.path.join(folder, f"nude_mask_{SD_THRESHOLD}")
+    first = restore_checkpoint(path)
+    t0 = time.perf_counter()
+    generate_fisher_mask.main(["--ckpt_folder", folder, "--threshold",
+                               str(SD_THRESHOLD)])
+    secs = time.perf_counter() - t0
+    again = restore_checkpoint(path)
+    if set(again) != set(first) or not all(
+            again[k].dtype == torch.bool and torch.equal(again[k], first[k])
+            for k in first):
+        fail("generate_fisher_mask's SD mask differs from sd_generate_fisher's")
+    for name in ("nude_forget", "nude_remain"):        # 3.44 GB each
+        os.remove(os.path.join(folder, name))
+    print(f"  generate_fisher_mask (SD layout, threshold {SD_THRESHOLD}): "
+          f"{secs:.3f} s, {len(again)} leaves bit-equal to "
+          f"sd_generate_fisher's mask", flush=True)
+    return {"seconds": secs, "leaves": len(again)}
+
+
+def _sd_batches(gen):
+    """The forget (z, ctx_forget, ctx_pseudo) and remain (z, ctx_pseudo)
+    batches of nsfw_removal at SD_BATCH, seeded, on the card."""
+    import itertools
+
+    z, ctx, ctx0, _, _ = sd_inputs(gen)
+    z_r = z.flip(0)
+    return (itertools.repeat((z, ctx, ctx0)), itertools.repeat((z_r, ctx0)))
+
+
+def sd_sfron_step(card: str, mask_path: str, gen) -> dict:
+    """Phase 21 (b): ``nsfw_removal`` on the full-width UNet (seeded,
+    bf16, full remat) at SD_BATCH + SD_BATCH, train_method full, under the
+    Fisher mask dense and packed: SD_SFRON_WARMUP warm-up steps and one
+    profiled (device ms by kernel family), then SD_SFRON_TIMED counted and
+    timed steps with the launch counters zeroed just before and read just
+    after (a step: the forget phase's trained forward and its pseudo
+    target's no_grad forward, the remain phase's trained forward); finite
+    losses and weights. Then one step under xattn: every parameter outside
+    the attn2 projections the same bits, Adam state for those only."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.io.checkpoint import restore_checkpoint
+    from uurg_torch.io.sd_interop import sd_unet_key_map
+    from uurg_torch.workloads import sd_runner as TR
+    from uurg_torch.workloads.sd import SDWorkload
+
+    wl = SDWorkload.build(device="cuda")
+    fb, rb = _sd_batches(gen)
+    out = {}
+    for pack in (False, True):
+        tag = "packed" if pack else "dense"
+        unet = wl.init_unet(SEED)
+        mask = restore_checkpoint(mask_path, like=unet)
+        kw = dict(lr=1e-5, saliency_mask=mask, pack_mask=pack, seed=SEED,
+                  snapshot_freq=10 ** 6)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the dense run's step after the warm-up runs under the profiler
+        with dit_clock(TR, profile_step=None if pack else SD_SFRON_WARMUP,
+                       families=True) as warm:
+            TR.nsfw_removal(wl, unet, fb, rb,
+                            n_iters=SD_SFRON_WARMUP + (not pack), **kw)
+        with dit_clock(TR) as rec:
+            _zero_launches()
+            t0 = time.perf_counter()
+            TR.nsfw_removal(wl, unet, fb, rb, n_iters=SD_SFRON_TIMED, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_all_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _expect_launches(f"nsfw_removal ({tag} mask, {SD_SFRON_TIMED} steps)",
+                         launches, sd_launches(
+                             grad_passes=2 * SD_SFRON_TIMED,
+                             forwards=SD_SFRON_TIMED))
+        losses = warm["loss"] + rec["loss"]
+        if not np.isfinite(losses).all() or not all(
+                bool(torch.isfinite(p).all()) for p in unet.parameters()):
+            fail(f"nsfw_removal ({tag}): losses {losses} or weights not "
+                 f"finite")
+        step_ms = np.diff(rec["t"]) * 1e3
+        med = float(np.median(step_ms))
+        out[tag] = {"launches": launches, "step_ms": step_ms.tolist(),
+                    "median_step_ms": med, "steps_per_s": 1e3 / med,
+                    "peak_gib": peak, "call_s": wall, "losses": losses}
+        busy = ""
+        if not pack:
+            out[tag].update(
+                busy_ms_profiled_step=warm["busy_ms"],
+                device_ms_by_family=warm["by_family"],
+                profiled_step_ms=warm["profiled_ms"],
+                busy_share_of_median=warm["busy_ms"] / med)
+            busy = (f"; profiled step {warm['profiled_ms']:.3f} ms with "
+                    f"{warm['busy_ms']:.3f} ms of device work "
+                    f"({warm['busy_ms'] / med:.1%} of the median step)")
+        print(f"  nsfw_removal SFR-on step ({tag} mask): steps "
+              f"{np.round(step_ms, 3).tolist()} ms, median {med:.3f} ms "
+              f"({1e3 / med:.3f} steps/s), call {wall:.3f} s{busy}; peak "
+              f"{peak:.3f} GiB; losses first {losses[0]}, last "
+              f"{losses[-1]}; on {card}", flush=True)
+        del unet, mask
+        torch.cuda.empty_cache()
+    unet = wl.init_unet(SEED)
+    start = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    compvis = {ours: ck for ck, ours in sd_unet_key_map(unet.cfg)}
+    _zero_launches()
+    state = TR.nsfw_removal(wl, unet, fb, rb, n_iters=1, lr=1e-5,
+                            train_method="xattn", seed=SEED)
+    torch.cuda.synchronize()
+    launches = _read_all_launches()
+    _expect_launches("nsfw_removal (xattn, 1 step)", launches,
+                     sd_launches(grad_passes=2, forwards=1))
+    params = dict(unet.named_parameters())
+    held = {n for n, p in params.items() if state.optimizer.state.get(p)}
+    attn2 = {n for n in params if "attn2" in compvis[n]}
+    frozen_same = all(torch.equal(params[n].detach(), start[n])
+                      for n in params if n not in attn2)
+    moved = sum(not torch.equal(params[n].detach(), start[n]) for n in attn2)
+    if held != attn2 or not frozen_same or not moved:
+        fail(f"nsfw_removal under xattn: Adam state for {len(held)} "
+             f"parameters (attn2: {len(attn2)}), the others the same bits: "
+             f"{frozen_same}, attn2 moved: {moved}")
+    print(f"  nsfw_removal (xattn, 1 step): Adam state for the {len(held)} "
+          f"attn2 parameters only, the other {len(params) - len(attn2)} the "
+          f"same bits, {moved} attn2 parameters moved", flush=True)
+    out["xattn"] = {"launches": launches, "adam_state": len(held),
+                    "attn2_moved": moved}
+    del unet, start, state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def sd_prox_time(card: str, gen) -> dict:
+    """Phase 21 (c): one ``make_prox_operator`` call at full width (top
+    ratio SD_TOP_RATIO of 859,520,964 |deltas|, a kthvalue over all of
+    them), timed on the host clock around a device wait, with its peak
+    memory."""
+    import torch
+
+    from uurg_torch.workloads.sd import SDWorkload
+
+    wl = SDWorkload.build(device="cuda")
+    init = wl.init_unet(SEED)
+    unet = wl.init_unet(SEED)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 1e-4)
+    prox = wl.make_prox_operator(init, SD_TOP_RATIO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    thresh = prox(unet)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (float(thresh) > 0 and all(bool(torch.isfinite(p).all())
+                                      for p in unet.parameters())):
+        fail(f"the prox's threshold {float(thresh)} or weights are wrong")
+    print(f"  prox at full width (top {SD_TOP_RATIO:.0%}): {secs * 1e3:.3f} "
+          f"ms on the host clock, threshold {float(thresh):.4e}, peak "
+          f"{peak:.3f} GiB ({peak - base:.3f} above the two UNets and the "
+          f"anchors) on {card}", flush=True)
+    del init, unet, prox
+    torch.cuda.empty_cache()
+    return {"ms": secs * 1e3, "threshold": float(thresh), "peak_gib": peak,
+            "transient_gib": peak - base}
+
+
+def _compvis_file(path: str) -> dict:
+    import torch
+
+    return torch.load(path, map_location="cpu",
+                      weights_only=True)["state_dict"]
+
+
+def _check_final(name: str, path: str, start: dict) -> None:
+    """A CLI's final weights: the CompVis key set, finite, moved."""
+    import torch
+
+    got = _compvis_file(path)
+    if set(got) != set(start):
+        fail(f"{name}: {path} holds another key set")
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        fail(f"{name}: {path} holds non-finite weights")
+    if all(torch.equal(got[k], start[k]) for k in start):
+        fail(f"{name}: {path} is its start")
+
+
+@contextlib.contextmanager
+def esd_draws():
+    """Keep the DDIM index ``t_enc`` of every batch the ESD builder draws."""
+    from uurg_torch.workloads import sd_runner as TR
+
+    drawn = []
+    draw = TR.ESDBatchBuilder.draw
+
+    def kept(self, generator):
+        out = draw(self, generator)
+        drawn.append(out[0])
+        return out
+
+    TR.ESDBatchBuilder.draw = kept
+    try:
+        yield drawn
+    finally:
+        TR.ESDBatchBuilder.draw = draw
+
+
+def sd_method_clis(work: str, card: str) -> dict:
+    """Phase 21 (c): the five SD method CLIs in this process with
+    ``--device cuda``, each with the launch counters zeroed just before and
+    read just after: ``nsfw_removal`` under phase 20's mask, packed,
+    SD_CLI_ITERS steps and a snapshot at the last (``step_<i>.pt`` and the
+    Diffusers ``.npz``, whose keys are diffusers' and whose values are the
+    CompVis file's through the two key maps), then ``train_esd``,
+    ``gradient_ascent``, ``proximal_gradient`` and ``random_label`` from its
+    ``final.pt``. Every final.pt holds the CompVis keys, finite, and moved
+    from its start. Each folder is one VAE encode of its SD_PNG_EACH
+    images."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.cli import (gradient_ascent, nsfw_removal,
+                                proximal_gradient, random_label, train_esd)
+    from uurg_torch.io.diffusers_interop import diffusers_key_map
+    from uurg_torch.io.sd_interop import (PREFIX, sd_unet_key_map,
+                                         torch_unet_to_compvis)
+    from uurg_torch.models.sd_unet import SDUNet, SDUNetConfig, init_sd_unet
+
+    nsfw, clothed = (os.path.join(work, d) for d in ("nsfw", "not-nsfw"))
+    mask = os.path.join(work, "fisher", f"nude_mask_{SD_THRESHOLD}")
+    encodes = {"group_norm_fwd": 2 * -(-SD_PNG_EACH // 8) * VAE_GN_ENCODE,
+               "attention_fwd_f32": 2 * -(-SD_PNG_EACH // 8)}
+    common = ["--image_size", str(SD_RES), "--batch_size", str(SD_BATCH),
+              "--seed", str(SEED)]
+    data = ["--forget_data", nsfw, "--remain_data", clothed]
+    it = str(SD_CLI_ITERS)
+    out, secs, launches = {}, {}, {}
+
+    def run(name, main, argv, want):
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        main([*argv, "--save_path", os.path.join(work, name)])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = _read_all_launches()
+        _expect_launches(name, launches[name], want() if callable(want)
+                         else want)
+        torch.cuda.empty_cache()
+        return os.path.join(work, name, "final.pt")
+
+    n = SD_CLI_ITERS
+    final = run("nsfw_removal", nsfw_removal.main, [
+        *common, "--nsfw_data", nsfw, "--not_nsfw_data", clothed,
+        "--mask_path", mask, "--pack_mask", "--n_iters", it,
+        "--snapshot_freq", it],
+        _plus(sd_launches(grad_passes=2 * n, forwards=n), encodes))
+    run_dir = os.path.join(work, "nsfw_removal")
+    files = sorted(os.listdir(run_dir))
+    want_files = ["final.pt", f"step_{n - 1}.pt",
+                  f"step_{n - 1}_diffusers.npz"]
+    if files != want_files:
+        fail(f"nsfw_removal wrote {files}, not {want_files}")
+    t0 = time.perf_counter()
+    snap = _compvis_file(os.path.join(run_dir, f"step_{n - 1}.pt"))
+    cfg = SDUNetConfig()
+    with torch.device("meta"):
+        names = set(SDUNet(cfg).state_dict())
+    to_compvis = {ours: f"{PREFIX}{ck}" for ck, ours in
+                  sd_unet_key_map(cfg)}
+    with np.load(os.path.join(run_dir, f"step_{n - 1}_diffusers.npz")) as d:
+        keys = {k for k, ours in diffusers_key_map(cfg) if ours in names}
+        if set(d.files) != keys:
+            fail("the diffusers npz holds another key set")
+        for k, ours in diffusers_key_map(cfg):
+            if k in keys and not np.array_equal(
+                    d[k], snap[to_compvis[ours]].numpy()):
+                fail(f"the diffusers npz's {k} is not the snapshot's "
+                     f"{to_compvis[ours]}")
+    check_s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(run_dir, f)) for f in files}
+    for f in files[1:]:                               # 3.44 GB each
+        os.remove(os.path.join(run_dir, f))
+    start = torch_unet_to_compvis(init_sd_unet(0, cfg, "cuda"), cfg)
+    _check_final("nsfw_removal", final, start)
+    del snap, start
+    print(f"  nsfw_removal CLI ({n} steps, packed mask, snapshot at step "
+          f"{n - 1}): {secs['nsfw_removal']:.3f} s; files {sizes}; the npz's "
+          f"{len(keys)} diffusers keys equal the CompVis snapshot's "
+          f"({check_s:.3f} s to check)", flush=True)
+    start = _compvis_file(final)
+    with esd_draws() as drawn:
+        def esd_want():
+            denoise = sum(SD_ESD_DDIM - t + 1 if t > 0 else SD_ESD_DDIM
+                          for t in drawn)
+            return sd_launches(forwards=denoise + 2 * n, xattn_passes=n)
+
+        esd = run("train_esd", train_esd.main, [
+            "--ckpt_path", final, "--iterations", it, "--ddim_steps",
+            str(SD_ESD_DDIM), "--image_size", str(SD_RES), "--seed",
+            str(SEED)], esd_want)
+    got = _compvis_file(esd)
+    if not all(torch.equal(got[k], start[k]) for k in start
+               if "attn2" not in k):
+        fail("train_esd (xattn) moved a parameter outside attn2")
+    del got
+    _check_final("train_esd", esd, start)
+    out["esd_t_enc"] = list(drawn)
+    m = SD_BASELINE_ITERS
+    for name, main, argv, want in (
+            ("gradient_ascent", gradient_ascent.main, [],
+             sd_launches(grad_passes=2 * m)),
+            ("proximal_gradient", proximal_gradient.main,
+             ["--top_ratio", str(SD_TOP_RATIO)],
+             sd_launches(grad_passes=2 * m)),
+            ("random_label", random_label.main, [],
+             sd_launches(grad_passes=2 * m, forwards=m))):
+        path = run(name, main, [*common, *data, *argv, "--ckpt_path", final,
+                                "--n_iters", str(m)], _plus(want, encodes))
+        _check_final(name, path, start)
+        os.remove(path)
+    os.remove(esd)
+    print(f"  the CLIs' seconds {json.dumps(secs)}; ESD's t_enc draws "
+          f"{out['esd_t_enc']} (DDIM-{SD_ESD_DDIM}); on {card}", flush=True)
+    out.update(seconds=secs, launches=launches, files=sizes)
+    return out
+
+
+def sd_methods_path(card: str, gen, work: str) -> dict:
+    """Phase 21: SD's unlearning methods on the card."""
+    import torch
+
+    out = {"mask_cli": sd_mask_cli(work)}
+    mask = os.path.join(work, "fisher", f"nude_mask_{SD_THRESHOLD}")
+    out["sfron"] = sd_sfron_step(card, mask, gen)
+    out["prox"] = sd_prox_time(card, gen)
+    out["clis"] = sd_method_clis(work, card)
+    torch.cuda.empty_cache()
+    cli = out["clis"]["launches"]
+    out["launches"] = {
+        "sd_sfron": _plus(out["sfron"]["dense"]["launches"],
+                          out["sfron"]["packed"]["launches"]),
+        "sd_sfron_xattn": out["sfron"]["xattn"]["launches"],
+        "sd_nsfw_removal": cli["nsfw_removal"], "sd_esd": cli["train_esd"],
+        "sd_ga": cli["gradient_ascent"], "sd_prox": cli["proximal_gradient"],
+        "sd_rl": cli["random_label"]}
     return out
 
 
@@ -4999,8 +5455,9 @@ def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
     summed over an SD UNet forward (or backward) at SD_BATCH, the sum over
     its sites of the device ms a launch at the site's shape (CUDA-graph
     replay); the GroupNorm backward's sweep sites again on their own row;
-    launches over phase 20's main-path runs (sd_generate_fisher and the
-    three samplers)."""
+    launches over the main-path runs of phase 20 (sd_generate_fisher and
+    the three samplers) and phase 21 (nsfw_removal's counted steps, dense
+    and packed, and its xattn step; the five method CLIs)."""
     rows = []
     attn = sd["attention_rows"]
     groups = (
@@ -5045,6 +5502,8 @@ def main() -> int:
         print("chip_smoke.py must run from a checkout of the repository "
               "(uurg_torch/ not found beside it)", file=sys.stderr)
         return 2
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5234,7 +5693,22 @@ def main() -> int:
            f"make_sampler ddim / plms / lms ({SD_SAMPLE_STEPS} steps, "
            f"{SD_PROMPTS} prompts) and decode, sd_generate_fisher "
            f"({SD_FISHER_BATCHES} of 50 batches)")
-    sd = sd_path(card, gen)
+    work = tempfile.mkdtemp(prefix="uurg_sd_")
+    try:
+        sd = sd_path(card, gen, work)
+        torch.cuda.empty_cache()
+        banner(f"main path: Stable Diffusion's unlearning methods at full "
+               f"width: the SD mask layout of generate_fisher_mask, "
+               f"nsfw_removal's SFR-on step at batch {SD_BATCH} + "
+               f"{SD_BATCH} ({SD_SFRON_WARMUP} + 1 + {SD_SFRON_TIMED} steps "
+               f"under the Fisher mask dense and packed, one under xattn), "
+               f"the prox, the five method CLIs (nsfw_removal and "
+               f"train_esd at {SD_CLI_ITERS} steps, the three baselines at "
+               f"{SD_BASELINE_ITERS})")
+        sd_methods = sd_methods_path(card, gen, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sd["launches"].update(sd_methods["launches"])
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -5323,6 +5797,7 @@ def main() -> int:
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
                    "remat": remat, "dit": dit, "vae": vae, "sd": sd,
+                   "sd_methods": sd_methods,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)

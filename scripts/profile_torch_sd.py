@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,7 +52,12 @@ def main() -> int:
     card = cs.card_line()
     print(f"built in {time.time() - t0:.1f} s; {card}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    sd = cs.sd_path(card, torch.Generator(device="cuda").manual_seed(cs.SEED))
+    work = tempfile.mkdtemp(prefix="uurg_sd_")
+    try:
+        sd = cs.sd_path(card, torch.Generator(device="cuda").manual_seed(
+            cs.SEED), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     rows = cs.sd_kernel_rows(sd, META)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "sd_phase.json"), "w") as f:

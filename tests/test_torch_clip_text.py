@@ -160,3 +160,48 @@ def test_tier_resolution_matches_jax(tmp_path, monkeypatch):
     finally:
         for mod in (TC, JC):
             mod._resolve_tokenizer.cache_clear()
+
+
+@pytest.mark.parametrize("vocab,bos,eos,tier", [
+    (49408, 49406, 49407, "hf-clip"),
+    # a cached tokenizer that is not CLIP's (every prompt the same ids on
+    # one machine) falls through to the crc32 tier
+    (3, 0, 2, "crc32-fallback"),
+])
+def test_the_transformers_tier_must_be_clips_vocabulary(tmp_path, monkeypatch,
+                                                        vocab, bos, eos,
+                                                        tier):
+    import sys
+    import types
+
+    class FakeTokenizer:
+        bos_token_id, eos_token_id = bos, eos
+
+        @classmethod
+        def from_pretrained(cls, name, local_files_only):
+            assert name == "openai/clip-vit-large-patch14"
+            assert local_files_only
+            return cls()
+
+        def __len__(self):
+            return vocab
+
+        def __call__(self, prompts, **kw):
+            return {"input_ids": np.full((len(prompts), kw["max_length"]),
+                                         7)}
+
+    monkeypatch.setenv("HOME", str(tmp_path))           # no BPE files
+    monkeypatch.delenv("UURG_CLIP_BPE", raising=False)
+    monkeypatch.setitem(sys.modules, "transformers",
+                        types.SimpleNamespace(CLIPTokenizer=FakeTokenizer))
+    TC._resolve_tokenizer.cache_clear()
+    try:
+        assert TC.active_tokenizer() == tier
+        ids = TC.tokenize(["a", "b c"], 8)
+        if tier == "hf-clip":
+            assert (ids == 7).all() and ids.dtype == np.int32
+        else:
+            np.testing.assert_array_equal(ids, TC.hash_tokenize(["a", "b c"],
+                                                                8))
+    finally:
+        TC._resolve_tokenizer.cache_clear()

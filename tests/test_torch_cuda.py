@@ -665,3 +665,80 @@ def test_sd_unet_forward_matches_its_plain_path(gen):
             TU.attention, layers.group_norm = kernels
     assert got.shape == (1, 64, 64, 4) and got.dtype == torch.float32
     assert _rel_l2(got, want) < 2e-2
+
+
+def test_nsfw_removal_sgd_step_on_the_card_matches_the_cpu(gen,
+                                                            monkeypatch):
+    """One SFR-on step of ``nsfw_removal`` (SGD, the mask packed) on a small
+    float32 SD UNet (16 x 16 latents: the float32 attention kernels at T =
+    256 and 64, GroupNorm on every site) on the card against the same step
+    on the CPU, t and noise injected alike: the update within 1e-3 of its
+    norm (TF32 off; the sums run in other orders)."""
+    import copy
+
+    from uurg_torch.core.device import resolve_device
+    from uurg_torch.models.sd_unet import SDUNetConfig, init_sd_unet
+    from uurg_torch.train import optim as TO
+    from uurg_torch.workloads import sd_runner as TR
+    from uurg_torch.workloads.sd import SDWorkload
+
+    monkeypatch.setattr(TR, "make_optimizer",
+                        lambda name, params, lr, **kw: TO.make_optimizer(
+                            "sgd", params, lr, momentum=0.9))
+    resolve_device("cuda")                          # TF32 off
+    cfg = SDUNetConfig(model_channels=64, channel_mult=(1, 2),
+                       num_res_blocks=1, attention_ds=(1, 2), num_heads=2,
+                       context_dim=32, dtype=torch.float32, remat=True)
+    cpu = torch.Generator().manual_seed(1)
+    z, z_r = (torch.randn(2, 16, 16, 4, generator=cpu) for _ in range(2))
+    ctx = [torch.randn(2, 8, 32, generator=cpu) for _ in range(3)]
+    draws = [(torch.randint(0, 1000, (2,), generator=cpu),
+              torch.randn(2, 16, 16, 4, generator=cpu)) for _ in range(2)]
+    start = init_sd_unet(3, cfg)
+    mask = {n: torch.rand(p.shape, generator=cpu) < 0.5
+            for n, p in start.named_parameters()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        wl = SDWorkload.build(cfg, device=dev)
+        queue = [(t.to(dev), n.to(dev)) for t, n in draws]
+        monkeypatch.setattr(wl, "draw", lambda z, g, q=queue: q.pop(0))
+        model = copy.deepcopy(start).to(dev)
+        before = (attention.launches_f32, group_norm.launches)
+        TR.nsfw_removal(wl, model, iter([(z, ctx[0], ctx[1])]),
+                        iter([(z_r, ctx[2])]), n_iters=1, lr=1e-2,
+                        saliency_mask=mask, pack_mask=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert attention.launches_f32 > before[0]
+            assert group_norm.launches > before[1]
+        out[dev] = torch.cat([(p.detach().cpu() - q.detach()).reshape(-1)
+                              for p, q in
+                              zip(model.parameters(), start.parameters())])
+    assert out["cpu"].norm() > 0
+    assert _rel_l2(out["cuda"], out["cpu"]) < 1e-3
+
+
+def test_prox_threshold_at_full_width(gen):
+    """``make_prox_operator`` on the full-width SD UNet (859,520,964
+    parameters): the threshold it applies is ``sort(|delta|)[-k]`` at
+    k = 1% of the parameters, the moves under it zeroed."""
+    from uurg_torch.models.sd_unet import init_sd_unet
+    from uurg_torch.workloads.sd import SDWorkload
+
+    wl = SDWorkload.build(device="cuda")
+    init = init_sd_unet(0, device="cuda")
+    model = init_sd_unet(0, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3)
+        flat = torch.cat([(p - a).abs().reshape(-1) for p, a in
+                          zip(model.parameters(), init.parameters())])
+        k = max(1, int(flat.numel() * 0.01))
+        want = torch.sort(flat).values[-k].item()
+        del flat
+    prox = wl.make_prox_operator(init, 0.01)
+    assert prox(model).item() == want
+    with torch.no_grad():
+        moved = sum(int(((p - a) != 0).sum()) for p, a in
+                    zip(model.parameters(), init.parameters()))
+    assert 0 < moved <= k

@@ -503,8 +503,10 @@ def test_train_cli_fisher_mask_salun_and_sfron_on_cpu(tmp_path):
 def test_generate_fisher_mask_cli_refuses_other_layouts(tmp_path):
     from uurg_torch.cli import generate_fisher_mask as gfm
 
+    # the SD layout is read (tests/test_torch_sd_methods_cli.py), on the
+    # card unless the CPU is asked for
     (tmp_path / "nude_forget").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="SD slice"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         gfm.main(["--ckpt_folder", str(tmp_path)])
     with pytest.raises(SystemExit, match="no Fisher files"):
         gfm.main(["--ckpt_folder", str(tmp_path / "empty")])

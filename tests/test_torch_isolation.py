@@ -68,7 +68,12 @@ def test_chip_smoke_refuses_to_run_outside_a_checkout(tmp_path):
 # above read and import
 SD_MODULES = ("models/sd_unet", "models/clip_text", "workloads/sd",
               "workloads/sd_runner", "io/sd_interop", "io/vae_clip_interop",
-              "cli/sd_common", "cli/sd_generate_fisher")
+              "cli/sd_common", "cli/sd_generate_fisher",
+              # its methods, their CLIs, the Diffusers export and the data
+              "io/diffusers_interop", "data/sd_data", "cli/nsfw_removal",
+              "cli/train_esd", "cli/gradient_ascent",
+              "cli/proximal_gradient", "cli/random_label",
+              "cli/generate_fisher_mask")
 
 
 @pytest.mark.parametrize("module", SD_MODULES)

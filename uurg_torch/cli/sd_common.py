@@ -93,3 +93,41 @@ def latent_prompt_batches(wl, images: np.ndarray, prompt: str,
             yield z[idx], c, ctx2.expand(batch_size, *ctx2.shape[1:])
         else:
             yield z[idx], c
+
+
+def save_unet(path: str, unet) -> None:
+    """The UNet as a CompVis checkpoint file (its weights under
+    ``state_dict``, ``model.diffusion_model.*``), which ``--ckpt_path``
+    reads back; written beside ``path`` and renamed over it."""
+    from uurg_torch.io.sd_interop import torch_unet_to_compvis
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save({"state_dict": torch_unet_to_compvis(unet, unet.cfg)}, tmp)
+    os.replace(tmp, path)
+
+
+def run_paired_method(args, runner, extra_prompt: str | None = None,
+                      **kwargs) -> str:
+    """The shared body of the gradient-ascent, proximal-gradient and
+    random-label CLIs: the workload and UNet (``setup_workload``), the
+    forget and remain folders (synthetic with seeds ``seed`` and ``seed +
+    1`` when missing) pre-encoded into batch streams seeded the same way
+    (the forget stream with ``extra_prompt``'s context), ``runner(wl,
+    unet, forget, remain, n_iters=, lr=, remain_alpha=, seed=,
+    **kwargs)``, then ``<save_path>/final.pt``; returns its path."""
+    wl, unet = setup_workload(args, args.device)
+    f_imgs = load_images_or_synthetic(args.forget_data, args.image_size,
+                                      args.seed)
+    r_imgs = load_images_or_synthetic(args.remain_data, args.image_size,
+                                      args.seed + 1)
+    fb = latent_prompt_batches(wl, f_imgs, args.forget_prompt,
+                               args.batch_size, args.seed,
+                               extra_prompt=extra_prompt)
+    rb = latent_prompt_batches(wl, r_imgs, args.remain_prompt,
+                               args.batch_size, args.seed + 1)
+    runner(wl, unet, fb, rb, n_iters=args.n_iters, lr=args.lr,
+           remain_alpha=args.remain_alpha, seed=args.seed, **kwargs)
+    path = os.path.join(args.save_path, "final.pt")
+    save_unet(path, unet)
+    return path

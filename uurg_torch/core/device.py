@@ -22,3 +22,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def refuse_multi_device(mesh=None, parallelism: str = "dp",
+                        pp_microbatches: int | None = None) -> None:
+    """Raise for the multi-device knobs (a mesh, ``parallelism`` other than
+    ``"dp"``, pipeline microbatches), which the port does not run yet."""
+    if mesh is not None or parallelism != "dp" or pp_microbatches:
+        raise NotImplementedError(
+            f"mesh={mesh!r}, parallelism={parallelism!r}, pp_microbatches="
+            f"{pp_microbatches!r}: the port runs on one device; the "
+            f"multi-device paths come with ROADMAP Queue 1 item 8")

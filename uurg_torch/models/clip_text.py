@@ -258,6 +258,13 @@ def _resolve_tokenizer():
 
         tok = CLIPTokenizer.from_pretrained(
             "openai/clip-vit-large-patch14", local_files_only=True)
+        # a cached tokenizer that is not CLIP's 49,408-token vocabulary
+        # (one such gave every prompt the same ids) is no tier
+        if (len(tok), tok.bos_token_id, tok.eos_token_id) != (
+                49408, _BOS, _EOS):
+            raise ValueError(f"the cached tokenizer has {len(tok)} tokens, "
+                             f"BOS {tok.bos_token_id}, EOS "
+                             f"{tok.eos_token_id}: not CLIP's")
 
         def hf(prompts, max_length):
             enc = tok(list(prompts), truncation=True, max_length=max_length,

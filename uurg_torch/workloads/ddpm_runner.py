@@ -183,23 +183,34 @@ def generate_fisher(args, config, out_dir: str,
     return out_dir
 
 
+# the Fisher files and the mask name of each layout: the DDPM and DiT
+# runners' and sd_generate_fisher's
+FISHER_LAYOUTS = {"ddpm": (("forget_fisher", "remain_fisher"), "fisher_{th}"),
+                  "sd": (("nude_forget", "nude_remain"), "nude_mask_{th}")}
+
+
 def generate_fisher_mask(fisher_dir: str, thresholds, like=None,
-                         device: str | torch.device | None = None
-                         ) -> dict[float, dict]:
-    """Fisher-ratio saliency masks (DDPM/generate_fisher_mask.py:6-48), one
-    a threshold, written to ``<fisher_dir>/fisher_<th>`` (bool leaves).
-    ``like`` (a model or named tensors) checks the Fishers' keys and
-    shapes. Computes on ``device``, CUDA unless "cpu" is asked for."""
+                         device: str | torch.device | None = None,
+                         layout: str = "ddpm") -> dict[float, dict]:
+    """Fisher-ratio saliency masks (DDPM/generate_fisher_mask.py:6-48 and
+    SD/train-scripts/generate_fisher_mask.py:17-48), one a threshold, from
+    the two Fisher files of ``layout`` in ``fisher_dir`` (FISHER_LAYOUTS:
+    ``forget_fisher`` and ``remain_fisher`` -> ``fisher_<th>``, or
+    ``nude_forget`` and ``nude_remain`` -> ``nude_mask_<th>``), written
+    beside them (bool leaves). ``like`` (a model or named tensors) checks
+    the Fishers' keys and shapes. Computes on ``device``, CUDA unless
+    "cpu" is asked for."""
     dev = resolve_device(device)
+    names, out_name = FISHER_LAYOUTS[layout]
     ff, rf = ({k: v.to(dev) for k, v in restore_checkpoint(
-        os.path.join(fisher_dir, f"{name}_fisher"), like).items()}
-        for name in ("forget", "remain"))
+        os.path.join(fisher_dir, name), like).items()} for name in names)
     out = {}
     for th in np.atleast_1d(thresholds):
         mask = fisher_ratio_mask(ff, rf, float(th))
         log.info("threshold %.3g -> sparsity %.2f%%", th,
                  mask_sparsity(mask) * 100)
-        save_checkpoint(os.path.join(fisher_dir, f"fisher_{th}"), mask)
+        save_checkpoint(os.path.join(fisher_dir, out_name.format(th=th)),
+                        mask)
         out[float(th)] = mask
     return out
 
@@ -231,11 +242,18 @@ def generate_salun_mask(args, config, out_dir: str, ratios,
     return out_dir
 
 
-def _device_mask(mask: dict, device: torch.device) -> dict:
-    """Packed leaves stay packed; 0/1 leaves become bool (1 byte/element)."""
-    return {k: v.to(device) if isinstance(v, PackedMask)
-            else torch.as_tensor(v).to(device=device, dtype=torch.bool)
-            for k, v in mask.items()}
+def _device_mask(mask: dict, device: torch.device,
+                 pack: bool = False) -> dict:
+    """Packed leaves stay packed; 0/1 leaves become bool (1 byte/element),
+    bit-packed on the device with ``pack``."""
+    out = {}
+    for k, v in mask.items():
+        if isinstance(v, PackedMask):
+            out[k] = v.to(device)
+        else:
+            v = torch.as_tensor(v).to(device=device, dtype=torch.bool)
+            out[k] = pack_mask({k: v})[k] if pack else v
+    return out
 
 
 def load_mask(path: str, model: CondUNet, pack: bool = False) -> dict:

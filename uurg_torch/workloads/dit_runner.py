@@ -29,8 +29,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from uurg_torch.core.device import refuse_multi_device
 from uurg_torch.core.rng import step_seed
-from uurg_torch.core.tree import PackedMask, pack_mask as _pack
 from uurg_torch.io.checkpoint import save_checkpoint
 from uurg_torch.io.dit_interop import save_dit_checkpoint
 from uurg_torch.models.dit import DiT
@@ -42,16 +42,6 @@ from uurg_torch.workloads import ddpm_runner
 from uurg_torch.workloads.dit import DiTWorkload
 
 log = logging.getLogger("uurg_torch.dit")
-
-
-def refuse_multi_device(mesh=None, parallelism: str = "dp",
-                        pp_microbatches: int | None = None) -> None:
-    """Raise for the multi-device knobs, which the port does not run yet."""
-    if mesh is not None or parallelism != "dp" or pp_microbatches:
-        raise NotImplementedError(
-            f"mesh={mesh!r}, parallelism={parallelism!r}, pp_microbatches="
-            f"{pp_microbatches!r}: the port runs DiT on one device; the "
-            f"multi-device paths come with ROADMAP Queue 1 item 8")
 
 
 def device_batch(batch, device: torch.device):
@@ -130,10 +120,7 @@ def dit_forget(
     opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=0.0,
                          mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     if mask is not None:
-        mask = ddpm_runner._device_mask(mask, dev)
-        if pack_mask:
-            mask = {k: v if isinstance(v, PackedMask) else _pack({k: v})[k]
-                    for k, v in mask.items()}
+        mask = ddpm_runner._device_mask(mask, dev, pack_mask)
     cfg = SFRonConfig(
         n_iters=n_iters, forget_alpha=forget_alpha,
         remain_alpha=remain_alpha,

@@ -83,7 +83,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward at every site shape, against the plain versions, three runs
    with equal bits. One example's gradient (batch 50) with the kernels
    against the same model on its plain path. Then ``cli/fim.py``'s
-   ``generate_fim`` at 20 chunks x 8 examples (batch 4) with the launch
+   ``generate_fim`` at 20 chunks x 4 examples (batch 4) with the launch
    counters zeroed just before and read just after (one forward and one
    backward of every site an example); the ``fisher_dict`` it writes must
    be finite, non-negative and not all zero. ``ddpm_runner.sa_forget``
@@ -102,7 +102,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    clock; the probe in bf16 at batch 64. Then the twin of
    ``cli/parity_check.py`` through ``uurg_torch.cli.parity_check.run`` on
    the full-width config and the stand-in artifacts: the Fisher pass, the
-   ``fisher_1.0`` mask, 10 SFR-on steps under it, 1,152 remaining-class and
+   ``fisher_1.0`` mask, 10 SFR-on steps under it, 576 remaining-class and
    128 forgotten-class samples by DDIM-50 CFG, the metrics against the
    stand-in's remain split (1,858 references) and the UA probe. The launch
    counters are zeroed just before and read just after: one forward and
@@ -122,7 +122,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    random 10% forgetting, batch 256, the flip and pad-crop augmentation):
    ``SFRon`` through the registry in fp32 and in bf16 (the Fisher pass
    over both splits timed, the mask density, 10 warm-up iterations of
-   which 5 profiled for the device's busy time, 100 timed; cut from 1,500
+   which 5 profiled for the device's busy time, 50 timed; cut from 1,500
    by its ``n_iters`` override), losses finite, parameters and running
    statistics moved, forget and test accuracy and peak memory printed;
    the other eight methods through the registry at one epoch each in bf16
@@ -183,11 +183,11 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    side's distance from float64). Then on a stand-in of 2,048 seeded
    latents over 10 classes in 4 shards (``write_latent_shards``), each in
    this process, from a reference ``.pt`` of the seeded model perturbed
-   (``--ckpt``): ``dit_generate_fisher`` (class 0, 8 batches of 1),
+   (``--ckpt``): ``dit_generate_fisher`` (class 0, 4 batches of 1),
    ``dit_generate_mask`` (threshold 1.0), ``forget`` (the mask packed,
    adaga, 3 steps, snapshot and checkpoints at step 3; ``final.pt`` read
    back). ``dit_forget`` at batch 32 + 32 under that mask, 2 warm-up steps
-   and one profiled, then 10 counted and timed, under full and ``attn``
+   and one profiled, then 5 counted and timed, under full and ``attn``
    remat (attention launches exactly 28 + 28 or 28 forwards and 28
    backwards a phase; GroupNorm's 0; steps/s, busy share, peak memory);
    ``dit_sample_grid`` (50 steps, CFG 4.0, 16 labels; 28 forward launches
@@ -233,7 +233,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    gradients under full and ``"dots"`` remat, exact launch counts, peak
    memory. (c) One Fisher batch on the host clock and its device time by
    kernel family; ``sd_generate_fisher`` in this process on two seeded PNG
-   folders of 8 images at 512 px, 2 of its 50 batches a folder, threshold
+   folders of 8 images at 512 px, 1 of its 50 batches a folder, threshold
    0.5: exact launch counts, its three files, the Fishers finite,
    non-negative and not all zero, the mask's sparsity. (d) ``make_sampler``
    with ddim, plms and lms at 4 of 50 steps on 4 prompts (CFG batch 8),
@@ -244,7 +244,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    mask ``sd_generate_fisher`` wrote. (b) ``sd_runner.nsfw_removal`` on the
    full-width UNet at batch 4 + 4, train_method full, under that mask dense
    and packed: 2 warm-up steps (the dense run's third step profiled: device
-   ms by kernel family), then 5 counted steps, each on the host clock,
+   ms by kernel family), then 3 counted steps, each on the host clock,
    with exact launch counts (a step: the forget phase's trained forward,
    its pseudo target's ``no_grad`` forward and the remain phase's trained
    forward, each trained one run again in the remat'd backward); losses
@@ -261,6 +261,29 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    ``random_label`` (1 step each): every ``final.pt`` holds the CompVis
    keys, finite, moved from its start. (d) The ``*_sd`` rows of the
    kernels line count these runs' launches too.
+22. Stable Diffusion's evaluation, from phase 21's ``nsfw_removal``
+   ``final.pt`` (unlearn, then evaluate), each CLI in this process with
+   the launch counters zeroed just before and read just after. (a)
+   ``generate_images`` on a prompt CSV of 4 cases (cases 2 and 3 share
+   prompt and seed), 2 images a case at 512 px: lms at the CLI's settings
+   (50 steps, CFG 7.5) on the last case, then ddim and plms at 4 steps on
+   cases 1-3 (``--from_case 1``): exact launches (15 attention and 61
+   GroupNorm a UNet forward, PLMS one forward more; 30 GroupNorm and one
+   float32 ``xwide`` attention a decode), the PNG files and none for case
+   0, cases 2 and 3 byte-equal, no image constant, case 1's ddim PNGs bit-
+   equal to ``make_sampler`` + ``decode`` + truncation from its seed here,
+   the decode of 2 latents timed; seconds and images/s beside the set-up's
+   seconds. (b) ``imageclassify`` on the ddim folder with a seeded,
+   perturbed ResNet50 saved as a ``.pth``: its rows the argsort of this
+   phase's logits on the card. (c) ``nudenet_classes`` with an ``.npz`` of
+   recorded YOLOv8n heads (1, 22, 2100) whose boxes map back to known
+   pixels (letterbox scale 0.625, no pad): the CSV holds exactly the
+   planted classes above ``--threshold``. (d) ``compute_fid`` between
+   phase 20's two PNG folders (``--class_to_forget`` dropping ``nsfw``)
+   and the ddim folder: finite, non-negative; the feature seconds on the
+   card apart from the Fréchet seconds on the host. (e) The kernels line
+   counts these launches: the SD rows' UNet and decode launches, the
+   VAE's ``xwide`` row every SD encode's and decode's.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -427,9 +450,9 @@ SA_CONFIG = {
                  "lmbda": 10},
 }
 # the SA Fisher at cli/fim.py's --n_chunks default, n_samples cut from 256
-# to 8 (batch 4): 160 examples, each a forward and a backward at batch
+# to 4 (batch 4): 80 examples, each a forward and a backward at batch
 # T / FIM_CHUNKS = 50
-FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 8, 4
+FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 4, 4
 FIM_EXAMPLE_BATCH = (SA_CONFIG["diffusion"]["num_diffusion_timesteps"]
                      // FIM_CHUNKS)
 SA_WARMUP_STEPS, SA_STEPS = 2, 10
@@ -442,9 +465,9 @@ EVAL_CHECK_BATCH = 4
 INCEPTION_BATCH, INCEPTION_IMAGES = 256, 2048
 PROBE_BATCH, PROBE_IMAGES = 64, 512
 # the twin's cuts of the full north-star run: SFR-on 10 of 150 iterations,
-# 128 samples a remaining class (1,152 of 45,000), 128 probe samples of
+# 64 samples a remaining class (576 of 45,000), 128 probe samples of
 # 5,000; DDIM-50 and the references (the stand-in's remain split) uncut
-PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 1152, 128
+PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 576, 128
 # classification (phase 15): ResNet-18 with the CIFAR stem at full width on
 # a CIFAR-10-sized stand-in (50,000 train and 10,000 test images of 32 px,
 # 10 classes, noise 0.5), random 10% forgetting (5,000 forget, 45,000
@@ -459,11 +482,11 @@ CLS_REL = 1e-4
 CLS_GRAD_REL = 5e-3
 # float64 on both: only the order of the sums differs
 CLS_F64_REL = 1e-9
-# SFR-on cut from 1,500 iterations to 10 warm-up (5 of them profiled) + 100
+# SFR-on cut from 1,500 iterations to 10 warm-up (5 of them profiled) + 50
 # timed, through the method's n_iters override; the other eight methods at
 # one epoch each (Finetune, RandomLabel, SalUn, BadTeacher from 10 epochs,
 # Retrain from 200, GradAscent from 9, SCRUB from 6 epochs and 2 max steps)
-CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 100
+CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 50
 CLS_ONE_EPOCH = {"epochs": 1, "sgda_epochs": 1, "msteps": 1}
 # the eight methods' epoch runs over every CLS_METHODS_EVERY-th image of the
 # retain and forget splits (4,500 + 500): depth cut to keep the script in
@@ -518,14 +541,14 @@ DIT_REL, DIT_GRAD_REL = 1e-5, 3e-5
 # the stand-in: 2,048 seeded latents over 10 of the 1,000 classes (class 0
 # ~ 200), 4 shards, and the seeded DiT-XL/2 perturbed (so its gates are
 # open and its Fisher and mask mean something) as a reference .pt that the
-# CLIs read with --ckpt; the CLIs cut (dit_generate_fisher 8 of 2,000
+# CLIs read with --ckpt; the CLIs cut (dit_generate_fisher 4 of 2,000
 # batches, forget 3 of 600 steps: one snapshot and one checkpoint round,
-# 21.6 GB written); the timed run 2 warm-up + 1 profiled, then 10 counted
+# 21.6 GB written); the timed run 2 warm-up + 1 profiled, then 5 counted
 # steps under each remat policy; the sample grid DiT's 50 respaced steps,
 # CFG 4.0, 16 labels
 DIT_LATENTS, DIT_SHARDS, DIT_STANDIN_CLASSES = 2048, 4, 10
-DIT_FISHER_ITERS, DIT_CLI_ITERS = 8, 3
-DIT_WARMUP, DIT_STEPS = 2, 10
+DIT_FISHER_ITERS, DIT_CLI_ITERS = 4, 3
+DIT_WARMUP, DIT_STEPS = 2, 5
 DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
 # the frozen VAE (phase 19): VAEConfig(), the CompVis first stage DiT uses
 # (sd-vae-ft-ema), 83,653,863 parameters, fp32 (TF32 off), seeded init, at
@@ -573,7 +596,7 @@ VAE_FID_SAMPLES, VAE_SAMPLE_STEPS = 64, 4
 SD_BATCH, SD_LATENT, SD_HEADS, SD_CONTEXT = 4, 64, 8, (77, 768)
 SD_RES = 8 * SD_LATENT
 SD_ATTN_SITES, SD_UNET_GN_SITES = 15, 61
-SD_PNG_EACH, SD_FISHER_BATCHES, SD_THRESHOLD = 8, 2, 0.5
+SD_PNG_EACH, SD_FISHER_BATCHES, SD_THRESHOLD = 8, 1, 0.5
 SD_GUIDANCE, SD_FISHER_GUIDANCE = 7.5, 3.0
 SD_SAMPLE_STEPS, SD_PROMPTS = 4, 4
 # UNet forwards a sampler makes at SD_SAMPLE_STEPS (PLMS: one more, its
@@ -602,13 +625,36 @@ SD_FAMILIES = (
 # denoise cut from 50 DDIM steps to SD_ESD_DDIM (a divisor of the 1,000
 # training steps, as LDM's DDIM grid needs); the prox at the CLI's top
 # ratio
-SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 5, 2
+SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 3, 2
 SD_BASELINE_ITERS = 1          # gradient ascent, proximal, random label
 SD_ESD_DDIM, SD_TOP_RATIO = 10, 0.01
+
+# SD's evaluation (phase 22) on phase 21's nsfw_removal final.pt, through
+# the four CLIs in this process: generate_images at its own settings (lms,
+# SD_EVAL_LMS_STEPS steps, CFG SD_GUIDANCE, SD_RES px) on the last case,
+# then ddim and plms at SD_SAMPLE_STEPS steps on cases 1-3 (--from_case
+# 1), SD_EVAL_SAMPLES images a case; cases 2 and 3 share prompt and seed.
+# imageclassify with a seeded, perturbed ResNet50 (CIFAR stem, 10 classes)
+# on the ddim folder; nudenet_classes on recorded YOLOv8n heads at 320 px
+# (4 + 18 classes, 40^2 + 20^2 + 10^2 anchors); compute_fid between phase
+# 20's two PNG folders (one class dropped) and the ddim folder
+SD_EVAL_SAMPLES, SD_EVAL_LMS_STEPS = 2, 50
+SD_EVAL_PROMPTS = (
+    "case_number,prompt,evaluation_seed\n"
+    '0,"a photo of a nude person, on a beach",11\n'
+    "1,a photo of a person wearing clothes,12\n"
+    '2,"a church, at night",13\n'
+    '3,"a church, at night",13\n')
+NUDENET_SIZE, NUDENET_ANCHORS, NUDENET_THRESHOLD = 320, 2100, 0.6
+
+
+# (seconds since the start, heading) of each phase, for the detail file
+PHASE_STARTS = []
 
 
 def banner(msg: str) -> None:
     """A phase's heading, with the seconds since the script started."""
+    PHASE_STARTS.append((round(time.time() - STARTED, 1), msg[:100]))
     print(f"== {msg} [at {time.time() - STARTED:.1f} s]", flush=True)
 
 
@@ -4068,14 +4114,14 @@ def vae_sites():
         layers.group_norm, layers.attention = gn, attn
 
 
-def vae_gn_site_counts(vae) -> dict:
+def vae_gn_site_counts(vae, res: int = VAE_RES) -> dict:
     """(H, W, C) of each GroupNorm site shape of the VAE's encode and decode
-    at VAE_RES -> its (encode, decode) site counts, from one batch-1 pass
+    at ``res`` px -> its (encode, decode) site counts, from one batch-1 pass
     of each."""
     import torch
 
     with torch.inference_mode(), vae_sites() as sites:
-        z = vae.encode(torch.zeros(1, VAE_RES, VAE_RES, 3, device="cuda"))
+        z = vae.encode(torch.zeros(1, res, res, 3, device="cuda"))
         n_enc = len(sites)
         vae.decode(z)
     count = {}
@@ -5497,6 +5543,373 @@ def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
     return rows
 
 
+def sd_eval_generate(work: str, final: str, card: str) -> dict:
+    """Phase 22 (a): ``generate_images`` in this process from ``final``
+    (a CompVis file an unlearning CLI wrote), the launch counters zeroed
+    just before each run and read just after: lms at the CLI's settings on
+    the last case, then ddim and plms at SD_SAMPLE_STEPS steps on cases 1-3.
+    Exact launches (15 attention and 61 GroupNorm a UNet forward, 30
+    GroupNorm and one float32 attention a decode), the PNG files (none for
+    case 0), the equal cases byte-equal, no image constant; case 1's ddim
+    PNGs bit-equal to ``make_sampler`` + ``decode`` + truncation from its
+    seed here; the decode's GroupNorm sites at SD_RES px against the plain
+    version; the decode's eager ms at SD_RES px by CUDA events."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from uurg_torch.cli import generate_images, sd_common
+
+    prompts = os.path.join(work, "prompts.csv")
+    with open(prompts, "w", newline="") as f:
+        f.write(SD_EVAL_PROMPTS)
+    n = SD_EVAL_SAMPLES
+    built = {}
+    setup = sd_common.setup_workload
+
+    def kept(args, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = setup(args, device)
+        torch.cuda.synchronize()
+        built.update(wl=out[0], unet=out[1], setup_s=time.perf_counter() - t0)
+        return out
+
+    out = {}
+    runs = (("lms", SD_EVAL_LMS_STEPS, 3), ("ddim", SD_SAMPLE_STEPS, 1),
+            ("plms", SD_SAMPLE_STEPS, 1))
+    sd_common.setup_workload = kept
+    try:
+        for method, steps, first in runs:
+            folder = os.path.join(work, f"gen_{method}")
+            argv = ["--prompts_path", prompts, "--save_path", folder,
+                    "--ckpt_path", final, "--sampler", method,
+                    "--num_samples", str(n), "--from_case", str(first),
+                    "--device", "cuda"]
+            if method != "lms":             # lms runs at the CLI's defaults
+                argv += ["--ddim_steps", str(steps)]
+            cases = list(range(first, 4))
+            forwards = steps + (method == "plms")
+            torch.cuda.synchronize()
+            _zero_launches()
+            secs, _, _ = run_cli("generate_images", argv)
+            launches = _read_all_launches()
+            _expect_launches(f"generate_images {method}", launches, {
+                **{k: 0 for k in launches},
+                "attention_fwd": len(cases) * forwards * SD_ATTN_SITES,
+                "group_norm_fwd": len(cases) * (forwards * SD_UNET_GN_SITES
+                                                + VAE_GN_DECODE),
+                "attention_fwd_f32": len(cases)})
+            want = [f"{c}_{i}.png" for c in cases for i in range(n)]
+            files = sorted(os.listdir(folder))
+            if files != want:
+                fail(f"generate_images {method} wrote {files}, not {want}")
+            pngs = {}
+            for name in files:
+                with open(os.path.join(folder, name), "rb") as f:
+                    pngs[name] = f.read()
+                img = np.asarray(Image.open(os.path.join(folder, name)))
+                if img.shape != (SD_RES, SD_RES, 3) or img.std() == 0:
+                    fail(f"generate_images {method}: {name} is "
+                         f"{img.shape} or constant")
+            if 2 in cases and any(pngs[f"2_{i}.png"] != pngs[f"3_{i}.png"]
+                                  for i in range(n)):
+                fail(f"generate_images {method}: cases 2 and 3 (one prompt, "
+                     f"one seed) differ")
+            sampling = secs - built["setup_s"]
+            out[method] = {
+                "seconds": secs, "setup_s": built["setup_s"],
+                "sampling_s": sampling, "images": len(files),
+                "images_per_s": len(files) / sampling, "launches": launches,
+                "unet_forwards": len(cases) * forwards}
+            print(f"  generate_images {method} ({steps} steps, CFG "
+                  f"{SD_GUIDANCE}, cases {cases} x {n} at {SD_RES} px): "
+                  f"{secs:.3f} s, of which the workload and {final} "
+                  f"{built['setup_s']:.3f} s; {len(files) / sampling:.4f} "
+                  f"images/s sampling and decoding on {card}", flush=True)
+            if method == "ddim":
+                out["same_as_sampler"] = sd_eval_same_bits(
+                    built["wl"], built["unet"], folder, card)
+                out["decode_gn_sites"] = sd_decode_gn_sites(built["wl"].vae)
+            built.clear()
+    finally:
+        sd_common.setup_workload = setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def sd_eval_same_bits(wl, unet, folder: str, card: str) -> dict:
+    """Case 1's PNGs from ``generate_images`` ddim against this phase's own
+    ``make_sampler`` + ``decode`` + the CLI's truncation from the case's
+    seed (bit for bit), the decode finite; then the decode of
+    SD_EVAL_SAMPLES latents at SD_RES px timed eagerly with CUDA events
+    (host launch gaps included)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from uurg_torch.cli.generate_images import read_prompts, to_uint8
+
+    path = os.path.join(os.path.dirname(folder), "prompts.csv")
+    case, prompt, seed = read_prompts(path, 1)[0]
+    ctx = wl.get_learned_conditioning([prompt]).repeat(SD_EVAL_SAMPLES, 1, 1)
+    sample = wl.make_sampler(num_steps=SD_SAMPLE_STEPS,
+                             guidance_scale=SD_GUIDANCE,
+                             latent_size=SD_LATENT, method="ddim")
+    z = sample(unet, ctx, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    with torch.inference_mode():
+        imgs = wl.vae.decode(z)
+        if not torch.isfinite(imgs).all():
+            fail("generate_images: a decoded image is not finite")
+        want = to_uint8(imgs.cpu().numpy())
+        for i in range(SD_EVAL_SAMPLES):
+            got = np.asarray(Image.open(os.path.join(folder,
+                                                     f"{case}_{i}.png")))
+            if not np.array_equal(got, want[i]):
+                fail(f"generate_images: {case}_{i}.png differs from "
+                     f"make_sampler + decode from seed {seed}")
+        wl.vae.decode(z)                                    # warm
+        decode_ms = _events_ms(lambda: [wl.vae.decode(z) for _ in range(3)],
+                               3)
+    print(f"  case {case}'s {SD_EVAL_SAMPLES} PNGs bit-equal to "
+          f"make_sampler + decode + truncation from seed {seed}; decode of "
+          f"{SD_EVAL_SAMPLES} latents at {SD_RES} px {decode_ms:.3f} ms "
+          f"eager (CUDA events) on "
+          f"{card}", flush=True)
+    return {"case": case, "seed": seed, "decode_ms": decode_ms,
+            "decode_batch": SD_EVAL_SAMPLES}
+
+
+def sd_decode_gn_sites(vae) -> list[dict]:
+    """Phase 22 (a): the GroupNorm forward at every fp32 site shape of the
+    VAE's decode at SD_RES px (found by one batch-1 pass), at the decode
+    batches of phases 22 and 20 (SD_EVAL_SAMPLES and SD_PROMPTS: the split
+    route's 264 and 132 runs a sample, where phase 19 (b) checks 17): y,
+    mean and rstd against the plain version, three runs with equal bits.
+    Off the counted runs. Returns one row a site shape and batch."""
+    import torch
+
+    from uurg_torch.ops import group_norm as GN
+
+    count = {k: dec for k, (_, dec) in vae_gn_site_counts(vae, SD_RES).items()
+             if dec}
+    if sum(count.values()) != VAE_GN_DECODE:
+        fail(f"the VAE's decode at {SD_RES} px has {sum(count.values())} "
+             f"GroupNorm sites, not {VAE_GN_DECODE}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for B in (SD_EVAL_SAMPLES, SD_PROMPTS):
+        for (H, W, C), dec in sorted(count.items()):
+            x = torch.randn(B, H, W, C, generator=gen, device="cuda") * 2 + 0.5
+            scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+            bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+            route = GN._fwd_route(H * W, C, 4, 32, B)
+            tag = (f"group_norm B={B} H={H} W={W} C={C} fp32 ({route[0]}, "
+                   f"{route[1]} blocks a sample)")
+            got = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+            torch.cuda.synchronize()
+            want = GN.group_norm_plain(x, scale, bias, 32, 1e-6, True)
+            err = compare(tag, got[0], want[0], GN_FP32_ATOL, GN_FP32_RTOL)
+            compare(f"{tag} mean", got[1], want[1], GN_FP32_ATOL,
+                    GN_FP32_RTOL)
+            compare(f"{tag} rstd", got[2], want[2], GN_RSTD_TOL, GN_RSTD_TOL)
+            del want
+            for _ in range(RAGGED_REPEATS - 1):
+                again = GN._group_norm_kernel(x, scale, bias, 32, 1e-6)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: repeated runs differ in their bits")
+                del again
+            rows.append({"shape": {"B": B, "H": H, "W": W, "C": C, "G": 32},
+                         "route": route[0], "blocks_a_sample": route[1],
+                         "sites_decode": dec, "max_abs_err": err})
+            del got, x
+    torch.cuda.empty_cache()
+    print(f"  the decode's {VAE_GN_DECODE} GroupNorm sites at {SD_RES} px "
+          f"({len(count)} shapes) at batches {SD_EVAL_SAMPLES} and "
+          f"{SD_PROMPTS} ({sorted({r['route'] for r in rows})}, "
+          f"{sorted({r['blocks_a_sample'] for r in rows})} blocks a sample): "
+          f"kernel vs plain within {GN_FP32_ATOL}, largest error "
+          f"{max(r['max_abs_err'] for r in rows):.3e}, three runs equal",
+          flush=True)
+    return rows
+
+
+def sd_eval_classify(work: str, folder: str, card: str) -> dict:
+    """Phase 22 (b): ``imageclassify`` on ``folder`` with a seeded ResNet50
+    (CIFAR stem, 10 classes) whose BatchNorm statistics and head bias are
+    perturbed, saved as a ``.pth``; its CSV rows must be the top 5 of the
+    argsort of this phase's own logits on the card. No kernel launches."""
+    import csv
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from uurg_torch.eval.classifier_eval import resize_batch
+    from uurg_torch.models import create_model, init_classifier
+
+    g = torch.Generator().manual_seed(SEED)
+    model = init_classifier(g, create_model("ResNet50", 10))
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.1, generator=g)
+                mod.running_var.uniform_(0.5, 2.0, generator=g)
+                mod.weight.uniform_(0.5, 1.5, generator=g)
+        model.fc.bias.normal_(0.0, 0.1, generator=g)
+    pth = os.path.join(work, "resnet50.pth")
+    torch.save(model.state_dict(), pth)
+    csv_path = os.path.join(work, "topk.csv")
+    _zero_launches()
+    secs, _, _ = run_cli("imageclassify", [
+        "--folder_path", folder, "--save_path", csv_path,
+        "--classifier_ckpt", pth, "--device", "cuda"])
+    launches = _read_all_launches()
+    _expect_launches("imageclassify", launches, {k: 0 for k in launches})
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    names = sorted(os.listdir(folder))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(folder, n))
+                                .convert("RGB")) for n in names])
+    model = model.to("cuda").eval()
+    with torch.inference_mode():
+        model(resize_batch(imgs, 224, "cuda"))              # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = model(resize_batch(imgs, 224, "cuda")).float().cpu().numpy()
+        fwd = time.perf_counter() - t0
+    want = [["image"] + [f"top{i + 1}" for i in range(5)]] + [
+        [n] + [str(int(c)) for c in np.argsort(-zi)[:5]]
+        for n, zi in zip(names, z)]
+    if rows != want:
+        fail(f"imageclassify wrote {rows}, not the argsort of the logits "
+             f"{want}")
+    print(f"  imageclassify (ResNet50, CIFAR stem, 224 px) on {len(names)} "
+          f"images: {secs:.3f} s in all; the forward {len(names) / fwd:.1f} "
+          f"images/s on {card}; rows = argsort of the card's logits",
+          flush=True)
+    return {"seconds": secs, "images": len(names),
+            "forward_images_per_s": len(names) / fwd, "launches": launches,
+            "rows": rows[1:]}
+
+
+def sd_eval_nudenet(work: str, folder: str) -> dict:
+    """Phase 22 (c): ``nudenet_classes`` with an ``.npz`` of recorded heads
+    (1, 4 + 18, NUDENET_ANCHORS) for each PNG of ``folder`` (SD_RES px: the
+    letterbox scale 320 / 512 = 0.625, no pad). Each image gets a box of
+    one class at score 0.9 and its near-duplicate at 0.85 (NMS drops it),
+    a second class at 0.5 (kept by the decoder, under the CLI's
+    threshold), one at 0.1 (under the decoder's); every third image a
+    third class at 0.7. The CSV must hold exactly the classes above
+    NUDENET_THRESHOLD, and a box must map back to its pixels."""
+    import csv
+
+    import numpy as np
+
+    from uurg_torch.eval.nudenet import NUDENET_LABELS, make_npz_detector
+
+    names = sorted(os.listdir(folder))
+    C = len(NUDENET_LABELS)
+    s = NUDENET_SIZE / SD_RES
+    heads, want, boxes = {}, {}, {}
+    for k, name in enumerate(names):
+        raw = np.zeros((1, 4 + C, NUDENET_ANCHORS), np.float32)
+        x1, y1 = 40 + 24 * k, 64 + 8 * k
+        box = (x1, y1, x1 + 160, y1 + 96)
+        plant = [(box, k % C, 0.9), ((300, 300, 380, 360), (k + 5) % C, 0.5),
+                 ((10, 400, 50, 440), (k + 9) % C, 0.1)]
+        if k % 3 == 0:
+            plant.append(((200, 20, 260, 120), (k + 13) % C, 0.7))
+        dup = ((x1 + 4, y1 + 4, x1 + 164, y1 + 100), k % C, 0.85)
+        for a, ((bx1, by1, bx2, by2), c, score) in enumerate(plant + [dup]):
+            raw[0, :4, 97 * a + 5 * k] = ((bx1 + bx2) / 2 * s,
+                                          (by1 + by2) / 2 * s,
+                                          (bx2 - bx1) * s, (by2 - by1) * s)
+            raw[0, 4 + c, 97 * a + 5 * k] = score
+        heads[name] = raw
+        above = sorted(((score, NUDENET_LABELS[c]) for (_, c, score) in plant
+                        if score >= NUDENET_THRESHOLD), reverse=True)
+        want[name] = ";".join(label for _, label in above)
+        boxes[name] = box
+    npz = os.path.join(work, "recorded_heads.npz")
+    np.savez(npz, **heads)
+    csv_path = os.path.join(work, "nudenet.csv")
+    secs, _, _ = run_cli("nudenet_classes", [
+        "--folder", folder, "--save_path", csv_path, "--model_path", npz,
+        "--threshold", str(NUDENET_THRESHOLD)])
+    with open(csv_path, newline="") as f:
+        got = {r["image"]: r["classes"] for r in csv.DictReader(f)}
+    if got != want:
+        fail(f"nudenet_classes wrote {got}, not {want}")
+    dets = make_npz_detector(npz)(os.path.join(folder, names[0]))
+    if not np.allclose(dets[0]["box"], boxes[names[0]], atol=1e-3):
+        fail(f"nudenet: the box {dets[0]['box']} does not map back to "
+             f"{boxes[names[0]]}")
+    print(f"  nudenet_classes ({len(names)} images, recorded heads "
+          f"(1, {4 + C}, {NUDENET_ANCHORS}), threshold {NUDENET_THRESHOLD}): "
+          f"{secs:.3f} s; the CSV holds exactly the planted classes above "
+          f"it; boxes map back to the {SD_RES} px pixels", flush=True)
+    return {"seconds": secs, "images": len(names), "classes": got}
+
+
+def sd_eval_fid(work: str, folder: str, card: str) -> dict:
+    """Phase 22 (d): ``compute_fid`` between phase 20's two PNG folders
+    (two classes; ``--class_to_forget`` drops ``nsfw``) and ``folder`` at
+    SD_RES px, the seeded InceptionV3 on the card: the FID finite and
+    non-negative; the feature seconds (card, with the PNG decoding) and the
+    Fréchet seconds (host) read from its log. No kernel launches."""
+    import math
+
+    real = os.path.join(work, "real")
+    os.makedirs(real)
+    for name in ("nsfw", "not-nsfw"):
+        os.symlink(os.path.join(work, name, "c0"), os.path.join(real, name))
+    drop = sorted(os.listdir(real)).index("nsfw")
+    _zero_launches()
+    secs, stdout, log = run_cli("compute_fid", [
+        "--folder_path", folder, "--real_path", real, "--class_to_forget",
+        str(drop), "--image_size", str(SD_RES), "--device", "cuda"])
+    launches = _read_all_launches()
+    _expect_launches("compute_fid", launches, {k: 0 for k in launches})
+    fid = float(stdout.split("FID:")[1])
+    m = re.search(r"features of (\d+) real \+ (\d+) generated images: "
+                  r"([\d.]+) s; Fréchet distance on the host: ([\d.]+) s",
+                  log)
+    if not m or not math.isfinite(fid) or fid < 0:
+        fail(f"compute_fid printed FID {fid}; log {log[-500:]}")
+    n_real, n_fake = int(m.group(1)), int(m.group(2))
+    if n_real != SD_PNG_EACH or n_fake != len(os.listdir(folder)):
+        fail(f"compute_fid read {n_real} + {n_fake} images")
+    print(f"  compute_fid ({n_real} real + {n_fake} generated at {SD_RES} "
+          f"px): FID {fid:.4f}; features {float(m.group(3)):.3f} s on "
+          f"{card}, Fréchet {float(m.group(4)):.3f} s on the host; "
+          f"{secs:.3f} s in all", flush=True)
+    return {"seconds": secs, "fid": fid, "real": n_real, "generated": n_fake,
+            "features_s": float(m.group(3)), "frechet_s": float(m.group(4)),
+            "launches": launches}
+
+
+def sd_eval_path(card: str, work: str) -> dict:
+    """Phase 22: SD's evaluation on the card, from phase 21's
+    ``nsfw_removal`` ``final.pt`` and phase 20's PNG folders under
+    ``work``."""
+    t0 = time.perf_counter()
+    final = os.path.join(work, "nsfw_removal", "final.pt")
+    ev = os.path.join(work, "eval")
+    os.makedirs(ev)
+    out = {"generate": sd_eval_generate(ev, final, card)}
+    folder = os.path.join(ev, "gen_ddim")
+    out["imageclassify"] = sd_eval_classify(ev, folder, card)
+    out["nudenet"] = sd_eval_nudenet(ev, folder)
+    out["fid"] = sd_eval_fid(work, folder, card)
+    gen = out["generate"]
+    out["launches"] = {f"sd_gen_{m}": gen[m]["launches"]
+                       for m in ("lms", "ddim", "plms")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -5706,9 +6119,25 @@ def main() -> int:
                f"train_esd at {SD_CLI_ITERS} steps, the three baselines at "
                f"{SD_BASELINE_ITERS})")
         sd_methods = sd_methods_path(card, gen, work)
+        torch.cuda.empty_cache()
+        banner(f"main path: Stable Diffusion's evaluation from "
+               f"nsfw_removal's final.pt: generate_images (lms "
+               f"{SD_EVAL_LMS_STEPS} steps on one case, ddim and plms "
+               f"{SD_SAMPLE_STEPS} steps on three; {SD_EVAL_SAMPLES} images "
+               f"a case at {SD_RES} px), imageclassify (ResNet50), "
+               f"nudenet_classes (recorded heads), compute_fid")
+        sd_eval = sd_eval_path(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sd["launches"].update(sd_methods["launches"])
+    sd["launches"].update(sd_eval["launches"])
+    # the SD paths' VAE encodes and decodes run the float32 attention
+    # (xwide) too: their launches on the VAE's row, their GroupNorm
+    # launches on the SD rows with the UNet's
+    vae["launches"]["sd"] = {
+        "attention_fwd_f32": sum(v.get("attention_fwd_f32", 0)
+                                 for v in sd["launches"].values()),
+        "group_norm_fwd": 0}
 
     fwd_per = "UNet forward at batch 256 (sampling)"
     bwd_per = "UNet backward at batch 128 (one SFR-on phase)"
@@ -5797,7 +6226,8 @@ def main() -> int:
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
                    "remat": remat, "dit": dit, "vae": vae, "sd": sd,
-                   "sd_methods": sd_methods,
+                   "sd_methods": sd_methods, "sd_eval": sd_eval,
+                   "phase_starts": PHASE_STARTS,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)

@@ -112,7 +112,8 @@ def test_group_norm_kernel_matches_plain(gen, dtype, B, H, C):
 SPLIT_SHAPES = [(32, 32, 32, 512, torch.float32), (4, 64, 64, 320, torch.bfloat16),
                 (1, 32, 32, 1280, torch.bfloat16), (4, 32, 32, 1920, torch.bfloat16),
                 (1, 1, 1, 64, torch.float32), (4, 1, 1, 512, torch.bfloat16),
-                (32, 1, 1, 512, torch.float32), (1, 15, 15, 4096, torch.bfloat16)]
+                (32, 1, 1, 512, torch.float32), (1, 15, 15, 4096, torch.bfloat16),
+                (2, 512, 512, 128, torch.float32), (4, 64, 64, 512, torch.float32)]
 
 
 @pytest.mark.parametrize("B,H,W,C,dtype", SPLIT_SHAPES)

@@ -73,7 +73,10 @@ SD_MODULES = ("models/sd_unet", "models/clip_text", "workloads/sd",
               "io/diffusers_interop", "data/sd_data", "cli/nsfw_removal",
               "cli/train_esd", "cli/gradient_ascent",
               "cli/proximal_gradient", "cli/random_label",
-              "cli/generate_fisher_mask")
+              "cli/generate_fisher_mask",
+              # its evaluation
+              "eval/nudenet", "cli/generate_images", "cli/imageclassify",
+              "cli/nudenet_classes", "cli/compute_fid")
 
 
 @pytest.mark.parametrize("module", SD_MODULES)
@@ -84,3 +87,32 @@ def test_sd_modules_are_covered(module):
     imported = [n.module for n in ast.walk(tree)
                 if isinstance(n, ast.ImportFrom) and n.module]
     assert not [m for m in imported if m.split(".")[0] in FORBIDDEN]
+
+
+SD_EVAL = ("uurg_torch.eval.nudenet", "uurg_torch.cli.generate_images",
+           "uurg_torch.cli.imageclassify", "uurg_torch.cli.nudenet_classes",
+           "uurg_torch.cli.compute_fid")
+
+
+def test_sd_evaluation_runs_without_cv2_and_pandas(tmp_path):
+    """The evaluation modules import, letterbox an image and read a prompt
+    CSV with ``cv2`` and ``pandas`` blocked (the card's machine may lack
+    both), loading nothing of JAX."""
+    csv_path = tmp_path / "p.csv"
+    csv_path.write_text('case_number,prompt\n0,"a, b"\n')
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['cv2'] = sys.modules['pandas'] = None\n"
+        f"for m in {SD_EVAL!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from uurg_torch.eval.nudenet import letterbox\n"
+        "from uurg_torch.cli.generate_images import read_prompts\n"
+        "x, scale, pad = letterbox(np.zeros((10, 20, 3), np.uint8), 32)\n"
+        "assert x.shape == (1, 3, 32, 32) and pad == (0, 8), pad\n"
+        f"assert read_prompts({str(csv_path)!r}) == [(0, 'a, b', 42)]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

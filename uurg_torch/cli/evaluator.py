@@ -54,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("sample_batch", type=str,
                    help="generated images (folder or npz)")
     p.add_argument("--inception_weights", type=str, default="",
-                   help="npz of InceptionV3 weights (flax layout)")
+                   help="InceptionV3 weights: the JAX package's .npz "
+                        "(flax layout) or pytorch-fid's pt_inception .pth")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--csv", type=str,
                    default="results/cifar10/forget/result.csv")
@@ -68,18 +69,11 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     from uurg_torch.core.device import resolve_device
     from uurg_torch.eval.generative import evaluate_all
-    from uurg_torch.eval.inception import (init_inception, load_inception_npz,
-                                           make_extractor)
+    from uurg_torch.eval.inception import load_inception, make_extractor
 
     device = resolve_device(args.device)
-    if args.inception_weights:
-        model = load_inception_npz(args.inception_weights)
-    else:
-        logging.warning("no inception weights given — metrics use a "
-                        "randomly-initialized InceptionV3 (NOT comparable "
-                        "to published FID numbers)")
-        model = init_inception(0)
-    extractor = make_extractor(model.to(device), materialize=False)
+    extractor = make_extractor(load_inception(args.inception_weights)
+                               .to(device), materialize=False)
 
     ref = load_images(args.ref_batch)
     sample = load_images(args.sample_batch)

@@ -137,8 +137,7 @@ def run(args, config, device=None) -> dict:
     from uurg_torch.data.splits import class_forget_split
     from uurg_torch.eval.classifier_eval import classifier_probe
     from uurg_torch.eval.generative import evaluate_all
-    from uurg_torch.eval.inception import (init_inception, load_inception_pth,
-                                           make_extractor)
+    from uurg_torch.eval.inception import load_inception, make_extractor
     from uurg_torch.io.tv_resnet_interop import load_torch_resnet_checkpoint
     from uurg_torch.models.resnet import ResNet34
     from uurg_torch.workloads import ddpm_runner
@@ -211,8 +210,7 @@ def run(args, config, device=None) -> dict:
     remain, _ = class_forget_split(
         ddpm_runner._load_train_dataset(run_args, config),
         args.label_to_forget)
-    inception = (load_inception_pth(art["inception"]) if art["inception"]
-                 else init_inception(0))
+    inception = load_inception(art["inception"] or "")
     extractor = make_extractor(inception.to(device), materialize=False)
     # quick: few references (the 299 px InceptionV3 pass is the CPU's
     # bottleneck); the stand-in's float images become uint8 like samples

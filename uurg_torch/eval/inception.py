@@ -19,6 +19,8 @@ no Pallas kernel here either.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -258,3 +260,20 @@ def load_inception_pth(path: str) -> InceptionV3:
     model = InceptionV3()
     model.load_state_dict(pt_inception_state_dict(sd), strict=True)
     return model.eval()
+
+
+def load_inception(path: str) -> InceptionV3:
+    """InceptionV3 on the CPU from ``path``, by suffix: the JAX package's
+    ``.npz`` (:func:`load_inception_npz`) or a pytorch-fid ``.pth``
+    (:func:`load_inception_pth`); the seeded random init, with a warning,
+    when ``path`` is empty."""
+    if not path:
+        logging.warning("no InceptionV3 weights given: a seeded random "
+                        "init, NOT comparable to published FID numbers")
+        return init_inception(0)
+    if path.endswith(".npz"):
+        return load_inception_npz(path)
+    if path.endswith(".pth"):
+        return load_inception_pth(path)
+    raise ValueError(f"InceptionV3 weights {path}: expected an .npz (the "
+                     f"JAX package's layout) or a pytorch-fid .pth")

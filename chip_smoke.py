@@ -32,8 +32,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its log-sum-exp output, as the training path runs it, is held
    against the plain version and ``logsumexp`` and timed at the same shapes.
    The GroupNorm backward runs on the route its wrapper chooses (its
-   cluster size recorded), and the profiler must see exactly one device
-   kernel in one of its calls.
+   cluster size recorded), and a CUDA graph of one of its calls must hold
+   exactly its kernels: one on ``slab``, two on ``split``.
 7. One eps-loss backward at batch 8 with the kernels against the same model
    on its plain path: relative L2 error of all parameter gradients.
 8. The training path: ``ddpm_runner.sfron_forget`` (adaga, ron, a packed
@@ -59,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, 3 and 40, and the main path's eleven shapes at batch 256 (the CFG
    double forward's batch that the Fisher pass backpropagates through);
    dx, dscale and dbias against the plain version on every route and
-   cluster size that fits, three runs with equal bits.
+   cluster size that fits (``split`` at the wrapper's runs a sample and at
+   one), three runs with equal bits.
 12. Fisher and masks (stages 1 and 2 of the north-star run). The kernels at
    the Fisher pass's shapes: attention forward, log-sum-exp and backward at
    both attention sites at CFG batch 256, 124 and 132 (the ragged last
@@ -226,8 +227,12 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    on contiguous copies, timed beside bf16 SDPA and the bound; GroupNorm
    forward and backward at the UNet's 14 bf16 site shapes at batch 4 (the
    route of each printed), as phase 3 and 6 time them, three runs with
-   equal bits, and the backward's ``sweep`` sites summed on a line of
-   their own beside ``F.group_norm``'s backward and the bound. (b) The
+   equal bits, and the backward's ``split`` sites (33 of 61 a backward)
+   summed on a line of their own beside ``F.group_norm``'s backward, the
+   bound and the two-read floor; the backward's ``split`` route at SD's
+   nine shapes at batches 1 and 2 against the plain version, three runs
+   with equal bits, and two calls captured in one CUDA graph giving the
+   eager bits. (b) The
    whole UNet at batch 4 (64 x 64 x 4 latents, a 77 x 768 context),
    kernels against its plain path: the forward and the eps loss's
    gradients under full and ``"dots"`` remat, exact launch counts, peak
@@ -596,6 +601,11 @@ VAE_FID_SAMPLES, VAE_SAMPLE_STEPS = 64, 4
 SD_BATCH, SD_LATENT, SD_HEADS, SD_CONTEXT = 4, 64, 8, (77, 768)
 SD_RES = 8 * SD_LATENT
 SD_ATTN_SITES, SD_UNET_GN_SITES = 15, 61
+# (H, W, C, sites a backward) of the SD UNet's GroupNorm backward sites that
+# no cluster holds: the split route, 33 of the 61 sites
+SD_BWD_SPLIT_SITES = ((64, 64, 320, 13), (32, 32, 640, 11), (64, 64, 640, 2),
+                      (32, 32, 960, 1), (64, 64, 960, 1), (32, 32, 1280, 1),
+                      (16, 16, 1920, 1), (32, 32, 1920, 1), (16, 16, 2560, 2))
 SD_PNG_EACH, SD_FISHER_BATCHES, SD_THRESHOLD = 8, 1, 0.5
 SD_GUIDANCE, SD_FISHER_GUIDANCE = 7.5, 3.0
 SD_SAMPLE_STEPS, SD_PROMPTS = 4, 4
@@ -1094,14 +1104,18 @@ def check_bwd_kernels(sites, batch: int, gen) -> list[dict]:
             bias = torch.randn(C, generator=gen, device=dev) * 0.2
             _, mean, rstd = group_norm(x, scale, bias, groups=groups,
                                        return_stats=True)
-            route, cluster = GN._bwd_route(H * W, C, x.element_size(), groups)
+            route, cluster = GN._bwd_route(H * W, C, x.element_size(),
+                                           groups, batch)
             got = group_norm_bwd(x, scale, mean, rstd, g)
             torch.cuda.synchronize()
             want = group_norm_bwd_plain(x, scale, mean, rstd, g)
             tag = f"B={batch} H={H} W={W} C={C} ({route}, cluster {cluster})"
+            per_call = 2 if route == "split" else 1
             one_launch(f"group_norm bwd {tag}",
-                       lambda: group_norm_bwd(x, scale, mean, rstd, g))
-            extra = {"route": route, "cluster": cluster}
+                       lambda: group_norm_bwd(x, scale, mean, rstd, g),
+                       per_call)
+            extra = {"route": route, "cluster": cluster,
+                     "kernels_per_call": per_call}
             max_abs = max(compare(f"group_norm bwd dx {tag}", got[0], want[0]),
                           rel_l2(f"group_norm bwd dscale {tag}", got[1],
                                  want[1], GN_SUM_REL_L2),
@@ -1201,17 +1215,17 @@ def kernels_a_call(fn) -> int:
     return enqueued_node_types(fn).count(GRAPH_KERNEL_NODE)
 
 
-def one_launch(name: str, fn) -> None:
-    """Fails unless one call of ``fn`` enqueues exactly one operation, a
-    kernel (no copy, no fill), on the device. Read from a CUDA graph of the
-    call, which lists every operation: the profiler dropped the record of a
-    kernel that had launched in about 1 call of 200
+def one_launch(name: str, fn, kernels: int = 1) -> None:
+    """Fails unless one call of ``fn`` enqueues exactly ``kernels``
+    operations, all kernels (no copy, no fill), on the device. Read from a
+    CUDA graph of the call, which lists every operation: the profiler
+    dropped the record of a kernel that had launched in about 1 call of 200
     (``scripts/check_one_launch.py`` on an H100)."""
     types = enqueued_node_types(fn)
-    if types != [GRAPH_KERNEL_NODE]:
+    if types != [GRAPH_KERNEL_NODE] * kernels:
         fail(f"{name}: one call enqueued the graph nodes {types} "
-             f"(CUgraphNodeType; {GRAPH_KERNEL_NODE} is a kernel), not one "
-             f"kernel")
+             f"(CUgraphNodeType; {GRAPH_KERNEL_NODE} is a kernel), not "
+             f"{kernels} kernel(s)")
 
 
 def check_lse(name: str, lse, q, k) -> float:
@@ -1380,14 +1394,15 @@ def attention_f32_path(gen) -> tuple[list[dict], list[dict]]:
 def gn_routes(hw: int, c: int, itemsize: int, groups: int,
               backward: bool = False, batch: int = 1) -> list:
     """Every route of the GroupNorm forward (or backward) that can run this
-    shape: the wrapper's choice first, then the forward's ``split`` at its
-    count of runs for ``batch`` and at one run a sample (or the backward's
-    ``sweep``), then ``slab`` at every other cluster size whose block fits
-    shared memory."""
+    shape: the wrapper's choice first, then ``split`` at its count of runs
+    for ``batch`` and at one run a sample, then ``slab`` at every other
+    cluster size whose block fits shared memory."""
     from uurg_torch.ops import group_norm as GN
 
     if backward:
-        first = [GN._bwd_route(hw, c, itemsize, groups), ("sweep", 1)]
+        first = [GN._bwd_route(hw, c, itemsize, groups, batch),
+                 ("split", GN._bwd_split_count(batch, hw, c, itemsize)),
+                 ("split", 1)]
         smem = GN._bwd_slab_smem
     else:
         first = [GN._fwd_route(hw, c, itemsize, groups, batch),
@@ -1475,11 +1490,12 @@ def check_gn_bwd_offpath(gen) -> list[dict]:
                                             True)
         want = GN.group_norm_bwd_plain(x, scale, mean, rstd, g)
         size = x.element_size()
-        chosen = GN._bwd_route(H * H, C, size, groups)
+        chosen = GN._bwd_route(H * H, C, size, groups, B)
         tol = (ATOL, RTOL) if dtype == torch.bfloat16 else \
             (GN_BWD_FP32_TOL, GN_BWD_FP32_TOL)
         errs = {}
-        for route in gn_routes(H * H, C, size, groups, backward=True):
+        for route in gn_routes(H * H, C, size, groups, backward=True,
+                               batch=B):
             tag = (f"group_norm bwd B={B} H=W={H} C={C} G={groups} "
                    f"{dtype_name} ({route[0]}, cluster {route[1]})")
             got = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g,
@@ -4741,31 +4757,110 @@ def sd_gn_repeats(gn_sites, gen) -> None:
           f"equal bits each", flush=True)
 
 
-def sd_sweep_line(gn_bwd_rows) -> dict:
-    """The GroupNorm backward's ``sweep`` sites (one block a sample) of
-    phase 20 (a), summed over a UNet backward: device ms against
-    ``F.group_norm``'s backward and the bound."""
-    rows = [r for r in gn_bwd_rows if r["route"] == "sweep"]
+def sd_split_bwd_line(gn_bwd_rows) -> dict:
+    """The GroupNorm backward's ``split`` sites of phase 20 (a) (S runs a
+    sample, two launches), summed over a UNet backward: device ms against
+    ``F.group_norm``'s backward, the bound and the split's two-read floor
+    (x and g read twice, dx written once: 5/3 of the bound)."""
+    rows = [r for r in gn_bwd_rows if r["route"] == "split"]
     out = {k: sum(r[k] * r["sites_per_forward"] for r in rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["floor_ms"] = 5 / 3 * out["bound_ms"]
     out.update(sites=sum(r["sites_per_forward"] for r in rows),
                shapes=[r["shape"] for r in rows],
+               kernels_per_call=sorted({r["kernels_per_call"] for r in rows}),
                slower_than_library=[r["shape"] for r in rows
                                     if r["ms"] >= r["library_ms"]])
-    print(f"  GroupNorm backward on the sweep route (one block a sample) at "
-          f"batch {SD_BATCH}: {out['sites']} of {SD_UNET_GN_SITES} sites a "
-          f"backward at {len(rows)} shapes, {out['ms']:.4f} ms against "
-          f"F.group_norm backward's {out['library_ms']:.4f} ms "
-          f"({out['ms'] / out['library_ms']:.2f}x) and the bound "
-          f"{out['bound_ms']:.4f} ms ({out['ms'] / out['bound_ms']:.2f}x); "
-          f"slower than the library at {out['slower_than_library']}",
-          flush=True)
+    found = sorted((r["shape"]["H"], r["shape"]["W"], r["shape"]["C"],
+                    r["sites_per_forward"]) for r in rows)
+    if found != sorted(SD_BWD_SPLIT_SITES):
+        fail(f"SD's GroupNorm backward takes the split route at {found}, not "
+             f"at SD_BWD_SPLIT_SITES")
+    print(f"  GroupNorm backward on the split route (S runs a sample, two "
+          f"launches) at batch {SD_BATCH}: {out['sites']} of "
+          f"{SD_UNET_GN_SITES} sites a backward at {len(rows)} shapes, "
+          f"{out['ms']:.4f} ms against F.group_norm backward's "
+          f"{out['library_ms']:.4f} ms ({out['ms'] / out['library_ms']:.2f}x),"
+          f" the bound {out['bound_ms']:.4f} ms "
+          f"({out['ms'] / out['bound_ms']:.2f}x) and the two-read floor "
+          f"{out['floor_ms']:.4f} ms; kernels a call "
+          f"{out['kernels_per_call']}; slower than the library at "
+          f"{out['slower_than_library']}", flush=True)
     for r in rows:
-        print(f"    sweep {r['shape']} x{r['sites_per_forward']}: "
-              f"{r['ms']:.4f} ms, F.group_norm backward "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
+        print(f"    split {r['shape']} S={r['cluster']} "
+              f"x{r['sites_per_forward']}: {r['ms']:.4f} ms, F.group_norm "
+              f"backward {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, floor {5 / 3 * r['bound_ms']:.4f} ms",
               flush=True)
+    if out["slower_than_library"]:
+        fail(f"the GroupNorm backward's split route is slower than "
+             f"F.group_norm's backward at {out['slower_than_library']}")
     return out
+
+
+def sd_gn_bwd_small_batches(gn_bwd_rows, gen) -> list[dict]:
+    """Phase 20 (a): the GroupNorm backward's split route at SD's shapes
+    that take it, at batches 1 and 2 (the runs a sample differ from batch
+    4's): dx, dscale and dbias against the plain version, three runs with
+    equal bits, the fold counters left zero; then two calls at batch 4
+    captured in one CUDA graph, replayed, against the eager bits."""
+    import torch
+
+    from uurg_torch.ops import group_norm as GN
+
+    shapes = [(r["shape"]["H"], r["shape"]["W"], r["shape"]["C"])
+              for r in gn_bwd_rows if r["route"] == "split"]
+    rows = []
+    for B in (1, 2):
+        for H, W, C in shapes:
+            x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2
+                 + 0.5).to(torch.bfloat16)
+            g = torch.randn(B, H, W, C, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+            _, mean, rstd = GN.group_norm_plain(x, scale, scale, 32, 1e-6,
+                                                True)
+            route = GN._bwd_route(H * W, C, 2, 32, B)
+            if route[0] != "split":
+                fail(f"SD's GroupNorm site {(H, W, C)} at batch {B} takes the "
+                     f"{route[0]} route backward")
+            tag = f"group_norm bwd B={B} H={H} W={W} C={C} (split, {route[1]})"
+            got = GN.group_norm_bwd(x, scale, mean, rstd, g)
+            torch.cuda.synchronize()
+            want = GN.group_norm_bwd_plain(x, scale, mean, rstd, g)
+            err = max(compare(f"{tag} dx", got[0], want[0]),
+                      rel_l2(f"{tag} dscale", got[1], want[1], GN_SUM_REL_L2),
+                      rel_l2(f"{tag} dbias", got[2], want[2], GN_SUM_REL_L2))
+            for _ in range(RAGGED_REPEATS - 1):
+                again = GN.group_norm_bwd(x, scale, mean, rstd, g)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{tag}: repeated runs differ in their bits")
+            rows.append({"B": B, "H": H, "W": W, "C": C, "cluster": route[1],
+                         "max_abs_err": err})
+    if int(GN._fold_counters[torch.device("cuda", 0)].abs().sum()) != 0:
+        fail("the GroupNorm backward left its fold counters non-zero")
+    H, W, C = shapes[0]
+    x, g = ((torch.randn(SD_BATCH, H, W, C, generator=gen, device="cuda")
+             + 0.5).to(torch.bfloat16) for _ in range(2))
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+    _, mean, rstd = GN.group_norm_plain(x, scale, scale, 32, 1e-6, True)
+    eager = [GN.group_norm_bwd(x, scale, mean, rstd, t) for t in (g, x)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = [GN.group_norm_bwd(x, scale, mean, rstd, t) for t in (g, x)]
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for e, c in zip(eager, captured)
+               for a, b in zip(e, c)):
+        fail(f"group_norm bwd B={SD_BATCH} H={H} W={W} C={C}: two calls in "
+             f"one CUDA graph differ from the eager bits")
+    print(f"  GroupNorm backward, split route, at {len(shapes)} shapes at "
+          f"batches 1 and 2: {RAGGED_REPEATS} runs each with equal bits, the "
+          f"counters left zero; two calls in one CUDA graph at batch "
+          f"{SD_BATCH} equal the eager bits", flush=True)
+    return rows
 
 
 def _rel(got, want) -> float:
@@ -5093,7 +5188,9 @@ def sd_path(card: str, gen, work: str) -> dict:
     out["gn_fwd_rows"] = check_kernels(gn_sites, SD_BATCH, gen)
     out["gn_bwd_rows"] = check_bwd_kernels(gn_sites, SD_BATCH, gen)
     sd_gn_repeats(gn_sites, gen)
-    out["sweep"] = sd_sweep_line(out["gn_bwd_rows"])
+    out["gn_bwd_split"] = sd_split_bwd_line(out["gn_bwd_rows"])
+    out["gn_bwd_small_batches"] = sd_gn_bwd_small_batches(out["gn_bwd_rows"],
+                                                          gen)
     out["model"] = sd_model_check(wl, unet, gen)
     out["fisher_batch"] = sd_fisher_batch(wl, unet, gen, card)
     wl.vae = init_vae(1, wl.vae_cfg, dev)
@@ -5500,7 +5597,7 @@ def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
     """The ``kernels`` rows of Stable Diffusion (phase 20): each kernel
     summed over an SD UNet forward (or backward) at SD_BATCH, the sum over
     its sites of the device ms a launch at the site's shape (CUDA-graph
-    replay); the GroupNorm backward's sweep sites again on their own row;
+    replay); the GroupNorm backward's split sites again on their own row;
     launches over the main-path runs of phase 20 (sd_generate_fisher and
     the three samplers) and phase 21 (nsfw_removal's counted steps, dense
     and packed, and its xattn step; the five method CLIs)."""
@@ -5514,16 +5611,16 @@ def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
         ("group_norm_fwd", sd["gn_fwd_rows"], "forward"),
         ("group_norm_bwd", sd["gn_bwd_rows"], "backward"),
         ("group_norm_bwd", [r for r in sd["gn_bwd_rows"]
-                            if r["route"] == "sweep"], "backward, sweep"))
+                            if r["route"] == "split"], "backward, split"))
     for i, (counter, mine, per) in enumerate(groups):
-        if not mine:                        # no sweep site at this batch
+        if not mine:                        # no split site at this batch
             continue
 
         def total(k, mine=mine):
             return sum(r[k] * r["sites_per_forward"] for r in mine)
 
         paths = {p: got[counter] for p, got in sd["launches"].items()}
-        name = f"{counter}_sd" + ("_sweep" if i == 4 else "")
+        name = f"{counter}_sd" + ("_split" if i == 4 else "")
         rows.append({
             "name": name, "route": "cuda", "source": meta[counter]["source"],
             "replaces": meta[counter]["replaces"],
@@ -5534,8 +5631,11 @@ def sd_kernel_rows(sd: dict, meta: dict) -> list[dict]:
             "bound_ms": max(total("bytes_ms"), total("ops_ms")),
             "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
                          else "operations"),
+            **({"kernels_per_call": sorted({r["kernels_per_call"]
+                                            for r in mine}),
+                "floor_ms": 5 / 3 * total("bytes_ms")} if i == 4 else {}),
             "per": f"SD UNet {per} at batch {SD_BATCH}, 64 x 64 latents: "
-                   f"{sum(r['sites_per_forward'] for r in mine)} launches "
+                   f"{sum(r['sites_per_forward'] for r in mine)} calls "
                    f"at {len(mine)} shapes, device ms by CUDA-graph replay; "
                    f"library: " + ("bf16 SDPA" if "attention" in counter
                                    else "F.group_norm")
@@ -6038,7 +6138,7 @@ def main() -> int:
     gn_offpath = check_gn_offpath(gen)
 
     banner("GroupNorm backward off the main path (fp32, ragged slices, "
-          "sweep route, small batches, batch 256)")
+          "split route, small batches, batch 256)")
     gn_bwd_offpath = check_gn_bwd_offpath(gen)
 
     banner(f"main path: Fisher and masks, full width, CFG {COND_SCALE}, "

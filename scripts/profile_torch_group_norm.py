@@ -4,6 +4,8 @@
     python3 scripts/profile_torch_group_norm.py [--clusters]
     python3 scripts/profile_torch_group_norm.py --bwd [--clusters] [--batch 256]
     python3 scripts/profile_torch_group_norm.py --vae [--tree CHECKOUT]
+    python3 scripts/profile_torch_group_norm.py --bwd --sd [--tree CHECKOUT]
+        [--runs 66,132] [--tag NAME]
 
 Builds the kernels (the full nvcc / ptxas output goes to
 ``chiprun_out/build_<source>.log``) and prints the ptxas lines of
@@ -36,9 +38,20 @@ card, each in its own process.
 and dscale and dbias folded over the batch): the off-path shapes of
 ``chip_smoke.py``'s phase 11, then the eleven shapes at batch 128 (one
 SFR-on phase; ``--batch 256`` for the Fisher pass's), the chosen route,
-``sweep`` and with ``--clusters`` every cluster size, each beside its bound
+``split`` and with ``--clusters`` every cluster size, each beside its bound
 and beside ``torch.add(x, g, out=dx)``: the same bytes (two tensors read,
 one written) with no arithmetic. Sums per UNet backward.
+
+``--bwd --sd`` times the backward at SD's 33 GroupNorm sites a UNet
+backward that no cluster holds (nine bf16 shapes at batch 4,
+``chip_smoke.SD_BWD_SPLIT_SITES``) on the route the wrapper chooses,
+checked against the plain version, beside ``F.group_norm``'s backward, the
+bound (x and g read once, dx written once) and the split route's two-read
+floor (5/3 of it), per shape and summed; ``--runs`` also times the split
+route at those runs a sample. With ``--tree`` (an earlier checkout) the
+parent's route is timed the same way, so that two versions can be timed in
+turns on one card, each in its own process; ``--tag`` names the JSON it
+writes (``chiprun_out/profile_group_norm_bwd_sd_<tag>.json``).
 """
 from __future__ import annotations
 
@@ -174,7 +187,8 @@ def backward(cs, GN, gen, batch, clusters):
         _, mean, rstd = GN.group_norm_plain(x, scale, scale, GROUPS, 1e-6,
                                             True)
         want = GN.group_norm_bwd_plain(x, scale, mean, rstd, g)
-        routes = cs.gn_routes(H * H, C, 2, GROUPS, backward=True)
+        routes = cs.gn_routes(H * H, C, 2, GROUPS, backward=True,
+                              batch=batch)
         numel = batch * H * H * C
         bound = (3 * numel * 2 + 3 * C * 4 + 2 * batch * GROUPS * 4) \
             / cs.HBM_BYTES_PER_S * 1e3
@@ -196,6 +210,76 @@ def backward(cs, GN, gen, batch, clusters):
     return rows, "torch.add(x, g, out=dx)"
 
 
+def sd_backward(cs, GN, gen, runs):
+    """The backward at SD's split sites at batch 4, on the route the
+    wrapper chooses (``_bwd_route`` took no batch before the split route:
+    the parent's is asked without one)."""
+    import torch
+    import torch.nn.functional as F
+
+    B = cs.SD_BATCH
+    rows = []
+    for H, W, C, sites in cs.SD_BWD_SPLIT_SITES:
+        x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        g = torch.randn(B, H, W, C, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+        bias = torch.randn(C, generator=gen, device="cuda") * 0.2
+        _, mean, rstd = GN.group_norm_plain(x, scale, bias, GROUPS, 1e-6,
+                                            True)
+        try:
+            route = GN._bwd_route(H * W, C, 2, GROUPS, B)
+        except TypeError:
+            route = GN._bwd_route(H * W, C, 2, GROUPS)
+        want = GN.group_norm_bwd_plain(x, scale, mean, rstd, g)
+        tag = f"{B}x{H}x{W}x{C} ({route[0]}, {route[1]})"
+
+        def check(key, got):
+            cs.compare(f"{tag} {key} dx", got[0], want[0])
+            cs.rel_l2(f"{tag} {key} dscale", got[1], want[1],
+                      cs.GN_SUM_REL_L2)
+            cs.rel_l2(f"{tag} {key} dbias", got[2], want[2],
+                      cs.GN_SUM_REL_L2)
+
+        check("chosen", GN.group_norm_bwd(x, scale, mean, rstd, g))
+        ms, eager = cs.time_ms(lambda: GN.group_norm_bwd(x, scale, mean,
+                                                         rstd, g))
+        alt = {}
+        for S in runs:
+            if route[0] != "split" or S > H * W:
+                continue
+            r = ("split", S)
+            check(f"S={S}", GN._group_norm_bwd_kernel(x, scale, mean, rstd,
+                                                      g, route=r))
+            alt[S] = cs.time_ms(lambda r=r: GN._group_norm_bwd_kernel(
+                x, scale, mean, rstd, g, route=r))[0]
+        s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib, stream = cs.library_bwd(
+            lambda a, w, b: F.group_norm(a, GROUPS, w, b, 1e-6),
+            (x.permute(0, 3, 1, 2), s16, b16), g.permute(0, 3, 1, 2))
+        lib_ms = cs.time_ms(lib, stream=stream)[0]
+        numel = x.numel()
+        bound = (3 * numel * 2 + 3 * C * 4 + 2 * B * GROUPS * 4) \
+            / cs.HBM_BYTES_PER_S * 1e3
+        rows.append({"B": B, "H": H, "W": W, "C": C, "sites": sites,
+                     "route": list(route), "ms": ms, "eager_ms": eager,
+                     "library_ms": lib_ms, "bound_ms": bound,
+                     "floor_ms": 5 / 3 * bound, "runs_ms": alt})
+        print(f"  {tag} x{sites}: {ms:.4f} ms (eager {eager:.4f}), "
+              f"F.group_norm backward {lib_ms:.4f}, bound {bound:.4f}, "
+              f"two-read floor {5 / 3 * bound:.4f}"
+              + "".join(f"; S={k} {v:.4f}" for k, v in alt.items()),
+              flush=True)
+        del x, g, want, lib
+        torch.cuda.empty_cache()
+    for key in ("ms", "eager_ms", "library_ms", "bound_ms", "floor_ms"):
+        print(f"== SD's {sum(r['sites'] for r in rows)} split sites a UNet "
+              f"backward at batch {B}, {key}: "
+              f"{sum(r[key] * r['sites'] for r in rows):.4f}", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -210,6 +294,13 @@ def main() -> int:
                     help="the forward at the VAE's and SD's split sites")
     ap.add_argument("--tree", default=None,
                     help="import uurg_torch from this checkout instead")
+    ap.add_argument("--sd", action="store_true",
+                    help="with --bwd: SD's split sites at batch 4")
+    ap.add_argument("--runs", default="",
+                    help="with --sd: also time the split route at these "
+                         "runs a sample (comma-separated)")
+    ap.add_argument("--tag", default="",
+                    help="with --sd: a name for the JSON written")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -238,6 +329,17 @@ def main() -> int:
                     print(f"  [{name}] {line.strip()[:200]}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.bwd and args.sd:
+        print(f"== SD's split sites, backward ({GN.__file__})", flush=True)
+        rows = sd_backward(cs, GN, gen,
+                           [int(r) for r in args.runs.split(",") if r])
+        name = "profile_group_norm_bwd_sd" + (f"_{args.tag}" if args.tag
+                                              else "")
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump({"card": cs.card_line(), "tree": args.tree,
+                       "per_shape": rows}, f, indent=1)
+        print(cs.card_line())
+        return 0
     if args.vae:
         print(f"== the split sites ({GN.__file__})", flush=True)
         rows = vae_and_sd(cs, GN, gen)

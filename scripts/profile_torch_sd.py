@@ -6,7 +6,7 @@
 Builds the kernels, then runs ``chip_smoke.sd_path``: the attention
 kernels at the SD UNet's three (T, D) and GroupNorm at its 14 site shapes
 at batch 4 against their plain versions, timed beside SDPA and
-``F.group_norm`` (the backward's ``sweep`` sites on a line of their own),
+``F.group_norm`` (the backward's ``split`` sites on a line of their own),
 the UNet against its plain path under both remat policies, a Fisher batch
 by kernel family, the three samplers with the VAE's decode, and
 ``sd_generate_fisher`` (~2.5 min with the build). Prints the phase's

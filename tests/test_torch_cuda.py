@@ -203,11 +203,12 @@ def test_group_norm_bwd_kernel_matches_plain(gen, dtype, B, H, C):
     tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
         dict(atol=1e-4, rtol=1e-4)
     size = x.element_size()
-    chosen = GN._bwd_route(H * H, C, size, groups)
+    chosen = GN._bwd_route(H * H, C, size, groups, B)
     fit = [("slab", s) for s in GN._CLUSTERS if s < H * H
            and C * size % 16 == 0
            and GN._bwd_slab_smem(H * H, C, size, groups, s) <= GN._SMEM_MAX]
-    for route in dict.fromkeys([chosen, ("sweep", 1)] + fit):
+    split = [("split", GN._bwd_split_count(B, H * H, C, size)), ("split", 1)]
+    for route in dict.fromkeys([chosen] + split + fit):
         out = GN._group_norm_bwd_kernel(x, scale, mean, rstd, g, route=route)
         torch.cuda.synchronize()
         torch.testing.assert_close(out[0].float(), dx.float(), **tol)
@@ -610,7 +611,7 @@ def test_attention_kernels_at_the_sd_shapes(gen, T, D):
 
 
 # the largest of SD's bf16 GroupNorm sites at batch 4 (by bytes a sample,
-# and by channels): the forward's split route and the backward's sweep
+# and by channels): the split route, forward and backward
 SD_GN_SWEEP = [(4, 64, 64, 960), (4, 32, 32, 2560)]
 
 
@@ -622,7 +623,7 @@ def test_group_norm_kernels_at_the_largest_sd_sites(gen, B, H, W, C):
     scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
     bias = torch.randn(C, generator=gen, device="cuda") * 0.2
     assert GN._fwd_route(H * W, C, 2, 32, B)[0] == "split"
-    assert GN._bwd_route(H * W, C, 2, 32) == ("sweep", 1)
+    assert GN._bwd_route(H * W, C, 2, 32, B)[0] == "split"
     y, mean, rstd = group_norm(x, scale, bias, return_stats=True)
     want = group_norm_plain(x, scale, bias, 32, 1e-6, True)
     torch.testing.assert_close(y.float(), want[0].float(), atol=ATOL,
@@ -637,6 +638,61 @@ def test_group_norm_kernels_at_the_largest_sd_sites(gen, B, H, W, C):
     for _ in range(2):
         again = group_norm_bwd(x, scale, mean, rstd, g)
         assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+# (H, W, C) of SD's GroupNorm backward sites that no cluster holds: the
+# split route (chip_smoke.SD_BWD_SPLIT_SITES); fp32 where C fits the kernel
+# (C / 4 <= 512 chunks)
+SD_BWD_SPLIT = [(64, 64, 320), (32, 32, 640), (64, 64, 640), (32, 32, 960),
+                (64, 64, 960), (32, 32, 1280), (16, 16, 1920), (32, 32, 1920),
+                (16, 16, 2560)]
+SD_BWD_CASES = [(B, H, W, C, dtype) for B in (1, 4) for H, W, C in SD_BWD_SPLIT
+                for dtype in (torch.bfloat16, torch.float32)
+                if dtype == torch.bfloat16 or C <= 2048]
+
+
+@pytest.mark.parametrize("B,H,W,C,dtype", SD_BWD_CASES)
+def test_group_norm_bwd_split_at_sd_sites(gen, B, H, W, C, dtype):
+    x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    g = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.2 + 1.0
+    _, mean, rstd = group_norm_plain(x, scale, scale, 32, 1e-6, True)
+    assert GN._bwd_route(H * W, C, x.element_size(), 32, B)[0] == "split"
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, scale, mean, rstd, g)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 1           # one count a call
+    dx, dscale, dbias = group_norm_bwd_plain(x, scale, mean, rstd, g)
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == torch.bfloat16 else \
+        dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[0].float(), dx.float(), **tol)
+    # fp32 sums over batch and space of the same products in another order
+    assert _rel_l2(got[1], dscale) < 1e-4 and _rel_l2(got[2], dbias) < 1e-4
+    for _ in range(2):           # no float atomics: same bits every run
+        again = group_norm_bwd(x, scale, mean, rstd, g)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert int(GN._fold_counters[x.device].abs().sum()) == 0   # left zero
+
+
+def test_group_norm_bwd_split_in_a_cuda_graph(gen):
+    """Two backward calls at an SD split site captured in one CUDA graph:
+    each call has its own scratch, so the replay gives the eager bits."""
+    x, g, g2 = ((torch.randn(4, 32, 32, 640, generator=gen, device="cuda")
+                 + 0.5).to(torch.bfloat16) for _ in range(3))
+    scale = torch.randn(640, generator=gen, device="cuda") * 0.2 + 1.0
+    _, mean, rstd = group_norm_plain(x, scale, scale, 32, 1e-6, True)
+    eager = [group_norm_bwd(x, scale, mean, rstd, t) for t in (g, g2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = [group_norm_bwd(x, scale, mean, rstd, t) for t in (g, g2)]
+    graph.replay()
+    torch.cuda.synchronize()
+    for e, c in zip(eager, captured):
+        assert all(torch.equal(a, b) for a, b in zip(e, c))
+    assert not torch.equal(eager[0][0], eager[1][0])
 
 
 def test_sd_unet_forward_matches_its_plain_path(gen):

@@ -143,15 +143,16 @@ def test_bwd_route_main_path_shapes_take_the_slab_route(H, C, S):
 
 
 @pytest.mark.parametrize("hw,C,itemsize,groups,want", [
-    (1024, 384, 4, 32, ("sweep", 1)),   # 3 MB of x and g: 384 KB a slice of eight
-    (1, 64, 2, 32, ("sweep", 1)),       # one pixel: nothing to hold
+    (1024, 384, 4, 32, ("split", 64)),  # 3 MB of x and g: 384 KB a slice of
+                                        # eight; at batch 1, runs of 16 pixels
+    (1, 64, 2, 32, ("split", 1)),       # one pixel: nothing to hold
     (1024, 128, 4, 32, ("slab", 8)),
     (25, 128, 2, 32, ("slab", 1)),      # H = 5
     (144, 384, 2, 32, ("slab", 2)),     # H = 12: 72 pixels a slice
     (441, 384, 2, 32, ("slab", 4)),     # 110, 110, 110 and 111 pixels
-    (841, 640, 2, 32, ("sweep", 1)),
+    (841, 640, 2, 32, ("split", 52)),   # runs of 16 and 17 pixels
     (64, 24, 4, 8, ("slab", 1)),        # C = 24, G = 8
-    (64, 12, 2, 4, ("sweep", 1)),       # a pixel of 24 bytes: not whole chunks
+    (64, 12, 2, 4, ("split", 1)),       # a pixel of 24 bytes: not whole chunks
 ])
 def test_bwd_route_off_the_main_path(hw, C, itemsize, groups, want):
     route = GN._bwd_route(hw, C, itemsize, groups)

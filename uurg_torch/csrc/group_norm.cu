@@ -57,20 +57,47 @@
 // all fp32, dx in x's dtype. Bound: bytes (read x and g once, write dx once).
 // Scale is constant over a channel, so s1 and s2 are the scale-weighted group
 // sums of the per-channel sums of g and g * x_hat, which are also the
-// sample's dbias and dscale terms. Two routes: route "slab", as the forward's, holds a slice of x AND of g in each block of a cluster of S
+// sample's dbias and dscale terms. Two routes. Route "slab", as the
+// forward's, holds a slice of x AND of g in each block of a cluster of S
 // (twice the forward's bytes, so S doubles where the forward's slice was
 // the limit), brought in by the same bulk copies, one barrier for both
 // halves of a copy; the sums, the fold and the exchange of the 2 G group
 // sums are the forward's, and dx is written from shared memory, so x and g
-// come from device memory once. Route "sweep" (one block a sample, where
-// the forward has split) reads x and g twice. The TPU kernel adds
-// dscale and dbias across its sequential grid. Here, in the same launch, with
-// no float atomics and equal bits on every run: each sample's per-channel
-// sums go to an fp32 scratch row (a cluster's S blocks first hand each other
-// their channels, so a sample is one row), and integer arrival counters elect
+// come from device memory once. Route "split" is for a sample that eight
+// slices of x and g do not fit (SD's 64 x 64 sites at 320-960 channels and
+// 32 x 32 at 640-1920, 16 x 16 at 1920 and 2560) and for a one-pixel
+// sample: as the forward's split, S runs of whole pixels a sample, one a
+// block (grid B S, S chosen by ops/group_norm.py::_bwd_split_count from the
+// batch and the sample's pixels: about two blocks an SM in all, since
+// every block of launch 2 folds its sample's S group rows), so the card
+// fills at SD's batch 4, where a block a sample would be 4 blocks on 132
+// SMs. Two launches:
+//   1. sums: each block walks its run (a thread's 16-byte column chunk of
+//      x and of g, four pixels in flight), folds per channel and per group
+//      as the slab route does and writes to an fp32 scratch that the
+//      wrapper allocates its 2 C channel sums [sum g x_hat | sum g] and its
+//      2 G scale-weighted group sums;
+//   2. dx: every block folds its sample's S group rows in one fixed order
+//      (fold_runs), so every block and every run derives the same s1 and
+//      s2 bits; it folds a 2 C / S slice of its sample's channel columns
+//      over the S runs into the sample's row of the batch fold; then dx
+//      over its run, walked from its end, so the first reads are the tail
+//      that launch 1 read last and L2 may still hold.
+//   Its floor is two reads of x and g and one write of dx: 5/3 of the
+//   bound (less where L2 keeps launch 1's reads: a site of SD at batch 4
+//   is 8-63 MB of x and g against 50 MB of L2). A run is at least
+//   _BWD_MIN_PIXELS pixels, so its channel sums (8 C bytes written and
+//   read) stay a small share of its x and g. Each block is short (SD's
+//   runs are 16-63 pixels), so the two launches' fixed costs and the folds
+//   weigh as much as the bytes.
+// The TPU kernel adds dscale and dbias across its sequential grid. Here,
+// with no float atomics and equal bits on every run: each sample's
+// per-channel sums go to an fp32 scratch row (a cluster's S blocks first
+// hand each other their channels, a split's S blocks each fold a slice of
+// the columns, so a sample is one row), and integer arrival counters elect
 // the last block of each group of rows, which folds the group's rows in
 // index order, then the last of those, which folds the group sums in order
-// (arrive_row before dx, fold_batch after it).
+// (arrive_row before dx, fold_batch after it), in the launch that writes dx.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -118,7 +145,8 @@ constexpr int kSlabThreads = 256;     // ops/group_norm.py mirrors it (_SLAB_THR
 constexpr int kSlabChunks = 4;        // bulk copies (and barriers) a slice, at most
 constexpr int kSlabChunkBytes = 16384;  // ... each at least this long
 constexpr int kSplitThreads = 256;    // tests/test_torch_gn_split.py mirrors it
-constexpr int kSplitUnroll = 4;       // 16-byte loads in flight a thread, split normalise
+constexpr int kSplitUnroll = 4;       // 16-byte loads in flight a thread, split routes
+constexpr int kFoldRows = 16;         // rows a lane of fold_runs loads at once
 
 // ---- what the routes share: one source of the arithmetic ----
 
@@ -276,25 +304,38 @@ gn_fwd_split_stats(const T* __restrict__ x, float* __restrict__ part, int HW, in
   for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) dst[j] = grp[j];
 }
 
-// out[j] = the sum over r < S of rows[r][j], j < n, in one fixed order: lane
-// u of a quad adds rows u, u + 4, ... in index order, then the quad adds its
-// four sums by shuffles ((a0 + a1) + (a2 + a3): the adds commute, so every
-// lane, block and run gets the same bits). Eight columns a warp at a time,
-// full warps only (a block of rows * (C / N) threads may end in a part of
-// one). The rows come from L2 (launch 1 wrote them).
-__device__ __forceinline__ void fold_runs(const float* rows, int S, int n, float* out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, u = lane % 4;
-  const int nwarps = blockDim.x / 32;
+// out[j] = the sum over r < S of rows[r][j] (rows `stride` floats apart),
+// j < n, in one fixed order: lane u of a group of `lanes` (a power of two
+// up to 32) adds rows u, u + lanes, ... in index order, then the group adds
+// its sums by shuffles (with 4 lanes (a0 + a1) + (a2 + a3): the adds
+// commute, so every lane, block and run gets the same bits). A lane loads
+// kFoldRows of its rows at once, predicated, before it adds them: a loop
+// unrolled by the compiler ran a lane's last rows one load after another.
+// 32 / lanes columns a warp at a time, full warps only (a block of
+// rows * (C / N) threads may end in a part of one). The rows come from L2
+// (an earlier launch wrote them).
+__device__ __forceinline__ void fold_runs(const float* rows, int S, size_t stride, int n,
+                                          float* out, int lanes = 4) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, u = lane % lanes;
+  const int nwarps = blockDim.x / 32, per = 32 / lanes;
   if (warp >= nwarps) return;
-  for (int j0 = warp * 8; j0 < n; j0 += nwarps * 8) {    // uniform in a warp
-    const int j = j0 + lane / 4;
+  for (int j0 = warp * per; j0 < n; j0 += nwarps * per) {    // uniform in a warp
+    const int j = j0 + lane / lanes;
     float acc = 0.f;
     if (j < n) {
-#pragma unroll 8
-      for (int r = u; r < S; r += 4) acc += rows[static_cast<size_t>(r) * n + j];
+      for (int r0 = u; r0 < S; r0 += kFoldRows * lanes) {
+        float v[kFoldRows];
+#pragma unroll
+        for (int i = 0; i < kFoldRows; ++i) {
+          const int r = r0 + i * lanes;
+          v[i] = r < S ? rows[static_cast<size_t>(r) * stride + j] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kFoldRows; ++i)
+          if (r0 + i * lanes < S) acc += v[i];
+      }
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    for (int o = 1; o < lanes; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (u == 0 && j < n) out[j] = acc;
   }
 }
@@ -321,7 +362,7 @@ gn_fwd_split_norm(const T* __restrict__ x, const float* __restrict__ scale,
   for (int i = 0; i < N; ++i) { a[i] = scale[cc * N + i]; b[i] = bias[cc * N + i]; }
   float* sums = smem;                  // [2][G]
   float* stat = sums + 2 * G;          // [2][G] mean, rstd
-  fold_runs(part + static_cast<size_t>(sample) * S * 2 * G, S, 2 * G, sums);
+  fold_runs(part + static_cast<size_t>(sample) * S * 2 * G, S, 2 * G, 2 * G, sums);
   __syncthreads();
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
     group_stats(sums[g], sums[G + g], static_cast<float>(HW) * cg, eps, &stat[g],
@@ -693,17 +734,29 @@ __device__ __forceinline__ void dx_terms(float* sc, float* s1, float* s2,
 // work = [dscale (C) | dbias (C) | part (B, 2, C) | gpart (groups, 2, C)]
 __device__ __forceinline__ float* part_rows(float* work, int C) { return work + 2 * C; }
 
-// ---- backward route "sweep": one block a sample, x and g read twice ----
-// grid: one block per sample; block: rows * (C / N) threads with rows =
-// kMaxThreads / (C / N), the thread's chunk tid % (C / N) and its first
-// pixel tid / (C / N).
+// ---- backward route "split": S blocks a sample, x and g read twice ----
+// grid: B * S blocks, block j of sample b (blockIdx.x = b S + j) takes run j
+// (run_begin); threads as the forward's split route. Scratch (fp32, the
+// wrapper's): chs[B S][2][C], each run's channel sums [sum g x_hat | sum g],
+// then grps[B S][2][G], its scale-weighted group sums [s2 | s1] before the
+// division by the group's size.
+
+// lanes a column of fold_runs for S rows: the fewest with at most
+// kFoldRows rows a lane (one round of loads; fewer lanes, fewer passes and
+// shuffles), at most a warp
+__device__ __forceinline__ int fold_lanes(int S) {
+  int lanes = 1;
+  while (lanes < 32 && lanes * kFoldRows < S) lanes <<= 1;
+  return lanes;
+}
+
+// launch 1: this run's channel sums into chs and group sums into grps
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_bwd_sweep_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                    const float* __restrict__ scale, const float* __restrict__ mean,
-                    const float* __restrict__ rstd, T* __restrict__ dx,
-                    float* __restrict__ work, unsigned* __restrict__ counters, int B,
-                    int HW, int C, int G, int fold) {
+gn_bwd_split_sums(const T* __restrict__ x, const T* __restrict__ g,
+                  const float* __restrict__ scale, const float* __restrict__ mean,
+                  const float* __restrict__ rstd, float* __restrict__ chs,
+                  float* __restrict__ grps, int HW, int C, int G, int S) {
   constexpr int N = Chunk<T>::N;
   extern __shared__ float smem[];
   const int nchunk = C / N;
@@ -711,14 +764,27 @@ gn_bwd_sweep_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int cc = threadIdx.x % nchunk;
   const int r0 = threadIdx.x / nchunk;
   const int cg = C / G;
-  const int sample = blockIdx.x;
+  const int sample = blockIdx.x / S, run = blockIdx.x - sample * S;
+  const int p1 = run_begin(run + 1, HW, S);
   const size_t base = static_cast<size_t>(sample) * HW * C + cc * N;
 
   float m[N], rs[N], sa[N], sb[N];
   channel_stats<N>(m, rs, mean, rstd, sample, G, cg, cc);
 #pragma unroll
   for (int i = 0; i < N; ++i) { sa[i] = 0.f; sb[i] = 0.f; }
-  for (int p = r0; p < HW; p += rows) {
+  int p = run_begin(run, HW, S) + r0;
+  for (; p + (kSplitUnroll - 1) * rows < p1; p += kSplitUnroll * rows) {
+    float xv[kSplitUnroll][N], gv[kSplitUnroll][N];
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      const size_t off = base + static_cast<size_t>(p + u * rows) * C;
+      Chunk<T>::load(x + off, xv[u]);
+      Chunk<T>::load(g + off, gv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) add_bwd_sums<N>(xv[u], gv[u], m, rs, sa, sb);
+  }
+  for (; p < p1; p += rows) {
     const size_t off = base + static_cast<size_t>(p) * C;
     float xv[N], gv[N];
     Chunk<T>::load(x + off, xv);
@@ -728,29 +794,83 @@ gn_bwd_sweep_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
   float* red = smem;                   // [2][rows][C]
   float* ch = red + 2 * rows * C;      // [2][C] sum g x_hat, sum g
-  float* grp = ch + 2 * C;             // [2][G] scale-weighted, then s2, s1
+  float* grp = ch + 2 * C;             // [2][G] scale-weighted
   store_partials<N>(red, rows, C, r0, cc, sb, sa);
   fold_partials(red, ch, grp, rows, C, G, scale);
+  float* dst = chs + static_cast<size_t>(blockIdx.x) * 2 * C;
+  for (int j = threadIdx.x; j < 2 * C; j += blockDim.x) dst[j] = ch[j];
+  dst = grps + static_cast<size_t>(blockIdx.x) * 2 * G;
+  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) dst[j] = grp[j];
+}
+
+// launch 2: s1 and s2 from the sample's S group rows, this block's slice of
+// the sample's channel row, dx over the run, then the batch fold
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_bwd_split_dx(const T* __restrict__ x, const T* __restrict__ g,
+                const float* __restrict__ scale, const float* __restrict__ mean,
+                const float* __restrict__ rstd, T* __restrict__ dx,
+                const float* __restrict__ chs, const float* __restrict__ grps,
+                float* __restrict__ work, unsigned* __restrict__ counters, int B, int HW,
+                int C, int G, int fold, int S) {
+  constexpr int N = Chunk<T>::N;
+  extern __shared__ float smem[];      // [2][G] s2, s1
+  const int nchunk = C / N;
+  const int rows = blockDim.x / nchunk;
+  const int cc = threadIdx.x % nchunk;
+  const int r0 = threadIdx.x / nchunk;
+  const int cg = C / G;
+  const int sample = blockIdx.x / S, run = blockIdx.x - sample * S;
+  const int lanes = fold_lanes(S);
+
+  fold_runs(grps + static_cast<size_t>(sample) * S * 2 * G, S, 2 * G, 2 * G, smem, lanes);
+  // columns [run cw, run cw + n) of the sample's row [sum g x_hat | sum g]
+  // of the batch fold, its S runs added in order
   float* part = part_rows(work, C);
-  for (int j = threadIdx.x; j < 2 * C; j += blockDim.x)
-    part[static_cast<size_t>(sample) * 2 * C + j] = ch[j];
+  const int cw = (2 * C + S - 1) / S, lo = run * cw;
+  const int n = 2 * C - lo < cw ? 2 * C - lo : cw;
+  if (n > 0)
+    fold_runs(chs + static_cast<size_t>(sample) * S * 2 * C + lo, S, 2 * C, n,
+              part + static_cast<size_t>(sample) * 2 * C + lo, lanes);
+  __syncthreads();
   const float inv_n = 1.f / (static_cast<float>(HW) * cg);
-  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) grp[j] *= inv_n;
+  for (int j = threadIdx.x; j < 2 * G; j += blockDim.x) smem[j] *= inv_n;
   __syncthreads();
   const unsigned old = arrive_row(counters, fold, sample);
 
-  float sc[N], s1[N], s2[N];
-  dx_terms<N>(sc, s1, s2, scale, grp, G, cg, cc);
-  for (int p = r0; p < HW; p += rows) {
-    const size_t off = base + static_cast<size_t>(p) * C;
-    float xv[N], gv[N];
-    Chunk<T>::load(x + off, xv);
-    Chunk<T>::load(g + off, gv);
-    bwd_dx<N>(xv, gv, m, rs, sc, s1, s2);
-    Chunk<T>::store(dx + off, xv);
+  float m[N], rs[N], sc[N], s1[N], s2[N];
+  channel_stats<N>(m, rs, mean, rstd, sample, G, cg, cc);
+  dx_terms<N>(sc, s1, s2, scale, smem, G, cg, cc);
+  const int p0 = run_begin(run, HW, S) + r0;
+  const int p1 = run_begin(run + 1, HW, S);
+  if (p0 < p1) {
+    const size_t base = static_cast<size_t>(sample) * HW * C + cc * N;
+    int k = (p1 - 1 - p0) / rows;      // this thread's last pixel: p0 + k rows
+    for (; k >= kSplitUnroll - 1; k -= kSplitUnroll) {
+      float xv[kSplitUnroll][N], gv[kSplitUnroll][N];
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        const size_t off = base + static_cast<size_t>(p0 + (k - u) * rows) * C;
+        Chunk<T>::load(x + off, xv[u]);
+        Chunk<T>::load(g + off, gv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        bwd_dx<N>(xv[u], gv[u], m, rs, sc, s1, s2);
+        Chunk<T>::store(dx + base + static_cast<size_t>(p0 + (k - u) * rows) * C, xv[u]);
+      }
+    }
+    for (; k >= 0; --k) {
+      const size_t off = base + static_cast<size_t>(p0 + k * rows) * C;
+      float xv[N], gv[N];
+      Chunk<T>::load(x + off, xv);
+      Chunk<T>::load(g + off, gv);
+      bwd_dx<N>(xv, gv, m, rs, sc, s1, s2);
+      Chunk<T>::store(dx + off, xv);
+    }
   }
   fold_batch(old, part, part + static_cast<size_t>(B) * 2 * C, work, counters, B, C,
-             fold, sample, 1);
+             fold, sample, S);
 }
 
 // ---- backward route "slab": a cluster of S blocks a sample, x and g read once ----
@@ -882,9 +1002,36 @@ gn_bwd_slab_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 template <typename T>
+int launch_bwd_split(const T* x, const T* g, const float* scale, const float* mean,
+                     const float* rstd, T* dx, float* work, unsigned* counters,
+                     float* runs, int B, int HW, int C, int G, int fold, int S,
+                     cudaStream_t stream) {
+  if (S < 1 || S > HW || runs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunk = C / Chunk<T>::N;
+  int rows = kSplitThreads / nchunk;
+  if (rows < 1) rows = 1;
+  const int threads = rows * nchunk;
+  const unsigned blocks = static_cast<unsigned>(B) * S;
+  const size_t smem = (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_bwd_split_sums<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* chs = runs;
+  float* grps = runs + static_cast<size_t>(blocks) * 2 * C;
+  gn_bwd_split_sums<T><<<blocks, threads, smem, stream>>>(x, g, scale, mean, rstd, chs,
+                                                          grps, HW, C, G, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_bwd_split_dx<T><<<blocks, threads, 2 * G * sizeof(float), stream>>>(
+      x, g, scale, mean, rstd, dx, chs, grps, work, counters, B, HW, C, G, fold, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_bwd(const void* x, const void* g, const void* scale, const void* mean,
-               const void* rstd, void* dx, void* work, void* counters, int B, int HW,
-               int C, int G, int fold, int route, int S, cudaStream_t stream) {
+               const void* rstd, void* dx, void* work, void* counters, void* runs, int B,
+               int HW, int C, int G, int fold, int route, int S, cudaStream_t stream) {
   const int nchunk = C / Chunk<T>::N;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
@@ -895,18 +1042,9 @@ int launch_bwd(const void* x, const void* g, const void* scale, const void* mean
   float* wk = static_cast<float*>(work);
   unsigned* ctr = static_cast<unsigned*>(counters);
   if (fold < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 0) {
-    int rows = kMaxThreads / nchunk;
-    if (rows < 1) rows = 1;
-    const size_t smem = (2 * static_cast<size_t>(rows) * C + 2 * C + 2 * G) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        gn_bwd_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gn_bwd_sweep_kernel<T><<<B, rows * nchunk, smem, stream>>>(
-        xt, gt, sc, mn, rs, dxt, wk, ctr, B, HW, C, G, fold);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (route == 0)
+    return launch_bwd_split<T>(xt, gt, sc, mn, rs, dxt, wk, ctr, static_cast<float*>(runs),
+                               B, HW, C, G, fold, S, stream);
   if (route != 1 || S < 1 || S > 8 || S > HW)
     return static_cast<int>(cudaErrorInvalidValue);
   const int maxpix = (HW + S - 1) / S;
@@ -965,27 +1103,31 @@ extern "C" int uurg_group_norm_fwd(const void* x, const void* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward, one launch. x, g, dx: contiguous NHWC of one dtype (0 =
-// bfloat16, 1 = float32), with the forward's constraints on C; scale: fp32
-// (C,); mean, rstd: the forward's fp32 (B, G); work: fp32, 16-byte aligned,
+// Backward. x, g, dx: contiguous NHWC of one dtype (0 = bfloat16, 1 =
+// float32), with the forward's constraints on C; scale: fp32 (C,); mean,
+// rstd: the forward's fp32 (B, G); work: fp32, 16-byte aligned,
 // (2 + 2 B + 2 ceil(B / fold)) C floats, of which the first 2 C are written
 // as dscale then dbias and the rest is scratch; counters: uint32, at least
 // 1 + ceil(B / fold), zero on entry and left zero (the launches that share
-// them must run one at a time). route: 0 = sweep, 1 = slab with clusters of
-// `cluster` blocks, chosen by the caller by shape as for the forward.
-// Returns the launch's CUDA error code (0 = launched); nothing falls back.
+// them must run one at a time). route: 0 = split, two launches on
+// B * cluster blocks (cluster = S runs a sample, 1 <= S <= HW; runs: fp32
+// scratch of B * S * 2 * (C + G) floats, 16-byte aligned, that no other
+// launch in flight shares), 1 = slab with clusters of `cluster` blocks (1, 2,
+// 4 or 8, at most HW; runs unused), chosen by the caller by shape as for the
+// forward. Returns the launch's CUDA error code (0 = launched); nothing falls
+// back.
 extern "C" int uurg_group_norm_bwd(const void* x, const void* g, const void* scale,
                                    const void* mean, const void* rstd, void* dx,
-                                   void* work, void* counters, int B, int HW, int C,
-                                   int G, int fold, int dtype, int route, int cluster,
-                                   void* stream) {
+                                   void* work, void* counters, void* runs, int B, int HW,
+                                   int C, int G, int fold, int dtype, int route,
+                                   int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16>(x, g, scale, mean, rstd, dx, work, counters, B, HW,
-                                     C, G, fold, route, cluster, s);
+    return launch_bwd<__nv_bfloat16>(x, g, scale, mean, rstd, dx, work, counters, runs, B,
+                                     HW, C, G, fold, route, cluster, s);
   if (dtype == 1)
-    return launch_bwd<float>(x, g, scale, mean, rstd, dx, work, counters, B, HW, C, G,
-                             fold, route, cluster, s);
+    return launch_bwd<float>(x, g, scale, mean, rstd, dx, work, counters, runs, B, HW, C,
+                             G, fold, route, cluster, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,10 +22,13 @@ When a gradient is wanted the op goes through one
 mean and rstd, and its backward is :func:`group_norm_bwd`: the backward
 kernel of the same source (which replaces the Pallas ``_gn_bwd_kernel``)
 for a CUDA tensor, :func:`group_norm_bwd_plain` for a CPU tensor. The
-backward has two routes (:func:`_bwd_route`): ``slab`` (which holds x and g,
-so twice the forward's bytes) and ``sweep`` (one block a sample, x and g
-read twice), and folds dscale and dbias over the batch in
-the same launch: one launch a call.
+backward has the same two routes (:func:`_bwd_route`): ``slab`` (which
+holds x and g, so twice the forward's bytes; one launch) and ``split`` (S
+runs a sample, S from the batch and the sample's pixels,
+:func:`_bwd_split_count`; x and g read twice in two launches: each run's
+channel and group sums into an fp32 scratch that the wrapper allocates,
+then dx), and folds dscale and dbias over the batch in the launch that
+writes dx.
 """
 from __future__ import annotations
 
@@ -39,9 +42,8 @@ from uurg_torch.ops import _build
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _CHUNK_BYTES = 16
 _MAX_CHUNKS = 512   # C / (16 / itemsize): one thread per 16-byte column chunk
-# route codes of the C launchers: the forward's split and the backward's
-# sweep share code 0
-_ROUTE_CODE = {"split": 0, "sweep": 0, "slab": 1}
+# route codes of the C launchers, forward and backward
+_ROUTE_CODE = {"split": 0, "slab": 1}
 _CLUSTERS = (1, 2, 4, 8)     # 8: the largest cluster every launch may ask for
 _SMEM_MAX = 226 * 1024       # a block's 227 KB on sm_90 less the kernel's static part
 _SLAB_THREADS = 256          # kSlabThreads of csrc/group_norm.cu
@@ -51,6 +53,14 @@ _SMS = 132                   # an H100's SMs
 # sample's S rows), at least _SPLIT_MIN_BYTES of the sample a run (two
 # 16-byte loads a thread) and at least a pixel
 _SPLIT_BLOCKS, _SPLIT_MAX, _SPLIT_MIN_BYTES = 4 * _SMS, 2 * _SMS, 8192
+# the backward's split route: B S near _BWD_SPLIT_BLOCKS, two blocks an SM
+# (every block of its dx launch folds its sample's S group rows, so runs
+# past that cost more than they fill: on an H100, SD's 64 x 64 sites at
+# batch 4 took 1.4 to 2.0 times as long at four blocks an SM), and a run of
+# at least _BWD_MIN_PIXELS pixels, so that its channel sums (2 C fp32
+# written by the sums launch and read by the dx launch) stay a small share
+# of its x and g (a tenth in bf16)
+_BWD_SPLIT_BLOCKS, _BWD_MIN_PIXELS = 2 * _SMS, 16
 # the backward's batch fold: groups of at least _FOLD_ROWS samples, at most
 # _FOLD_GROUPS groups, so 1 + _FOLD_GROUPS arrival counters serve any batch
 _FOLD_ROWS, _FOLD_GROUPS = 16, 64
@@ -192,6 +202,22 @@ def _split_scratch(batch: int, s: int, groups: int) -> int:
     return batch * s * 2 * groups
 
 
+def _bwd_split_count(batch: int, hw: int, c: int, itemsize: int) -> int:
+    """Runs a sample (S) of the backward's split route:
+    ``_BWD_SPLIT_BLOCKS`` blocks in all, at most one a ``_BWD_MIN_PIXELS``
+    pixels and one a ``_SPLIT_MIN_BYTES`` of the sample; at least 1. A pure
+    function of the shape."""
+    want = -(-_BWD_SPLIT_BLOCKS // batch)
+    return max(1, min(want, hw // _BWD_MIN_PIXELS,
+                      hw * c * itemsize // _SPLIT_MIN_BYTES))
+
+
+def _bwd_split_scratch(batch: int, s: int, c: int, groups: int) -> int:
+    """fp32 floats of the backward's split scratch: each run's channel sums
+    chs[B][S][2][C], then its group sums grps[B][S][2][G]."""
+    return batch * s * 2 * (c + groups)
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32,
                batch: int = 1):
@@ -206,12 +232,16 @@ def _fwd_route(hw: int, c: int, itemsize: int, groups: int = 32,
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_route(hw: int, c: int, itemsize: int, groups: int = 32):
-    """(route, cluster) of the backward kernel: ``("slab", S)`` as the
-    forward's, but the slab holds x and g, so S is the forward's doubled
-    where the forward's slice was the limit; else ``("sweep", 1)``."""
+def _bwd_route(hw: int, c: int, itemsize: int, groups: int = 32,
+               batch: int = 1):
+    """(route, blocks a sample) of the backward kernel: ``("slab", S)`` as
+    the forward's, but the slab holds x and g, so S is the forward's doubled
+    where the forward's slice was the limit (whatever the batch); else
+    ``("split", S)`` with S runs a sample (:func:`_bwd_split_count`)."""
     s = _slab_cluster(_bwd_slab_smem, hw, c, itemsize, groups)
-    return ("slab", s) if s is not None else ("sweep", 1)
+    if s is not None:
+        return "slab", s
+    return "split", _bwd_split_count(batch, hw, c, itemsize)
 
 
 def _fold_rows(b: int) -> int:
@@ -231,7 +261,7 @@ def _load(symbol: str, n_ptr: int, ints: tuple):
 
 _I, _F = ctypes.c_int, ctypes.c_float
 _FWD_INTS = (_I,) * 4 + (_F,) + (_I,) * 3   # B, HW, C, G, eps, dtype, route, S
-_BWD_INTS = (_I,) * 8   # B, HW, C, G, fold, dtype, route, cluster
+_BWD_INTS = (_I,) * 8   # B, HW, C, G, fold, dtype, route, S
 _fold_counters: dict = {}
 
 
@@ -273,7 +303,8 @@ def group_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     """(dx, dscale, dbias) of GroupNorm at x for the output gradient g,
     from the forward's fp32 (B, G) mean and rstd. g must match x in shape,
     dtype, device and contiguity. CPU tensors: :func:`group_norm_bwd_plain`;
-    CUDA tensors: the backward kernel, one launch."""
+    CUDA tensors: the backward kernel (two launches on the split route,
+    one on the slab route; ``group_norm_bwd.launches`` counts calls)."""
     b = x.shape[0]
     groups = mean.shape[-1]
     _check(x, scale, scale, groups)
@@ -295,31 +326,38 @@ def _group_norm_bwd_kernel(x, scale, mean, rstd, g, route=None):
     """Launch the backward kernel on checked inputs: (dx, dscale, dbias).
     ``route`` overrides :func:`_bwd_route` (to time one route beside the
     other). One fp32 allocation holds dscale, dbias (returned as views of
-    it) and the batch fold's scratch; the fold's arrival counters are one
-    zeroed buffer a device, which every launch leaves zero, so launches
-    that share it must run one at a time (one stream)."""
+    it), the batch fold's scratch and, on the split route, the runs' sums:
+    every call has its own, so calls captured in one CUDA graph share none.
+    The fold's arrival counters are one zeroed buffer a device, which every
+    launch leaves zero, so launches that share it must run one at a time
+    (one stream)."""
     _check_kernel(x)
     b, h, w, c = x.shape
     groups = mean.shape[-1]
-    name, cluster = route or _bwd_route(h * w, c, x.element_size(), groups)
+    name, cluster = route or _bwd_route(h * w, c, x.element_size(), groups,
+                                        b)
     fold = _fold_rows(b)
     counters = _fold_counters.get(x.device)
     if counters is None:
         counters = _fold_counters[x.device] = torch.zeros(
             1 + _FOLD_GROUPS, dtype=torch.int32, device=x.device)
     dx = torch.empty_like(x)
-    work = torch.empty((2 + 2 * b + 2 * -(-b // fold)) * c,
+    fold_floats = (2 + 2 * b + 2 * -(-b // fold)) * c
+    work = torch.empty(fold_floats + (_bwd_split_scratch(b, cluster, c, groups)
+                                      if name == "split" else 0),
                        dtype=torch.float32, device=x.device)
     if not scale.is_contiguous():
         scale = scale.contiguous()
-    err = _load("uurg_group_norm_bwd", 8, _BWD_INTS)(
+    err = _load("uurg_group_norm_bwd", 9, _BWD_INTS)(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), work.data_ptr(), counters.data_ptr(),
-        b, h * w, c, groups, fold, _DTYPE_CODE[x.dtype], _ROUTE_CODE[name],
-        cluster, torch.cuda.current_stream(x.device).cuda_stream)
+        work.data_ptr() + 4 * fold_floats, b, h * w, c, groups, fold,
+        _DTYPE_CODE[x.dtype], _ROUTE_CODE[name], cluster,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"GroupNorm backward kernel launch failed ({name} "
-                           f"route, cluster {cluster}): CUDA error {err}")
+                           f"route, {cluster} blocks a sample): CUDA error "
+                           f"{err}")
     group_norm_bwd.launches += 1
     return dx, work[:c], work[c:2 * c]
 

@@ -290,6 +290,20 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    counts these launches: the SD rows' UNet and decode launches, the
    VAE's ``xwide`` row every SD encode's and decode's.
 
+23. Data parallel and FSDP on ``torch.distributed`` (``uurg_torch/
+   parallel``) on a one-rank NCCL group, each run against the one-device
+   run of the same weights, seed and batches: ``sfron_forget`` on phase
+   8's config (2 steps at 128 + 128, packed mask; under a group the DDPM
+   runner splits every batch over the ranks with no flag), one DDIM-50
+   batch of 128 through ``sample_images``, ``dit_forget`` on phase 18's
+   seeded, perturbed DiT-XL/2 with ``mesh=data=1,model=1`` and
+   ``parallelism="fsdp"`` (FSDP2 over the blocks, 2 steps at 32 + 32, a
+   dense mask sharded like the parameters), ``nsfw_removal`` on phase
+   20's seeded UNet the same way (1 step at 4 + 4, a packed mask). Each
+   prints the largest parameter difference and the relative L2 (gate
+   1e-6: one rank changes no arithmetic), the four kernels' launches
+   (equal to the one-device run's), the call's ms and peak memory.
+
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -656,6 +670,21 @@ SD_EVAL_PROMPTS = (
     '2,"a church, at night",13\n'
     '3,"a church, at night",13\n')
 NUDENET_SIZE, NUDENET_ANCHORS, NUDENET_THRESHOLD = 320, 2100, 0.6
+
+# data parallel and FSDP (phase 23) on one NCCL rank: NCCL takes no two
+# ranks on one device, so the card runs world size 1 (the multi-rank runs
+# are the CPU tests' on gloo). Each run against the one-device run of the
+# same weights, seed and batches: the DDPM SFR-on step (auto data
+# parallel) and one DDIM batch of sample_images; dit_forget under fsdp at
+# 32 + 32 with a dense mask; nsfw_removal under fsdp at 4 + 4 with a packed
+# mask. One rank changes no arithmetic: bit-equal expected, gated at
+# relative L2 DP_REL, launch counts equal. DiT's and SD's last step runs
+# under the profiler (device ms by kernel family, one device against
+# FSDP); DP_DRAW_RANKS: the data-parallel width at which each rank's
+# global draws (t, noise, keep and dropout masks for the whole batch) are
+# timed, on the CondUNet at TRAIN_BATCH rows a rank
+DP_DDPM_STEPS, DP_DIT_STEPS, DP_SD_STEPS, DP_REL = 2, 3, 3, 1e-6
+DP_DRAW_RANKS = 8
 
 
 # (seconds since the start, heading) of each phase, for the detail file
@@ -6010,6 +6039,350 @@ def sd_eval_path(card: str, work: str) -> dict:
     return out
 
 
+def _host_params(model) -> dict:
+    """Every parameter of ``model`` whole (the sharded ones gathered), on
+    the host, with the number of sharded ones under ``None``."""
+    from uurg_torch.parallel.mesh import full_tensor, is_sharded
+
+    out = {n: full_tensor(p.detach()).cpu()
+           for n, p in model.named_parameters()}
+    out[None] = sum(is_sharded(p) for p in model.parameters())
+    return out
+
+
+def _param_diff(got: dict, want: dict) -> tuple[float, float]:
+    """(largest |difference|, relative L2) over every parameter of two
+    ``_host_params`` records, a parameter at a time on the card."""
+    import torch
+
+    big = num = den = 0.0
+    if list(got) != list(want):
+        fail("the parameters' names or order differ")
+    for n, q in want.items():
+        if n is None:
+            continue
+        q = q.to("cuda", torch.float64)
+        d = got[n].to("cuda", torch.float64) - q
+        big = max(big, d.abs().max().item())
+        num += d.square().sum().item()
+        den += q.square().sum().item()
+    return big, (num / den) ** 0.5
+
+
+def _dp_call(run, runner, keep, profile_step: int | None = None):
+    """``run()`` with the launch counters zeroed just before and read just
+    after: (``keep`` of its result, launches, ms between CUDA events around
+    it, peak GiB, the host ms from the call's start to the end of each
+    SFR-on step that ``runner`` builds, after a device wait, and
+    ``dit_clock``'s record: step ``profile_step`` profiled, its device ms
+    by kernel family). The result itself is dropped and the cache emptied
+    before the next run, so that no run's peak holds another's state."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with dit_clock(runner, profile_step=profile_step,
+                   families=profile_step is not None) as rec:
+        _zero_launches()
+        t0 = time.perf_counter()
+        start.record()
+        out = run()
+        end.record()
+        torch.cuda.synchronize()
+    res = (keep(out), _read_all_launches(), start.elapsed_time(end),
+           torch.cuda.max_memory_allocated() / 2 ** 30,
+           [(t - t0) * 1e3 for t in rec["t"]], rec)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dp_profiled(tag: str, one: tuple, group: tuple) -> dict:
+    """The profiled step of both runs: device busy ms and wall ms, and the
+    kernel families whose device ms differ."""
+    a, b = one[5], group[5]
+    print(f"  {tag}, the profiled step: device {b['busy_ms']:.3f} ms (one "
+          f"device {a['busy_ms']:.3f}), wall {b['profiled_ms']:.3f} ms (one "
+          f"device {a['profiled_ms']:.3f})", flush=True)
+    fams = sorted(set(a["by_family"]) | set(b["by_family"]))
+    delta = {f: b["by_family"].get(f, 0.0) - a["by_family"].get(f, 0.0)
+             for f in fams}
+    for f in sorted(fams, key=lambda f: -abs(delta[f])):
+        if abs(delta[f]) >= 0.05:
+            print(f"    {f:22s} {b['by_family'].get(f, 0.0):10.3f} ms (one "
+                  f"device {a['by_family'].get(f, 0.0):.3f})", flush=True)
+    return {"busy_ms": b["busy_ms"], "one_device_busy_ms": a["busy_ms"],
+            "wall_ms": b["profiled_ms"],
+            "one_device_wall_ms": a["profiled_ms"],
+            "by_family": b["by_family"],
+            "one_device_by_family": a["by_family"]}
+
+
+def dp_draw_cost(config, card: str) -> dict:
+    """Phase 23 (d): what drawing the global batch's randomness costs a
+    rank: the CondUNet's training loss (t, noise, keep mask and its
+    dropout masks drawn, forward and backward) at TRAIN_BATCH rows, drawn
+    for those rows alone and for DP_DRAW_RANKS times as many, as rank 0 of
+    a data axis of DP_DRAW_RANKS ranks draws them (the split stood in for:
+    one card holds one rank); CUDA events over 5 calls after a warm-up,
+    and each call's peak memory."""
+    import torch
+
+    from uurg_torch.core import rng as RNG
+    from uurg_torch.parallel.mesh import BatchSplit
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    wl = DDPMWorkload.from_config(config)
+    model = wl.init_params(SEED)
+    loss = wl.train_loss_fn()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(TRAIN_BATCH, 32, 32, 3, generator=g, device="cuda")
+    c = torch.randint(0, config.data.n_classes, (TRAIN_BATCH,), generator=g,
+                      device="cuda")
+
+    def call():
+        model.zero_grad(set_to_none=True)
+        loss(model, (x, c), g).backward()
+
+    out, split = {}, RNG.batch_split
+    try:
+        for count in (1, DP_DRAW_RANKS):
+            RNG.batch_split = lambda: BatchSplit(0, count)
+            call()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _events_ms(lambda: [call() for _ in range(5)], 5)
+            out[count] = (ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+    finally:
+        RNG.batch_split = split
+    (ms1, gib1), (msn, gibn) = out[1], out[DP_DRAW_RANKS]
+    print(f"  global draws at data={DP_DRAW_RANKS}, {TRAIN_BATCH} rows a "
+          f"rank (dropout {config.model.dropout}): the loss's forward and "
+          f"backward {msn:.3f} ms, peak {gibn:.3f} GiB (its own rows' draws "
+          f"{ms1:.3f} ms, peak {gib1:.3f} GiB); on {card}", flush=True)
+    return {"ranks": DP_DRAW_RANKS, "ms": msn, "own_rows_ms": ms1,
+            "peak_gib": gibn, "own_rows_peak_gib": gib1}
+
+
+def _dp_compare(tag: str, card: str, one: tuple, group: tuple) -> dict:
+    """Hold the run under the group to the one-device run (each kept as
+    ``{"model": _host_params, ...}``): the parameters within DP_REL
+    relative L2, the launches equal."""
+    big, rel = _param_diff(group[0]["model"], one[0]["model"])
+    print(f"  {tag}: largest parameter difference {big:.3e}, relative L2 "
+          f"{rel:.3e} (gate {DP_REL}); launches {group[1]} (one device "
+          f"{one[1]}); {group[2]:.3f} ms (one device {one[2]:.3f}), each "
+          f"step's end at {[round(t, 1) for t in group[4]]} ms (one device "
+          f"{[round(t, 1) for t in one[4]]}), peak {group[3]:.3f} GiB (one "
+          f"device {one[3]:.3f}); on {card}", flush=True)
+    if not rel <= DP_REL:
+        fail(f"{tag}: the run under the group is {rel:.3e} from the "
+             f"one-device run")
+    if group[1] != one[1] or not group[1]["attention_fwd"]:
+        fail(f"{tag}: launches {group[1]} under the group, {one[1]} on one "
+             f"device")
+    return {"max_abs": big, "rel_l2": rel, "launches": group[1],
+            "ms": group[2], "one_device_ms": one[2], "peak_gib": group[3],
+            "one_device_peak_gib": one[3], "step_ends_ms": group[4],
+            "one_device_step_ends_ms": one[4]}
+
+
+def dp_ddpm(config, card: str, group) -> dict:
+    """Phase 23 (a): ``sfron_forget`` (phase 8's settings, DP_DDPM_STEPS
+    steps) and one DDIM batch of ``sample_images``, first on one device,
+    then under the group (``group()`` starts it; the DDPM runner then
+    splits every batch over its ranks with no flag)."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.core.tree import pack_mask
+    from uurg_torch.workloads import ddpm_runner as R
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    class Args:
+        seed = SEED
+        ckpt_folder = None
+        label_to_forget = 0
+        forget_alpha = FORGET_ALPHA
+        method = "ron"
+        unlearn_loss = "adaga"
+
+    cfg = config.merged({"training": {"n_iters": DP_DDPM_STEPS,
+                                      "snapshot_freq": 10 ** 6,
+                                      "log_freq": 10 ** 6}})
+    wl = DDPMWorkload.from_config(config)
+    seeded = R.load_params(Args, config, wl)
+    gen = torch.Generator().manual_seed(SEED)
+    mask = pack_mask({k: torch.rand(p.shape, generator=gen) < 0.5
+                      for k, p in seeded.named_parameters()})
+    labels = np.arange(SAMPLING_BATCH) % config.data.n_classes
+    runs = {}
+    for name in ("one", "group"):
+        if name == "group":
+            group()
+        work = tempfile.mkdtemp(prefix=f"uurg_dp_{name}_")
+        try:
+            train = _dp_call(lambda: R.sfron_forget(Args, cfg, work,
+                                                    mask=mask), R,
+                             lambda st: {"model": _host_params(st.model)})
+            sample = _dp_call(lambda: R.sample_images(
+                Args, config, seeded, labels, num_steps=DDIM_STEPS,
+                cond_scale=COND_SCALE, seed=SEED), R, lambda x: x)
+        finally:
+            for f in os.listdir(work):
+                os.remove(os.path.join(work, f))
+            os.rmdir(work)
+        runs[name] = (train, sample)
+    (one_t, one_s), (grp_t, grp_s) = runs["one"], runs["group"]
+    out = {"training": _dp_compare(
+        f"sfron_forget ({DP_DDPM_STEPS} steps at {TRAIN_BATCH} + "
+        f"{TRAIN_BATCH})", card, one_t, grp_t)}
+    same = np.array_equal(grp_s[0], one_s[0])
+    print(f"  sample_images (one DDIM-{DDIM_STEPS} batch of "
+          f"{SAMPLING_BATCH}): uint8 arrays equal {same}; launches "
+          f"{grp_s[1]} (one device {one_s[1]}); {grp_s[2]:.3f} ms (one "
+          f"device {one_s[2]:.3f})", flush=True)
+    if not same or grp_s[1] != one_s[1]:
+        fail("sample_images under the group differs from one device")
+    out["sampling"] = {"launches": grp_s[1], "ms": grp_s[2],
+                       "one_device_ms": one_s[2]}
+    return out
+
+
+def dp_dit(card: str, mesh) -> dict:
+    """Phase 23 (b): ``dit_forget`` on phase 18's seeded, perturbed
+    DiT-XL/2 (adaga, AdamW 1e-4, EMA, a dense mask of density 0.5),
+    DP_DIT_STEPS steps at DIT_BATCH + DIT_BATCH, on one device and under
+    FSDP on ``mesh``."""
+    import numpy as np
+    import torch
+
+    from uurg_torch.workloads import dit_runner as DR
+    from uurg_torch.workloads.dit import DiTWorkload
+
+    wl = DiTWorkload.build(DIT_NAME)
+    rng = np.random.default_rng(SEED)
+
+    def batch(low, high):       # seeded latents, labels in [low, high)
+        return (torch.from_numpy(rng.standard_normal(
+            (DIT_BATCH, 32, 32, 4)).astype(np.float32)),
+            torch.from_numpy(rng.integers(low, high, DIT_BATCH)))
+
+    # the forget class 0, the remain batches the stand-in's other classes
+    fbs = [batch(0, 1) for _ in range(DP_DIT_STEPS)]
+    rbs = [batch(1, DIT_STANDIN_CLASSES) for _ in range(DP_DIT_STEPS)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mask = {n: torch.rand(p.shape, generator=gen, device="cuda") < 0.5
+            for n, p in wl.init_params(SEED).named_parameters()}
+    kw = dict(n_iters=DP_DIT_STEPS, lr=1e-4, forget_alpha=1e-3,
+              unlearn_loss="adaga", mask=mask, seed=SEED, log_freq=10 ** 6)
+
+    def keep(st):
+        return {"model": _host_params(st.model),
+                "ema": _host_params(st.ema_model)}
+
+    runs = []
+    for place in ({}, {"mesh": mesh, "parallelism": "fsdp"}):
+        model = perturb_dit_(wl.init_params(SEED))
+        runs.append(_dp_call(lambda: DR.dit_forget(
+            wl, model, iter(fbs), iter(rbs), **place, **kw), DR, keep,
+            DP_DIT_STEPS - 1))
+        del model
+    one, grp = runs
+    sharded = grp[0]["model"][None]
+    print(f"  FSDP2: {sharded} of {len(mask)} parameters sharded (the rest "
+          f"under 2**14 elements)", flush=True)
+    if not sharded:
+        fail("dit_forget under fsdp sharded no parameter")
+    out = _dp_compare(f"dit_forget fsdp ({DP_DIT_STEPS} steps at "
+                      f"{DIT_BATCH} + {DIT_BATCH})", card, one, grp)
+    ema = _param_diff(grp[0]["ema"], one[0]["ema"])
+    print(f"  EMA: largest difference {ema[0]:.3e}, relative L2 "
+          f"{ema[1]:.3e}", flush=True)
+    if not ema[1] <= DP_REL:
+        fail("dit_forget's EMA under fsdp differs from one device")
+    out["ema_rel_l2"], out["sharded_params"] = ema[1], sharded
+    out["profiled_step"] = _dp_profiled("dit_forget fsdp", one, grp)
+    return out
+
+
+def dp_sd(card: str, mesh, gen) -> dict:
+    """Phase 23 (c): ``nsfw_removal`` on phase 20's seeded UNet (train
+    method full, Adam, a packed mask of density 0.5), DP_SD_STEPS steps at
+    SD_BATCH + SD_BATCH, on one device and under FSDP on ``mesh``."""
+    import torch
+
+    from uurg_torch.core.tree import pack_mask
+    from uurg_torch.workloads import sd_runner as TR
+    from uurg_torch.workloads.sd import SDWorkload
+
+    wl = SDWorkload.build(device="cuda")
+    fb, rb = _sd_batches(gen)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    mask = pack_mask({n: torch.rand(p.shape, generator=g, device="cuda")
+                      < 0.5 for n, p in wl.init_unet(SEED).named_parameters()})
+    kw = dict(n_iters=DP_SD_STEPS, lr=1e-5, saliency_mask=mask, seed=SEED,
+              snapshot_freq=10 ** 6)
+    runs = []
+    for place in ({}, {"mesh": mesh, "parallelism": "fsdp"}):
+        unet = wl.init_unet(SEED)
+        runs.append(_dp_call(
+            lambda: TR.nsfw_removal(wl, unet, fb, rb, **place, **kw), TR,
+            lambda st: {"model": _host_params(st.model)}, DP_SD_STEPS - 1))
+        del unet
+    one, grp = runs
+    sharded = grp[0]["model"][None]
+    print(f"  FSDP2: {sharded} of {len(mask)} parameters sharded, in the "
+          f"UNet's own units; the packed mask whole", flush=True)
+    if not sharded:
+        fail("nsfw_removal under fsdp sharded no parameter")
+    out = _dp_compare(f"nsfw_removal fsdp ({DP_SD_STEPS} steps at "
+                      f"{SD_BATCH} + {SD_BATCH})", card, one, grp)
+    out["sharded_params"] = sharded
+    out["profiled_step"] = _dp_profiled("nsfw_removal fsdp", one, grp)
+    return out
+
+
+def parallel_path(card: str, gen) -> dict:
+    """Phase 23: data parallel and FSDP on a one-rank NCCL group (this
+    process, a free localhost port), each run against the one-device run;
+    the group is torn down at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from uurg_torch.core.config import Config
+    from uurg_torch.parallel import initialize_distributed, make_mesh
+    from uurg_torch.parallel.dist import free_port
+
+    def group():
+        initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+        print(f"  group: {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}", flush=True)
+
+    try:
+        out = {"ddpm": dp_ddpm(Config(SFRON_CONFIG), card, group)}
+        torch.cuda.empty_cache()
+        mesh = make_mesh({"data": 1, "model": 1})
+        out["dit"] = dp_dit(card, mesh)
+        torch.cuda.empty_cache()
+        out["sd"] = dp_sd(card, mesh, gen)
+        torch.cuda.empty_cache()
+        out["draws"] = dp_draw_cost(Config(SFRON_CONFIG), card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["launches"] = {"ddpm": out["ddpm"]["training"]["launches"],
+                       "sampling": out["ddpm"]["sampling"]["launches"],
+                       "dit": out["dit"]["launches"],
+                       "sd": out["sd"]["launches"]}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "uurg_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -6229,8 +6602,19 @@ def main() -> int:
         sd_eval = sd_eval_path(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    banner(f"data parallel and FSDP (uurg_torch/parallel) on a one-rank "
+           f"NCCL group, each against one device: sfron_forget "
+           f"({DP_DDPM_STEPS} steps at {TRAIN_BATCH} + {TRAIN_BATCH}) and a "
+           f"DDIM-{DDIM_STEPS} batch of sample_images, dit_forget fsdp "
+           f"({DP_DIT_STEPS} steps at {DIT_BATCH} + {DIT_BATCH}, dense "
+           f"mask), nsfw_removal fsdp ({DP_SD_STEPS} steps at {SD_BATCH} + "
+           f"{SD_BATCH}, packed mask), their last step profiled; the global "
+           f"draws at data={DP_DRAW_RANKS}")
+    par = parallel_path(card, gen)
     sd["launches"].update(sd_methods["launches"])
     sd["launches"].update(sd_eval["launches"])
+    sd["launches"]["sd_fsdp"] = par["launches"]["sd"]
+    dit["launches"]["dit_fsdp"] = par["launches"]["dit"]
     # the SD paths' VAE encodes and decodes run the float32 attention
     # (xwide) too: their launches on the VAE's row, their GroupNorm
     # launches on the SD rows with the UNet's
@@ -6269,7 +6653,9 @@ def main() -> int:
     # phase 15 on read the float32 routes' too
     ddpm_paths = {"training": train["launches"], "fisher": fisher["launches"],
                   "sa_fim": sa["fim_launches"], "sa": sa["sa_launches"],
-                  "parity": parity["launches"]}
+                  "parity": parity["launches"],
+                  "dp_training": par["launches"]["ddpm"],
+                  "dp_sampling": par["launches"]["sampling"]}
     all_paths = {"classification": classification["launches"],
                  "vit_f32": vit["vit_sfron_f32"]["launches"],
                  "vit_bf16": vit["vit_sfron_bf16"]["launches"],
@@ -6327,6 +6713,7 @@ def main() -> int:
                    "attention_f32": f32_detail, "vit": vit,
                    "remat": remat, "dit": dit, "vae": vae, "sd": sd,
                    "sd_methods": sd_methods, "sd_eval": sd_eval,
+                   "parallel": par,
                    "phase_starts": PHASE_STARTS,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)

@@ -349,11 +349,51 @@ def test_fisher_and_mask_files_match_jax(tiny, monkeypatch, tmp_path):
 
 
 def test_dit_forget_refuses_multi_device(tiny):
+    # tensor parallel, the pipeline and ring attention wait for items 8b
+    # and 8c; a mesh and fsdp run (below and tests/test_torch_parallel_*)
     _, twl, params = tiny
-    for kw in ({"mesh": object()}, {"parallelism": "fsdp"},
-               {"pp_microbatches": 2}):
+    for kw in ({"parallelism": "tp"}, {"parallelism": "pp"},
+               {"parallelism": "sp"}, {"pp_microbatches": 2}):
         with pytest.raises(NotImplementedError, match="item 8"):
             TR.dit_forget(twl, _model(twl, params), iter([]), iter([]), **kw)
+
+
+@pytest.mark.parametrize("spec,parallelism", [
+    ("data=1", "dp"), ("data=1", "fsdp"), ("data=1,model=1", "fsdp")])
+def test_dit_forget_on_a_one_rank_mesh_equals_the_default(tiny, spec,
+                                                          parallelism):
+    """The one-rank mesh runs the group's path (the batch split, the
+    gradient all-reduce, FSDP2's sharding over one rank, the shard-wise
+    mask, clip, Adam and EMA) to the default run's weights, bit for bit."""
+    from tests.torch_parallel_ranks import one_rank_group
+    from uurg_torch.parallel import make_mesh, parse_mesh_spec
+
+    _, twl, params = tiny
+    # two steps of two microbatches each
+    fbs, rbs = [_batch(40 + i) for i in range(4)], [_batch(50 + i)
+                                                   for i in range(4)]
+    rng = np.random.default_rng(3)
+    model = _model(twl, params)
+    mask = {n: torch.from_numpy(rng.random(tuple(p.shape)) < 0.6)
+            for n, p in model.named_parameters()}
+    kw = dict(n_iters=2, lr=1e-3, forget_alpha=0.5, unlearn_loss="adaga",
+              mask=mask, seed=6, grad_accum=2)
+    want = TR.dit_forget(twl, model, iter(fbs), iter(rbs), **kw)
+    with one_rank_group():
+        got = TR.dit_forget(twl, _model(twl, params), iter(fbs), iter(rbs),
+                            mesh=make_mesh(parse_mesh_spec(spec)),
+                            parallelism=parallelism, **kw)
+        sharded = [n for n, p in got.model.named_parameters()
+                   if type(p).__name__ == "DTensor"]
+        # fsdp shards over "model", else over the largest axis when it is
+        # larger than 1 (JAX's rule): data=1 alone shards nothing
+        assert bool(sharded) == ("model" in spec)
+        for m_got, m_want in ((got.model, want.model),
+                              (got.ema_model, want.ema_model)):
+            have = {k: v.full_tensor() if type(v).__name__ == "DTensor"
+                    else v for k, v in m_got.state_dict().items()}
+            for k, v in m_want.state_dict().items():
+                assert torch.equal(have[k], v), k
 
 
 # -- the three CLIs ---------------------------------------------------------
@@ -415,19 +455,40 @@ def test_the_three_clis_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "data=2"], "item 8"),
-    (["--parallelism", "fsdp"], "item 8"),
+    (["--parallelism", "tp"], "item 8"),
+    (["--parallelism", "sp"], "item 8"),
     (["--pp_microbatches", "2"], "item 8"),
     (["--vae_ckpt", "orbax_vae_dir"], "Orbax"),
 ])
 def test_forget_cli_refuses_what_the_port_cannot_do(flags, match):
-    # the multi-device flags wait for item 8; a --vae_ckpt that is not a
-    # CompVis or port VAE file (an Orbax directory) cannot be read
+    # tensor parallel, the pipeline and ring attention wait for items 8b
+    # and 8c (--mesh and fsdp run: test_forget_cli_on_a_one_rank_mesh); a
+    # --vae_ckpt that is not a CompVis or port VAE file (an Orbax
+    # directory) cannot be read
     from uurg_torch.cli import forget
 
     exc = ValueError if match == "Orbax" else NotImplementedError
     with pytest.raises(exc, match=match):
         forget.main([*CLI, *flags, "--n-iters", "1"])
+
+
+def test_forget_cli_on_a_one_rank_mesh(tmp_path):
+    """--mesh data=1 --parallelism fsdp gives the default run's final.pt."""
+    from tests.torch_parallel_ranks import one_rank_group
+    from uurg_torch.cli import forget
+
+    base = [*CLI, "--n-iters", "1", "--global-batch-size", "2",
+            "--snapshot-every", "5"]
+    forget.main([*base, "--results-dir", str(tmp_path / "a")])
+    with one_rank_group():
+        forget.main([*base, "--results-dir", str(tmp_path / "b"), "--mesh",
+                     "data=1", "--parallelism", "fsdp"])
+    a, b = (torch.load(tmp_path / d / "forget_0" / "final.pt",
+                       weights_only=True) for d in ("a", "b"))
+    for part in ("model", "ema"):
+        assert a[part].keys() == b[part].keys()
+        for k, v in a[part].items():
+            assert torch.equal(b[part][k], v), (part, k)
 
 
 def test_cli_data_and_checkpoint_tiers_refuse(tmp_path):

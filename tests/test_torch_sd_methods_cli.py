@@ -10,8 +10,9 @@ JAX package (CPU):
   ``train_esd``, ``gradient_ascent``, ``proximal_gradient`` and
   ``random_label`` read back with ``--ckpt_path``; each writes a finite
   ``final.pt`` that moved;
-- the flags the port refuses (``--mesh``, ``--parallelism`` other than
-  dp, ``--profile_dir``) and the default device, CUDA;
+- the flags the port refuses (``--parallelism`` tp and sp,
+  ``--profile_dir``) and the default device, CUDA; ``--mesh`` with
+  ``--parallelism fsdp`` on one rank writes the default run's weights;
 - the ``sd_data`` streams equal the JAX package's on a seeded PNG tree."""
 import os
 
@@ -164,7 +165,7 @@ def test_the_five_clis_end_to_end(tmp_path, tiny_cli):  # noqa: F811
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "data=2"], "item 8"),
+    (["--parallelism", "tp"], "item 8"),
     (["--parallelism", "sp"], "item 8"),
     (["--profile_dir", "trace"], "profile_dir"),
 ])
@@ -234,3 +235,29 @@ def test_sd_data_streams_match_jax(tmp_path):
     with pytest.raises(FileNotFoundError, match="no images"):
         T.setup_forget_nsfw_data(2, 8, nsfw_root=str(root),
                                  remain_root=str(root))
+
+
+def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli):  # noqa: F811
+    """--mesh data=1,model=1 --parallelism fsdp (the UNet sharded over one
+    rank, the gradients all-reduced over it) writes the default run's
+    final.pt bit for bit."""
+    from tests.torch_parallel_ranks import one_rank_group
+    from uurg_torch.cli import nsfw_removal
+
+    nsfw = _png_folder(tmp_path / "nsfw", 4, 0)
+    clothed = _png_folder(tmp_path / "clothed", 2, 1)
+    rng = np.random.default_rng(1)
+    save_checkpoint(str(tmp_path / "mask"),
+                    {k: torch.from_numpy(rng.random(s) < 0.5)
+                     for k, s in _names().items()})
+    argv = [*COMMON, "--nsfw_data", nsfw, "--not_nsfw_data", clothed,
+            "--mask_path", str(tmp_path / "mask"), "--pack_mask",
+            "--n_iters", "1", "--lr", "1e-3"]
+    nsfw_removal.main([*argv, "--save_path", str(tmp_path / "a")])
+    with one_rank_group():
+        nsfw_removal.main([*argv, "--save_path", str(tmp_path / "b"),
+                           "--mesh", "data=1,model=1", "--parallelism",
+                           "fsdp"])
+    a, b = (_weights(str(tmp_path / d / "final.pt")) for d in ("a", "b"))
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)

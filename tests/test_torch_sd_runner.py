@@ -438,9 +438,73 @@ def test_esd_builder_draws_and_denoises_with_the_current_model(pair):
 
 
 def test_nsfw_removal_refuses_multi_device(pair):
+    # tensor and sequence parallel wait for items 8b and 8c; a mesh and
+    # fsdp run (below and tests/test_torch_parallel_sd.py)
     _, params, twl = pair
-    for kw in ({"mesh": object()}, {"parallelism": "fsdp"},
-               {"parallelism": "sp"}):
+    for kw in ({"parallelism": "tp"}, {"parallelism": "sp"}):
         with pytest.raises(NotImplementedError, match="item 8"):
             TR.nsfw_removal(twl, _model(twl, params), iter([]), iter([]),
                             **kw)
+
+
+@pytest.mark.parametrize("spec,parallelism", [("data=1", "dp"),
+                                              ("data=1,model=1", "fsdp")])
+def test_nsfw_removal_on_a_one_rank_mesh_equals_the_default(pair, spec,
+                                                            parallelism):
+    """Two steps of the runner's own Adam under a dense mask on a one-rank
+    mesh give the default run's weights bit for bit."""
+    from tests.torch_parallel_ranks import one_rank_group
+    from uurg_torch.parallel import make_mesh, parse_mesh_spec
+    from uurg_torch.parallel.mesh import full_state_dict
+
+    _, params, twl = pair
+    fbs, rbs = _batches(41, 2, 2), _batches(42, 1, 2)
+    rng = np.random.default_rng(4)
+    mask = {k: torch.from_numpy(rng.random(tuple(v.shape)) < 0.6)
+            for k, v in _model(twl, params).named_parameters()}
+    kw = dict(n_iters=2, lr=1e-3, saliency_mask=mask, seed=7)
+    want = _model(twl, params)
+    TR.nsfw_removal(twl, want, iter(fbs), iter(rbs), **kw)
+    with one_rank_group():
+        got = _model(twl, params)
+        TR.nsfw_removal(twl, got, iter(fbs), iter(rbs),
+                        mesh=make_mesh(parse_mesh_spec(spec)),
+                        parallelism=parallelism, **kw)
+        have = full_state_dict(got)
+    for k, v in want.state_dict().items():
+        assert torch.equal(have[k], v), k
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_nsfw_removal_fsdp_units_keep_one_devices_bits(pair, remat,
+                                                       monkeypatch):
+    """Under fsdp on a one-rank mesh with FSDP's floor at 64 elements (130
+    parameters sharded, in the UNet's own units, nested in the recomputed
+    blocks under remat) two steps give the default run's weights bit for
+    bit: no unit's input feeds a skip path beside it."""
+    import dataclasses
+
+    from tests.torch_parallel_ranks import one_rank_group
+    from uurg_torch.parallel import make_mesh
+    from uurg_torch.parallel import mesh as M
+
+    monkeypatch.setattr(M.shard_params_fsdp, "__defaults__", ("model", 64))
+    _, params, twl = pair
+    twl = dataclasses.replace(twl, unet_cfg=dataclasses.replace(
+        twl.unet_cfg, remat=remat))
+    fbs, rbs = _batches(41, 2, 2), _batches(42, 1, 2)
+    rng = np.random.default_rng(4)
+    mask = {k: torch.from_numpy(rng.random(tuple(v.shape)) < 0.6)
+            for k, v in _model(twl, params).named_parameters()}
+    kw = dict(n_iters=2, lr=1e-3, saliency_mask=mask, seed=7)
+    want = _model(twl, params)
+    TR.nsfw_removal(twl, want, iter(fbs), iter(rbs), **kw)
+    with one_rank_group():
+        got = _model(twl, params)
+        TR.nsfw_removal(twl, got, iter(fbs), iter(rbs),
+                        mesh=make_mesh({"data": 1, "model": 1}),
+                        parallelism="fsdp", **kw)
+        assert sum(M.is_sharded(p) for p in got.parameters()) == 130
+        have = M.full_state_dict(got)
+    for k, v in want.state_dict().items():
+        assert torch.equal(have[k], v), k

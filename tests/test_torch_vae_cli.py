@@ -310,3 +310,29 @@ def test_dit_sample_cli_writes_a_grid_and_an_fid_npz(tmp_path, vae_file):
         with pytest.raises(ValueError, match="Orbax"):
             dit_sample.main([*DIT, flag, str(tmp_path), "--sample-dir",
                              grid])
+
+
+def test_dit_sample_cli_on_two_ranks(tmp_path, vae_file):
+    """Under two gloo ranks rank r samples labels[r::2] from seed r, in
+    both modes; the grid that rank 0 writes holds every label's sample in
+    label order: the tiles are the fid_npz files' samples of the same
+    labels, interleaved."""
+    from tests import torch_parallel_ranks as PR
+
+    common = [*DIT, "--num-sampling-steps", "2", "--per-proc-batch-size",
+              "2", "--vae-ckpt", vae_file, "--sample-dir", str(tmp_path)]
+    PR.spawn("dit_sample_cli", 2, tmp_path,
+             [*common, "--mode", "grid", "--class-labels", "0", "1", "2"],
+             [*common, "--mode", "fid_npz", "--num-fid-samples", "3"])
+    parts = []
+    for r in range(2):
+        with np.load(tmp_path / f"samples_{r}.npz") as d:
+            np.testing.assert_array_equal(d["labels"], [0, 1, 2][r::2])
+            parts.append(d["arr_0"])
+    with Image.open(tmp_path / "sample.png") as im:
+        grid = np.asarray(im)
+    assert grid.shape == (256, 3 * 256, 3)
+    tiles = [grid[:, 256 * i:256 * (i + 1)] for i in range(3)]
+    for tile, want in zip(tiles, (parts[0][0], parts[1][0], parts[0][1])):
+        np.testing.assert_array_equal(tile, want)
+    assert not np.array_equal(tiles[0], tiles[1])

@@ -6,9 +6,12 @@ the latents decoded to images by the frozen VAE.
         --mode fid_npz --num-fid-samples 50000 --vae-ckpt VAE.ckpt
 
 ``--mode grid`` writes ``<sample-dir>/sample.png``, the samples of
-``--class-labels`` in rows of 8 (Pillow); ``--mode fid_npz`` writes
+``--class-labels`` in rows of 8 (Pillow; under ``torchrun`` rank 0 writes
+every rank's samples, in label order); ``--mode fid_npz`` writes
 ``<sample-dir>/samples_0.npz`` with ``arr_0`` (N, H, W, 3) uint8 and
-``labels``, for ``--num-fid-samples`` labels cycling over the classes. The
+``labels``, for ``--num-fid-samples`` labels cycling over the classes
+(under ``torchrun`` rank r writes ``samples_<r>.npz`` of every n-th label
+from the r-th, DiT/sample_ddp.py's striding). The
 DiT is a seeded init from ``--seed`` or a reference ``.pt``/``.pth``
 (``--ckpt``); the VAE a seeded init or ``--vae-ckpt`` (a CompVis
 first-stage ``.ckpt``/``.pth`` or the port's own ``.pt``). An Orbax
@@ -47,6 +50,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _label_order(part, n: int):
+    """The samples of all ``n`` labels in label order, from every rank's
+    samples of its ``labels[r::world]`` (a collective under a process
+    group; ``part`` itself without one)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from uurg_torch.parallel import world_size
+
+    world = world_size()
+    if world == 1:
+        return part
+    parts = [None] * world
+    dist.all_gather_object(parts, part)
+    out = np.empty((n,) + part.shape[1:], part.dtype)
+    for r, p in enumerate(parts):
+        out[r::world] = p
+    return out
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -56,8 +79,11 @@ def main(argv=None):
     from uurg_torch.cli.dit_common import build_vae, check_dit_checkpoint
     from uurg_torch.io.dit_interop import load_dit_reference_checkpoint
     from uurg_torch.io.vae_interop import check_vae_checkpoint
+    from uurg_torch.parallel import initialize_distributed, rank, world_size
     from uurg_torch.workloads.dit import DiTWorkload
     from uurg_torch.workloads.dit_runner import dit_sample_fid
+
+    initialize_distributed(device=args.device)
 
     if args.ckpt:
         check_dit_checkpoint(args.ckpt)
@@ -86,14 +112,17 @@ def main(argv=None):
         wl, model, labels, respacing=str(args.num_sampling_steps),
         cond_scale=args.cfg_scale, batch_size=args.per_proc_batch_size,
         seed=args.seed, decode_fn=decode)
+    # under a process group rank r sampled labels[r::n] (dit_sample_fid)
     if args.mode == "grid":
         from uurg_torch.utils.images import save_grid
 
-        save_grid(imgs, os.path.join(args.sample_dir, "sample.png"),
-                  ncol=min(8, len(imgs)))
+        imgs = _label_order(imgs, len(labels))
+        if rank() == 0:
+            save_grid(imgs, os.path.join(args.sample_dir, "sample.png"),
+                      ncol=min(8, len(imgs)))
     else:
-        np.savez(os.path.join(args.sample_dir, "samples_0.npz"), arr_0=imgs,
-                 labels=labels)
+        np.savez(os.path.join(args.sample_dir, f"samples_{rank()}.npz"),
+                 arr_0=imgs, labels=labels[rank()::world_size()])
     print(f"wrote {args.sample_dir}")
 
 

@@ -11,8 +11,15 @@ Writes ``<results-dir>/forget_<class>/``: ``ckpt_{i:07d}.pt`` and
 (reference DiT layout, ``{"model", "ema"}``), and a CFG latent sample grid
 ``vis_step{i:06d}.npz`` every ``--snapshot-every`` steps (latents, not
 decoded, as in the JAX CLI). A run resumes from its
-``train_state.pt``. The multi-device flags (``--mesh``, ``--parallelism``
-other than dp, ``--pp_microbatches``) raise on a non-default value.
+``train_state.pt``. ``--mesh data=N`` (or ``data=N,model=M``) and
+``--parallelism dp|fsdp`` run on every rank of a ``torchrun`` group (one
+card a rank; ``--device cpu`` runs the ranks on gloo):
+
+    torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh data=2 \
+        --parallelism fsdp ...
+
+Rank 0 writes the files. ``--parallelism tp|pp|sp`` and
+``--pp_microbatches`` raise: they come with later slices.
 """
 from __future__ import annotations
 
@@ -62,10 +69,11 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--ckpt-every", type=int, default=10000)
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device mesh spec (raises: one device only)")
+                   help="mesh over the ranks, e.g. data=2 or "
+                        "data=2,model=2 (-1 fills the rest)")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "pp", "sp"],
-                   help="only dp runs (one device); the others raise")
+                   help="dp or fsdp over the mesh; tp, pp and sp raise")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (raises unless 0)")
     p.add_argument("--grad_accum", type=int, default=1,
@@ -117,12 +125,15 @@ def main(argv=None):
 
     from uurg_torch.cli.dit_common import (build_workload,
                                            forget_remain_iterators)
+    from uurg_torch.core.device import refuse_multi_device
+    from uurg_torch.parallel import (initialize_distributed, make_mesh,
+                                     parse_mesh_spec)
     from uurg_torch.workloads import ddpm_runner
-    from uurg_torch.workloads.dit_runner import (dit_forget, dit_sample_grid,
-                                                 refuse_multi_device)
+    from uurg_torch.workloads.dit_runner import dit_forget, dit_sample_grid
 
-    refuse_multi_device(args.mesh or None, args.parallelism,
-                        args.pp_microbatches or None)
+    refuse_multi_device(args.parallelism, args.pp_microbatches or None)
+    initialize_distributed(device=args.device)
+    mesh = make_mesh(parse_mesh_spec(args.mesh)) if args.mesh else None
     wl, model = build_workload(args, args.device)
     mask = (ddpm_runner.load_mask(args.mask_path, model)
             if args.mask_path else None)
@@ -153,6 +164,7 @@ def main(argv=None):
             grad_clip=args.grad_clip,
             ckpt_dir=ckpt_dir, ckpt_freq=args.ckpt_every,
             sample_hook=sample_hook, snapshot_freq=args.snapshot_every,
+            mesh=mesh, parallelism=args.parallelism,
             grad_accum=args.grad_accum,
             mu_dtype=bf16[args.mu_dtype], nu_dtype=bf16[args.nu_dtype],
             pack_mask=args.pack_mask)

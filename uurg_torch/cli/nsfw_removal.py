@@ -14,8 +14,10 @@ that ``sd_generate_fisher`` or ``generate_fisher_mask`` wrote. Every
 ``save_model`` does: ``step_<i>.pt``, a CompVis checkpoint that every SD
 CLI reads back with ``--ckpt_path``, and ``step_<i>_diffusers.npz``, the
 diffusers ``UNet2DConditionModel`` keys; the run ends with ``final.pt``.
-``--mesh``, ``--parallelism`` other than ``dp`` and ``--profile_dir``
-raise.
+``--mesh data=N`` and ``--parallelism dp|fsdp`` run on every rank of a
+``torchrun`` group (``torchrun --nproc_per_node 2 -m
+uurg_torch.cli.nsfw_removal --mesh data=2 --parallelism fsdp ...``); rank
+0 writes the files. ``--parallelism tp|sp`` and ``--profile_dir`` raise.
 """
 from __future__ import annotations
 
@@ -50,12 +52,13 @@ def parse_args(argv=None):
                    default="results/sd/nsfw_removal")
     p.add_argument("--snapshot_freq", type=int, default=200)
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device mesh spec: not run by the port yet")
+                   help="mesh over the ranks, e.g. data=2 or "
+                        "data=2,model=2 (-1 fills the rest)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per update")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "sp"],
-                   help="dp only: the others need a mesh")
+                   help="dp or fsdp over the mesh; tp and sp raise")
     p.add_argument("--nu_dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
                    help="Adam second-moment storage dtype")
@@ -74,7 +77,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     from uurg_torch.core.device import refuse_multi_device
 
-    refuse_multi_device(args.mesh or None, args.parallelism)
+    refuse_multi_device(args.parallelism)
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir (a jax.profiler trace) is not ported: the port "
@@ -88,8 +91,13 @@ def main(argv=None):
                                           save_unet, setup_workload)
     from uurg_torch.io.checkpoint import restore_checkpoint
     from uurg_torch.io.diffusers_interop import torch_unet_to_diffusers
+    from uurg_torch.parallel import (initialize_distributed, make_mesh,
+                                     parse_mesh_spec, rank)
+    from uurg_torch.parallel.mesh import full_state_dict
     from uurg_torch.workloads.sd_runner import nsfw_removal
 
+    initialize_distributed(device=args.device)
+    mesh = make_mesh(parse_mesh_spec(args.mesh)) if args.mesh else None
     wl, unet = setup_workload(args, args.device)
     # both folders' synthetic stand-ins from --seed, as the JAX CLI draws
     # them; the batch indices from numpy generators seeded seed, seed + 1
@@ -108,15 +116,18 @@ def main(argv=None):
 
     def snapshot(model, step):
         save_unet(os.path.join(args.save_path, f"step_{step}.pt"), model)
-        np.savez(os.path.join(args.save_path, f"step_{step}_diffusers.npz"),
-                 **torch_unet_to_diffusers(model, model.cfg))
+        weights = torch_unet_to_diffusers(full_state_dict(model), model.cfg)
+        if rank() == 0:
+            np.savez(os.path.join(args.save_path,
+                                  f"step_{step}_diffusers.npz"), **weights)
 
     nsfw_removal(
         wl, unet, fb, rb, n_iters=args.n_iters, lr=args.lr,
         train_method=args.train_method, saliency_mask=mask,
         forget_alpha=args.forget_alpha, remain_alpha=args.remain_alpha,
         seed=args.seed, snapshot_hook=snapshot,
-        snapshot_freq=args.snapshot_freq, grad_accum=args.grad_accum,
+        snapshot_freq=args.snapshot_freq, mesh=mesh,
+        parallelism=args.parallelism, grad_accum=args.grad_accum,
         nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None,
         pack_mask=args.pack_mask)
     save_unet(os.path.join(args.save_path, "final.pt"), unet)

@@ -61,9 +61,12 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     from uurg_torch.core.config import load_config
+    from uurg_torch.parallel import initialize_distributed, rank
     from uurg_torch.utils.images import save_grid, save_png_folder
     from uurg_torch.workloads import ddpm_runner as R
     from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    initialize_distributed(device=args.device)
 
     config = load_config(args.config)
     wl = DDPMWorkload.from_config(config, device=args.device)
@@ -73,16 +76,10 @@ def main(argv=None):
     if args.sample_type:
         args.sampler = "ddpm" if args.sample_type == "ddpm_noisy" else "ddim"
 
-    def sample(labels):
-        return R.sample_images(args, config, model, labels,
-                               num_steps=args.sample_steps,
-                               method=args.sampler,
-                               cond_scale=args.cond_scale, seed=args.seed)
-
     n_classes = config.data.n_classes
+    grid = args.mode not in ("sample_one_class", "sample_fid")
     if args.mode == "sample_one_class":
         labels = np.full(args.n_samples_per_class, args.class_label, np.int64)
-        save_png_folder(sample(labels), labels, out)
     elif args.mode == "sample_fid":
         if args.classes_to_generate:
             from uurg_torch.data.splits import create_class_labels
@@ -93,13 +90,20 @@ def main(argv=None):
             classes = [c for c in range(n_classes)
                        if c != args.label_to_forget]
         labels = np.repeat(classes, args.n_samples_per_class)
-        save_png_folder(sample(labels), labels, out)
     else:
         per = 10 if args.mode == "visualization" else args.n_samples_per_class
         labels = np.tile(np.arange(n_classes), per)
-        imgs = sample(labels)
-        os.makedirs(out, exist_ok=True)
-        save_grid(imgs, os.path.join(out, "grid.png"), ncol=n_classes)
+    # under a process group every rank samples its rows of each batch and
+    # gets the whole array; rank 0 writes it
+    imgs = R.sample_images(args, config, model, labels,
+                           num_steps=args.sample_steps, method=args.sampler,
+                           cond_scale=args.cond_scale, seed=args.seed)
+    if rank() == 0:
+        if grid:
+            os.makedirs(out, exist_ok=True)
+            save_grid(imgs, os.path.join(out, "grid.png"), ncol=n_classes)
+        else:
+            save_png_folder(imgs, labels, out)
     print(f"wrote {out}")
 
 

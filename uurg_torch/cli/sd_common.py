@@ -98,12 +98,19 @@ def latent_prompt_batches(wl, images: np.ndarray, prompt: str,
 def save_unet(path: str, unet) -> None:
     """The UNet as a CompVis checkpoint file (its weights under
     ``state_dict``, ``model.diffusion_model.*``), which ``--ckpt_path``
-    reads back; written beside ``path`` and renamed over it."""
+    reads back; written beside ``path`` and renamed over it. A sharded
+    (FSDP) UNet is gathered whole, which every rank calls; rank 0 alone
+    writes."""
     from uurg_torch.io.sd_interop import torch_unet_to_compvis
+    from uurg_torch.parallel.dist import rank
+    from uurg_torch.parallel.mesh import full_state_dict
 
+    weights = torch_unet_to_compvis(full_state_dict(unet), unet.cfg)
+    if rank() != 0:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save({"state_dict": torch_unet_to_compvis(unet, unet.cfg)}, tmp)
+    torch.save({"state_dict": weights}, tmp)
     os.replace(tmp, path)
 
 

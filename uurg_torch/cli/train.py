@@ -111,7 +111,10 @@ def main(argv=None):
             f"by no mode; leave at the default")
     from uurg_torch.core.config import load_config
     from uurg_torch.core.expdir import setup_run_dirs
+    from uurg_torch.parallel import initialize_distributed, rank
     from uurg_torch.workloads import ddpm_runner as R
+
+    initialize_distributed(device=args.device)
 
     config = load_config(args.config)
     if args.n_iters > 0:
@@ -149,9 +152,10 @@ def main(argv=None):
             method="ddpm" if args.sample_type == "ddpm_noisy" else "ddim",
             cond_scale=args.cond_scale, batch_size=len(labels),
             seed=args.seed)
-        save_grid(imgs, os.path.join(config.log_dir,
-                                     f"samples_step{step_idx:05d}.png"),
-                  ncol=n_classes)
+        if rank() == 0:
+            save_grid(imgs, os.path.join(config.log_dir,
+                                         f"samples_step{step_idx:05d}.png"),
+                      ncol=n_classes)
 
     hook = sample_hook if config.training.get("visualization_samples") \
         else None

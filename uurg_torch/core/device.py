@@ -3,10 +3,14 @@ from __future__ import annotations
 
 import torch
 
+from uurg_torch.parallel.dist import is_initialized, local_rank
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means ``cuda``. Raises when CUDA is asked for and missing;
-    nothing falls back to the CPU unless ``device="cpu"`` was passed.
+    """``None`` means ``cuda``, and under a process group ``cuda:<local
+    rank>``, the card of this rank. Raises when CUDA is asked for and
+    missing; nothing falls back to the CPU unless ``device="cpu"`` was
+    passed.
 
     On CUDA this also fixes the float32 precision of cuDNN convolutions and
     cuBLAS matmuls to full float32 (TF32 off): the only float32 layer on the
@@ -14,6 +18,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     purpose, and the parity checks on the card compare float32 results."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
+        if device is None and is_initialized():
+            dev = torch.device("cuda", local_rank())
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU")
@@ -24,12 +30,23 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def refuse_multi_device(mesh=None, parallelism: str = "dp",
+# the ROADMAP items that bring the multi-device modes the port lacks
+_NOT_PORTED = {"tp": "Queue 1 item 8b (tensor parallel)",
+               "pp": "Queue 1 item 8c (the DiT pipeline)",
+               "sp": "Queue 1 item 8c (ring attention)"}
+
+
+def refuse_multi_device(parallelism: str = "dp",
                         pp_microbatches: int | None = None) -> None:
-    """Raise for the multi-device knobs (a mesh, ``parallelism`` other than
-    ``"dp"``, pipeline microbatches), which the port does not run yet."""
-    if mesh is not None or parallelism != "dp" or pp_microbatches:
+    """Raise for the multi-device modes the port does not run yet:
+    ``parallelism`` ``"tp"``, ``"pp"`` or ``"sp"`` and pipeline
+    microbatches, naming the ROADMAP item that brings each; an unknown
+    mode raises ``ValueError``. ``dp`` and ``fsdp`` pass."""
+    if parallelism in _NOT_PORTED or pp_microbatches:
+        item = _NOT_PORTED.get(parallelism, _NOT_PORTED["pp"])
         raise NotImplementedError(
-            f"mesh={mesh!r}, parallelism={parallelism!r}, pp_microbatches="
-            f"{pp_microbatches!r}: the port runs on one device; the "
-            f"multi-device paths come with ROADMAP Queue 1 item 8")
+            f"parallelism={parallelism!r}, pp_microbatches="
+            f"{pp_microbatches!r}: the port runs dp and fsdp; this mode "
+            f"comes with ROADMAP {item}")
+    if parallelism not in ("dp", "fsdp"):
+        raise ValueError(f"unknown parallelism {parallelism!r}")

@@ -6,6 +6,10 @@ parameter names (``model.named_parameters()``); gradients are the
 parameters' ``.grad`` tensors. Functions whose name ends in ``_`` update
 their first argument in place, to keep the step from holding a second copy
 of the gradients.
+
+Leaves may be DTensors (FSDP's sharded parameters and gradients): the
+functions work on each rank's shard and all-reduce what is global (the
+norm), so every rank sees the one-device value.
 """
 from __future__ import annotations
 
@@ -14,6 +18,9 @@ import math
 from typing import Mapping
 
 import torch
+import torch.distributed as dist
+
+from uurg_torch.parallel.mesh import is_sharded, local, local_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +62,44 @@ def pack_mask(mask: Mapping[str, torch.Tensor]) -> dict[str, PackedMask]:
 
 def tree_mul_(a: Mapping[str, torch.Tensor], b: Mapping) -> None:
     """``a *= b`` leaf by leaf (e.g. grads * mask), in place. ``b`` leaves
-    may be PackedMask (unpacked at the multiply) or 0/1 / bool tensors."""
+    may be PackedMask (unpacked at the multiply) or 0/1 / bool tensors. A
+    sharded leaf of ``a`` is multiplied shard by shard: by the shard of a
+    ``b`` leaf placed like it, else by its slice of the whole ``b`` leaf
+    (a packed mask stays whole, 1 bit an element)."""
     for k, x in a.items():
         y = b[k]
-        x.mul_(y.unpack(x.dtype) if isinstance(y, PackedMask) else y.to(x.dtype))
+        if isinstance(y, PackedMask):
+            y = y.unpack(x.dtype)
+        y = local(y) if is_sharded(y) else local_slice(y, x)
+        local(x).mul_(y.to(x.dtype))
+
+
+def _shard_groups(t: torch.Tensor) -> tuple:
+    """The process groups of more than one rank over which a DTensor's
+    shards are spread (none on a one-rank mesh: the shard is whole)."""
+    mesh = t.device_mesh
+    return tuple(mesh.get_group(i) for i, p in enumerate(t.placements)
+                 if p.is_shard() and mesh.size(i) > 1)
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """L2 norm over every leaf in fp32, matching
-    torch.nn.utils.clip_grad_norm_. A 0-d tensor; no host sync."""
-    leaves = [t.float() for t in tree.values()]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    torch.nn.utils.clip_grad_norm_. A 0-d tensor; no host sync. A sharded
+    leaf's norm is summed over its shards, the same on every rank."""
+    leaves = list(tree.values())
+    norms = torch.stack(torch._foreach_norm([local(t).float()
+                                             for t in leaves]))
+    by_groups: dict[tuple, list[int]] = {}
+    for i, t in enumerate(leaves):
+        if is_sharded(t) and _shard_groups(t):
+            by_groups.setdefault(_shard_groups(t), []).append(i)
+    for groups, idx in by_groups.items():
+        idx = torch.tensor(idx, device=norms.device)
+        sq = norms.index_select(0, idx).square()
+        for g in groups:
+            dist.all_reduce(sq, group=g)
+        norms = norms.index_copy(0, idx, sq.sqrt())
+    return torch.linalg.vector_norm(norms)
 
 
 def clip_by_global_norm_(tree: Mapping[str, torch.Tensor],
@@ -75,7 +109,7 @@ def clip_by_global_norm_(tree: Mapping[str, torch.Tensor],
     clipping."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    torch._foreach_mul_(list(tree.values()), scale)
+    torch._foreach_mul_([local(t) for t in tree.values()], scale)
     return norm
 
 

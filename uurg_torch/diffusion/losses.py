@@ -12,8 +12,10 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from uurg_torch.diffusion.schedules import DiffusionSchedule
+from uurg_torch.parallel.mesh import batch_split
 
 
 def noise_estimation_loss(
@@ -37,9 +39,17 @@ def noise_estimation_loss(
 
 def adaptive_weights(per_sample_loss: torch.Tensor, lambd: float,
                      eps: float = 1e-8) -> torch.Tensor:
-    """Detached normalized inverse-power weights (sum to batch size)."""
+    """Detached normalized inverse-power weights (sum to batch size). The
+    weights couple the batch: under a batch split the sum and the size are
+    the global batch's, the sum all-reduced over the data axis only (ranks
+    that share rows on another axis count them once)."""
     coef = 1.0 / (torch.pow(per_sample_loss.detach(), lambd) + eps)
-    return coef / coef.sum() * per_sample_loss.shape[0]
+    total, n = coef.sum(), per_sample_loss.shape[0]
+    split = batch_split()
+    if split.count > 1:
+        dist.all_reduce(total, group=split.group)
+        n *= split.count
+    return coef / total * n
 
 
 def adaptive_loss(per_sample_loss: torch.Tensor, lambd: float,

@@ -14,6 +14,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from uurg_torch.core.rng import randn_rows
 from uurg_torch.diffusion.schedules import DiffusionSchedule
 
 # model_fn(x_t, t_int_vector) -> eps prediction, conditioning closed over.
@@ -50,8 +51,7 @@ def _step_noise(i: int, x: torch.Tensor, generator: torch.Generator | None,
                 noise: torch.Tensor | None) -> torch.Tensor:
     if noise is not None:
         return noise[i]
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+    return randn_rows(x.shape, generator, x.device, x.dtype)
 
 
 def ddim_sample(

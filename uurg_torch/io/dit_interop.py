@@ -20,12 +20,14 @@ import pickle
 import torch
 
 from uurg_torch.models.dit import DiT
+from uurg_torch.parallel.dist import rank
+from uurg_torch.parallel.mesh import full_state_dict
 
 log = logging.getLogger("uurg_torch.dit")
 
 
 def _reference_state_dict(model: DiT) -> dict[str, torch.Tensor]:
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sd = full_state_dict(model)
     sd["pos_embed"] = model.pos_embed.detach().float().cpu()[None]
     return sd
 
@@ -36,10 +38,13 @@ def save_dit_checkpoint(path: str, model: DiT,
     the parameters on the CPU under the reference names, with the
     reference's ``pos_embed`` of shape (1, T, hidden), beside ``path``
     first and then renamed over it. No ``args``: the file loads with
-    ``weights_only=True``."""
+    ``weights_only=True``. Sharded (FSDP) models are gathered whole, which
+    every rank of the group calls; rank 0 alone writes."""
     payload = {"model": _reference_state_dict(model)}
     if ema_model is not None:
         payload["ema"] = _reference_state_dict(ema_model)
+    if rank() != 0:
+        return
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uurg_torch.core.rng import rand_rows
 from uurg_torch.ops.flash_attention import attention
 from uurg_torch.ops.group_norm import group_norm
 
@@ -108,12 +109,13 @@ def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep each element with probability 1 - p and
     scale the kept ones by 1 / (1 - p). The keep mask is drawn in fp32 from
-    ``generator`` (``F.dropout`` takes none), in x's memory order."""
+    ``generator`` (``F.dropout`` takes none), in x's memory order, for the
+    global batch under a batch split."""
     if x.is_contiguous(memory_format=_CL):
-        u = torch.rand(x.permute(0, 2, 3, 1).shape, generator=generator,
-                       device=x.device).permute(0, 3, 1, 2)
+        u = rand_rows(x.permute(0, 2, 3, 1).shape, generator,
+                      x.device).permute(0, 3, 1, 2)
     else:
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = rand_rows(x.shape, generator, x.device)
     return x * ((u >= p).to(x.dtype) * (1.0 / (1.0 - p)))
 
 

@@ -263,6 +263,29 @@ class SDUNet(nn.Module):
         self.norm_out = GroupNorm32(ch)
         self.conv_out = Conv2d(ch, cfg.out_channels, 3, padding=1)
 
+    def fsdp_units(self) -> list[nn.Module]:
+        """The modules FSDP2 shards as units of their own
+        (``uurg_torch.parallel.mesh.shard_params_fsdp``), the rest going
+        with the root: the time embedding, the residual blocks' two
+        convolutions and timestep projection, the spatial transformers'
+        projections and transformer blocks, the resampling convolutions.
+        The input of each reaches it alone. A residual block's or a
+        spatial transformer's input also feeds its skip path and the
+        UNet's skip list: as a unit, FSDP2's autograd node on its inputs
+        would group those gradients' sum otherwise, and a one-rank run
+        would leave one device's bits."""
+        units: list[nn.Module] = [self.time_embed_0, self.time_embed_2]
+        for name, mod in self.named_children():
+            if isinstance(mod, SDResBlock):
+                units += [mod.conv1, mod.emb_proj, mod.conv2]
+            elif isinstance(mod, SpatialTransformer):
+                units += [mod.proj_in, *(getattr(mod, f"tblock_{i}")
+                                         for i in range(mod.depth)),
+                          mod.proj_out]
+            elif name.endswith("sample"):
+                units.append(mod)
+        return units
+
     def _call(self, block: nn.Module, *args) -> torch.Tensor:
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):

@@ -25,6 +25,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from uurg_torch.parallel.mesh import is_sharded, local
+
 
 def cosine_annealing(base_lr: float, total_steps: int):
     """torch CosineAnnealingLR / reference cosine_lr_scheduler:
@@ -69,7 +71,9 @@ class OptaxAdam(torch.optim.Optimizer):
     ``add_decayed_weights`` after the scaling); otherwise the decay is added
     to the gradient first (torch Adam's L2). The parameter then moves by
     ``-lr * update``. State per parameter: ``step``, ``mu``, ``nu`` and,
-    with ``amsgrad``, ``nu_max``."""
+    with ``amsgrad``, ``nu_max``, placed as the parameter is (an FSDP
+    parameter's moments are sharded like it and updated shard by
+    shard)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0, *,
@@ -104,24 +108,24 @@ class OptaxAdam(torch.optim.Optimizer):
         for group in self.param_groups:
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
-            for p in group["params"]:
-                if p.grad is None:
+            for param in group["params"]:
+                if param.grad is None:
                     continue
-                g = p.grad.float()
-                st = self.state[p]
+                p, g = local(param), local(param.grad).float()
+                st = self.state[param]
                 if not st:
                     st["step"] = 0
-                    st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype
+                    st["mu"] = torch.zeros_like(param, dtype=self.mu_dtype
                                                 or p.dtype)
-                    st["nu"] = torch.zeros_like(p, dtype=self.nu_dtype
+                    st["nu"] = torch.zeros_like(param, dtype=self.nu_dtype
                                                 or p.dtype)
                     if self.amsgrad:
-                        st["nu_max"] = torch.zeros_like(p)
+                        st["nu_max"] = torch.zeros_like(param)
                 if wd and not self.decoupled:
                     g = g + wd * p
                 st["step"] += 1
                 bc1, bc2 = _bias_corrections(b1, b2, st["step"])
-                mu, nu = st["mu"], st["nu"]
+                mu, nu = local(st["mu"]), local(st["nu"])
                 if self.nu_dtype is not None:
                     mu_new = (b1 * mu.float() + (1 - b1) * g).to(mu.dtype)
                     nu_new = (b2 * nu.float() + (1 - b2) * g * g).to(nu.dtype)
@@ -136,8 +140,8 @@ class OptaxAdam(torch.optim.Optimizer):
                     nu_new = (1 - b2) * (g * g) + b2 * nu
                     den = nu_new / float(bc2)
                     if self.amsgrad:
-                        den = torch.maximum(st["nu_max"], den)
-                        st["nu_max"].copy_(den)
+                        den = torch.maximum(local(st["nu_max"]), den)
+                        local(st["nu_max"]).copy_(den)
                     upd = (mu_new / float(bc1)) / (torch.sqrt(den) + eps)
                 mu.copy_(mu_new)
                 nu.copy_(nu_new)
@@ -169,8 +173,8 @@ def make_optimizer(
     name = name.lower()
     params = list(params)
     if name == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=momentum,
-                               weight_decay=weight_decay)
+        return _torch_optimizer(torch.optim.SGD, params, lr=lr,
+                                momentum=momentum, weight_decay=weight_decay)
     if name not in ("adam", "adamw"):
         raise NotImplementedError(f"Optimizer {name!r}")
     decoupled = name == "adamw"
@@ -180,8 +184,33 @@ def make_optimizer(
                          decoupled=decoupled, amsgrad=amsgrad,
                          mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     opt = torch.optim.AdamW if decoupled else torch.optim.Adam
-    return opt(params, lr=lr, betas=(beta1, beta2), eps=eps,
-               weight_decay=weight_decay)
+    return _torch_optimizer(opt, params, lr=lr, betas=(beta1, beta2),
+                            eps=eps, weight_decay=weight_decay)
+
+
+def _torch_optimizer(cls, params: list, **kw) -> torch.optim.Optimizer:
+    """``cls(params, **kw)``; over FSDP's mix of sharded (DTensor) and
+    whole parameters, one whose step runs its multi-tensor kernels on the
+    two kinds apart (a ``_foreach`` op takes no mixed list; on the card
+    torch.optim steps with them)."""
+    kinds = {is_sharded(p) for p in params}
+    if len(kinds) < 2:
+        return cls(params, **kw)
+
+    class ByPlacement(cls):
+        def step(self, closure=None):
+            groups = self.param_groups
+            self.param_groups = [
+                dict(g, params=[p for p in g["params"]
+                                if is_sharded(p) == sharded])
+                for g in groups for sharded in (True, False)]
+            try:
+                return super().step(closure)
+            finally:
+                self.param_groups = groups
+
+    ByPlacement.__name__ = ByPlacement.__qualname__ = cls.__name__
+    return ByPlacement(params, **kw)
 
 
 def build_reference_optimizer(cfg, params: Iterable[torch.nn.Parameter],

@@ -30,7 +30,15 @@ Mutable model state (BatchNorm running statistics, the JAX
 runs the model in train mode moves them in place, so the forget phase moves
 them only on the steps where it runs and the remain phase then moves them
 again, as the JAX step threads them through its ``lax.cond``. The fast-slow
-mix touches parameters only. ``make_sfron_scan`` (many steps per device
+mix touches parameters only.
+
+Under data parallel every rank runs the step on its rows of the global
+batch and, after each phase's backward and before the mask, the gradients
+are averaged over the state's ``group`` in one flat all-reduce (the twin of
+the loss-mean psum that pjit inserts), the phase's loss with them. Under
+FSDP the sharded parameters' gradients come reduced from FSDP2's reduce-
+scatter and only the whole ones are averaged here; the mask, the clip and
+the EMA then run shard by shard. ``make_sfron_scan`` (many steps per device
 dispatch, for a slow host link) is not ported: the classification method
 loops over this step with batches drawn on the device
 (:func:`uurg_torch.unlearn.methods.classification.device_batcher`).
@@ -39,12 +47,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
 from uurg_torch.core import tree as tr
 from uurg_torch.diffusion.losses import cosine_alpha_decay, linear_alpha_decay
+from uurg_torch.parallel.mesh import all_reduce_mean_, is_sharded, local
 from uurg_torch.train.optim import set_lr
 from uurg_torch.unlearn.ema import ema_update, fast_slow_mix
 
@@ -73,33 +82,44 @@ class SFRonState:
     """The model being unlearned, its optimizer, the EMA shadow model (or
     None), the step count and the saliency mask (``dict[str, Tensor]`` of
     0/1 or bool tensors or :class:`~uurg_torch.core.tree.PackedMask`, keyed
-    by parameter name, or None)."""
+    by parameter name, or None) and the process group over which the
+    gradients and losses are averaged (None on one device)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     ema_model: Optional[torch.nn.Module] = None
     step: int = 0
     mask: Optional[dict] = None
+    group: Any = None
 
 
 def init_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               ema: bool = False, mask: Optional[dict] = None) -> SFRonState:
+               ema: bool = False, mask: Optional[dict] = None,
+               ema_model: Optional[torch.nn.Module] = None,
+               group: Any = None) -> SFRonState:
     """Give every parameter a zero ``.grad`` and, with ``ema``, copy the
     model into a frozen shadow in eval mode (it is sampled, never
-    trained)."""
+    trained). A sharded model's shadow is made before sharding and passed
+    as ``ema_model``, sharded as the model is."""
     names = [n for n, _ in model.named_parameters()]
     if mask is not None and set(mask) != set(names):
         raise ValueError("the mask's keys must be the model's parameter "
                          "names")
-    ema_model = None
-    if ema:
-        ema_model = copy.deepcopy(model).requires_grad_(False).eval()
-        for p in ema_model.parameters():
-            p.grad = None
+    if ema and ema_model is None:
+        ema_model = make_shadow(model)
     for p in model.parameters():
         p.grad = torch.zeros_like(p)
     return SFRonState(model=model, optimizer=optimizer, ema_model=ema_model,
-                      mask=mask)
+                      mask=mask, group=group)
+
+
+def make_shadow(model: torch.nn.Module) -> torch.nn.Module:
+    """A frozen copy of ``model`` in eval mode, without gradients: the EMA
+    shadow."""
+    shadow = copy.deepcopy(model).requires_grad_(False).eval()
+    for p in shadow.parameters():
+        p.grad = None
+    return shadow
 
 
 def _alpha_at(cfg: SFRonConfig, step: int) -> float:
@@ -165,7 +185,18 @@ def make_sfron_step(cfg: SFRonConfig, forget_loss_fn: Optional[LossFn],
             return total / n_accum
 
         def zero_grads():
-            torch._foreach_zero_(list(grads.values()))
+            torch._foreach_zero_([local(g) for g in grads.values()])
+
+        whole = [g for g in grads.values() if not is_sharded(g)]
+
+        def reduce(*losses: torch.Tensor) -> list[torch.Tensor]:
+            """Average the gradients FSDP does not reduce and the losses
+            over the group, in one flat all-reduce."""
+            if state.group is None:
+                return list(losses)
+            flat = torch.stack(losses).float()
+            all_reduce_mean_(whole + [flat], state.group)
+            return list(flat.unbind())
 
         def apply(clip) -> torch.Tensor:
             if clip is not None:
@@ -180,14 +211,14 @@ def make_sfron_step(cfg: SFRonConfig, forget_loss_fn: Optional[LossFn],
         if cfg.method == "ron":
             if not forget_off and state.step % cfg.forget_freq == 0:
                 zero_grads()
-                forget_loss = accumulate(forget_loss_fn, forget_batch,
-                                         cur_alpha)
+                forget_loss, = reduce(accumulate(forget_loss_fn,
+                                                 forget_batch, cur_alpha))
                 if state.mask is not None:
                     tr.tree_mul_(grads, state.mask)
                 apply(cfg.forget_clip)
             zero_grads()
-            remain_loss = accumulate(remain_loss_fn, remain_batch,
-                                     cfg.remain_alpha)
+            remain_loss, = reduce(accumulate(remain_loss_fn, remain_batch,
+                                             cfg.remain_alpha))
             rnorm = apply(cfg.remain_clip)
         else:
             # joint: one update from the combined gradient at the same
@@ -196,6 +227,7 @@ def make_sfron_step(cfg: SFRonConfig, forget_loss_fn: Optional[LossFn],
             forget_loss = accumulate(forget_loss_fn, forget_batch, cur_alpha)
             remain_loss = accumulate(remain_loss_fn, remain_batch,
                                      cfg.remain_alpha)
+            forget_loss, remain_loss = reduce(forget_loss, remain_loss)
             if state.mask is not None:
                 tr.tree_mul_(grads, state.mask)
             rnorm = apply(cfg.remain_clip)

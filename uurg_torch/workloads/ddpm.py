@@ -17,7 +17,8 @@ from typing import Callable, Mapping
 import torch
 
 from uurg_torch.core.device import resolve_device
-from uurg_torch.core.rng import antithetic_timesteps, cond_keep_mask
+from uurg_torch.core.rng import (antithetic_timesteps, cond_keep_mask,
+                                 rand_rows, randn_rows)
 from uurg_torch.diffusion import sampling as S
 from uurg_torch.diffusion.losses import adaptive_loss, noise_estimation_loss
 from uurg_torch.diffusion.schedules import DiffusionSchedule, make_schedule
@@ -83,7 +84,7 @@ class DDPMWorkload:
         x, c = batch
         n = x.shape[0]
         t = antithetic_timesteps(generator, n, self.schedule.num_timesteps)
-        noise = torch.randn(x.shape, generator=generator, device=x.device)
+        noise = randn_rows(x.shape, generator, x.device)
         keep = cond_keep_mask(generator, n,
                               self.cond_drop_prob if train else 0.0)
         return self.per_sample_eps_loss(model, x, c, t, noise, keep,
@@ -131,7 +132,7 @@ class DDPMWorkload:
             n = x.shape[0]
             t = antithetic_timesteps(generator, n,
                                      self.schedule.num_timesteps)
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            noise = randn_rows(x.shape, generator, x.device)
             x_t = self.schedule.q_sample(x, t, noise)
             keep = torch.ones((n,), dtype=torch.bool, device=x.device)
             state = generator.get_state()
@@ -192,14 +193,12 @@ class DDPMWorkload:
 
         def fn(model, batch, generator):
             x_rem = batch[0]
-            x_forget = torch.rand(x_rem.shape, generator=generator,
-                                  device=x_rem.device) * 2.0 - 1.0
+            x_forget = rand_rows(x_rem.shape, generator,
+                                 x_rem.device) * 2.0 - 1.0
             t = antithetic_timesteps(generator, x_rem.shape[0],
                                      self.schedule.num_timesteps)
-            noise_f = torch.randn(x_rem.shape, generator=generator,
-                                  device=x_rem.device)
-            noise_r = torch.randn(x_rem.shape, generator=generator,
-                                  device=x_rem.device)
+            noise_f = randn_rows(x_rem.shape, generator, x_rem.device)
+            noise_r = randn_rows(x_rem.shape, generator, x_rem.device)
             return self.sa_loss(model, batch, x_forget, t, noise_f, noise_r,
                                 fisher, params_mle, label_to_forget, gamma,
                                 lmbda)
@@ -258,7 +257,7 @@ class DDPMWorkload:
             x, c = batch
             t = antithetic_timesteps(generator, x.shape[0],
                                      self.schedule.num_timesteps)
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            noise = randn_rows(x.shape, generator, x.device)
             return self.fisher_loss(model, x, c, t, noise, cond_scale)
 
         return fn
@@ -283,8 +282,8 @@ class DDPMWorkload:
                    generator: torch.Generator,
                    x_T: torch.Tensor | None = None) -> torch.Tensor:
             if x_T is None:
-                x_T = torch.randn((labels.shape[0], res, res, ch),
-                                  generator=generator, device=self.device)
+                x_T = randn_rows((labels.shape[0], res, res, ch), generator,
+                                 self.device)
             model_fn = S.cfg_model_fn(model, labels, cond_scale)
             if method == "ddim":
                 return S.ddim_sample(model_fn, self.schedule, x_T, seq,

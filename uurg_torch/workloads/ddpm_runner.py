@@ -4,11 +4,14 @@ unlearning and sampling.
 Port of ``uurg_tpu/workloads/ddpm_runner.py``: ``pretrain`` (also the
 retrain mode), ``generate_fisher``, ``generate_fisher_mask``,
 ``generate_salun_mask``, ``sfron_forget`` (also SalUn), ``sa_forget``
-(Selective Amnesia), ``load_params`` and ``sample_images``, on one device;
-the multi-device paths arrive with the multi-device slice. Checkpoints are
-the reference ``<ckpt_dir>/ckpt.pth`` list format with the optimizer state,
-written at every ``snapshot_freq`` and at the end, and read back on resume
-(``sa_forget`` never resumes, as in the JAX runner). Fishers and masks are
+(Selective Amnesia), ``load_params`` and ``sample_images``. Under a process
+group (``torchrun``) the training loops of ``pretrain`` and
+``sfron_forget`` and ``sample_images`` run data parallel over every rank
+with no flag, as the JAX runner shards its batches over the local devices.
+Checkpoints are the reference ``<ckpt_dir>/ckpt.pth`` list format with the
+optimizer state, written by rank 0 at every ``snapshot_freq`` and at the
+end, and read back on resume by every rank (``sa_forget`` never resumes,
+as in the JAX runner). Fishers and masks are
 ``torch.save`` files of named tensors (:mod:`uurg_torch.io.checkpoint`)
 under the JAX runner's names.
 """
@@ -36,6 +39,11 @@ from uurg_torch.io.jax_interop import (load_reference_checkpoint,
                                        load_training_checkpoint,
                                        save_reference_checkpoint)
 from uurg_torch.models.unet_cond import CondUNet
+from uurg_torch.parallel.dist import (is_initialized, rank,
+                                      sync_global_devices, world_size)
+from uurg_torch.parallel.mesh import (data_group, gather_rows, local_rows,
+                                      make_mesh, replicate, shard_batch,
+                                      split_batches)
 from uurg_torch.train.optim import build_reference_optimizer
 from uurg_torch.unlearn.fisher import accumulate_fisher, sum_gradients
 from uurg_torch.unlearn.saliency import (fisher_ratio_mask, mask_sparsity,
@@ -78,10 +86,21 @@ def _device_batch(config, x: np.ndarray, c: np.ndarray,
     return data_transform(config, x), c
 
 
+def _data_mesh():
+    """A ``data`` mesh over every rank of the process group (the JAX
+    runner's ``_data_sharding`` over local devices); None without a
+    group."""
+    return make_mesh({"data": world_size()}) if is_initialized() else None
+
+
 def _save(ckpt_dir: str, state: SFRonState) -> None:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    save_reference_checkpoint(os.path.join(ckpt_dir, "ckpt.pth"), state.model,
-                              state.optimizer, state.step, state.ema_model)
+    """``ckpt.pth``, written by rank 0; every rank waits for it."""
+    if rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        save_reference_checkpoint(os.path.join(ckpt_dir, "ckpt.pth"),
+                                  state.model, state.optimizer, state.step,
+                                  state.ema_model)
+    sync_global_devices("ddpm_ckpt")
 
 
 def _try_resume(ckpt_dir: str, state: SFRonState) -> tuple[SFRonState, int]:
@@ -99,9 +118,21 @@ def _try_resume(ckpt_dir: str, state: SFRonState) -> tuple[SFRonState, int]:
 def _train(args, config, ckpt_dir: str, wl: DDPMWorkload, state: SFRonState,
            step_fn, forget: ArrayDataset | None, remain: ArrayDataset,
            sample_hook: Callable | None = None) -> SFRonState:
-    """The host loop shared by pretrain and sfron_forget."""
+    """The host loop shared by pretrain and sfron_forget. Under a process
+    group every rank starts from rank 0's weights, takes its rows of each
+    global batch (when the ranks divide the batch, as the JAX runner
+    checks; else every rank runs the whole batch) and averages the
+    gradients over the group."""
     state, start_step = _try_resume(ckpt_dir, state)
     bs = config.training.batch_size
+    mesh = _data_mesh()
+    if mesh is not None:
+        for m in (state.model, state.ema_model):
+            if m is not None:
+                replicate(m)
+        state.group = data_group(mesh)
+        if bs % world_size():
+            mesh = None
     # the JAX runner's streams: pretrain draws from seed, sfron_forget its
     # forget split from seed and its remain split from seed + 1
     r_seed = args.seed if forget is None else args.seed + 1
@@ -112,21 +143,24 @@ def _train(args, config, ckpt_dir: str, wl: DDPMWorkload, state: SFRonState,
     gen = torch.Generator(device=wl.device)
     state.model.train()
     start = time.time()
-    for i in range(start_step, config.training.n_iters):
-        rb = _device_batch(config, *next(r_it), wl.device)
-        fb = _device_batch(config, *next(f_it), wl.device) if f_it else rb
-        gen.manual_seed(step_seed(args.seed, i))
-        metrics = step_fn(state, fb, rb, gen)
-        if (i + 1) % config.training.log_freq == 0:
-            log.info("step:%04d remain L:%.4f forget L:%.4f forget a:%.6f "
-                     "time:%.2f", i, float(metrics["remain_loss"]),
-                     float(metrics["forget_loss"]), metrics["forget_alpha"],
-                     time.time() - start)
-            start = time.time()
-        if (i + 1) % config.training.snapshot_freq == 0:
-            _save(ckpt_dir, state)
-            if sample_hook is not None:
-                sample_hook(state, i)
+    with split_batches(mesh):
+        for i in range(start_step, config.training.n_iters):
+            rb = shard_batch(_device_batch(config, *next(r_it), wl.device),
+                             mesh)
+            fb = (shard_batch(_device_batch(config, *next(f_it), wl.device),
+                              mesh) if f_it else rb)
+            gen.manual_seed(step_seed(args.seed, i))
+            metrics = step_fn(state, fb, rb, gen)
+            if (i + 1) % config.training.log_freq == 0 and rank() == 0:
+                log.info("step:%04d remain L:%.4f forget L:%.4f forget "
+                         "a:%.6f time:%.2f", i, float(metrics["remain_loss"]),
+                         float(metrics["forget_loss"]),
+                         metrics["forget_alpha"], time.time() - start)
+                start = time.time()
+            if (i + 1) % config.training.snapshot_freq == 0:
+                _save(ckpt_dir, state)
+                if sample_hook is not None:
+                    sample_hook(state, i)
     _save(ckpt_dir, state)
     return state
 
@@ -423,23 +457,31 @@ def sample_images(args, config, model: CondUNet, labels: np.ndarray,
     Runs on the model's device, in eval mode (no dropout, as the reference
     samples with ``train=False``); the model's mode is restored after. The
     last batch is padded to the batch size with class 0 and the padding is
-    dropped from the output."""
+    dropped from the output. Under a process group the batch size is
+    rounded to a multiple of the ranks (as the JAX runner rounds to its
+    devices), each rank samples its rows of every batch from the global
+    draw of x_T, and the rows are gathered: every rank returns the whole
+    array."""
     device = next(model.parameters()).device
     wl = DDPMWorkload.from_config(config, dtype=model.cfg.dtype, device=device)
     sampler = wl.make_sampler(num_steps=num_steps, cond_scale=cond_scale,
                               method=method)
     bs = batch_size or config.sampling.batch_size
+    mesh = _data_mesh()
+    if mesh is not None:
+        bs = max(bs, world_size()) // world_size() * world_size()
     generator = torch.Generator(device=device).manual_seed(seed)
     out = []
     was_training = model.training
     model.eval()
     try:
-        for start in range(0, len(labels), bs):
-            chunk = np.asarray(labels[start:start + bs])
-            lab = torch.as_tensor(np.pad(chunk, (0, bs - len(chunk))),
-                                  dtype=torch.long, device=device)
-            x = sampler(model, lab, generator)
-            out.append(to_uint8(config, x[:len(chunk)]).cpu())
+        with split_batches(mesh):
+            for start in range(0, len(labels), bs):
+                chunk = np.asarray(labels[start:start + bs])
+                lab = torch.as_tensor(np.pad(chunk, (0, bs - len(chunk))),
+                                      dtype=torch.long, device=device)
+                x = gather_rows(sampler(model, local_rows(lab), generator))
+                out.append(to_uint8(config, x[:len(chunk)]).cpu())
     finally:
         model.train(was_training)
     return torch.cat(out).numpy()

@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from uurg_torch.core.device import resolve_device
+from uurg_torch.core.rng import randint_rows, randn_rows
 from uurg_torch.diffusion.gaussian import GaussianDiffusion, make_diffusion
 from uurg_torch.diffusion.losses import adaptive_loss
 from uurg_torch.diffusion.timestep_sampler import (sample_timesteps,
@@ -59,10 +60,9 @@ class DiTWorkload:
     # -- losses ------------------------------------------------------------
 
     def _draw(self, x: torch.Tensor, generator: torch.Generator):
-        t = torch.randint(0, self.diffusion.num_timesteps, (x.shape[0],),
-                          generator=generator, device=x.device)
-        noise = torch.randn(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype)
+        t = randint_rows(self.diffusion.num_timesteps, x.shape[0], generator,
+                         x.device)
+        noise = randn_rows(x.shape, generator, x.device, x.dtype)
         return t, noise
 
     def per_sample_loss(self, model: DiT, x: torch.Tensor, y: torch.Tensor,
@@ -93,8 +93,7 @@ class DiTWorkload:
             x, y = batch
             t, w = sample_timesteps(sampler_state, generator, x.shape[0],
                                     uniform_prob)
-            noise = torch.randn(x.shape, generator=generator,
-                                device=x.device, dtype=x.dtype)
+            noise = randn_rows(x.shape, generator, x.device, x.dtype)
             per = self.per_sample_loss(model, x, y, t, noise)
             new_state = update_with_all_losses(sampler_state, t, per)
             return (w * per).mean(), new_state

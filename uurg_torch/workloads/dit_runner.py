@@ -1,15 +1,15 @@
 """Host-side DiT runners: class forgetting, Fisher, masks and the sample
 grid.
 
-Port of ``uurg_tpu/workloads/dit_runner.py`` on one device: ``dit_forget``
+Port of ``uurg_tpu/workloads/dit_runner.py``: ``dit_forget``
 (DiT/forget.py:151-361, SFR-on with the EMA shadow), ``dit_generate_fisher``
 (DiT/generate_fisher.py:131-317), ``dit_generate_mask``
 (DiT/generate_mask.py:16-57), ``dit_sample_grid`` (the snapshot sample
 sheets of DiT/forget.py:344-345) and ``dit_sample_fid`` (DiT/sample.py and
-DiT/sample_ddp.py: class-conditional samples, decoded by the VAE). The
-multi-device paths (``mesh``, ``parallelism`` other than ``"dp"``,
-``pp_microbatches``) raise: they come with the multi-device slice (ROADMAP
-Queue 1 item 8).
+DiT/sample_ddp.py: class-conditional samples, decoded by the VAE).
+``dit_forget`` runs data parallel and FSDP on a ``DeviceMesh``
+(:mod:`uurg_torch.parallel`); tensor parallel, the pipeline and ring
+attention raise (ROADMAP Queue 1 items 8b and 8c).
 
 Checkpoints are ``torch.save`` files in the reference DiT layout
 (:mod:`uurg_torch.io.dit_interop`): ``<ckpt_dir>/ckpt_{i:07d}.pt`` and
@@ -34,10 +34,16 @@ from uurg_torch.core.rng import step_seed
 from uurg_torch.io.checkpoint import save_checkpoint
 from uurg_torch.io.dit_interop import save_dit_checkpoint
 from uurg_torch.models.dit import DiT
+from uurg_torch.parallel.dist import rank, sync_global_devices, world_size
+from uurg_torch.parallel.mesh import (data_group, full_optimizer_state,
+                                      full_state_dict, place_like,
+                                      place_model, shard_batch,
+                                      shard_optimizer_state, split_batches)
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.fisher import accumulate_fisher
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
-                                      make_sfron_step, stack_microbatches)
+                                      make_shadow, make_sfron_step,
+                                      stack_microbatches)
 from uurg_torch.workloads import ddpm_runner
 from uurg_torch.workloads.dit import DiTWorkload
 
@@ -53,22 +59,27 @@ def device_batch(batch, device: torch.device):
 
 
 def _save_train_state(path: str, state: SFRonState) -> None:
+    """Step, model, optimizer and EMA as whole tensors (gathered under
+    FSDP, which every rank calls), written by rank 0."""
     payload = {"step": int(state.step),
-               "model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
-               "ema": state.ema_model.state_dict()}
+               "model": full_state_dict(state.model),
+               "optimizer": full_optimizer_state(state.optimizer),
+               "ema": full_state_dict(state.ema_model)}
+    if rank() != 0:
+        return
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
 
 
-def _load_train_state(path: str, state: SFRonState) -> int:
+def _load_train_state(path: str, model: DiT, ema_model: DiT) -> dict:
+    """Model and EMA from a whole train state, before any sharding; the
+    checkpoint (its ``optimizer`` and ``step``) is returned for the
+    optimizer built after."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(ck["model"], strict=True)
-    state.optimizer.load_state_dict(ck["optimizer"])
-    state.ema_model.load_state_dict(ck["ema"], strict=True)
-    state.step = int(ck["step"])
-    return state.step
+    model.load_state_dict(ck["model"], strict=True)
+    ema_model.load_state_dict(ck["ema"], strict=True)
+    return ck
 
 
 def dit_forget(
@@ -114,13 +125,30 @@ def dit_forget(
     returned state holds it, the optimizer and the EMA model. With
     ``ckpt_dir`` the run resumes from its ``train_state.pt`` when one is
     there. Batches are placed on the workload's device; the generator of
-    step i is seeded from ``(seed, i)``."""
-    refuse_multi_device(mesh, parallelism, pp_microbatches)
+    step i is seeded from ``(seed, i)``.
+
+    With a ``mesh`` (every rank of the group calls with the same global
+    batches) each rank takes its rows over the ``data`` axis (dimension 1
+    of ``grad_accum`` stacks) and draws the global batch's randomness;
+    ``parallelism="fsdp"`` shards the parameters, the EMA, the Adam
+    moments and a dense mask alike (a packed mask stays whole). The train
+    state is read whole before sharding and written whole by rank 0."""
+    refuse_multi_device(parallelism, pp_microbatches)
     dev = wl.device
+    ema_model = make_shadow(model)
+    ck, resume = None, None
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        resume = os.path.join(ckpt_dir, "train_state.pt")
+        if os.path.exists(resume):
+            ck = _load_train_state(resume, model, ema_model)
+    for m in (model, ema_model):
+        place_model(m, mesh, parallelism)
     opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=0.0,
                          mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     if mask is not None:
-        mask = ddpm_runner._device_mask(mask, dev, pack_mask)
+        mask = place_like(ddpm_runner._device_mask(mask, dev, pack_mask),
+                          model)
     cfg = SFRonConfig(
         n_iters=n_iters, forget_alpha=forget_alpha,
         remain_alpha=remain_alpha,
@@ -130,42 +158,47 @@ def dit_forget(
     step = make_sfron_step(cfg, wl.forget_loss_fn(unlearn_loss,
                                                   label_to_forget),
                            wl.train_loss_fn())
+    batch_dim = 1 if grad_accum > 1 else 0
     forget_batches = (device_batch(b, dev) for b in forget_batches)
     remain_batches = (device_batch(b, dev) for b in remain_batches)
     if grad_accum > 1:  # effective batch = grad_accum x batch size
         forget_batches = stack_microbatches(forget_batches, grad_accum)
         remain_batches = stack_microbatches(remain_batches, grad_accum)
-    state = init_state(model, opt, ema=True, mask=mask)
+    state = init_state(model, opt, ema=True, mask=mask, ema_model=ema_model,
+                       group=data_group(mesh))
     start_step = 0
-    if ckpt_dir:
-        os.makedirs(ckpt_dir, exist_ok=True)
-        resume = os.path.join(ckpt_dir, "train_state.pt")
-        if os.path.exists(resume):
-            start_step = _load_train_state(resume, state)
-            log.info("resumed from %s at step %d", resume, start_step)
+    if ck is not None:
+        opt.load_state_dict(shard_optimizer_state(ck["optimizer"], opt))
+        state.step = start_step = int(ck["step"])
+        log.info("resumed from %s at step %d", resume, start_step)
+        del ck
     gen = torch.Generator(device=dev)
     model.train()
     start = time.time()
-    for i in range(start_step, n_iters):
-        fb, rb = next(forget_batches), next(remain_batches)
-        gen.manual_seed(step_seed(seed, i))
-        metrics = step(state, fb, rb, gen)
-        if (i + 1) % log_freq == 0:
-            log.info("step %d forget %.4f remain %.4f (%.2f steps/s)", i,
-                     float(metrics["forget_loss"]),
-                     float(metrics["remain_loss"]),
-                     log_freq / (time.time() - start))
-            start = time.time()
-        if sample_hook is not None and (i + 1) % snapshot_freq == 0:
-            sample_hook(state, i)
-        if ckpt_dir and (i + 1) % ckpt_freq == 0:
-            save_dit_checkpoint(os.path.join(ckpt_dir, f"ckpt_{i:07d}.pt"),
-                                state.model, state.ema_model)
-            _save_train_state(os.path.join(ckpt_dir, "train_state.pt"),
-                              state)
+    with split_batches(mesh):
+        for i in range(start_step, n_iters):
+            fb = shard_batch(next(forget_batches), mesh, batch_dim=batch_dim)
+            rb = shard_batch(next(remain_batches), mesh, batch_dim=batch_dim)
+            gen.manual_seed(step_seed(seed, i))
+            metrics = step(state, fb, rb, gen)
+            if (i + 1) % log_freq == 0:
+                log.info("step %d forget %.4f remain %.4f (%.2f steps/s)", i,
+                         float(metrics["forget_loss"]),
+                         float(metrics["remain_loss"]),
+                         log_freq / (time.time() - start))
+                start = time.time()
+            if sample_hook is not None and (i + 1) % snapshot_freq == 0:
+                sample_hook(state, i)
+            if ckpt_dir and (i + 1) % ckpt_freq == 0:
+                save_dit_checkpoint(
+                    os.path.join(ckpt_dir, f"ckpt_{i:07d}.pt"), state.model,
+                    state.ema_model)
+                _save_train_state(resume, state)
+                sync_global_devices("dit_ckpt")
     if ckpt_dir:
         save_dit_checkpoint(os.path.join(ckpt_dir, "final.pt"), state.model,
                             state.ema_model)
+        sync_global_devices("dit_final")
     return state
 
 
@@ -213,17 +246,18 @@ def dit_sample_grid(wl: DiTWorkload, model: DiT, out_path: str, *,
     samples of each class, the respaced ancestral sampler, written to
     ``out_path`` as npz: decoded uint8 ``images`` when a ``decode_fn``
     (latents -> images in [-1, 1]) is given, else the raw ``latents``;
-    ``labels`` beside them."""
+    ``labels`` beside them. Every rank samples (a sharded model's forward
+    is a collective); rank 0 writes."""
     classes = list(classes if classes is not None else range(8))
     labels = np.repeat(classes, n_per_class)
     sampler = wl.make_sampler(respacing=respacing, cond_scale=cond_scale)
     gen = torch.Generator(device=wl.device).manual_seed(seed)
     lat = sampler(model, torch.as_tensor(labels, device=wl.device), gen)
-    if decode_fn is not None:
-        np.savez(out_path, images=_uint8_images(decode_fn(lat)),
-                 labels=labels)
-    else:
-        np.savez(out_path, latents=lat.float().cpu().numpy(), labels=labels)
+    arrays = ({"images": _uint8_images(decode_fn(lat))}
+              if decode_fn is not None
+              else {"latents": lat.float().cpu().numpy()})
+    if rank() == 0:
+        np.savez(out_path, labels=labels, **arrays)
     return out_path
 
 
@@ -243,13 +277,14 @@ def dit_sample_fid(wl: DiTWorkload, model: DiT, class_labels: np.ndarray, *,
     (DiT/sample_ddp.py), ``batch_size`` labels a sampler call, the last
     batch padded with label 0 and its samples cut: uint8 NHWC images when a
     ``decode_fn`` (latents -> images in [-1, 1]) is given, else the float32
-    latents. One process on one device: the JAX function's process striding
-    is index 0 of 1 here. Every batch draws from one generator on the
-    workload's device seeded with ``seed``; each batch's output is copied to
-    the host while the next one is sampled."""
-    labels = np.asarray(class_labels)
+    latents. Under a process group rank r of n samples
+    ``class_labels[r::n]`` from the seed ``seed + r`` (DiT/sample_ddp.py's
+    striding, as the JAX function strides by process). Every batch draws
+    from one generator on the workload's device; each batch's output is
+    copied to the host while the next one is sampled."""
+    labels = np.asarray(class_labels)[rank()::world_size()]
     sampler = wl.make_sampler(respacing=respacing, cond_scale=cond_scale)
-    gen = torch.Generator(device=wl.device).manual_seed(seed)
+    gen = torch.Generator(device=wl.device).manual_seed(seed + rank())
     outs, pending = [], None
 
     def materialize(dev: torch.Tensor) -> np.ndarray:

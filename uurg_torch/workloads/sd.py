@@ -22,6 +22,7 @@ from typing import Callable, Sequence
 import torch
 
 from uurg_torch.core.device import resolve_device
+from uurg_torch.core.rng import randint_rows, randn_rows
 from uurg_torch.diffusion import sampling as S
 from uurg_torch.diffusion.schedules import DiffusionSchedule, make_schedule
 from uurg_torch.models.autoencoder_kl import AutoencoderKL, VAEConfig
@@ -90,10 +91,9 @@ class SDWorkload:
     def draw(self, z: torch.Tensor, generator: torch.Generator):
         """(t, noise) of one loss term: t uniform over the training steps,
         noise standard normal of z's shape, both from ``generator``."""
-        t = torch.randint(0, self.schedule.num_timesteps, (z.shape[0],),
-                          generator=generator, device=z.device)
-        noise = torch.randn(z.shape, generator=generator, device=z.device,
-                            dtype=z.dtype)
+        t = randint_rows(self.schedule.num_timesteps, z.shape[0], generator,
+                         z.device)
+        noise = randn_rows(z.shape, generator, z.device, z.dtype)
         return t, noise
 
     def p_losses(self, model: SDUNet, z, context, t, noise) -> torch.Tensor:

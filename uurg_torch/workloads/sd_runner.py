@@ -1,9 +1,9 @@
 """Host-side SD runners (the reference's SD/train-scripts).
 
-Port of ``uurg_tpu/workloads/sd_runner.py`` on one device:
-``nsfw_removal`` runs the shared SFR-on engine (the two-phase masked
-update); ``train_esd``, ``certain_label``, ``gradient_ascent`` and
-``proximal_gradient`` are single-loss loops with their own batches.
+Port of ``uurg_tpu/workloads/sd_runner.py``: ``nsfw_removal`` runs the
+shared SFR-on engine (the two-phase masked update); ``train_esd``,
+``certain_label``, ``gradient_ascent`` and ``proximal_gradient`` are
+single-loss loops with their own batches.
 ``encode_image_folder`` pre-encodes the data: the SD losses take latents
 and contexts from the frozen VAE and text encoder.
 
@@ -12,8 +12,9 @@ given in place and draws from a generator on the workload's device seeded
 from ``(seed, step)`` (:func:`~uurg_torch.core.rng.step_seed`). The
 ``train_method`` subset (``train_method_leaf_mask``) is the only part the
 optimizer holds: frozen parameters get no update and no Adam state, as
-``optax.set_to_zero`` gives in JAX. The multi-device knobs (``mesh``,
-``parallelism`` other than ``"dp"``) raise.
+``optax.set_to_zero`` gives in JAX. ``nsfw_removal`` runs data parallel
+and FSDP on a ``DeviceMesh`` (:mod:`uurg_torch.parallel`); tensor and
+sequence parallel raise.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ from uurg_torch.core import tree as tr
 from uurg_torch.core.device import refuse_multi_device
 from uurg_torch.core.rng import step_seed
 from uurg_torch.models.sd_unet import SDUNet, train_method_leaf_mask
+from uurg_torch.parallel.mesh import (data_group, place_like, place_model,
+                                      shard_batch, split_batches)
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
                                       make_sfron_step, stack_microbatches)
@@ -125,13 +128,21 @@ def nsfw_removal(
     Every parameter keeps its gradient, the frozen ones too, so the
     reported ``remain_grad_norm`` is over the gradients JAX's is over; the
     optimizer holds the trained ones only. Returns the engine's state (the
-    model, updated in place, and its optimizer)."""
-    refuse_multi_device(mesh, parallelism)
+    model, updated in place, and its optimizer).
+
+    With a ``mesh`` (every rank of the group calls with the same global
+    batches) each rank takes its rows over the ``data`` axis and draws the
+    global batch's randomness; ``parallelism="fsdp"`` shards the UNet, the
+    Adam moments and a dense mask alike (a packed mask stays whole).
+    ``snapshot_hook`` runs on every rank."""
+    refuse_multi_device(parallelism)
     dev = wl.device
+    place_model(model, mesh, parallelism)
     opt = _method_optimizer(model, train_method, lr, nu_dtype=nu_dtype)
     mask = None
     if saliency_mask is not None:
-        mask = ddpm_runner._device_mask(saliency_mask, dev, pack_mask)
+        mask = place_like(ddpm_runner._device_mask(saliency_mask, dev,
+                                                   pack_mask), model)
     cfg = SFRonConfig(n_iters=n_iters, forget_alpha=forget_alpha,
                       remain_alpha=remain_alpha, alpha_sched="const",
                       forget_clip=None, remain_clip=None,
@@ -143,18 +154,21 @@ def nsfw_removal(
     if grad_accum > 1:  # effective batch = grad_accum x batch size
         forget_batches = stack_microbatches(forget_batches, grad_accum)
         remain_batches = stack_microbatches(remain_batches, grad_accum)
-    state = init_state(model, opt, mask=mask)
+    state = init_state(model, opt, mask=mask, group=data_group(mesh))
+    batch_dim = 1 if grad_accum > 1 else 0
     gen = torch.Generator(device=dev)
-    for i in range(n_iters):
-        fb, rb = next(forget_batches), next(remain_batches)
-        gen.manual_seed(step_seed(seed, i))
-        metrics = step(state, fb, rb, gen)
-        if (i + 1) % snapshot_freq == 0:
-            log.info("step %d forget %.4f remain %.4f", i,
-                     float(metrics["forget_loss"]),
-                     float(metrics["remain_loss"]))
-            if snapshot_hook is not None:
-                snapshot_hook(model, i)
+    with split_batches(mesh):
+        for i in range(n_iters):
+            fb = shard_batch(next(forget_batches), mesh, batch_dim=batch_dim)
+            rb = shard_batch(next(remain_batches), mesh, batch_dim=batch_dim)
+            gen.manual_seed(step_seed(seed, i))
+            metrics = step(state, fb, rb, gen)
+            if (i + 1) % snapshot_freq == 0:
+                log.info("step %d forget %.4f remain %.4f", i,
+                         float(metrics["forget_loss"]),
+                         float(metrics["remain_loss"]))
+                if snapshot_hook is not None:
+                    snapshot_hook(model, i)
     return state
 
 

@@ -304,6 +304,15 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    1e-6: one rank changes no arithmetic), the four kernels' launches
    (equal to the one-device run's), the call's ms and peak memory.
 
+24. Tensor parallel (``uurg_torch/parallel/{mesh,tensor}.py``) on the same
+   one-rank group and ``mesh=data=1,model=1``: ``dit_forget`` and
+   ``nsfw_removal`` under ``parallelism="tp"`` (DIT_TP_RULES; SD_TP_RULES
+   with FSDP over the same axis for the rest), each against phase 23's
+   one-device run (reused, not rerun). It fails unless the rules placed
+   every qkv (3 pieces), adaLN (6), GEGLU (2) and other projection they
+   name, and gates each run as phase 23 does (relative L2 1e-6, launches
+   equal), with the call's ms, peak memory and the profiled last step.
+
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -1922,25 +1931,53 @@ def fisher_device_ms(wl, model, batch,
                                      lambda: step(fisher, model, batch, gen))
 
 
-def device_busy_ms(name: str, run) -> float:
-    """The device kernels' own times summed over one ``run()``, by the
-    profiler."""
+# Runs whose kernels the profiler did not see, timed by CUDA events instead.
+PROFILER_MISSES: list[dict] = []
+
+
+def profiled_kernels(name: str, run) -> tuple[list, str, float]:
+    """(the device kernels' profiler records, the key of their own time in
+    microseconds, the stream ms by CUDA events) of one ``run()``. CUPTI's
+    tracing has come back empty for a run that launched kernels, one run
+    of many in a process; the records are then [], the run is named in
+    PROFILER_MISSES and printed, and its caller reads the events' ms, a
+    stream span with the device's idle gaps in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
         run()
+        end.record()
         torch.cuda.synchronize()
+    stream_ms = start.elapsed_time(end)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     key = ("self_device_time_total" if events
            and hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
-    busy_ms = sum(getattr(e, key) for e in events) / 1e3
-    if busy_ms <= 0:
-        fail(f"the profiler saw no device time in {name}")
-    return busy_ms
+    if sum(getattr(e, key) for e in events) > 0:
+        return events, key, stream_ms
+    if stream_ms <= 0:
+        fail(f"neither the profiler nor CUDA events saw device time in "
+             f"{name}")
+    PROFILER_MISSES.append({"run": name, "stream_ms": stream_ms})
+    print(f"  the profiler saw no device time in {name}: {stream_ms:.3f} ms "
+          f"by CUDA events stand in (a stream span, idle gaps included)",
+          flush=True)
+    return [], key, stream_ms
+
+
+def device_busy_ms(name: str, run) -> float:
+    """The device kernels' own times summed over one ``run()``, by the
+    profiler (by CUDA events where it saw none: ``profiled_kernels``)."""
+    events, key, stream_ms = profiled_kernels(name, run)
+    if not events:
+        return stream_ms
+    return sum(getattr(e, key) for e in events) / 1e3
 
 
 def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
@@ -4986,26 +5023,17 @@ def kernel_family(name: str) -> str:
 def device_ms_by_family(name: str, run) -> dict:
     """The device kernels' own ms over one ``run()``, by the profiler,
     summed by kernel family (SD_FAMILIES); the families and the eight
-    longest kernels printed."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    key = ("self_device_time_total" if events
-           and hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
+    longest kernels printed. Where the profiler saw no kernels
+    (``profiled_kernels``), the CUDA events' ms stand as one family,
+    "unattributed"."""
+    events, key, stream_ms = profiled_kernels(name, run)
+    if not events:
+        return {"unattributed": stream_ms}
     by_family: dict[str, float] = {}
     for e in events:
         fam = kernel_family(e.key)
         by_family[fam] = by_family.get(fam, 0.0) + getattr(e, key) / 1e3
     busy = sum(by_family.values())
-    if busy <= 0:
-        fail(f"the profiler saw no device time in {name}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"    {fam:22s} {ms:10.3f} ms  {ms / busy:6.1%}", flush=True)
     for e in sorted(events, key=lambda e: -getattr(e, key))[:8]:
@@ -6040,14 +6068,23 @@ def sd_eval_path(card: str, work: str) -> dict:
 
 
 def _host_params(model) -> dict:
-    """Every parameter of ``model`` whole (the sharded ones gathered), on
-    the host, with the number of sharded ones under ``None``."""
+    """Every parameter of ``model`` whole (the sharded ones gathered, in
+    the one-device layout), on the host, with the number of sharded ones
+    under ``None``."""
     from uurg_torch.parallel.mesh import full_tensor, is_sharded
 
-    out = {n: full_tensor(p.detach()).cpu()
+    out = {n: full_tensor(p.detach(), p).cpu()
            for n, p in model.named_parameters()}
     out[None] = sum(is_sharded(p) for p in model.parameters())
     return out
+
+
+def _tp_pieces(model) -> dict:
+    """``{name: recorded pieces}`` of the tensor-parallel parameters."""
+    from uurg_torch.parallel.mesh import tp_pieces
+
+    return {n: tp_pieces(p) for n, p in model.named_parameters()
+            if tp_pieces(p)}
 
 
 def _param_diff(got: dict, want: dict) -> tuple[float, float]:
@@ -6077,8 +6114,6 @@ def _dp_call(run, runner, keep, profile_step: int | None = None):
     ``dit_clock``'s record: step ``profile_step`` profiled, its device ms
     by kernel family). The result itself is dropped and the cache emptied
     before the next run, so that no run's peak holds another's state."""
-    import gc
-
     import torch
 
     torch.cuda.synchronize()
@@ -6092,13 +6127,23 @@ def _dp_call(run, runner, keep, profile_step: int | None = None):
         out = run()
         end.record()
         torch.cuda.synchronize()
-    res = (keep(out), _read_all_launches(), start.elapsed_time(end),
-           torch.cuda.max_memory_allocated() / 2 ** 30,
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = (keep(out), _read_all_launches(), start.elapsed_time(end), peak,
            [(t - t0) * 1e3 for t in rec["t"]], rec)
     del out
+    _collect()
+    return res
+
+
+def _collect() -> None:
+    """Free what no one refers to, cycles included, and return the
+    cache's blocks to the card."""
+    import gc
+
+    import torch
+
     gc.collect()
     torch.cuda.empty_cache()
-    return res
 
 
 def _dp_profiled(tag: str, one: tuple, group: tuple) -> dict:
@@ -6283,16 +6328,23 @@ def dp_dit(card: str, mesh) -> dict:
 
     def keep(st):
         return {"model": _host_params(st.model),
-                "ema": _host_params(st.ema_model)}
+                "ema": _host_params(st.ema_model),
+                "pieces": _tp_pieces(st.model)}
 
-    runs = []
-    for place in ({}, {"mesh": mesh, "parallelism": "fsdp"}):
+    def call(place: dict):
+        """The run on a fresh seeded model placed by ``place``; the model
+        collected before the next run (FSDP2's state holds it in a
+        reference cycle)."""
         model = perturb_dit_(wl.init_params(SEED))
-        runs.append(_dp_call(lambda: DR.dit_forget(
+        res = _dp_call(lambda: DR.dit_forget(
             wl, model, iter(fbs), iter(rbs), **place, **kw), DR, keep,
-            DP_DIT_STEPS - 1))
+            DP_DIT_STEPS - 1)
         del model
-    one, grp = runs
+        _collect()
+        return res
+
+    one = call({})
+    grp = call({"mesh": mesh, "parallelism": "fsdp"})
     sharded = grp[0]["model"][None]
     print(f"  FSDP2: {sharded} of {len(mask)} parameters sharded (the rest "
           f"under 2**14 elements)", flush=True)
@@ -6307,7 +6359,7 @@ def dp_dit(card: str, mesh) -> dict:
         fail("dit_forget's EMA under fsdp differs from one device")
     out["ema_rel_l2"], out["sharded_params"] = ema[1], sharded
     out["profiled_step"] = _dp_profiled("dit_forget fsdp", one, grp)
-    return out
+    return out, one, call
 
 
 def dp_sd(card: str, mesh, gen) -> dict:
@@ -6327,14 +6379,21 @@ def dp_sd(card: str, mesh, gen) -> dict:
                       < 0.5 for n, p in wl.init_unet(SEED).named_parameters()})
     kw = dict(n_iters=DP_SD_STEPS, lr=1e-5, saliency_mask=mask, seed=SEED,
               snapshot_freq=10 ** 6)
-    runs = []
-    for place in ({}, {"mesh": mesh, "parallelism": "fsdp"}):
+
+    def call(place: dict):
+        """The run on a fresh seeded UNet placed by ``place``, collected
+        before the next run."""
         unet = wl.init_unet(SEED)
-        runs.append(_dp_call(
+        res = _dp_call(
             lambda: TR.nsfw_removal(wl, unet, fb, rb, **place, **kw), TR,
-            lambda st: {"model": _host_params(st.model)}, DP_SD_STEPS - 1))
+            lambda st: {"model": _host_params(st.model),
+                        "pieces": _tp_pieces(st.model)}, DP_SD_STEPS - 1)
         del unet
-    one, grp = runs
+        _collect()
+        return res
+
+    one = call({})
+    grp = call({"mesh": mesh, "parallelism": "fsdp"})
     sharded = grp[0]["model"][None]
     print(f"  FSDP2: {sharded} of {len(mask)} parameters sharded, in the "
           f"UNet's own units; the packed mask whole", flush=True)
@@ -6344,6 +6403,64 @@ def dp_sd(card: str, mesh, gen) -> dict:
                       f"{SD_BATCH} + {SD_BATCH})", card, one, grp)
     out["sharded_params"] = sharded
     out["profiled_step"] = _dp_profiled("nsfw_removal fsdp", one, grp)
+    return out, one, call
+
+
+def _tp_placed(tag: str, pieces: dict, want: dict) -> None:
+    """Fail unless every parameter of ``want`` was placed by the rules
+    with its pieces recorded, and no other (a one-rank mesh must not skip
+    the path)."""
+    print(f"  {tag}: {len(pieces)} parameters placed by the rules, "
+          f"{sum(k == 3 for k in pieces.values())} with 3 pieces (qkv), "
+          f"{sum(k == 6 for k in pieces.values())} with 6 (adaLN), "
+          f"{sum(k == 2 for k in pieces.values())} with 2 (GEGLU)",
+          flush=True)
+    if pieces != want:
+        fail(f"{tag}: tensor-parallel placement {sorted(pieces.items())[:6]}"
+             f"... is not the rules' {sorted(want.items())[:6]}...")
+
+
+def tp_dit(card: str, mesh, one: tuple, call) -> dict:
+    """Phase 24 (a): ``dit_forget`` under ``parallelism="tp"`` on
+    ``mesh`` (DIT_TP_RULES over a one-rank ``model`` axis), against phase
+    23's one-device run of the same weights, batches and mask."""
+    grp = call({"mesh": mesh, "parallelism": "tp"})
+    want = {f"blocks.{i}.{name}": k for i in range(DIT_BLOCKS)
+            for name, k in (("attn.qkv.weight", 3), ("attn.qkv.bias", 3),
+                            ("adaLN_modulation.1.weight", 6),
+                            ("adaLN_modulation.1.bias", 6),
+                            ("mlp.fc1.weight", 1), ("mlp.fc1.bias", 1),
+                            ("attn.proj.weight", 1), ("mlp.fc2.weight", 1))}
+    _tp_placed("dit_forget tp", grp[0]["pieces"], want)
+    out = _dp_compare(f"dit_forget tp ({DP_DIT_STEPS} steps at {DIT_BATCH} "
+                      f"+ {DIT_BATCH})", card, one, grp)
+    ema = _param_diff(grp[0]["ema"], one[0]["ema"])
+    print(f"  EMA: largest difference {ema[0]:.3e}, relative L2 "
+          f"{ema[1]:.3e}", flush=True)
+    if not ema[1] <= DP_REL:
+        fail("dit_forget's EMA under tp differs from one device")
+    out["ema_rel_l2"], out["tp_params"] = ema[1], len(want)
+    out["profiled_step"] = _dp_profiled("dit_forget tp", one, grp)
+    return out
+
+
+def tp_sd(card: str, mesh, one: tuple, call) -> dict:
+    """Phase 24 (b): ``nsfw_removal`` under ``parallelism="tp"`` on
+    ``mesh`` (SD_TP_RULES over a one-rank ``model`` axis, FSDP over it
+    for the rest), against phase 23's one-device run."""
+    grp = call({"mesh": mesh, "parallelism": "tp"})
+    blocks = sorted({n.rsplit(".", 3)[0] for n in one[0]["model"]
+                     if n and n.endswith("ff_geglu.proj.weight")})
+    want = {f"{b}.{name}": k for b in blocks for name, k in (
+        *((f"attn{a}.to_{w}.weight", 1) for a in (1, 2) for w in "qkv"),
+        ("attn1.to_out.weight", 1), ("attn2.to_out.weight", 1),
+        ("ff_geglu.proj.weight", 2), ("ff_geglu.proj.bias", 2),
+        ("ff_out.weight", 1))}
+    _tp_placed("nsfw_removal tp", grp[0]["pieces"], want)
+    out = _dp_compare(f"nsfw_removal tp ({DP_SD_STEPS} steps at {SD_BATCH} "
+                      f"+ {SD_BATCH})", card, one, grp)
+    out["tp_params"], out["sharded_params"] = len(want), grp[0]["model"][None]
+    out["profiled_step"] = _dp_profiled("nsfw_removal tp", one, grp)
     return out
 
 
@@ -6367,11 +6484,23 @@ def parallel_path(card: str, gen) -> dict:
         out = {"ddpm": dp_ddpm(Config(SFRON_CONFIG), card, group)}
         torch.cuda.empty_cache()
         mesh = make_mesh({"data": 1, "model": 1})
-        out["dit"] = dp_dit(card, mesh)
+        out["dit"], dit_one, dit_call = dp_dit(card, mesh)
         torch.cuda.empty_cache()
-        out["sd"] = dp_sd(card, mesh, gen)
+        out["sd"], sd_one, sd_call = dp_sd(card, mesh, gen)
         torch.cuda.empty_cache()
         out["draws"] = dp_draw_cost(Config(SFRON_CONFIG), card)
+        banner(f"tensor parallel (uurg_torch/parallel, DIT_TP_RULES and "
+               f"SD_TP_RULES) on the one-rank NCCL group, mesh data=1,"
+               f"model=1, each against phase 23's one-device run: "
+               f"dit_forget tp ({DP_DIT_STEPS} steps at {DIT_BATCH} + "
+               f"{DIT_BATCH}, dense mask), nsfw_removal tp ({DP_SD_STEPS} "
+               f"steps at {SD_BATCH} + {SD_BATCH}, packed mask), their last "
+               f"step profiled")
+        out["tp_dit"] = tp_dit(card, mesh, dit_one, dit_call)
+        del dit_one
+        torch.cuda.empty_cache()
+        out["tp_sd"] = tp_sd(card, mesh, sd_one, sd_call)
+        del sd_one
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -6379,7 +6508,9 @@ def parallel_path(card: str, gen) -> dict:
     out["launches"] = {"ddpm": out["ddpm"]["training"]["launches"],
                        "sampling": out["ddpm"]["sampling"]["launches"],
                        "dit": out["dit"]["launches"],
-                       "sd": out["sd"]["launches"]}
+                       "sd": out["sd"]["launches"],
+                       "dit_tp": out["tp_dit"]["launches"],
+                       "sd_tp": out["tp_sd"]["launches"]}
     return out
 
 
@@ -6614,7 +6745,9 @@ def main() -> int:
     sd["launches"].update(sd_methods["launches"])
     sd["launches"].update(sd_eval["launches"])
     sd["launches"]["sd_fsdp"] = par["launches"]["sd"]
+    sd["launches"]["sd_tp"] = par["launches"]["sd_tp"]
     dit["launches"]["dit_fsdp"] = par["launches"]["dit"]
+    dit["launches"]["dit_tp"] = par["launches"]["dit_tp"]
     # the SD paths' VAE encodes and decodes run the float32 attention
     # (xwide) too: their launches on the VAE's row, their GroupNorm
     # launches on the SD rows with the UNet's
@@ -6715,8 +6848,12 @@ def main() -> int:
                    "sd_methods": sd_methods, "sd_eval": sd_eval,
                    "parallel": par,
                    "phase_starts": PHASE_STARTS,
+                   "profiler_misses": PROFILER_MISSES,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)
+    if PROFILER_MISSES:
+        print(f"  timed by CUDA events where the profiler saw no device "
+              f"time: {PROFILER_MISSES}", flush=True)
     print(f"== done in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -349,22 +349,24 @@ def test_fisher_and_mask_files_match_jax(tiny, monkeypatch, tmp_path):
 
 
 def test_dit_forget_refuses_multi_device(tiny):
-    # tensor parallel, the pipeline and ring attention wait for items 8b
-    # and 8c; a mesh and fsdp run (below and tests/test_torch_parallel_*)
+    # the pipeline and ring attention wait for item 8c; a mesh, fsdp and
+    # tp run (below and tests/test_torch_parallel_*)
     _, twl, params = tiny
-    for kw in ({"parallelism": "tp"}, {"parallelism": "pp"},
-               {"parallelism": "sp"}, {"pp_microbatches": 2}):
+    for kw in ({"parallelism": "pp"}, {"parallelism": "sp"},
+               {"pp_microbatches": 2}):
         with pytest.raises(NotImplementedError, match="item 8"):
             TR.dit_forget(twl, _model(twl, params), iter([]), iter([]), **kw)
 
 
 @pytest.mark.parametrize("spec,parallelism", [
-    ("data=1", "dp"), ("data=1", "fsdp"), ("data=1,model=1", "fsdp")])
+    ("data=1", "dp"), ("data=1", "fsdp"), ("data=1,model=1", "fsdp"),
+    ("data=1,model=1", "tp")])
 def test_dit_forget_on_a_one_rank_mesh_equals_the_default(tiny, spec,
                                                           parallelism):
     """The one-rank mesh runs the group's path (the batch split, the
-    gradient all-reduce, FSDP2's sharding over one rank, the shard-wise
-    mask, clip, Adam and EMA) to the default run's weights, bit for bit."""
+    gradient all-reduce, FSDP2's sharding over one rank or tensor
+    parallel's placement and paired operators, the shard-wise mask, clip,
+    Adam and EMA) to the default run's weights, bit for bit."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.parallel import make_mesh, parse_mesh_spec
 
@@ -386,8 +388,12 @@ def test_dit_forget_on_a_one_rank_mesh_equals_the_default(tiny, spec,
         sharded = [n for n, p in got.model.named_parameters()
                    if type(p).__name__ == "DTensor"]
         # fsdp shards over "model", else over the largest axis when it is
-        # larger than 1 (JAX's rule): data=1 alone shards nothing
+        # larger than 1 (JAX's rule): data=1 alone shards nothing; tp
+        # places the rules' parameters over "model"
         assert bool(sharded) == ("model" in spec)
+        if parallelism == "tp":
+            assert "blocks.0.attn.qkv.weight" in sharded
+            assert "final_layer.adaLN_modulation.1.weight" not in sharded
         for m_got, m_want in ((got.model, want.model),
                               (got.ema_model, want.ema_model)):
             have = {k: v.full_tensor() if type(v).__name__ == "DTensor"
@@ -455,14 +461,13 @@ def test_the_three_clis_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallelism", "tp"], "item 8"),
     (["--parallelism", "sp"], "item 8"),
     (["--pp_microbatches", "2"], "item 8"),
     (["--vae_ckpt", "orbax_vae_dir"], "Orbax"),
 ])
 def test_forget_cli_refuses_what_the_port_cannot_do(flags, match):
-    # tensor parallel, the pipeline and ring attention wait for items 8b
-    # and 8c (--mesh and fsdp run: test_forget_cli_on_a_one_rank_mesh); a
+    # the pipeline and ring attention wait for item 8c (--mesh, fsdp and
+    # tp run: test_forget_cli_on_a_one_rank_mesh); a
     # --vae_ckpt that is not a CompVis or port VAE file (an Orbax
     # directory) cannot be read
     from uurg_torch.cli import forget
@@ -472,8 +477,11 @@ def test_forget_cli_refuses_what_the_port_cannot_do(flags, match):
         forget.main([*CLI, *flags, "--n-iters", "1"])
 
 
-def test_forget_cli_on_a_one_rank_mesh(tmp_path):
-    """--mesh data=1 --parallelism fsdp gives the default run's final.pt."""
+@pytest.mark.parametrize("spec,parallelism", [("data=1", "fsdp"),
+                                              ("data=1,model=1", "tp")])
+def test_forget_cli_on_a_one_rank_mesh(tmp_path, spec, parallelism):
+    """--mesh and --parallelism fsdp or tp on one rank give the default
+    run's final.pt."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.cli import forget
 
@@ -482,7 +490,7 @@ def test_forget_cli_on_a_one_rank_mesh(tmp_path):
     forget.main([*base, "--results-dir", str(tmp_path / "a")])
     with one_rank_group():
         forget.main([*base, "--results-dir", str(tmp_path / "b"), "--mesh",
-                     "data=1", "--parallelism", "fsdp"])
+                     spec, "--parallelism", parallelism])
     a, b = (torch.load(tmp_path / d / "forget_0" / "final.pt",
                        weights_only=True) for d in ("a", "b"))
     for part in ("model", "ema"):

@@ -2,7 +2,8 @@
 rule against the JAX package's, the parameters FSDP shards in the tiny
 CondUNet, a depth-2 DiT-S/2 and SD's TINY_UNET against JAX's choice,
 ``make_mesh``'s rules on a one-rank gloo group, the random draws under a
-batch split against the one-device draw, and the refusals that remain.
+batch split against the one-device draw, and the refusals that remain
+(tensor parallel's rules and placement: ``tests/test_torch_parallel_tp*``).
 The two- and four-rank runs are in ``tests/test_torch_parallel_*.py``."""
 import types
 import warnings
@@ -211,8 +212,8 @@ def test_draws_under_a_split_are_rows_of_the_one_device_draw(index):
 
 
 @pytest.mark.parametrize("mode,item", [
-    ({"parallelism": "tp"}, "item 8b"), ({"parallelism": "pp"}, "item 8c"),
-    ({"parallelism": "sp"}, "item 8c"), ({"pp_microbatches": 2}, "item 8c")])
+    ({"parallelism": "pp"}, "item 8c"), ({"parallelism": "sp"}, "item 8c"),
+    ({"pp_microbatches": 2}, "item 8c")])
 def test_refuse_multi_device_names_the_roadmap_item(mode, item):
     with pytest.raises(NotImplementedError, match=item):
         refuse_multi_device(**mode)
@@ -221,5 +222,6 @@ def test_refuse_multi_device_names_the_roadmap_item(mode, item):
 def test_dp_and_fsdp_pass_the_refusal():
     refuse_multi_device("dp")
     refuse_multi_device("fsdp")
+    refuse_multi_device("tp")
     with pytest.raises(ValueError, match="unknown parallelism"):
         refuse_multi_device("zero3")

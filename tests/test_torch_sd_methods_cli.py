@@ -10,9 +10,9 @@ JAX package (CPU):
   ``train_esd``, ``gradient_ascent``, ``proximal_gradient`` and
   ``random_label`` read back with ``--ckpt_path``; each writes a finite
   ``final.pt`` that moved;
-- the flags the port refuses (``--parallelism`` tp and sp,
-  ``--profile_dir``) and the default device, CUDA; ``--mesh`` with
-  ``--parallelism fsdp`` on one rank writes the default run's weights;
+- the flags the port refuses (``--parallelism sp``, ``--profile_dir``)
+  and the default device, CUDA; ``--mesh`` with ``--parallelism`` fsdp or
+  tp on one rank writes the default run's weights;
 - the ``sd_data`` streams equal the JAX package's on a seeded PNG tree."""
 import os
 
@@ -165,7 +165,6 @@ def test_the_five_clis_end_to_end(tmp_path, tiny_cli):  # noqa: F811
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallelism", "tp"], "item 8"),
     (["--parallelism", "sp"], "item 8"),
     (["--profile_dir", "trace"], "profile_dir"),
 ])
@@ -237,10 +236,12 @@ def test_sd_data_streams_match_jax(tmp_path):
                                  remain_root=str(root))
 
 
-def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli):  # noqa: F811
-    """--mesh data=1,model=1 --parallelism fsdp (the UNet sharded over one
-    rank, the gradients all-reduced over it) writes the default run's
-    final.pt bit for bit."""
+@pytest.mark.parametrize("parallelism", ["fsdp", "tp"])
+def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli,  # noqa: F811
+                                             parallelism):
+    """--mesh data=1,model=1 --parallelism fsdp or tp (the UNet sharded
+    over one rank, the gradients all-reduced over it) writes the default
+    run's final.pt bit for bit."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.cli import nsfw_removal
 
@@ -257,7 +258,7 @@ def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli):  # noqa: F811
     with one_rank_group():
         nsfw_removal.main([*argv, "--save_path", str(tmp_path / "b"),
                            "--mesh", "data=1,model=1", "--parallelism",
-                           "fsdp"])
+                           parallelism])
     a, b = (_weights(str(tmp_path / d / "final.pt")) for d in ("a", "b"))
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)

@@ -438,17 +438,18 @@ def test_esd_builder_draws_and_denoises_with_the_current_model(pair):
 
 
 def test_nsfw_removal_refuses_multi_device(pair):
-    # tensor and sequence parallel wait for items 8b and 8c; a mesh and
-    # fsdp run (below and tests/test_torch_parallel_sd.py)
+    # sequence parallel waits for item 8c; a mesh, fsdp and tp run (below,
+    # tests/test_torch_parallel_sd.py and tests/test_torch_parallel_tp*)
     _, params, twl = pair
-    for kw in ({"parallelism": "tp"}, {"parallelism": "sp"}):
+    for kw in ({"parallelism": "sp"},):
         with pytest.raises(NotImplementedError, match="item 8"):
             TR.nsfw_removal(twl, _model(twl, params), iter([]), iter([]),
                             **kw)
 
 
 @pytest.mark.parametrize("spec,parallelism", [("data=1", "dp"),
-                                              ("data=1,model=1", "fsdp")])
+                                              ("data=1,model=1", "fsdp"),
+                                              ("data=1,model=1", "tp")])
 def test_nsfw_removal_on_a_one_rank_mesh_equals_the_default(pair, spec,
                                                             parallelism):
     """Two steps of the runner's own Adam under a dense mask on a one-rank

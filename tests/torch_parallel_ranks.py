@@ -21,11 +21,12 @@ import torch.multiprocessing as mp
 from uurg_torch.core.tree import PackedMask
 from uurg_torch.parallel.dist import (free_port, initialize_single, rank,
                                       sync_global_devices, world_size)
-from uurg_torch.parallel.mesh import (data_group, full_optimizer_state,
-                                      full_state_dict, full_tensor, local,
+from uurg_torch.parallel.mesh import (DIT_TP_RULES, data_group,
+                                      full_optimizer_state, full_state_dict,
+                                      full_tensor, local, local_rows,
                                       make_mesh, parse_mesh_spec, place_like,
                                       shard_batch, shard_params_fsdp,
-                                      split_batches)
+                                      shard_params_tp, split_batches)
 
 # the tiny CondUNet of tests/test_torch_sfron.py
 TINY_UNET = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1,
@@ -53,9 +54,18 @@ def one_rank_group():
 
 def spawn(name: str, world: int, out_dir, *args) -> None:
     """Run ``name(out_dir, *args)`` of this module on ``world`` gloo ranks
-    and wait for all of them; a rank that raises fails the call."""
-    mp.spawn(_entry, args=(world, free_port(), name, str(out_dir), args),
-             nprocs=world, join=True)
+    and wait for all of them; a rank that raises fails the call. A port
+    that another process took between ``free_port`` and the group's
+    listen (test workers start groups side by side) is tried again on
+    another, twice at most."""
+    for attempt in range(3):
+        try:
+            mp.spawn(_entry, args=(world, free_port(), name, str(out_dir),
+                                   args), nprocs=world, join=True)
+            return
+        except mp.ProcessRaisedException as e:
+            if "EADDRINUSE" not in str(e) or attempt == 2:
+                raise
 
 
 def _entry(r: int, world: int, port: int, name: str, out: str, args):
@@ -270,22 +280,32 @@ def dit_model(state: dict):
 
 
 def dit_step_run(inputs: dict, mesh, min_size: int = 64,
-                 pack: bool = False) -> dict:
+                 pack: bool = False, parallelism: str = "fsdp") -> dict:
     """Two SFR-on steps of the depth-2 DiT-S/2 (AdamW 1e-3, ``ga`` forget
     loss, const alpha, forget clip 1.0, EMA 0.999, a dense or packed
     mask), the model, its shadow, the Adam moments and a dense mask
-    sharded over ``mesh`` by ``shard_params_fsdp(min_size=min_size)``.
-    Returns whole tensors and each rank's shard sizes."""
+    sharded over ``mesh`` by ``shard_params_fsdp(min_size=min_size)``, or
+    placed by ``DIT_TP_RULES`` under ``parallelism="tp"``. With
+    ``inputs["draws"]`` (each loss call's global t and noise, in order)
+    the losses take those draws, cut to this rank's rows. Returns whole
+    tensors, each rank's shard sizes and the local shards of the first
+    block's qkv weight, Adam moment and mask."""
     from uurg_torch.core.tree import pack_mask
     from uurg_torch.train.optim import make_optimizer
     from uurg_torch.unlearn import sfron as S
 
     wl = dit_workload()
+    if "draws" in inputs:
+        queue = list(inputs["draws"])
+        wl._draw = lambda x, g: tuple(local_rows(a) for a in queue.pop(0))
     model = dit_model(inputs["state"]).train()
     shadow = S.make_shadow(model)
     if mesh is not None:
         for m in (model, shadow):
-            shard_params_fsdp(m, mesh, min_size=min_size)
+            if parallelism == "tp":
+                shard_params_tp(m, mesh, DIT_TP_RULES)
+            else:
+                shard_params_fsdp(m, mesh, min_size=min_size)
     opt = make_optimizer("adamw", model.parameters(), 1e-3,
                          weight_decay=0.0)
     for group in opt.param_groups:
@@ -315,12 +335,16 @@ def dit_step_run(inputs: dict, mesh, min_size: int = 64,
                  None if pack else local(mask[n]).numel())
              for n, p in params.items()}
     opt_full = full_optimizer_state(opt)
+    qkv = "blocks.0.attn.qkv.weight"
     return {"params": _full_params(model), "ema": _full_params(shadow),
             "exp_avg": [opt_full["state"][i]["exp_avg"]
                         for i in range(len(params))],
             "losses": losses, "sizes": sizes,
             "packed": all(isinstance(v, PackedMask)
-                          for v in state.mask.values())}
+                          for v in state.mask.values()),
+            "qkv_local": {"param": local(params[qkv]).detach().clone(),
+                          "exp_avg": local(moments[qkv]).clone(),
+                          "mask": None if pack else local(mask[qkv])}}
 
 
 def dit_step(out: str, inputs_path: str, spec: str) -> None:
@@ -328,6 +352,12 @@ def dit_step(out: str, inputs_path: str, spec: str) -> None:
     mesh = _mesh(spec)
     _save(out, "dit_step", {"dense": dit_step_run(inputs, mesh),
                             "packed": dit_step_run(inputs, mesh, pack=True)})
+
+
+def dit_tp_step(out: str, inputs_path: str, spec: str) -> None:
+    inputs = torch.load(inputs_path, weights_only=False)
+    _save(out, "dit_tp_step", dit_step_run(inputs, _mesh(spec),
+                                           parallelism="tp"))
 
 
 def dit_runner_run(inputs: dict, ckpt_dir: str | None, n_iters: int,
@@ -375,6 +405,19 @@ def dit_runner(out: str, inputs_path: str, tmp: str) -> None:
                               "resumed": resumed, "latents": latents})
 
 
+def dit_tp_runner(out: str, inputs_path: str, tmp: str) -> None:
+    """``dit_forget`` under tensor parallel on a ``model`` axis of every
+    rank: straight, cut after one step and resumed; rank 0 writes the
+    files."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    mesh = make_mesh({"model": world_size()})
+    ckpt = os.path.join(tmp, "dit_tp_ckpt")
+    _save(out, "dit_tp_runner", {
+        "straight": dit_runner_run(inputs, None, 2, mesh, "tp"),
+        "first": dit_runner_run(inputs, ckpt, 1, mesh, "tp"),
+        "resumed": dit_runner_run(inputs, ckpt, 2, mesh, "tp")})
+
+
 def dit_sample_cli(out: str, *runs: list) -> None:
     """``uurg_torch.cli.dit_sample``'s ``main`` on each argument list in
     turn, on this rank, as under ``torchrun`` (the group up first)."""
@@ -400,12 +443,13 @@ def sd_workload():
 
 
 def sd_run(inputs: dict, mesh, parallelism: str = "fsdp",
-           adam: bool = False) -> dict:
-    """One ``nsfw_removal`` step with a packed mask, then the UNet through
-    ``save_unet``: SGD with momentum 0.9, or the runner's own Adam (first
-    moment bf16) at an eps of 1e-3 (at 1e-8 Adam turns the gradients that
-    are zero in exact arithmetic, conv biases before a GroupNorm, into
-    +-lr moves of either sign), its moments kept whole."""
+           adam: bool = False, pack: bool = True) -> dict:
+    """One ``nsfw_removal`` step with a packed (or dense) mask, then the
+    UNet through ``save_unet``: SGD with momentum 0.9, or the runner's own
+    Adam (first moment bf16) at an eps of 1e-3 (at 1e-8 Adam turns the
+    gradients that are zero in exact arithmetic, conv biases before a
+    GroupNorm, into +-lr moves of either sign), its moments kept
+    whole."""
     from uurg_torch.cli.sd_common import save_unet
     from uurg_torch.models.sd_unet import SDUNet
     from uurg_torch.train.optim import make_optimizer
@@ -424,10 +468,11 @@ def sd_run(inputs: dict, mesh, parallelism: str = "fsdp",
         state = sd_runner.nsfw_removal(
             wl, model, iter(inputs["forget"]), iter(inputs["remain"]),
             n_iters=1, lr=1e-3, saliency_mask=inputs["mask"],
-            pack_mask=True, seed=2, mesh=mesh, parallelism=parallelism)
+            pack_mask=pack, seed=2, mesh=mesh, parallelism=parallelism)
     finally:
         sd_runner.make_optimizer = make_optimizer
-    tag = f"{parallelism}_{'adam' if adam else 'sgd'}"
+    tag = (f"{parallelism}_{'adam' if adam else 'sgd'}"
+           f"{'' if pack else '_dense'}")
     path = os.path.join(inputs["tmp"], f"sd_{tag}_{world_size()}.pt")
     save_unet(path, model)
     sync_global_devices("sd_final")
@@ -436,11 +481,15 @@ def sd_run(inputs: dict, mesh, parallelism: str = "fsdp",
           for n, p in params.items()}
     moments = {}
     if adam:
-        moments = {n: tuple(full_tensor(state.optimizer.state[p][k]).clone()
+        moments = {n: tuple(full_tensor(state.optimizer.state[p][k],
+                                        p).clone()
                             for k in ("mu", "nu"))
                    for n, p in params.items()}
+    opt_full = full_optimizer_state(state.optimizer)
     return {"params": _full_params(model), "path": path,
             "moments": moments,
+            "momentum": {i: st.get("momentum_buffer", st.get("mu"))
+                         for i, st in opt_full["state"].items()},
             "sizes": {n: (local(p).numel(), local(mu[n]).numel())
                       for n, p in params.items()},
             "packed": all(isinstance(v, PackedMask)
@@ -466,3 +515,13 @@ def sd(out: str, inputs_path: str) -> None:
             "fsdp_adam": sd_run(inputs, mesh, "fsdp", adam=True)}
     runs["resumed"] = sd_resumed(inputs, runs["fsdp"]["path"], mesh)
     _save(out, "sd", runs)
+
+
+def sd_tp(out: str, inputs_path: str) -> None:
+    """``nsfw_removal`` under tensor parallel on a ``model`` axis of every
+    rank, with a packed and with a dense mask, and under Adam."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    mesh = make_mesh({"model": world_size()})
+    _save(out, "sd_tp", {"packed": sd_run(inputs, mesh, "tp"),
+                         "dense": sd_run(inputs, mesh, "tp", pack=False),
+                         "adam": sd_run(inputs, mesh, "tp", adam=True)})

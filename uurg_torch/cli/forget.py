@@ -12,14 +12,17 @@ Writes ``<results-dir>/forget_<class>/``: ``ckpt_{i:07d}.pt`` and
 ``vis_step{i:06d}.npz`` every ``--snapshot-every`` steps (latents, not
 decoded, as in the JAX CLI). A run resumes from its
 ``train_state.pt``. ``--mesh data=N`` (or ``data=N,model=M``) and
-``--parallelism dp|fsdp`` run on every rank of a ``torchrun`` group (one
-card a rank; ``--device cpu`` runs the ranks on gloo):
+``--parallelism dp|fsdp|tp`` run on every rank of a ``torchrun`` group
+(one card a rank; ``--device cpu`` runs the ranks on gloo); ``tp`` shards
+the blocks' projections over ``model`` (``DIT_TP_RULES``):
 
     torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh data=2 \
         --parallelism fsdp ...
+    torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh model=2 \
+        --parallelism tp ...
 
-Rank 0 writes the files. ``--parallelism tp|pp|sp`` and
-``--pp_microbatches`` raise: they come with later slices.
+Rank 0 writes the files. ``--parallelism pp|sp`` and
+``--pp_microbatches`` raise: they come with a later slice.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def parse_args(argv=None):
                         "data=2,model=2 (-1 fills the rest)")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "pp", "sp"],
-                   help="dp or fsdp over the mesh; tp, pp and sp raise")
+                   help="dp, fsdp or tp over the mesh; pp and sp raise")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="pipeline microbatches (raises unless 0)")
     p.add_argument("--grad_accum", type=int, default=1,

@@ -14,10 +14,12 @@ that ``sd_generate_fisher`` or ``generate_fisher_mask`` wrote. Every
 ``save_model`` does: ``step_<i>.pt``, a CompVis checkpoint that every SD
 CLI reads back with ``--ckpt_path``, and ``step_<i>_diffusers.npz``, the
 diffusers ``UNet2DConditionModel`` keys; the run ends with ``final.pt``.
-``--mesh data=N`` and ``--parallelism dp|fsdp`` run on every rank of a
-``torchrun`` group (``torchrun --nproc_per_node 2 -m
-uurg_torch.cli.nsfw_removal --mesh data=2 --parallelism fsdp ...``); rank
-0 writes the files. ``--parallelism tp|sp`` and ``--profile_dir`` raise.
+``--mesh data=N`` (or ``data=N,model=M``) and ``--parallelism
+dp|fsdp|tp`` run on every rank of a ``torchrun`` group (``torchrun
+--nproc_per_node 2 -m uurg_torch.cli.nsfw_removal --mesh model=2
+--parallelism tp ...``: the transformers' projections over ``model``,
+``SD_TP_RULES``, the rest FSDP-sharded over it); rank 0 writes the files.
+``--parallelism sp`` and ``--profile_dir`` raise.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ def parse_args(argv=None):
                    help="gradient-accumulation microbatches per update")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "sp"],
-                   help="dp or fsdp over the mesh; tp and sp raise")
+                   help="dp, fsdp or tp over the mesh; sp raises")
     p.add_argument("--nu_dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
                    help="Adam second-moment storage dtype")

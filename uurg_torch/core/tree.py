@@ -7,9 +7,9 @@ parameters' ``.grad`` tensors. Functions whose name ends in ``_`` update
 their first argument in place, to keep the step from holding a second copy
 of the gradients.
 
-Leaves may be DTensors (FSDP's sharded parameters and gradients): the
-functions work on each rank's shard and all-reduce what is global (the
-norm), so every rank sees the one-device value.
+Leaves may be DTensors (FSDP's and tensor parallel's sharded parameters
+and gradients): the functions work on each rank's shard and all-reduce
+what is global (the norm), so every rank sees the one-device value.
 """
 from __future__ import annotations
 

@@ -52,6 +52,7 @@ from torch.utils import checkpoint as ckpt
 
 from uurg_torch.models.init import init_classifier
 from uurg_torch.ops.flash_attention import attention
+from uurg_torch.parallel import tensor as tp
 
 LN_EPS = 1e-6           # flax nn.LayerNorm
 REMAT_POLICIES = (None, "attn", "dots", "attn+dots")
@@ -64,7 +65,8 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 
 class Linear(nn.Linear):
     """Linear computing in ``dtype``: input, weight and bias cast at the
-    call, float32 parameters kept (Flax ``nn.Dense(dtype=...)``)."""
+    call, float32 parameters kept (Flax ``nn.Dense(dtype=...)``); the
+    column- or row-parallel form on a tensor-parallel weight."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -73,8 +75,7 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+        return tp.linear(x.to(dt), self.weight, self.bias, dt)
 
 
 class WideLinear(nn.Linear):
@@ -83,14 +84,16 @@ class WideLinear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = wide(x)
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return tp.linear(x, self.weight, self.bias, x.dtype)
 
 
 class MHSA(nn.Module):
     """(B, T, dim) -> (B, T, dim). q, k and v go to the attention dispatcher
     as (B, H, T, D) views of the fused projection's (B, T, 3, H, D), with no
     copy: the bfloat16 kernels read them where they lie, write the output
-    token-major, and :meth:`merge` is then a view as well."""
+    token-major, and :meth:`merge` is then a view as well. Under tensor
+    parallel the rank's H / model heads: ``qkv`` column-parallel (its shard
+    holds those heads of q, k and v), ``proj`` row-parallel."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -106,7 +109,8 @@ class MHSA(nn.Module):
         whole (B, T, 3, H, D) tensor)."""
         B, T, D = x.shape
         H = self.num_heads
-        qkv = self.qkv(x).reshape(B, T, 3, H, D // H)
+        qkv = self.qkv(x).reshape(B, T, 3, H // tp.model_size(
+            self.qkv.weight), D // H)
         return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
 
     def merge(self, out: torch.Tensor) -> torch.Tensor:
@@ -186,8 +190,11 @@ class DiTBlock(nn.Module):
 
     def modulation(self, c: torch.Tensor):
         """(shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
-        gate_mlp), each (B, hidden) in ``norm_dtype``."""
-        return self.adaLN_modulation(c).to(self.norm_dtype).chunk(6, dim=-1)
+        gate_mlp), each (B, hidden) in ``norm_dtype`` (gathered whole from
+        the ranks' slices of the six under tensor parallel)."""
+        mods = tp.gather_from_model(self.adaLN_modulation(c),
+                                    self.adaLN_modulation[1].weight)
+        return mods.to(self.norm_dtype).chunk(6, dim=-1)
 
     def pre_attn(self, x, shift_msa, scale_msa):
         """The attention's q, k, v."""

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from uurg_torch.core.rng import rand_rows
 from uurg_torch.ops.flash_attention import attention
 from uurg_torch.ops.group_norm import group_norm
+from uurg_torch.parallel import tensor as tp
 
 _CL = torch.channels_last
 
@@ -43,11 +44,11 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 class Linear(nn.Linear):
-    """Linear whose float32 parameters are cast to the input dtype."""
+    """Linear whose float32 parameters are cast to the input dtype; the
+    column- or row-parallel form on a tensor-parallel weight."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype))
+        return tp.linear(x, self.weight, self.bias, x.dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -50,6 +50,7 @@ from uurg_torch.models.init import init_classifier
 from uurg_torch.models.layers import (Conv2d, GroupNorm32, Linear,
                                       swish, timestep_embedding)
 from uurg_torch.ops.flash_attention import attention, attention_plain
+from uurg_torch.parallel.tensor import model_size
 
 LN_EPS = 1e-6           # flax nn.LayerNorm
 REMAT_POLICIES = (None, "dots")
@@ -84,7 +85,9 @@ class CrossAttention(nn.Module):
     """(B, T, C) -> (B, T, C): heads of ``dim_head`` from bias-free
     ``to_q`` (of x), ``to_k`` and ``to_v`` (of the context, or of x for
     self-attention), then ``to_out``. q, k and v are (B, H, T, D) views of
-    the projections: the bf16 kernels read them where they lie."""
+    the projections: the bf16 kernels read them where they lie. Under
+    tensor parallel the rank's ``heads`` / model heads: ``to_q``, ``to_k``
+    and ``to_v`` column-parallel, ``to_out`` row-parallel."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: int | None = None):
@@ -103,7 +106,7 @@ class CrossAttention(nn.Module):
         context = x if self_attn else context
         B, T, _ = x.shape
         S = context.shape[1]
-        H, D = self.heads, self.dim_head
+        H, D = self.heads // model_size(self.to_q.weight), self.dim_head
         q = self.to_q(x).reshape(B, T, H, D).transpose(1, 2)
         k = self.to_k(context).reshape(B, S, H, D).transpose(1, 2)
         v = self.to_v(context).reshape(B, S, H, D).transpose(1, 2)
@@ -116,6 +119,9 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """Value times the tanh GELU of the gate, both from one projection
+    (under tensor parallel the rank's slice of each)."""
+
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
         self.proj = Linear(dim, 2 * dim_out)

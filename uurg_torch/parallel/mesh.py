@@ -1,6 +1,7 @@
-"""Device meshes, batch splits and FSDP placement on ``torch.distributed``.
+"""Device meshes, batch splits, FSDP and tensor-parallel placement on
+``torch.distributed``.
 
-Port of the data-parallel and FSDP half of ``uurg_tpu/parallel/mesh.py``.
+Port of ``uurg_tpu/parallel/mesh.py``.
 The JAX package names a ``jax.sharding.Mesh`` and lets pjit insert the
 collectives; here a mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 of processes (one card each) and the collectives are explicit:
@@ -12,25 +13,36 @@ of processes (one card each) and the collectives are explicit:
 - FSDP: FSDP2's ``fully_shard`` shards each parameter on the dimension
   :func:`fsdp_spec` picks, JAX's rule; the small and indivisible ones stay
   whole, as JAX replicates them, and their gradients are averaged by hand.
+- tensor parallel: path rules (:data:`DIT_TP_RULES`, :data:`SD_TP_RULES`)
+  make the attention and MLP projections DTensors sharded over the
+  ``model`` axis, Megatron's column and row pairs; the layers run on their
+  shards with the paired operators of :mod:`uurg_torch.parallel.tensor`,
+  which pjit inserts on the JAX side.
 
-Tensor parallelism (the JAX module's second half) is not ported yet
-(ROADMAP Queue 1 item 8b).
+Every helper that gives or takes a whole tensor (:func:`local_slice`,
+:func:`shard_like`, :func:`full_tensor`, :func:`full_state_dict`, the
+optimizer state's pair) works in the one-device layout, so masks, Fishers,
+checkpoints and resume see no sharding.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import math
+import re
 import sys
 import warnings
-from typing import Any, Iterable, Mapping
+from typing import Any, Iterable, Mapping, NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from uurg_torch.parallel.dist import initialize_single, is_initialized
 
-DATA = "data"
+log = logging.getLogger("uurg_torch.parallel")
+
+DATA, MODEL = "data", "model"
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None,
@@ -242,51 +254,115 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if is_sharded(t) else t
 
 
+# the attribute a tensor-parallel parameter (and a tensor placed like it)
+# carries: the number of fused pieces along its sharded dimension
+_PIECES = "_tp_pieces"
+
+
+def tp_pieces(t) -> int | None:
+    """The fused pieces along a tensor-parallel DTensor's sharded dimension
+    (1 for a plain projection, 3 for qkv, 6 for adaLN, 2 for GEGLU), as
+    :func:`shard_params_tp` recorded it on the parameter and
+    :func:`shard_like` / :func:`zeros_like` carry it; None for any other
+    tensor."""
+    return getattr(t, _PIECES, None)
+
+
+def _carry_pieces(t: torch.Tensor, like) -> torch.Tensor:
+    k = tp_pieces(like)
+    if k is not None:
+        setattr(t, _PIECES, k)
+    return t
+
+
+def zeros_like(t: torch.Tensor) -> torch.Tensor:
+    """``torch.zeros_like(t)``, placed as ``t`` is, its pieces too (a
+    gradient buffer)."""
+    return _carry_pieces(torch.zeros_like(t), t)
+
+
+def _piece_slice(full: torch.Tensor, dim: int, pieces: int, n: int,
+                 index: int) -> torch.Tensor:
+    """Shard ``index`` of ``n`` along ``dim`` of the one-device ``full``:
+    the index-th slice of each of its ``pieces`` fused pieces, in order."""
+    if pieces == 1:
+        return full.chunk(n, dim=dim)[index]
+    return torch.cat([p.chunk(n, dim=dim)[index]
+                      for p in full.chunk(pieces, dim=dim)], dim=dim)
+
+
+def _piece_order(gathered: torch.Tensor, dim: int, pieces: int,
+                 n: int) -> torch.Tensor:
+    """The one-device layout of ``n`` shards of :func:`_piece_slice`
+    concatenated in rank order along ``dim``."""
+    if pieces == 1:
+        return gathered
+    m = gathered.shape[dim] // (n * pieces)
+    return gathered.unflatten(dim, (n, pieces, m)).transpose(
+        dim, dim + 1).flatten(dim, dim + 2)
+
+
 def local_slice(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The part of the whole tensor ``full`` that this rank holds of the
-    DTensor ``like`` (``full`` when ``like`` is whole). No communication."""
+    """The part of the whole (one-device layout) tensor ``full`` that this
+    rank holds of the DTensor ``like`` (``full`` when ``like`` is whole).
+    No communication."""
     if not is_sharded(like):
         return full
     mesh, coord = like.device_mesh, like.device_mesh.get_coordinate()
+    pieces = tp_pieces(like) or 1
     out = full
     for i, placement in enumerate(like.placements):
         if placement.is_shard():
-            out = out.chunk(mesh.size(i), dim=placement.dim)[coord[i]]
+            out = _piece_slice(out, placement.dim, pieces, mesh.size(i),
+                               coord[i])
     return out
 
 
 def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``full`` placed as the DTensor ``like`` is (its mesh and placements,
-    this rank's slice, no communication); ``full`` when ``like`` is
+    """``full`` placed as the DTensor ``like`` is (its mesh, placements and
+    pieces, this rank's slice, no communication); ``full`` when ``like`` is
     whole."""
     if not is_sharded(like):
         return full
     from torch.distributed.tensor import DTensor
 
     part = local_slice(full, like).to(local(like).device).contiguous()
-    return DTensor.from_local(part, like.device_mesh, like.placements,
-                              run_check=False, shape=like.shape,
-                              stride=like.stride())
+    return _carry_pieces(DTensor.from_local(
+        part, like.device_mesh, like.placements, run_check=False,
+        shape=like.shape, stride=like.stride()), like)
 
 
-def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """The whole tensor of a DTensor (a collective: every rank of its mesh
-    calls it), any other tensor itself."""
-    return t.full_tensor() if is_sharded(t) else t
+def full_tensor(t: torch.Tensor, like: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """The whole tensor of a DTensor in the one-device layout (a
+    collective: every rank of its mesh calls it), any other tensor itself.
+    The pieces are read from ``like`` when given (an optimizer moment of
+    the parameter ``like``), else from ``t``."""
+    if not is_sharded(t):
+        return t
+    whole = t.full_tensor()
+    pieces = tp_pieces(t if like is None else like)
+    if pieces:
+        dim = next(p.dim for p in t.placements if p.is_shard())
+        whole = _piece_order(whole, dim, pieces, t.device_mesh.size())
+    return whole
 
 
 def full_state_dict(module: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """``module.state_dict()`` with whole tensors on the CPU (a collective
-    under FSDP)."""
-    return {k: full_tensor(v.detach()).cpu()
+    """``module.state_dict()`` with whole tensors on the CPU in the
+    one-device layout (a collective under FSDP and tensor parallel)."""
+    params = dict(module.named_parameters())
+    return {k: full_tensor(v.detach(), params.get(k)).cpu()
             for k, v in module.state_dict().items()}
 
 
 def full_optimizer_state(opt: torch.optim.Optimizer) -> dict:
-    """``opt.state_dict()`` with whole tensors on the CPU (a collective
-    under FSDP)."""
+    """``opt.state_dict()`` with whole tensors on the CPU in the one-device
+    layout (a collective under FSDP and tensor parallel)."""
+    params = [p for g in opt.param_groups for p in g["params"]]
     sd = opt.state_dict()
-    sd["state"] = {i: {k: full_tensor(v).cpu() if torch.is_tensor(v) else v
+    sd["state"] = {i: {k: full_tensor(v, params[i]).cpu()
+                       if torch.is_tensor(v) else v
                        for k, v in st.items()}
                    for i, st in sd["state"].items()}
     return sd
@@ -358,6 +434,31 @@ def _blocks(model: torch.nn.Module) -> list[torch.nn.Module]:
     return out
 
 
+def _fully_shard(model: torch.nn.Module, mesh, axis: str,
+                 dims: Mapping[str, int | None]) -> None:
+    """FSDP2's ``fully_shard`` over ``axis`` of ``mesh`` (with a ``data``
+    axis beside it, FSDP2's hybrid form: replicated over ``data``), the
+    model's blocks (:func:`_blocks`, those that hold a parameter it shards)
+    first and then the root: each parameter that ``dims`` gives a dimension
+    sharded on it, every other one FSDP2's ``ignored_params``."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    params = dict(model.named_parameters())
+    dim = {id(params[n]): d for n, d in dims.items() if d is not None}
+    ignored = {p for p in params.values() if id(p) not in dim}
+    if axis != DATA and DATA in mesh_shape(mesh):
+        sub = mesh[(DATA, axis)]
+    else:
+        sub = mesh[axis]
+    kw = dict(mesh=sub, shard_placement_fn=lambda p: Shard(dim[id(p)]),
+              ignored_params=ignored)
+    for block in _blocks(model):
+        if any(p not in ignored for p in block.parameters()):
+            fully_shard(block, **kw)
+    fully_shard(model, **kw)
+
+
 def shard_params_fsdp(model: torch.nn.Module, mesh, axis: str = "model",
                       min_size: int = 2**14) -> torch.nn.Module:
     """Shard ``model`` in place with FSDP2's ``fully_shard``, its blocks
@@ -370,40 +471,197 @@ def shard_params_fsdp(model: torch.nn.Module, mesh, axis: str = "model",
     axis this is FSDP2's hybrid form: replicated over ``data``, sharded
     over ``axis``. Returns ``model``; a mesh with no axis larger than 1
     leaves it as it is."""
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
-
     resolved = _resolve_axis(mesh, axis)
-    if resolved is None:
-        return model
-    specs = fsdp_param_specs(model, mesh, axis, min_size)
-    dim = {id(p): specs[n] for n, p in model.named_parameters()}
-    ignored = {p for n, p in model.named_parameters() if specs[n] is None}
-    shape = mesh_shape(mesh)
-    if resolved != DATA and DATA in shape:
-        sub = mesh[(DATA, resolved)]
-    else:
-        sub = mesh[resolved]
-    kw = dict(mesh=sub, shard_placement_fn=lambda p: Shard(dim[id(p)]),
-              ignored_params=ignored)
-    for block in _blocks(model):
-        if any(p not in ignored for p in block.parameters()):
-            fully_shard(block, **kw)
-    fully_shard(model, **kw)
+    if resolved is not None:
+        _fully_shard(model, mesh, resolved,
+                     fsdp_param_specs(model, mesh, axis, min_size))
     return model
 
 
-def place_model(model: torch.nn.Module, mesh,
-                parallelism: str = "dp") -> torch.nn.Module:
+# -- tensor parallel ----------------------------------------------------------
+#
+# Megatron's column- and row-parallel pairs as path rules, the twins of the
+# JAX module's on the port's parameter names and torch's (out, in) weights:
+# a column-parallel rule shards dimension 0 (flax's last), a row-parallel
+# one dimension 1, over the ``model`` axis. The first matching rule wins; a
+# dimension its pieces times the axis size does not divide falls through to
+# the fallback, as do unmatched parameters (row-parallel biases among
+# them): kept whole, or FSDP-sharded over the same axis. GSPMD reshards a
+# fused projection after a contiguous cut; here rank r's shard holds the
+# r-th slice of each fused piece, and the layers run on their shards with
+# the paired operators of uurg_torch/parallel/tensor.py. One rule the port
+# adds, for want of GSPMD: an attention's column and row pair is sharded
+# only when the axis size divides its head count, else the whole pair
+# falls through (with a warning naming it).
+
+class TPRule(NamedTuple):
+    """Parameters whose name ``pattern`` matches (``re.search``) are
+    sharded on ``dim`` over the ``model`` axis: 0 column-parallel (output
+    features), 1 row-parallel (input features). ``pieces`` fused
+    projections lie along ``dim`` (qkv's 3, adaLN's 6, GEGLU's value and
+    gate): rank r's shard holds the r-th slice of each."""
+
+    pattern: str
+    dim: int
+    pieces: int = 1
+
+
+# DiT blocks: qkv, mlp.fc1 and adaLN column-parallel, attn.proj and
+# mlp.fc2 row-parallel; embedders and the final layer whole. JAX names the
+# final modulation final_adaLN, which its rule does not match: the port's
+# final_layer.adaLN_modulation.1 is kept whole by anchoring on the blocks
+DIT_TP_RULES: list[TPRule] = [
+    TPRule(r"attn\.qkv\.(weight|bias)$", 0, 3),
+    TPRule(r"mlp\.fc1\.(weight|bias)$", 0),
+    TPRule(r"^blocks\.\d+\.adaLN_modulation\.1\.(weight|bias)$", 0, 6),
+    TPRule(r"attn\.proj\.weight$", 1),
+    TPRule(r"mlp\.fc2\.weight$", 1),
+]
+
+# SD's spatial transformers: q, k, v and GEGLU column-parallel, to_out and
+# ff_out row-parallel; convolutions, norms and embeddings fall through
+# (fallback="fsdp" shards those over the same axis)
+SD_TP_RULES: list[TPRule] = [
+    TPRule(r"attn[12]\.to_[qkv]\.weight$", 0),
+    TPRule(r"ff_geglu\.proj\.(weight|bias)$", 0, 2),
+    TPRule(r"attn[12]\.to_out\.weight$", 1),
+    TPRule(r"ff_out\.weight$", 1),
+]
+
+
+class ParamShard(NamedTuple):
+    """A parameter's placement: ``kind`` ``"tp"`` (a rule's, ``pieces``
+    fused pieces) or ``"fsdp"`` (the fallback's), on dimension ``dim``."""
+
+    kind: str
+    dim: int
+    pieces: int = 1
+
+
+def _head_count(module: torch.nn.Module) -> int | None:
+    """An attention's head count: DiT's MHSA ``num_heads``, SD's
+    CrossAttention ``heads``; None for any other module."""
+    for attr in ("num_heads", "heads"):
+        h = getattr(module, attr, None)
+        if isinstance(h, int):
+            return h
+    return None
+
+
+def tp_param_specs(model: torch.nn.Module, mesh,
+                   rules=DIT_TP_RULES, fallback: str = "replicate",
+                   fsdp_min_size: int = 2**14
+                   ) -> dict[str, ParamShard | None]:
+    """``{parameter name: its ParamShard, or None (whole)}`` from the
+    rules (first match wins): a matched parameter is sharded on the rule's
+    dimension when the ``model`` axis's size times the rule's pieces
+    divides it, and its attention's head count splits over the axis;
+    otherwise, and unmatched, it takes ``fallback``: whole
+    (``"replicate"``) or :func:`fsdp_spec`'s dimension at
+    ``fsdp_min_size`` (``"fsdp"``). A mesh without a ``model`` axis
+    raises JAX's ``ValueError``."""
+    shape = mesh_shape(mesh)
+    if MODEL not in shape:
+        raise ValueError(
+            f"tensor-parallel rules shard over mesh axes [{MODEL!r}] that "
+            f"the mesh {shape} does not have — pass e.g. --mesh "
+            f"data=-1,model=2 (or use --parallelism fsdp)")
+    n = shape[MODEL]
+    compiled = [(re.compile(r.pattern), r) for r in rules]
+
+    def fall(p) -> ParamShard | None:
+        if fallback != "fsdp":
+            return None
+        d = fsdp_spec(tuple(p.shape), n, fsdp_min_size)
+        return None if d is None else ParamShard("fsdp", d)
+
+    params = dict(model.named_parameters())
+    specs: dict[str, ParamShard | None] = {}
+    for name, p in params.items():
+        rule = next((r for rx, r in compiled if rx.search(name)), None)
+        if (rule is not None and rule.dim < p.dim()
+                and p.shape[rule.dim] % (rule.pieces * n) == 0):
+            specs[name] = ParamShard("tp", rule.dim, rule.pieces)
+        else:
+            specs[name] = fall(p)
+    def owner(name: str) -> str:     # the module of a projection's module
+        return ".".join(name.split(".")[:-2])
+
+    whole = {}
+    for name, spec in specs.items():
+        if spec is not None and spec.kind == "tp":
+            heads = _head_count(model.get_submodule(owner(name)))
+            if heads and heads % n:
+                whole[owner(name)] = heads
+    for name in specs:
+        if owner(name) in whole:
+            specs[name] = fall(params[name])
+    if whole:
+        warnings.warn(
+            f"tensor parallel keeps {len(whole)} attention(s) whole: their "
+            f"heads do not split over model={n} "
+            f"({', '.join(f'{a}: {h} heads' for a, h in whole.items())})",
+            stacklevel=2)
+    return specs
+
+
+def is_tp(t) -> bool:
+    """Whether ``t`` is a tensor-parallel parameter (or placed like one)."""
+    return tp_pieces(t) is not None
+
+
+def shard_params_tp(model: torch.nn.Module, mesh, rules=DIT_TP_RULES,
+                    fallback: str = "replicate") -> torch.nn.Module:
+    """Place ``model`` in place by :func:`tp_param_specs`: each rule's
+    parameter becomes a DTensor sharded over the ``model`` axis (rank r's
+    slice of each fused piece, the piece count recorded on it); under
+    ``fallback="fsdp"`` FSDP2 then shards the fallback's parameters over
+    the same axis (the tensor-parallel ones among its ``ignored_params``:
+    FSDP2 cannot shard a DTensor again over the dimension it spans). The
+    rest stay whole. Returns ``model``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    specs = tp_param_specs(model, mesh, rules, fallback)
+    sub = mesh[MODEL]
+    n, index = sub.size(), sub.get_local_rank()
+    for name, spec in specs.items():
+        if spec is None or spec.kind != "tp":
+            continue
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        p = getattr(mod, leaf)
+        part = _piece_slice(p.detach(), spec.dim, spec.pieces, n, index)
+        new = torch.nn.Parameter(DTensor.from_local(
+            part.contiguous(), sub, [Shard(spec.dim)], run_check=False,
+            shape=p.shape, stride=p.stride()), requires_grad=p.requires_grad)
+        setattr(new, _PIECES, spec.pieces)
+        setattr(mod, leaf, new)
+    fsdp = {k: s.dim for k, s in specs.items()
+            if s is not None and s.kind == "fsdp"}
+    if fsdp:
+        _fully_shard(model, mesh, MODEL, fsdp)
+    kinds = [s.kind if s else "whole" for s in specs.values()]
+    log.info("tensor parallel over model=%d: %d parameters sharded by the "
+             "rules, %d by FSDP, %d whole", n, kinds.count("tp"),
+             kinds.count("fsdp"), kinds.count("whole"))
+    return model
+
+
+def place_model(model: torch.nn.Module, mesh, parallelism: str = "dp",
+                tp_rules=DIT_TP_RULES,
+                tp_fallback: str = "replicate") -> torch.nn.Module:
     """A model on ``mesh`` for ``parallelism``: its weights broadcast from
     rank 0, then, under ``fsdp``, sharded (:func:`shard_params_fsdp` over
-    the ``model`` axis, or the largest). Returns ``model``; nothing happens
-    without a mesh."""
+    the ``model`` axis, or the largest), under ``tp`` placed by
+    :func:`shard_params_tp` with ``tp_rules`` and ``tp_fallback``. Returns
+    ``model``; nothing happens without a mesh."""
     if mesh is None:
         return model
     replicate(model)
     if parallelism == "fsdp":
         shard_params_fsdp(model, mesh)
+    elif parallelism == "tp":
+        shard_params_tp(model, mesh, tp_rules, tp_fallback)
     return model
 
 

@@ -188,12 +188,18 @@ def make_optimizer(
                             eps=eps, weight_decay=weight_decay)
 
 
+def _mesh_of(p) -> object:
+    """A parameter's device mesh when it is sharded (FSDP's, tensor
+    parallel's), else None."""
+    return p.device_mesh if is_sharded(p) else None
+
+
 def _torch_optimizer(cls, params: list, **kw) -> torch.optim.Optimizer:
-    """``cls(params, **kw)``; over FSDP's mix of sharded (DTensor) and
-    whole parameters, one whose step runs its multi-tensor kernels on the
-    two kinds apart (a ``_foreach`` op takes no mixed list; on the card
-    torch.optim steps with them)."""
-    kinds = {is_sharded(p) for p in params}
+    """``cls(params, **kw)``; over a mix of whole parameters and DTensors
+    (FSDP's, tensor parallel's, on their meshes), one whose step runs its
+    multi-tensor kernels on each kind apart (a ``_foreach`` op takes no
+    list that mixes them; on the card torch.optim steps with them)."""
+    kinds = list(dict.fromkeys(_mesh_of(p) for p in params))
     if len(kinds) < 2:
         return cls(params, **kw)
 
@@ -202,8 +208,8 @@ def _torch_optimizer(cls, params: list, **kw) -> torch.optim.Optimizer:
             groups = self.param_groups
             self.param_groups = [
                 dict(g, params=[p for p in g["params"]
-                                if is_sharded(p) == sharded])
-                for g in groups for sharded in (True, False)]
+                                if _mesh_of(p) == kind])
+                for g in groups for kind in kinds]
             try:
                 return super().step(closure)
             finally:

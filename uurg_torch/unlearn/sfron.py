@@ -37,10 +37,14 @@ batch and, after each phase's backward and before the mask, the gradients
 are averaged over the state's ``group`` in one flat all-reduce (the twin of
 the loss-mean psum that pjit inserts), the phase's loss with them. Under
 FSDP the sharded parameters' gradients come reduced from FSDP2's reduce-
-scatter and only the whole ones are averaged here; the mask, the clip and
-the EMA then run shard by shard. ``make_sfron_scan`` (many steps per device
-dispatch, for a slow host link) is not ported: the classification method
-loops over this step with batches drawn on the device
+scatter and only the whole ones are averaged here; under tensor parallel
+every rank of the ``model`` axis holds the gradient of its shards (and the
+same whole gradients), which are averaged over the ``data`` group alone
+(the state's ``group``); the mask, the clip and the EMA then run shard by
+shard, the clip's norm summing each shard once. ``make_sfron_scan`` (many
+steps per device dispatch, for a slow host link) is not ported: the
+classification method loops over this step with batches drawn on the
+device
 (:func:`uurg_torch.unlearn.methods.classification.device_batcher`).
 """
 from __future__ import annotations
@@ -53,7 +57,8 @@ import torch
 
 from uurg_torch.core import tree as tr
 from uurg_torch.diffusion.losses import cosine_alpha_decay, linear_alpha_decay
-from uurg_torch.parallel.mesh import all_reduce_mean_, is_sharded, local
+from uurg_torch.parallel.mesh import (all_reduce_mean_, is_sharded, is_tp,
+                                      local, zeros_like)
 from uurg_torch.train.optim import set_lr
 from uurg_torch.unlearn.ema import ema_update, fast_slow_mix
 
@@ -108,7 +113,7 @@ def init_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     if ema and ema_model is None:
         ema_model = make_shadow(model)
     for p in model.parameters():
-        p.grad = torch.zeros_like(p)
+        p.grad = zeros_like(p)
     return SFRonState(model=model, optimizer=optimizer, ema_model=ema_model,
                       mask=mask, group=group)
 
@@ -187,11 +192,13 @@ def make_sfron_step(cfg: SFRonConfig, forget_loss_fn: Optional[LossFn],
         def zero_grads():
             torch._foreach_zero_([local(g) for g in grads.values()])
 
-        whole = [g for g in grads.values() if not is_sharded(g)]
+        whole = [local(grads[k]) for k, p in params.items()
+                 if not is_sharded(p) or is_tp(p)]
 
         def reduce(*losses: torch.Tensor) -> list[torch.Tensor]:
-            """Average the gradients FSDP does not reduce and the losses
-            over the group, in one flat all-reduce."""
+            """Average the gradients FSDP does not reduce (the whole and
+            the tensor-parallel ones) and the losses over the group, in
+            one flat all-reduce."""
             if state.group is None:
                 return list(losses)
             flat = torch.stack(losses).float()

@@ -7,9 +7,9 @@ Port of ``uurg_tpu/workloads/dit_runner.py``: ``dit_forget``
 (DiT/generate_mask.py:16-57), ``dit_sample_grid`` (the snapshot sample
 sheets of DiT/forget.py:344-345) and ``dit_sample_fid`` (DiT/sample.py and
 DiT/sample_ddp.py: class-conditional samples, decoded by the VAE).
-``dit_forget`` runs data parallel and FSDP on a ``DeviceMesh``
-(:mod:`uurg_torch.parallel`); tensor parallel, the pipeline and ring
-attention raise (ROADMAP Queue 1 items 8b and 8c).
+``dit_forget`` runs data parallel, FSDP and tensor parallel on a
+``DeviceMesh`` (:mod:`uurg_torch.parallel`); the pipeline and ring
+attention raise (ROADMAP Queue 1 item 8c).
 
 Checkpoints are ``torch.save`` files in the reference DiT layout
 (:mod:`uurg_torch.io.dit_interop`): ``<ckpt_dir>/ckpt_{i:07d}.pt`` and
@@ -35,9 +35,9 @@ from uurg_torch.io.checkpoint import save_checkpoint
 from uurg_torch.io.dit_interop import save_dit_checkpoint
 from uurg_torch.models.dit import DiT
 from uurg_torch.parallel.dist import rank, sync_global_devices, world_size
-from uurg_torch.parallel.mesh import (data_group, full_optimizer_state,
-                                      full_state_dict, place_like,
-                                      place_model, shard_batch,
+from uurg_torch.parallel.mesh import (DIT_TP_RULES, data_group,
+                                      full_optimizer_state, full_state_dict,
+                                      place_like, place_model, shard_batch,
                                       shard_optimizer_state, split_batches)
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.fisher import accumulate_fisher
@@ -59,8 +59,9 @@ def device_batch(batch, device: torch.device):
 
 
 def _save_train_state(path: str, state: SFRonState) -> None:
-    """Step, model, optimizer and EMA as whole tensors (gathered under
-    FSDP, which every rank calls), written by rank 0."""
+    """Step, model, optimizer and EMA as whole tensors in the one-device
+    layout (gathered under FSDP and tensor parallel, which every rank
+    calls), written by rank 0."""
     payload = {"step": int(state.step),
                "model": full_state_dict(state.model),
                "optimizer": full_optimizer_state(state.optimizer),
@@ -131,8 +132,10 @@ def dit_forget(
     batches) each rank takes its rows over the ``data`` axis (dimension 1
     of ``grad_accum`` stacks) and draws the global batch's randomness;
     ``parallelism="fsdp"`` shards the parameters, the EMA, the Adam
-    moments and a dense mask alike (a packed mask stays whole). The train
-    state is read whole before sharding and written whole by rank 0."""
+    moments and a dense mask alike (a packed mask stays whole), and
+    ``"tp"`` places them alike by :data:`DIT_TP_RULES` over the ``model``
+    axis (the rest whole). The train state is read whole before sharding
+    and written whole by rank 0, as are the checkpoints."""
     refuse_multi_device(parallelism, pp_microbatches)
     dev = wl.device
     ema_model = make_shadow(model)
@@ -143,7 +146,7 @@ def dit_forget(
         if os.path.exists(resume):
             ck = _load_train_state(resume, model, ema_model)
     for m in (model, ema_model):
-        place_model(m, mesh, parallelism)
+        place_model(m, mesh, parallelism, DIT_TP_RULES)
     opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=0.0,
                          mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     if mask is not None:

@@ -12,9 +12,9 @@ given in place and draws from a generator on the workload's device seeded
 from ``(seed, step)`` (:func:`~uurg_torch.core.rng.step_seed`). The
 ``train_method`` subset (``train_method_leaf_mask``) is the only part the
 optimizer holds: frozen parameters get no update and no Adam state, as
-``optax.set_to_zero`` gives in JAX. ``nsfw_removal`` runs data parallel
-and FSDP on a ``DeviceMesh`` (:mod:`uurg_torch.parallel`); tensor and
-sequence parallel raise.
+``optax.set_to_zero`` gives in JAX. ``nsfw_removal`` runs data parallel,
+FSDP and tensor parallel on a ``DeviceMesh`` (:mod:`uurg_torch.parallel`);
+sequence parallel raises.
 """
 from __future__ import annotations
 
@@ -30,8 +30,9 @@ from uurg_torch.core import tree as tr
 from uurg_torch.core.device import refuse_multi_device
 from uurg_torch.core.rng import step_seed
 from uurg_torch.models.sd_unet import SDUNet, train_method_leaf_mask
-from uurg_torch.parallel.mesh import (data_group, place_like, place_model,
-                                      shard_batch, split_batches)
+from uurg_torch.parallel.mesh import (SD_TP_RULES, data_group, place_like,
+                                      place_model, shard_batch,
+                                      split_batches)
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
                                       make_sfron_step, stack_microbatches)
@@ -133,11 +134,14 @@ def nsfw_removal(
     With a ``mesh`` (every rank of the group calls with the same global
     batches) each rank takes its rows over the ``data`` axis and draws the
     global batch's randomness; ``parallelism="fsdp"`` shards the UNet, the
-    Adam moments and a dense mask alike (a packed mask stays whole).
-    ``snapshot_hook`` runs on every rank."""
+    Adam moments and a dense mask alike (a packed mask stays whole), and
+    ``"tp"`` places them alike by :data:`SD_TP_RULES` over the ``model``
+    axis, FSDP over the same axis taking the convolutions, norms and
+    embeddings as JAX's ``fallback="fsdp"`` does. ``snapshot_hook`` runs
+    on every rank."""
     refuse_multi_device(parallelism)
     dev = wl.device
-    place_model(model, mesh, parallelism)
+    place_model(model, mesh, parallelism, SD_TP_RULES, tp_fallback="fsdp")
     opt = _method_optimizer(model, train_method, lr, nu_dtype=nu_dtype)
     mask = None
     if saliency_mask is not None:

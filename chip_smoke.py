@@ -38,7 +38,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on its plain path: relative L2 error of all parameter gradients.
 8. The training path: ``ddpm_runner.sfron_forget`` (adaga, ron, a packed
    random mask of ~50% density) on the full-width config at batch 128 + 128
-   on the synthetic CIFAR-10 stand-in: 2 warm-up steps, then 20 counted and
+   on the synthetic CIFAR-10 stand-in: 2 warm-up steps, then 10 counted and
    timed steps that resume from the warm-up's ``ckpt.pth``. Losses must be
    finite, parameters and EMA must move, and every attention and GroupNorm
    site of both phases must have gone through its forward and backward
@@ -89,7 +89,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward of every site an example); the ``fisher_dict`` it writes must
    be finite, non-negative and not all zero. ``ddpm_runner.sa_forget``
    from that file on the stand-in's remain split: 2 warm-up steps (one
-   profiled for its device time), then 10 counted and timed steps (two
+   profiled for its device time), then 5 counted and timed steps (two
    eval-mode forwards at batch 128 and their backward a step); losses
    finite, the EWC term above 0 after the first step, parameters and EMA
    moved, exact launch counts.
@@ -103,7 +103,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    clock; the probe in bf16 at batch 64. Then the twin of
    ``cli/parity_check.py`` through ``uurg_torch.cli.parity_check.run`` on
    the full-width config and the stand-in artifacts: the Fisher pass, the
-   ``fisher_1.0`` mask, 10 SFR-on steps under it, 576 remaining-class and
+   ``fisher_1.0`` mask, 10 SFR-on steps under it, 288 remaining-class and
    128 forgotten-class samples by DDIM-50 CFG, the metrics against the
    stand-in's remain split (1,858 references) and the UA probe. The launch
    counters are zeroed just before and read just after: one forward and
@@ -150,7 +150,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameter gradients, each side's distance from float64 printed), its
    call exactly 12 + 12 float32 attention launches; ``SFRon`` through the
    registry at batch 64 on a 320-image 224 px stand-in (the Fisher pass,
-   the mask, 3 + 20 of 1,500 iterations) in fp32 (float32 counters exactly
+   the mask, 3 + 10 of 1,500 iterations) in fp32 (float32 counters exactly
    12 a forward and 12 a backward, bf16 counters 0) and in bf16 (the
    reverse); Swin_T card against CPU and 3 SFR-on iterations with no
    attention launch; then each in this process:
@@ -184,11 +184,11 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    side's distance from float64). Then on a stand-in of 2,048 seeded
    latents over 10 classes in 4 shards (``write_latent_shards``), each in
    this process, from a reference ``.pt`` of the seeded model perturbed
-   (``--ckpt``): ``dit_generate_fisher`` (class 0, 4 batches of 1),
+   (``--ckpt``): ``dit_generate_fisher`` (class 0, 2 batches of 1),
    ``dit_generate_mask`` (threshold 1.0), ``forget`` (the mask packed,
    adaga, 3 steps, snapshot and checkpoints at step 3; ``final.pt`` read
    back). ``dit_forget`` at batch 32 + 32 under that mask, 2 warm-up steps
-   and one profiled, then 5 counted and timed, under full and ``attn``
+   and one profiled, then 3 counted and timed, under full and ``attn``
    remat (attention launches exactly 28 + 28 or 28 forwards and 28
    backwards a phase; GroupNorm's 0; steps/s, busy share, peak memory);
    ``dit_sample_grid`` (50 steps, CFG 4.0, 16 labels; 28 forward launches
@@ -249,7 +249,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    mask ``sd_generate_fisher`` wrote. (b) ``sd_runner.nsfw_removal`` on the
    full-width UNet at batch 4 + 4, train_method full, under that mask dense
    and packed: 2 warm-up steps (the dense run's third step profiled: device
-   ms by kernel family), then 3 counted steps, each on the host clock,
+   ms by kernel family), then 2 counted steps, each on the host clock,
    with exact launch counts (a step: the forget phase's trained forward,
    its pseudo target's ``no_grad`` forward and the remain phase's trained
    forward, each trained one run again in the remat'd backward); losses
@@ -299,7 +299,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    seeded, perturbed DiT-XL/2 with ``mesh=data=1,model=1`` and
    ``parallelism="fsdp"`` (FSDP2 over the blocks, 2 steps at 32 + 32, a
    dense mask sharded like the parameters), ``nsfw_removal`` on phase
-   20's seeded UNet the same way (1 step at 4 + 4, a packed mask). Each
+   20's seeded UNet the same way (2 steps at 4 + 4, a packed mask). Each
    prints the largest parameter difference and the relative L2 (gate
    1e-6: one rank changes no arithmetic), the four kernels' launches
    (equal to the one-device run's), the call's ms and peak memory.
@@ -312,6 +312,22 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    every qkv (3 pieces), adaLN (6), GEGLU (2) and other projection they
    name, and gates each run as phase 23 does (relative L2 1e-6, launches
    equal), with the call's ms, peak memory and the profiled last step.
+
+25. Ring attention and the DiT pipeline (``uurg_torch/parallel/
+   {sequence,pipeline}.py``) on the same one-rank group. (a) The ring's
+   arithmetic over 2 and 4 ranks in this process
+   (``ring_attention_loopback``: the ranks stacked along the batch, S
+   forward and S backward kernel calls) at DiT-XL/2's (32, 16, 256, 72)
+   on MHSA's views and SD's (4, 8, 4096, 40) in bf16, and DiT's (2, 16,
+   256, 72) in float32, against ``attention_plain`` and its autograd at
+   phases 18's and 20's gates, with exact launches, timed beside one
+   whole kernel call. (b) ``dit_forget`` under ``sp`` on data=1,seq=1 and
+   under ``pp`` on stage=1 in 1 and 2 microbatches, (c) ``nsfw_removal``
+   under ``sp`` on seq=1, each against phase 23's one-device run: one
+   rank in one microbatch gated as phase 23 (relative L2 1e-6, launches
+   equal); 2 microbatches by the update's relative L2 (PP_UPDATE_REL) and
+   twice the attention launches; each with the call's ms, peak memory and
+   the profiled last step.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -345,7 +361,7 @@ TRAIN_BATCH = 128        # configs/cifar10_sfron.yml training.batch_size
 DDIM_STEPS = 50
 COND_SCALE = 2.0
 SEED = 0
-WARMUP_STEPS, TRAIN_STEPS = 2, 20
+WARMUP_STEPS, TRAIN_STEPS = 2, 10
 FORGET_ALPHA = 10.0      # cli/train.py --forget_alpha default
 
 # configs/cifar10_sfron.yml, the sections the sampling and training paths
@@ -483,7 +499,7 @@ SA_CONFIG = {
 FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 4, 4
 FIM_EXAMPLE_BATCH = (SA_CONFIG["diffusion"]["num_diffusion_timesteps"]
                      // FIM_CHUNKS)
-SA_WARMUP_STEPS, SA_STEPS = 2, 10
+SA_WARMUP_STEPS, SA_STEPS = 2, 5
 # evaluation and the twin of cli/parity_check.py (phase 14). The networks on
 # the card against the same weights on the CPU, fp32 with TF32 off: relative
 # error of the max magnitude (cuDNN and the CPU sum the convolutions in
@@ -493,9 +509,10 @@ EVAL_CHECK_BATCH = 4
 INCEPTION_BATCH, INCEPTION_IMAGES = 256, 2048
 PROBE_BATCH, PROBE_IMAGES = 64, 512
 # the twin's cuts of the full north-star run: SFR-on 10 of 150 iterations,
-# 64 samples a remaining class (576 of 45,000), 128 probe samples of
-# 5,000; DDIM-50 and the references (the stand-in's remain split) uncut
-PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 576, 128
+# 32 samples a remaining class (288 of 45,000; the nine classes must
+# divide it), 128 probe samples of 5,000; DDIM-50 and the references (the
+# stand-in's remain split) uncut
+PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 288, 128
 # classification (phase 15): ResNet-18 with the CIFAR stem at full width on
 # a CIFAR-10-sized stand-in (50,000 train and 10,000 test images of 32 px,
 # 10 classes, noise 0.5), random 10% forgetting (5,000 forget, 45,000
@@ -535,7 +552,7 @@ VIT_REL, VIT_GRAD_REL = 1e-4, 1e-5
 # iterations to VIT_WARMUP (one profiled) + VIT_TIMED; Swin-T runs
 # SWIN_ITERS iterations without the Fisher mask
 VIT_BATCH, VIT_TRAIN = 64, 320
-VIT_WARMUP, VIT_TIMED, SWIN_ITERS = 3, 20, 3
+VIT_WARMUP, VIT_TIMED, SWIN_ITERS = 3, 10, 3
 # main_random's SFRon in the CLI runs, cut from its 1,500 iterations
 # through the method's n_iters override (sfron_cut): the ResNet-18 run
 # of phase 15 to 250 (where it logs its rate), the ViT-B/16 run of phase 17
@@ -575,8 +592,8 @@ DIT_REL, DIT_GRAD_REL = 1e-5, 3e-5
 # steps under each remat policy; the sample grid DiT's 50 respaced steps,
 # CFG 4.0, 16 labels
 DIT_LATENTS, DIT_SHARDS, DIT_STANDIN_CLASSES = 2048, 4, 10
-DIT_FISHER_ITERS, DIT_CLI_ITERS = 4, 3
-DIT_WARMUP, DIT_STEPS = 2, 5
+DIT_FISHER_ITERS, DIT_CLI_ITERS = 2, 3
+DIT_WARMUP, DIT_STEPS = 2, 3
 DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
 # the frozen VAE (phase 19): VAEConfig(), the CompVis first stage DiT uses
 # (sd-vae-ft-ema), 83,653,863 parameters, fp32 (TF32 off), seeded init, at
@@ -658,7 +675,7 @@ SD_FAMILIES = (
 # denoise cut from 50 DDIM steps to SD_ESD_DDIM (a divisor of the 1,000
 # training steps, as LDM's DDIM grid needs); the prox at the CLI's top
 # ratio
-SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 3, 2
+SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 2, 2
 SD_BASELINE_ITERS = 1          # gradient ascent, proximal, random label
 SD_ESD_DDIM, SD_TOP_RATIO = 10, 0.01
 
@@ -692,8 +709,29 @@ NUDENET_SIZE, NUDENET_ANCHORS, NUDENET_THRESHOLD = 320, 2100, 0.6
 # FSDP); DP_DRAW_RANKS: the data-parallel width at which each rank's
 # global draws (t, noise, keep and dropout masks for the whole batch) are
 # timed, on the CondUNet at TRAIN_BATCH rows a rank
-DP_DDPM_STEPS, DP_DIT_STEPS, DP_SD_STEPS, DP_REL = 2, 3, 3, 1e-6
+DP_DDPM_STEPS, DP_DIT_STEPS, DP_SD_STEPS, DP_REL = 2, 2, 2, 1e-6
 DP_DRAW_RANKS = 8
+# ring attention and the DiT pipeline (phase 25) on the same one-rank NCCL
+# group. (a) The ring's arithmetic fed RING_SEQS chunks in one process
+# (the loopback: the ranks stacked along the batch, S forward and S
+# backward kernel calls) at DiT-XL/2's attention shape on MHSA's views and
+# SD's at RING_SD_SHAPE on CrossAttention's, held to the plain attention
+# and its autograd at the gates of phases 18 and 20 (ATOL/RTOL forward,
+# BWD_REL_L2 backward), and at DIT_F32_SHAPE in float32 (the float32
+# kernels, F32_FWD_REL / F32_BWD_REL). (b) dit_forget under sp (data=1,seq=1) and pp
+# (stage=1) in 1 and PP_MICROBATCHES microbatches, (c) nsfw_removal under
+# sp (seq=1), each against phase 23's one-device run: one rank in one
+# microbatch at DP_REL with equal launches; PP_MICROBATCHES microbatches
+# change the rows of every GEMM, and Adam turns the reordered bf16 sums
+# of gradients near zero into moves of either sign: the parameters'
+# update (after - start) within PP_UPDATE_REL relative L2 of one device's
+# (tests/test_torch_parallel_pp.py's bf16 run of a depth-4 DiT over
+# DP_DIT_STEPS steps reads 0.039, the same update with one of its four
+# blocks left unchanged 0.48),
+# launches PP_MICROBATCHES times one device's
+RING_SEQS = (2, 4)
+RING_SD_SHAPE = (4, 8, 4096, 40)
+PP_MICROBATCHES, PP_UPDATE_REL = 2, 0.1
 
 
 # (seconds since the start, heading) of each phase, for the detail file
@@ -6464,6 +6502,206 @@ def tp_sd(card: str, mesh, one: tuple, call) -> dict:
     return out
 
 
+def _views(shape, gen, token_major_qkv: bool, dtype=None):
+    """(q, k, v, g) in the layout the model hands the dispatcher: DiT's
+    MHSA (views of one fused (B, T, 3, H, D) projection, a token-major
+    gradient; bf16 unless ``dtype`` says otherwise) or SD's
+    CrossAttention (views of (B, T, H D) bf16 tensors)."""
+    import torch
+
+    B, H, T, D = shape
+    if token_major_qkv:
+        return mhsa_views(B, H, T, D, gen, dtype)
+    return tuple(torch.randn(B, T, H * D, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+                 .reshape(B, T, H, D).transpose(1, 2) for _ in range(4))
+
+
+def ring_loopback(card: str, gen) -> list[dict]:
+    """Phase 25 (a): ring attention's arithmetic over S ranks in this
+    process (``ring_attention_loopback``) at DiT-XL/2's and SD's bf16
+    attention shapes and DiT's float32 one, S in RING_SEQS: the forward
+    against ``attention_plain`` and the gradients against its autograd, at
+    phases 18's and 20's gates; the launches of one forward and backward
+    exactly S and S; the ring's forward and backward timed by CUDA-graph
+    replay beside one whole kernel call on the same tensors and its
+    bound."""
+    import torch
+
+    from uurg_torch.ops import flash_attention as FA
+    from uurg_torch.parallel import sequence as SQ
+
+    rows = []
+    for tag, shape, mhsa, dtype in (
+            ("DiT", DIT_ATTN_SHAPE, True, torch.bfloat16),
+            ("SD", RING_SD_SHAPE, False, torch.bfloat16),
+            ("DiT f32", DIT_F32_SHAPE, True, torch.float32)):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        q, k, v, g = _views(shape, gen, mhsa, dtype)
+        B, H, T, D = shape
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = FA.attention_plain(*plain)
+        want_grads = torch.autograd.grad(want, plain, g)
+        want = want.detach()
+        whole_o, whole_lse = FA._attention_kernel(q, k, v, with_lse=True)
+        whole = (time_ms(lambda: FA._attention_kernel(q, k, v,
+                                                      with_lse=True))[0],
+                 time_ms(lambda: FA.attention_bwd(q, k, v, whole_o,
+                                                  whole_lse, g))[0])
+        n = B * H * T * D
+        peak = FP32_FLOPS if f32 else BF16_TC_FLOPS
+        bound = {kind: max(nb * q.element_size() / HBM_BYTES_PER_S,
+                           ops / peak) * 1e3
+                 for kind, nb, ops in (("fwd", 4 * n, 4 * n * T),
+                                       ("bwd", 7 * n, 10 * n * T))}
+        for S in RING_SEQS:
+            name = f"ring {tag} {shape} over {S} ranks"
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            torch.cuda.synchronize()
+            _zero_launches()
+            out = SQ.ring_attention_loopback(*leaves, S)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            launches = _read_all_launches()
+            want_n = {f"attention_fwd{suffix}": S,
+                      f"attention_bwd{suffix}": S}
+            got_n = {kk: launches[kk] for kk in want_n}
+            if f32:
+                fwd_err = rel_l2(f"{name}: forward", out, want, F32_FWD_REL)
+            else:
+                fwd_err = compare(f"{name}: forward", out, want)
+            bwd_err = max(rel_l2(f"{name}: d{c}", a, b,
+                                 F32_BWD_REL if f32 else BWD_REL_L2,
+                                 "autograd of the plain attention")
+                          for c, a, b in zip("qkv", grads, want_grads))
+            print(f"  {name}: launches {got_n} (expected {want_n}); "
+                  f"others {launches}", flush=True)
+            if launches != {**{kk: 0 for kk in launches}, **want_n}:
+                fail(f"{name}: launches {launches}, expected {want_n}")
+            ring = SQ._Loopback(S)
+            ql, kl, vl, gl = (ring.local(t) for t in (q, k, v, g))
+
+            def fwd():
+                return SQ.ring_forward(ql, SQ._Around(SQ.Chunk(kl, vl),
+                                                      ring.pass_on, S))
+
+            o, lse = fwd()
+
+            def bwd():
+                around = SQ._Around(SQ.Chunk(kl, vl), ring.pass_on, S,
+                                    grads=True)
+                return SQ.ring_backward(ql, around, o, lse, gl)
+
+            ms = (time_ms(fwd)[0], time_ms(bwd)[0])
+            for kind, t_ms, w_ms, err in (("fwd", ms[0], whole[0], fwd_err),
+                                          ("bwd", ms[1], whole[1], bwd_err)):
+                rows.append({"name": f"ring_attention_{kind}{suffix}",
+                             "model": tag,
+                             "shape": shape, "seq": S, "ms": t_ms,
+                             "whole_kernel_ms": w_ms,
+                             "bound_ms": bound[kind], "max_abs_err": err,
+                             "launches": S})
+                print(f"  {name}, {kind}: {t_ms:.4f} ms for {S} kernel "
+                      f"calls on ({B * S}, {H}, {T // S}, {D}) chunks, one "
+                      f"whole call {w_ms:.4f} ms ({t_ms / w_ms:.2f}x), "
+                      f"bound {bound[kind]:.4f} ms; on {card}", flush=True)
+            del out, grads, o, lse, leaves
+        del q, k, v, g, plain, want, want_grads, whole_o, whole_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _update_rel(got: dict, one: dict, start: dict) -> float:
+    """||got - one|| / ||one - start|| over every parameter of three
+    ``_host_params`` records: how far a run's update is from one device's
+    update, relative to it."""
+    import torch
+
+    num = den = 0.0
+    for n, w in one.items():
+        if n is None:
+            continue
+        w = w.to("cuda", torch.float64)
+        num += (got[n].to("cuda", torch.float64) - w).square().sum().item()
+        den += (w - start[n].to("cuda", torch.float64)).square().sum().item()
+    return (num / den) ** 0.5
+
+
+def sp_pp_dit(card: str, one: tuple, call) -> dict:
+    """Phase 25 (b): ``dit_forget`` under ``sp`` on data=1,seq=1 (every
+    attention through the ring's path, one rank) and under ``pp`` on
+    stage=1 in 1 and PP_MICROBATCHES microbatches, against phase 23's
+    one-device run of the same weights, batches and mask."""
+    from uurg_torch.parallel import make_mesh
+    from uurg_torch.workloads.dit import DiTWorkload
+
+    out = {}
+    seq, stage = make_mesh({"data": 1, "seq": 1}), make_mesh({"stage": 1})
+    for key, place in (("sp", {"mesh": seq, "parallelism": "sp"}),
+                       ("pp1", {"mesh": stage, "parallelism": "pp",
+                                "pp_microbatches": 1})):
+        grp = call(place)
+        tag = (f"dit_forget {place['parallelism']} "
+               f"({'seq=1' if key == 'sp' else 'stage=1, 1 microbatch'}, "
+               f"{DP_DIT_STEPS} steps at {DIT_BATCH} + {DIT_BATCH})")
+        res = _dp_compare(tag, card, one, grp)
+        ema = _param_diff(grp[0]["ema"], one[0]["ema"])
+        print(f"  EMA: largest difference {ema[0]:.3e}, relative L2 "
+              f"{ema[1]:.3e}", flush=True)
+        if not ema[1] <= DP_REL:
+            fail(f"dit_forget's EMA under {key} differs from one device")
+        res["ema_rel_l2"] = ema[1]
+        res["profiled_step"] = _dp_profiled(tag, one, grp)
+        out[key] = res
+        del grp
+        _collect()
+    start = _host_params(perturb_dit_(DiTWorkload.build(DIT_NAME)
+                                      .init_params(SEED)))
+    _collect()
+    M = PP_MICROBATCHES
+    grp = call({"mesh": stage, "parallelism": "pp", "pp_microbatches": M})
+    tag = (f"dit_forget pp (stage=1, {M} microbatches, {DP_DIT_STEPS} steps "
+           f"at {DIT_BATCH} + {DIT_BATCH})")
+    big, rel = _param_diff(grp[0]["model"], one[0]["model"])
+    upd = _update_rel(grp[0]["model"], one[0]["model"], start)
+    want = {kk: M * v if kk.startswith("attention") else v
+            for kk, v in one[1].items()}
+    print(f"  {tag}: update relative L2 {upd:.3e} (gate {PP_UPDATE_REL}), "
+          f"parameters' largest difference {big:.3e}, relative L2 "
+          f"{rel:.3e}; launches {grp[1]} (expected {want}); {grp[2]:.3f} ms "
+          f"(one device {one[2]:.3f}), each step's end at "
+          f"{[round(t, 1) for t in grp[4]]} ms (one device "
+          f"{[round(t, 1) for t in one[4]]}), peak {grp[3]:.3f} GiB (one "
+          f"device {one[3]:.3f}); on {card}", flush=True)
+    if not upd <= PP_UPDATE_REL:
+        fail(f"{tag}: the update is {upd:.3e} from one device's")
+    if grp[1] != want:
+        fail(f"{tag}: launches {grp[1]}, expected {want}")
+    out["pp2"] = {"update_rel_l2": upd, "max_abs": big, "rel_l2": rel,
+                  "launches": grp[1], "ms": grp[2], "one_device_ms": one[2],
+                  "peak_gib": grp[3], "one_device_peak_gib": one[3],
+                  "step_ends_ms": grp[4], "one_device_step_ends_ms": one[4],
+                  "profiled_step": _dp_profiled(tag, one, grp)}
+    del grp, start
+    _collect()
+    return out
+
+
+def sp_sd(card: str, one: tuple, call) -> dict:
+    """Phase 25 (c): ``nsfw_removal`` under ``sp`` on seq=1 (SD's
+    self-attention sites, T % 128 == 0, through the ring's path), against
+    phase 23's one-device run."""
+    from uurg_torch.parallel import make_mesh
+
+    grp = call({"mesh": make_mesh({"seq": 1}), "parallelism": "sp"})
+    tag = f"nsfw_removal sp (seq=1, {DP_SD_STEPS} steps at {SD_BATCH} + " \
+          f"{SD_BATCH})"
+    out = _dp_compare(tag, card, one, grp)
+    out["profiled_step"] = _dp_profiled(tag, one, grp)
+    return out
+
+
 def parallel_path(card: str, gen) -> dict:
     """Phase 23: data parallel and FSDP on a one-rank NCCL group (this
     process, a free localhost port), each run against the one-device run;
@@ -6497,9 +6735,20 @@ def parallel_path(card: str, gen) -> dict:
                f"steps at {SD_BATCH} + {SD_BATCH}, packed mask), their last "
                f"step profiled")
         out["tp_dit"] = tp_dit(card, mesh, dit_one, dit_call)
-        del dit_one
         torch.cuda.empty_cache()
         out["tp_sd"] = tp_sd(card, mesh, sd_one, sd_call)
+        banner(f"ring attention and the DiT pipeline (uurg_torch/parallel/"
+               f"sequence.py, pipeline.py) on the one-rank NCCL group: the "
+               f"ring's arithmetic over {RING_SEQS} ranks in one process at "
+               f"{DIT_ATTN_SHAPE} and {RING_SD_SHAPE}; dit_forget sp "
+               f"(data=1,seq=1) and pp (stage=1, 1 and {PP_MICROBATCHES} "
+               f"microbatches), nsfw_removal sp (seq=1), each against "
+               f"phase 23's one-device run, their last step profiled")
+        out["ring_loopback"] = ring_loopback(card, gen)
+        out["sp_pp_dit"] = sp_pp_dit(card, dit_one, dit_call)
+        del dit_one
+        torch.cuda.empty_cache()
+        out["sp_sd"] = sp_sd(card, sd_one, sd_call)
         del sd_one
     finally:
         if dist.is_initialized():
@@ -6510,7 +6759,10 @@ def parallel_path(card: str, gen) -> dict:
                        "dit": out["dit"]["launches"],
                        "sd": out["sd"]["launches"],
                        "dit_tp": out["tp_dit"]["launches"],
-                       "sd_tp": out["tp_sd"]["launches"]}
+                       "sd_tp": out["tp_sd"]["launches"],
+                       **{f"dit_{k}": v["launches"]
+                          for k, v in out["sp_pp_dit"].items()},
+                       "sd_sp": out["sp_sd"]["launches"]}
     return out
 
 
@@ -6746,8 +6998,10 @@ def main() -> int:
     sd["launches"].update(sd_eval["launches"])
     sd["launches"]["sd_fsdp"] = par["launches"]["sd"]
     sd["launches"]["sd_tp"] = par["launches"]["sd_tp"]
+    sd["launches"]["sd_sp"] = par["launches"]["sd_sp"]
     dit["launches"]["dit_fsdp"] = par["launches"]["dit"]
-    dit["launches"]["dit_tp"] = par["launches"]["dit_tp"]
+    for key in ("dit_tp", "dit_sp", "dit_pp1", "dit_pp2"):
+        dit["launches"][key] = par["launches"][key]
     # the SD paths' VAE encodes and decodes run the float32 attention
     # (xwide) too: their launches on the VAE's row, their GroupNorm
     # launches on the SD rows with the UNet's

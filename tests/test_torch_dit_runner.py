@@ -348,25 +348,52 @@ def test_fisher_and_mask_files_match_jax(tiny, monkeypatch, tmp_path):
             assert torch.equal(on_disk[k], ref[k].bool()), (th, k)
 
 
-def test_dit_forget_refuses_multi_device(tiny):
-    # the pipeline and ring attention wait for item 8c; a mesh, fsdp and
-    # tp run (below and tests/test_torch_parallel_*)
+@pytest.mark.parametrize("parallelism,axis", [("pp", "stage"),
+                                               ("sp", "seq")])
+def test_dit_forget_needs_the_mode_axis(tiny, parallelism, axis):
+    # JAX's ValueError for a mesh without the mode's axis, before any
+    # placement (the pipeline and the ring run on gloo ranks in
+    # tests/test_torch_parallel_pp.py and _sp.py)
+    import types
+
     _, twl, params = tiny
-    for kw in ({"parallelism": "pp"}, {"parallelism": "sp"},
-               {"pp_microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TR.dit_forget(twl, _model(twl, params), iter([]), iter([]), **kw)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 1))
+    with pytest.raises(ValueError, match=f"'{axis}' mesh axis"):
+        TR.dit_forget(twl, _model(twl, params), iter([]), iter([]),
+                      mesh=mesh, parallelism=parallelism, pp_microbatches=2)
+
+
+@pytest.mark.parametrize("parallelism", ["pp", "sp"])
+def test_dit_forget_pp_and_sp_without_a_mesh_run_as_one_device(
+        tiny, parallelism):
+    """As in JAX, the mode (and the microbatches) is read only under a
+    mesh: without one the run is the default run, bit for bit."""
+    _, twl, params = tiny
+    fbs, rbs = [_batch(60 + i) for i in range(2)], [_batch(70 + i)
+                                                   for i in range(2)]
+    kw = dict(n_iters=2, lr=1e-3, forget_alpha=0.5, unlearn_loss="ga",
+              seed=2)
+    want = TR.dit_forget(twl, _model(twl, params), iter(fbs), iter(rbs), **kw)
+    got = TR.dit_forget(twl, _model(twl, params), iter(fbs), iter(rbs),
+                        parallelism=parallelism, pp_microbatches=2, **kw)
+    for m_got, m_want in ((got.model, want.model),
+                          (got.ema_model, want.ema_model)):
+        for (k, v), w in zip(m_got.state_dict().items(),
+                             m_want.state_dict().values()):
+            assert torch.equal(v, w), k
 
 
 @pytest.mark.parametrize("spec,parallelism", [
     ("data=1", "dp"), ("data=1", "fsdp"), ("data=1,model=1", "fsdp"),
-    ("data=1,model=1", "tp")])
+    ("data=1,model=1", "tp"), ("data=1,stage=1", "pp")])
 def test_dit_forget_on_a_one_rank_mesh_equals_the_default(tiny, spec,
                                                           parallelism):
     """The one-rank mesh runs the group's path (the batch split, the
-    gradient all-reduce, FSDP2's sharding over one rank or tensor
-    parallel's placement and paired operators, the shard-wise mask, clip,
-    Adam and EMA) to the default run's weights, bit for bit."""
+    gradient all-reduce, FSDP2's sharding over one rank, tensor parallel's
+    placement and paired operators or the pipeline's one stage in one
+    microbatch, the shard-wise mask, clip, Adam and EMA) to the default
+    run's weights, bit for bit."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.parallel import make_mesh, parse_mesh_spec
 
@@ -461,27 +488,47 @@ def test_the_three_clis_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--parallelism", "sp"], "item 8"),
-    (["--pp_microbatches", "2"], "item 8"),
     (["--vae_ckpt", "orbax_vae_dir"], "Orbax"),
 ])
 def test_forget_cli_refuses_what_the_port_cannot_do(flags, match):
-    # the pipeline and ring attention wait for item 8c (--mesh, fsdp and
-    # tp run: test_forget_cli_on_a_one_rank_mesh); a
-    # --vae_ckpt that is not a CompVis or port VAE file (an Orbax
+    # a --vae_ckpt that is not a CompVis or port VAE file (an Orbax
     # directory) cannot be read
     from uurg_torch.cli import forget
 
-    exc = ValueError if match == "Orbax" else NotImplementedError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         forget.main([*CLI, *flags, "--n-iters", "1"])
 
 
+@pytest.mark.parametrize("flags,want", [
+    (["--parallelism", "pp", "--pp_microbatches", "2"],
+     {"parallelism": "pp", "pp_microbatches": 2}),
+    (["--parallelism", "sp"], {"parallelism": "sp", "pp_microbatches": None}),
+])
+def test_forget_cli_passes_pp_and_sp_to_the_runner(monkeypatch, tmp_path,
+                                                   flags, want):
+    """--parallelism pp|sp and --pp_microbatches reach dit_forget as the
+    JAX CLI passes them (0 microbatches: None, the stage count)."""
+    from uurg_torch.cli import forget
+    from uurg_torch.workloads import dit_runner
+
+    seen = {}
+
+    def recorded(wl, model, f, r, **kw):
+        seen.update(kw)
+
+    monkeypatch.setattr(dit_runner, "dit_forget", recorded)
+    forget.main([*CLI, *flags, "--n-iters", "1", "--results-dir",
+                 str(tmp_path)])
+    assert {k: seen[k] for k in want} == want
+    assert seen["mesh"] is None
+
+
 @pytest.mark.parametrize("spec,parallelism", [("data=1", "fsdp"),
-                                              ("data=1,model=1", "tp")])
+                                              ("data=1,model=1", "tp"),
+                                              ("stage=1", "pp")])
 def test_forget_cli_on_a_one_rank_mesh(tmp_path, spec, parallelism):
-    """--mesh and --parallelism fsdp or tp on one rank give the default
-    run's final.pt."""
+    """--mesh and --parallelism fsdp, tp or pp on one rank give the
+    default run's final.pt."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.cli import forget
 

@@ -2,9 +2,11 @@
 rule against the JAX package's, the parameters FSDP shards in the tiny
 CondUNet, a depth-2 DiT-S/2 and SD's TINY_UNET against JAX's choice,
 ``make_mesh``'s rules on a one-rank gloo group, the random draws under a
-batch split against the one-device draw, and the refusals that remain
-(tensor parallel's rules and placement: ``tests/test_torch_parallel_tp*``).
-The two- and four-rank runs are in ``tests/test_torch_parallel_*.py``."""
+batch split against the one-device draw, the refusal of an unknown mode
+and of a mesh without the ``stage`` or ``seq`` axis, and ``spawn``'s time
+limit (tensor parallel's rules and placement:
+``tests/test_torch_parallel_tp*``). The two- and four-rank runs are in
+``tests/test_torch_parallel_*.py``."""
 import types
 import warnings
 
@@ -211,12 +213,38 @@ def test_draws_under_a_split_are_rows_of_the_one_device_draw(index):
     assert M.shard_batch(batch, None)[0].tolist() == list(range(12))
 
 
-@pytest.mark.parametrize("mode,item", [
-    ({"parallelism": "pp"}, "item 8c"), ({"parallelism": "sp"}, "item 8c"),
-    ({"pp_microbatches": 2}, "item 8c")])
-def test_refuse_multi_device_names_the_roadmap_item(mode, item):
-    with pytest.raises(NotImplementedError, match=item):
-        refuse_multi_device(**mode)
+def test_spawn_kills_ranks_that_wait_for_ever(tmp_path):
+    """A deadlocked group fails its own test within the time limit, naming
+    the function, instead of hanging the suite."""
+    import time
+
+    start = time.monotonic()
+    with pytest.raises(TimeoutError, match="wait_for_ever on 2 ranks"):
+        PR.spawn("wait_for_ever", 2, tmp_path, timeout=5)
+    assert time.monotonic() - start < 60
+
+
+@pytest.mark.parametrize("parallelism", ["pp", "sp"])
+def test_refuse_multi_device_passes_pp_and_sp(parallelism):
+    # every mode of the JAX package's runners passes; the runners check
+    # the mesh's axes for it
+    assert refuse_multi_device(parallelism) is None
+
+
+@pytest.mark.parametrize("parallelism,axes,error", [
+    ("pp", {"data": 2}, "'stage' mesh axis"),
+    ("sp", {"model": 2}, "'seq' mesh axis"),
+    ("pp", {"data": 1, "stage": 2}, None),
+    ("sp", {"data": 2, "seq": 2}, None)])
+def test_pp_and_sp_need_their_mesh_axis(parallelism, axes, error):
+    """JAX's ValueError for a mesh without the mode's axis."""
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(axes),
+                                 shape=tuple(axes.values()))
+    if error is None:
+        M.require_axis(mesh, parallelism)
+    else:
+        with pytest.raises(ValueError, match=error):
+            M.require_axis(mesh, parallelism)
 
 
 def test_dp_and_fsdp_pass_the_refusal():

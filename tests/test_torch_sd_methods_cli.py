@@ -10,9 +10,10 @@ JAX package (CPU):
   ``train_esd``, ``gradient_ascent``, ``proximal_gradient`` and
   ``random_label`` read back with ``--ckpt_path``; each writes a finite
   ``final.pt`` that moved;
-- the flags the port refuses (``--parallelism sp``, ``--profile_dir``)
-  and the default device, CUDA; ``--mesh`` with ``--parallelism`` fsdp or
-  tp on one rank writes the default run's weights;
+- the flag the port refuses (``--profile_dir``) and the default device,
+  CUDA; ``--parallelism sp`` reaches the runner; ``--mesh`` with
+  ``--parallelism`` fsdp, tp or sp on one rank writes the default run's
+  weights;
 - the ``sd_data`` streams equal the JAX package's on a seeded PNG tree."""
 import os
 
@@ -164,8 +165,25 @@ def test_the_five_clis_end_to_end(tmp_path, tiny_cli):  # noqa: F811
                        if ".attn2." not in k)
 
 
+def test_nsfw_removal_cli_passes_sp_to_the_runner(monkeypatch, tmp_path,
+                                                  tiny_cli):  # noqa: F811
+    from uurg_torch.cli import nsfw_removal
+    from uurg_torch.workloads import sd_runner
+
+    seen = {}
+
+    def recorded(wl, unet, fb, rb, **kw):
+        seen.update(kw)
+
+    monkeypatch.setattr(sd_runner, "nsfw_removal", recorded)
+    nsfw_removal.main([*COMMON, "--parallelism", "sp", "--n_iters", "1",
+                       "--nsfw_data", str(tmp_path / "none"),
+                       "--not_nsfw_data", str(tmp_path / "none"),
+                       "--save_path", str(tmp_path / "out")])
+    assert seen["parallelism"] == "sp" and seen["mesh"] is None
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--parallelism", "sp"], "item 8"),
     (["--profile_dir", "trace"], "profile_dir"),
 ])
 def test_nsfw_removal_refuses_what_the_port_cannot_do(flags, match):
@@ -236,12 +254,15 @@ def test_sd_data_streams_match_jax(tmp_path):
                                  remain_root=str(root))
 
 
-@pytest.mark.parametrize("parallelism", ["fsdp", "tp"])
+@pytest.mark.parametrize("parallelism,spec", [("fsdp", "data=1,model=1"),
+                                              ("tp", "data=1,model=1"),
+                                              ("sp", "data=1,seq=1")])
 def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli,  # noqa: F811
-                                             parallelism):
+                                             parallelism, spec):
     """--mesh data=1,model=1 --parallelism fsdp or tp (the UNet sharded
-    over one rank, the gradients all-reduced over it) writes the default
-    run's final.pt bit for bit."""
+    over one rank, the gradients all-reduced over it), and --mesh
+    data=1,seq=1 --parallelism sp, write the default run's final.pt bit
+    for bit."""
     from tests.torch_parallel_ranks import one_rank_group
     from uurg_torch.cli import nsfw_removal
 
@@ -257,8 +278,7 @@ def test_nsfw_removal_cli_on_a_one_rank_mesh(tmp_path, tiny_cli,  # noqa: F811
     nsfw_removal.main([*argv, "--save_path", str(tmp_path / "a")])
     with one_rank_group():
         nsfw_removal.main([*argv, "--save_path", str(tmp_path / "b"),
-                           "--mesh", "data=1,model=1", "--parallelism",
-                           parallelism])
+                           "--mesh", spec, "--parallelism", parallelism])
     a, b = (_weights(str(tmp_path / d / "final.pt")) for d in ("a", "b"))
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)

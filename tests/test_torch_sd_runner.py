@@ -437,14 +437,40 @@ def test_esd_builder_draws_and_denoises_with_the_current_model(pair):
     assert not za.requires_grad and ca.shape == c0.shape == (3, *CTX)
 
 
-def test_nsfw_removal_refuses_multi_device(pair):
-    # sequence parallel waits for item 8c; a mesh, fsdp and tp run (below,
-    # tests/test_torch_parallel_sd.py and tests/test_torch_parallel_tp*)
+@pytest.mark.parametrize("parallelism,match", [
+    ("sp", "'seq' mesh axis"), ("pp", "unknown parallelism 'pp'")])
+def test_nsfw_removal_needs_a_seq_axis(pair, parallelism, match):
+    # JAX's ValueErrors under a mesh: sp without a 'seq' axis, and pp,
+    # which the JAX runner has no branch for (ring attention on gloo
+    # ranks: tests/test_torch_parallel_sp.py)
+    import types
+
     _, params, twl = pair
-    for kw in ({"parallelism": "sp"},):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TR.nsfw_removal(twl, _model(twl, params), iter([]), iter([]),
-                            **kw)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 1))
+    with pytest.raises(ValueError, match=match):
+        TR.nsfw_removal(twl, _model(twl, params), iter([]), iter([]),
+                        mesh=mesh, parallelism=parallelism)
+
+
+def test_nsfw_removal_sp_without_a_mesh_runs_as_one_device(pair):
+    """As in JAX, ``parallelism`` is read only under a mesh."""
+    _, params, twl = pair
+    rng = np.random.default_rng(4)
+
+    def batch(n_ctx):
+        return (torch.from_numpy(rng.standard_normal(
+            (2, LATENT, LATENT, 4)).astype(np.float32)),
+            *(torch.from_numpy(rng.standard_normal((2, *CTX))
+                               .astype(np.float32)) for _ in range(n_ctx)))
+
+    fbs, rbs = [batch(2)], [batch(1)]
+    want = TR.nsfw_removal(twl, _model(twl, params), iter(fbs), iter(rbs),
+                           n_iters=1, lr=1e-3, seed=1).model
+    got = TR.nsfw_removal(twl, _model(twl, params), iter(fbs), iter(rbs),
+                          n_iters=1, lr=1e-3, seed=1, parallelism="sp").model
+    for (k, v), w in zip(got.state_dict().items(), want.state_dict().values()):
+        assert torch.equal(v, w), k
 
 
 @pytest.mark.parametrize("spec,parallelism", [("data=1", "dp"),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 import warnings
 
 import numpy as np
@@ -52,20 +53,47 @@ def one_rank_group():
         dist.destroy_process_group()
 
 
-def spawn(name: str, world: int, out_dir, *args) -> None:
+# the longest a group of ranks may take (the slowest, four ranks through
+# two runners, takes about 30 s on one CPU core a rank)
+SPAWN_SECONDS = 300
+
+
+def spawn(name: str, world: int, out_dir, *args,
+          timeout: float = SPAWN_SECONDS) -> None:
     """Run ``name(out_dir, *args)`` of this module on ``world`` gloo ranks
-    and wait for all of them; a rank that raises fails the call. A port
-    that another process took between ``free_port`` and the group's
-    listen (test workers start groups side by side) is tried again on
-    another, twice at most."""
+    and wait for all of them; a rank that raises fails the call, and so
+    do ranks still running after ``timeout`` seconds (a schedule whose
+    ranks wait on each other for ever): they are killed and
+    ``TimeoutError`` names ``name``. A port that another process took
+    between ``free_port`` and the group's listen (test workers start
+    groups side by side) is tried again on another, twice at most."""
     for attempt in range(3):
+        ranks = mp.start_processes(
+            _entry, args=(world, free_port(), name, str(out_dir), args),
+            nprocs=world, join=False, start_method="spawn")
         try:
-            mp.spawn(_entry, args=(world, free_port(), name, str(out_dir),
-                                   args), nprocs=world, join=True)
+            _join(ranks, name, world, timeout)
             return
         except mp.ProcessRaisedException as e:
             if "EADDRINUSE" not in str(e) or attempt == 2:
                 raise
+
+
+def _join(ranks, name: str, world: int, timeout: float) -> None:
+    """Wait for ``ranks`` (a ``ProcessContext``) until ``timeout``
+    seconds have passed; then kill them and raise ``TimeoutError``."""
+    deadline = time.monotonic() + timeout
+    while not ranks.join(timeout=max(0.0, min(
+            5.0, deadline - time.monotonic()))):
+        if time.monotonic() >= deadline:
+            for p in ranks.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ranks.processes:
+                p.join()
+            raise TimeoutError(f"{name} on {world} ranks did not finish "
+                               f"within {timeout:g} s; its ranks were "
+                               f"killed")
 
 
 def _entry(r: int, world: int, port: int, name: str, out: str, args):
@@ -76,6 +104,12 @@ def _entry(r: int, world: int, port: int, name: str, out: str, args):
         globals()[name](out, *args)
     finally:
         dist.destroy_process_group()
+
+
+def wait_for_ever(out: str) -> None:
+    """Each of two ranks waits for a tensor from the other, which no rank
+    sends: a deadlock, for the test of :func:`spawn`'s time limit."""
+    dist.recv(torch.zeros(1), src=1 - rank())
 
 
 def _save(out: str, tag: str, payload) -> None:
@@ -361,32 +395,58 @@ def dit_tp_step(out: str, inputs_path: str, spec: str) -> None:
 
 
 def dit_runner_run(inputs: dict, ckpt_dir: str | None, n_iters: int,
-                   mesh, parallelism: str = "fsdp") -> dict:
-    """``dit_forget`` (AdamW, ``ga``, a packed mask) for ``n_iters``
-    steps, resuming from ``ckpt_dir``'s train state, writing it every
-    step; which ranks wrote which files."""
+                   mesh, parallelism: str = "fsdp", pack: bool = True,
+                   **kw) -> dict:
+    """``dit_forget`` (AdamW, ``ga``, a packed or dense mask) for
+    ``n_iters`` steps, resuming from ``ckpt_dir``'s train state, writing
+    it every step; which ranks wrote which files, each step's metrics, the
+    Adam state whole and each parameter's local sizes (the parameter, its
+    first moment, its shadow, its mask or None when packed). ``kw`` goes
+    to ``dit_forget``."""
+    from uurg_torch.unlearn import sfron
     from uurg_torch.workloads import dit_runner
 
     model = dit_model(inputs["state"])
-    writes, save = [], torch.save
+    writes, save, metrics = [], torch.save, []
 
     def recorded(obj, path, *a, **k):
         writes.append((rank(), os.path.basename(str(path))))
         return save(obj, path, *a, **k)
 
-    torch.save = recorded
+    def recording(*a, **k):
+        step = sfron.make_sfron_step(*a, **k)
+
+        def run(*sa):
+            m = step(*sa)
+            metrics.append({n: float(m[n]) for n in
+                            ("forget_loss", "remain_loss",
+                             "remain_grad_norm")})
+            return m
+
+        return run
+
+    torch.save, dit_runner.make_sfron_step = recorded, recording
     try:
         state = dit_runner.dit_forget(
             dit_workload(), model, iter(inputs["batches_f"]),
             iter(inputs["batches_r"]), n_iters=n_iters, lr=1e-3,
             forget_alpha=0.5, unlearn_loss="ga", mask=inputs["mask"],
-            pack_mask=True, ema_decay=0.999, seed=4, log_freq=100,
+            pack_mask=pack, ema_decay=0.999, seed=4, log_freq=100,
             ckpt_dir=ckpt_dir, ckpt_freq=1, mesh=mesh,
-            parallelism=parallelism)
+            parallelism=parallelism, **kw)
     finally:
-        torch.save = save
+        torch.save, dit_runner.make_sfron_step = save, sfron.make_sfron_step
+    params = dict(state.model.named_parameters())
+    shadow = dict(state.ema_model.named_parameters())
+    opt = state.optimizer
     return {"params": _full_params(state.model),
-            "ema": _full_params(state.ema_model), "writes": writes}
+            "ema": _full_params(state.ema_model), "writes": writes,
+            "metrics": metrics, "opt": full_optimizer_state(opt),
+            "sizes": {n: (local(p).numel(),
+                          local(opt.state[p]["exp_avg"]).numel(),
+                          local(shadow[n]).numel(),
+                          None if pack else local(state.mask[n]).numel())
+                      for n, p in params.items()}}
 
 
 def dit_runner(out: str, inputs_path: str, tmp: str) -> None:
@@ -525,3 +585,166 @@ def sd_tp(out: str, inputs_path: str) -> None:
     _save(out, "sd_tp", {"packed": sd_run(inputs, mesh, "tp"),
                          "dense": sd_run(inputs, mesh, "tp", pack=False),
                          "adam": sd_run(inputs, mesh, "tp", adam=True)})
+
+
+# -- the pipeline -------------------------------------------------------------
+
+# tests/test_pipeline.py's DiT: depth 8, hidden 32, 4 heads at 8 x 8 latents
+PP_DIT = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32,
+              depth=8, num_heads=4, num_classes=10)
+
+
+def pp_model(state: dict):
+    from uurg_torch.models.dit import DiT, DiTConfig
+
+    model = DiT(DiTConfig(**PP_DIT, dtype=torch.float32))
+    model.load_state_dict(state)
+    return model
+
+
+def pp_apply_run(inputs: dict, mesh, n_mb: int = 1, keep: bool = False
+                 ) -> dict:
+    """``dit_apply_pipelined`` in ``n_mb`` microbatches on a model placed
+    by ``shard_params_pp`` over ``mesh`` (the plain forward without one):
+    the output of the global batch and every parameter's gradient of
+    mean((out - target)^2) over it, whole; ``keep`` takes the inputs'
+    cond-dropout mask. The blocks each rank holds, and their whole shapes
+    as recorded."""
+    from uurg_torch.parallel.mesh import (all_reduce_mean_, gather_rows,
+                                          shard_params_pp, stage_owned,
+                                          zeros_like)
+    from uurg_torch.parallel.pipeline import dit_apply_pipelined
+
+    model = pp_model(inputs["state"])
+    if mesh is not None:
+        shard_params_pp(model, mesh)
+    for p in model.parameters():
+        p.grad = zeros_like(p)
+    x, t, y, target, ck = shard_batch(
+        tuple(inputs[k] for k in ("x", "t", "y", "target", "keep")), mesh)
+    ck = ck if keep else None
+    if mesh is None:
+        out = model(x, t, y, ck)
+    else:
+        out = dit_apply_pipelined(model, model.cfg, x, t, y, mesh=mesh,
+                                  n_microbatches=n_mb, cond_keep=ck)
+    torch.mean((out - target) ** 2).backward()
+    if data_group(mesh) is not None:
+        all_reduce_mean_([p.grad for p in model.parameters()],
+                         data_group(mesh))
+    with split_batches(mesh):
+        whole = gather_rows(out.detach())
+    return {"out": whole,
+            "grads": {n: full_tensor(p.grad, p).clone()
+                      for n, p in model.named_parameters()},
+            "held": [i for i, b in enumerate(model.blocks)
+                     if local(b.attn.qkv.weight).numel()],
+            "shapes": {n: stage_owned(p).shape
+                       for n, p in model.named_parameters()
+                       if stage_owned(p) is not None}}
+
+
+def pp(out: str, inputs_path: str, runs: list, forget_path: str | None,
+       tmp: str | None) -> None:
+    """``pp_apply_run`` for each ``(mesh spec, microbatches, keep)`` of
+    ``runs``; with ``forget_path``, ``dit_forget`` under ``pp`` on a
+    ``stage`` axis of every rank (a dense mask; a packed one; cut after
+    one step and resumed from its train state), its files in ``tmp``."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    res = {tuple(run): pp_apply_run(inputs, _mesh(run[0]), *run[1:])
+           for run in runs}
+    if forget_path is not None:
+        data = torch.load(forget_path, weights_only=False)
+        mesh = make_mesh({"stage": world_size()})
+        res["forget"] = dit_runner_run(data, os.path.join(tmp, "pp_ckpt"), 2,
+                                       mesh, "pp", pack=False)
+        res["forget_packed"] = dit_runner_run(data, None, 2, mesh, "pp",
+                                              pp_microbatches=4)
+        cut = os.path.join(tmp, "pp_resume")
+        dit_runner_run(data, cut, 1, mesh, "pp", pack=False)
+        res["forget_resumed"] = dit_runner_run(data, cut, 2, mesh, "pp",
+                                               pack=False)
+    _save(out, "pp", res)
+
+
+# -- ring attention -----------------------------------------------------------
+
+
+def ring_run(inputs: dict, mesh, grads: bool = True) -> dict:
+    """``ring_attention`` over the ``seq`` axis of ``mesh`` on this rank's
+    ``data`` rows of ``inputs``' q, k, v: the output of the global batch
+    and, with ``grads``, q's, k's and v's gradients of mean((o -
+    target)^2) over it."""
+    from uurg_torch.parallel.mesh import gather_rows
+    from uurg_torch.parallel.sequence import ring_attention
+
+    q, k, v, target = (shard_batch(inputs[n], mesh)
+                       for n in ("q", "k", "v", "target"))
+    leaves = [t.clone().requires_grad_(grads) for t in (q, k, v)]
+    o = ring_attention(*leaves, mesh=mesh)
+    out = {}
+    with split_batches(mesh) as split:
+        out["out"] = gather_rows(o.detach())
+        if grads:
+            torch.mean((o.float() - target) ** 2).backward()
+            out["grads"] = [gather_rows(t.grad) / split.count
+                            for t in leaves]
+    return out
+
+
+def ring(out: str, inputs_path: str, specs: list, runners: bool) -> None:
+    """``ring_run`` on each mesh spec of ``specs``, in float32 and bf16
+    (the forward); with ``runners``, on a ``seq`` axis of every rank:
+    ``dit_forget`` and ``nsfw_removal`` under ``sp`` and the SD UNet's
+    attention calls counted by route."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    res = {}
+    for spec in specs:
+        mesh = _mesh(spec)
+        res[spec] = {"f32": ring_run(inputs["f32"][spec], mesh),
+                     "bf16": ring_run(inputs["bf16"][spec], mesh,
+                                      grads=False)}
+    if runners:
+        mesh = make_mesh({"seq": world_size()})
+        res["dit_forget"] = dit_runner_run(inputs["dit"], None, 2, mesh,
+                                           "sp")
+        res["nsfw_removal"] = sd_run(inputs["sd"], mesh, "sp")
+        res["sd_calls"] = sd_attention_routes(inputs["sd"], mesh)
+    _save(out, "ring", res)
+
+
+def sd_attention_routes(inputs: dict, mesh) -> dict:
+    """A forward and backward of the SD UNet under ``sequence_parallel``
+    (``mesh`` None: none): how many attention calls reached the dispatcher
+    and how many of those took the ring, and the output."""
+    from contextlib import nullcontext
+
+    from uurg_torch.models import sd_unet
+    from uurg_torch.models.sd_unet import SDUNet
+    from uurg_torch.parallel import sequence
+
+    model = SDUNet(sd_workload().unet_cfg)
+    model.load_state_dict(inputs["state"])
+    calls = {"dispatcher": 0, "ring": 0}
+    dispatch, ring_attention = sd_unet.attention, sequence.ring_attention
+
+    def counted(*a, **k):
+        calls["dispatcher"] += 1
+        return dispatch(*a, **k)
+
+    def ring_counted(*a, **k):
+        calls["ring"] += 1
+        return ring_attention(*a, **k)
+
+    sd_unet.attention, sequence.ring_attention = counted, ring_counted
+    try:
+        z, ctx = inputs["remain"][0]
+        ctx_mgr = (sequence.sequence_parallel(mesh) if mesh is not None
+                   else nullcontext())
+        with ctx_mgr:
+            out = model(z, torch.arange(z.shape[0]) * 100, ctx)
+            out.square().mean().backward()
+    finally:
+        sd_unet.attention, sequence.ring_attention = dispatch, ring_attention
+    return {"calls": calls, "out": out.detach(),
+            "grad": {n: p.grad.clone() for n, p in model.named_parameters()}}

@@ -11,18 +11,22 @@ Writes ``<results-dir>/forget_<class>/``: ``ckpt_{i:07d}.pt`` and
 (reference DiT layout, ``{"model", "ema"}``), and a CFG latent sample grid
 ``vis_step{i:06d}.npz`` every ``--snapshot-every`` steps (latents, not
 decoded, as in the JAX CLI). A run resumes from its
-``train_state.pt``. ``--mesh data=N`` (or ``data=N,model=M``) and
-``--parallelism dp|fsdp|tp`` run on every rank of a ``torchrun`` group
-(one card a rank; ``--device cpu`` runs the ranks on gloo); ``tp`` shards
-the blocks' projections over ``model`` (``DIT_TP_RULES``):
+``train_state.pt``. ``--mesh data=N`` (or ``data=N,model=M``,
+``stage=S``, ``data=N,seq=S``) and ``--parallelism dp|fsdp|tp|pp|sp`` run
+on every rank of a ``torchrun`` group (one card a rank; ``--device cpu``
+runs the ranks on gloo); ``tp`` shards the blocks' projections over
+``model`` (``DIT_TP_RULES``), ``pp`` pipelines the blocks over ``stage`` in
+``--pp_microbatches`` (0: the stage count), ``sp`` runs the attention as a
+ring over ``seq``:
 
     torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh data=2 \
         --parallelism fsdp ...
     torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh model=2 \
         --parallelism tp ...
+    torchrun --nproc_per_node 2 -m uurg_torch.cli.forget --mesh stage=2 \
+        --parallelism pp --pp_microbatches 4 ...
 
-Rank 0 writes the files. ``--parallelism pp|sp`` and
-``--pp_microbatches`` raise: they come with a later slice.
+Rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -76,9 +80,11 @@ def parse_args(argv=None):
                         "data=2,model=2 (-1 fills the rest)")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "pp", "sp"],
-                   help="dp, fsdp or tp over the mesh; pp and sp raise")
+                   help="dp, fsdp or tp over the mesh; pp: the blocks "
+                        "pipelined over a 'stage' axis; sp: ring attention "
+                        "over a 'seq' axis")
     p.add_argument("--pp_microbatches", type=int, default=0,
-                   help="pipeline microbatches (raises unless 0)")
+                   help="pipeline microbatches (pp only); 0 = stage count")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per update")
     p.add_argument("--remat_policy", type=str, default="full",
@@ -134,7 +140,7 @@ def main(argv=None):
     from uurg_torch.workloads import ddpm_runner
     from uurg_torch.workloads.dit_runner import dit_forget, dit_sample_grid
 
-    refuse_multi_device(args.parallelism, args.pp_microbatches or None)
+    refuse_multi_device(args.parallelism)
     initialize_distributed(device=args.device)
     mesh = make_mesh(parse_mesh_spec(args.mesh)) if args.mesh else None
     wl, model = build_workload(args, args.device)
@@ -168,6 +174,7 @@ def main(argv=None):
             ckpt_dir=ckpt_dir, ckpt_freq=args.ckpt_every,
             sample_hook=sample_hook, snapshot_freq=args.snapshot_every,
             mesh=mesh, parallelism=args.parallelism,
+            pp_microbatches=args.pp_microbatches or None,
             grad_accum=args.grad_accum,
             mu_dtype=bf16[args.mu_dtype], nu_dtype=bf16[args.nu_dtype],
             pack_mask=args.pack_mask)

@@ -14,12 +14,13 @@ that ``sd_generate_fisher`` or ``generate_fisher_mask`` wrote. Every
 ``save_model`` does: ``step_<i>.pt``, a CompVis checkpoint that every SD
 CLI reads back with ``--ckpt_path``, and ``step_<i>_diffusers.npz``, the
 diffusers ``UNet2DConditionModel`` keys; the run ends with ``final.pt``.
-``--mesh data=N`` (or ``data=N,model=M``) and ``--parallelism
-dp|fsdp|tp`` run on every rank of a ``torchrun`` group (``torchrun
---nproc_per_node 2 -m uurg_torch.cli.nsfw_removal --mesh model=2
---parallelism tp ...``: the transformers' projections over ``model``,
-``SD_TP_RULES``, the rest FSDP-sharded over it); rank 0 writes the files.
-``--parallelism sp`` and ``--profile_dir`` raise.
+``--mesh data=N`` (or ``data=N,model=M``, ``data=N,seq=S``) and
+``--parallelism dp|fsdp|tp|sp`` run on every rank of a ``torchrun`` group
+(``torchrun --nproc_per_node 2 -m uurg_torch.cli.nsfw_removal --mesh
+model=2 --parallelism tp ...``: the transformers' projections over
+``model``, ``SD_TP_RULES``, the rest FSDP-sharded over it; ``--mesh seq=2
+--parallelism sp``: the self-attention as a ring over ``seq``); rank 0
+writes the files. ``--profile_dir`` raises.
 """
 from __future__ import annotations
 
@@ -60,7 +61,8 @@ def parse_args(argv=None):
                    help="gradient-accumulation microbatches per update")
     p.add_argument("--parallelism", type=str, default="dp",
                    choices=["dp", "fsdp", "tp", "sp"],
-                   help="dp, fsdp or tp over the mesh; sp raises")
+                   help="dp, fsdp or tp over the mesh; sp: ring "
+                        "attention over a 'seq' axis")
     p.add_argument("--nu_dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
                    help="Adam second-moment storage dtype")

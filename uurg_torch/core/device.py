@@ -30,22 +30,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-# the ROADMAP item that brings the multi-device modes the port lacks
-_NOT_PORTED = {"pp": "Queue 1 item 8c (the DiT pipeline)",
-               "sp": "Queue 1 item 8c (ring attention)"}
+# every mode of the JAX package's runners
+PARALLELISMS = ("dp", "fsdp", "tp", "pp", "sp")
 
 
-def refuse_multi_device(parallelism: str = "dp",
-                        pp_microbatches: int | None = None) -> None:
-    """Raise for the multi-device modes the port does not run yet:
-    ``parallelism`` ``"pp"`` or ``"sp"`` and pipeline microbatches, naming
-    the ROADMAP item that brings them; an unknown mode raises
-    ``ValueError``. ``dp``, ``fsdp`` and ``tp`` pass."""
-    if parallelism in _NOT_PORTED or pp_microbatches:
-        item = _NOT_PORTED.get(parallelism, _NOT_PORTED["pp"])
-        raise NotImplementedError(
-            f"parallelism={parallelism!r}, pp_microbatches="
-            f"{pp_microbatches!r}: the port runs dp, fsdp and tp; this "
-            f"mode comes with ROADMAP {item}")
-    if parallelism not in ("dp", "fsdp", "tp"):
+def refuse_multi_device(parallelism: str = "dp") -> None:
+    """Raise ``ValueError`` for a ``parallelism`` that is none of
+    :data:`PARALLELISMS`; each of those passes (the runners check the
+    mesh's axes for it)."""
+    if parallelism not in PARALLELISMS:
         raise ValueError(f"unknown parallelism {parallelism!r}")

@@ -8,8 +8,9 @@ their first argument in place, to keep the step from holding a second copy
 of the gradients.
 
 Leaves may be DTensors (FSDP's and tensor parallel's sharded parameters
-and gradients): the functions work on each rank's shard and all-reduce
-what is global (the norm), so every rank sees the one-device value.
+and gradients) or stage-owned (the pipeline's blocks, empty on the other
+stages): the functions work on each rank's part and all-reduce what is
+global (the norm), so every rank sees the one-device value.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Mapping
 import torch
 import torch.distributed as dist
 
-from uurg_torch.parallel.mesh import is_sharded, local, local_slice
+from uurg_torch.parallel.mesh import (is_sharded, local, local_slice,
+                                      stage_owned)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +77,14 @@ def tree_mul_(a: Mapping[str, torch.Tensor], b: Mapping) -> None:
 
 
 def _shard_groups(t: torch.Tensor) -> tuple:
-    """The process groups of more than one rank over which a DTensor's
-    shards are spread (none on a one-rank mesh: the shard is whole)."""
+    """The process groups of more than one rank over which a leaf's parts
+    are spread: a DTensor's shards, a stage-owned leaf's stages (none on a
+    one-rank mesh or a whole leaf)."""
+    owned = stage_owned(t)
+    if owned is not None:
+        return () if owned.group is None else (owned.group,)
+    if not is_sharded(t):
+        return ()
     mesh = t.device_mesh
     return tuple(mesh.get_group(i) for i, p in enumerate(t.placements)
                  if p.is_shard() and mesh.size(i) > 1)
@@ -85,13 +93,15 @@ def _shard_groups(t: torch.Tensor) -> tuple:
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """L2 norm over every leaf in fp32, matching
     torch.nn.utils.clip_grad_norm_. A 0-d tensor; no host sync. A sharded
-    leaf's norm is summed over its shards, the same on every rank."""
+    leaf's norm is summed over its shards, a stage-owned one's over the
+    stages (its own counts once, the others hold nothing), the same on
+    every rank; a whole leaf counts once."""
     leaves = list(tree.values())
     norms = torch.stack(torch._foreach_norm([local(t).float()
                                              for t in leaves]))
     by_groups: dict[tuple, list[int]] = {}
     for i, t in enumerate(leaves):
-        if is_sharded(t) and _shard_groups(t):
+        if _shard_groups(t):
             by_groups.setdefault(_shard_groups(t), []).append(i)
     for groups, idx in by_groups.items():
         idx = torch.tensor(idx, device=norms.device)

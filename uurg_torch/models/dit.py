@@ -351,21 +351,33 @@ class DiT(nn.Module):
         return ckpt.checkpoint(block, h, c, use_reentrant=False,
                                preserve_rng_state=False, context_fn=context)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
-                cond_keep: torch.Tensor | None = None) -> torch.Tensor:
+    def embed(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
+              cond_keep: torch.Tensor | None = None):
+        """The input stem: (tokens h (B, T, hidden) in ``dtype``, the
+        conditioning c (B, hidden) in float32)."""
         cfg = self.cfg
-        B, H, W, C = x.shape
-        p = cfg.patch_size
-        grid = H // p
         h = self.x_embedder(x) + self.pos_embed.to(cfg.dtype)[None]
         fdt = wide(self.final_layer.linear.weight).dtype
         c = self.t_embedder(t, fdt) + wide(self.y_embedder(y, cond_keep))
-        for block in self.blocks:
-            h = self._block(block, h, c)
+        return h, c
+
+    def head(self, h: torch.Tensor, c: torch.Tensor, shape) -> torch.Tensor:
+        """The final adaLN layer and the unpatchify, to NHWC of the input
+        ``shape``'s size."""
+        B, H, W, C = shape
+        p = self.cfg.patch_size
+        grid = H // p
         h = self.final_layer(h, c)
         out_c = self.out_channels
         h = h.reshape(B, grid, grid, p, p, out_c).permute(0, 1, 3, 2, 4, 5)
         return h.reshape(B, H, W, out_c)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
+                cond_keep: torch.Tensor | None = None) -> torch.Tensor:
+        h, c = self.embed(x, t, y, cond_keep)
+        for block in self.blocks:
+            h = self._block(block, h, c)
+        return self.head(h, c, x.shape)
 
 
 def _mk(depth, hidden, heads):

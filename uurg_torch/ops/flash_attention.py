@@ -13,6 +13,9 @@ through one ``torch.autograd.Function`` whose backward is
 ``_attn_bwd_kernel``, for a CUDA tensor, :func:`attention_bwd_plain` for a
 CPU tensor. Nothing falls back from a kernel to a plain version, and no
 other dtype reaches a kernel: a CUDA tensor of any other dtype raises.
+Inside :func:`uurg_torch.parallel.sequence.sequence_parallel` the
+dispatcher hands a call whose token counts divide by the ``seq`` axis to
+ring attention, which runs these kernels a chunk.
 
 The bfloat16 kernels are Hopper designs (``sm_90a``): persistent
 warp-specialised blocks, tiles loaded by TMA through tensor maps that the C
@@ -425,8 +428,21 @@ class _Attention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v, (B, H, T, D) layout. Differentiable when
     grad mode is on and an input requires grad; otherwise (sampling,
-    ``torch.inference_mode``) one forward launch with no saved state."""
+    ``torch.inference_mode``) one forward launch with no saved state.
+    Inside :func:`uurg_torch.parallel.sequence.sequence_parallel` a call
+    whose q and k token counts both divide by the ``seq`` axis goes to
+    ring attention; any other stays local."""
     _check(q, k, v)
+    from uurg_torch.parallel.mesh import mesh_shape
+    from uurg_torch.parallel.sequence import (active_sequence_parallel,
+                                              ring_attention)
+    sp = active_sequence_parallel()
+    if sp is not None:
+        mesh, axis, batch_axis = sp
+        n = mesh_shape(mesh)[axis]
+        if q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            return ring_attention(q, k, v, mesh=mesh, axis=axis,
+                                  batch_axis=batch_axis)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v)

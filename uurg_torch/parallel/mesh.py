@@ -1,5 +1,5 @@
-"""Device meshes, batch splits, FSDP and tensor-parallel placement on
-``torch.distributed``.
+"""Device meshes, batch splits, FSDP, tensor-parallel and pipeline
+placement on ``torch.distributed``.
 
 Port of ``uurg_tpu/parallel/mesh.py``.
 The JAX package names a ``jax.sharding.Mesh`` and lets pjit insert the
@@ -18,6 +18,11 @@ of processes (one card each) and the collectives are explicit:
   ``model`` axis, Megatron's column and row pairs; the layers run on their
   shards with the paired operators of :mod:`uurg_torch.parallel.tensor`,
   which pjit inserts on the JAX side.
+- pipeline: stage s of the ``stage`` axis owns DiT's blocks
+  ``[s d / S, (s + 1) d / S)`` (:func:`shard_params_pp`); on the other
+  stages their parameters are empty, marked with their owner and whole
+  shape (:func:`stage_owned`), as are the moments and masks placed like
+  them. :mod:`uurg_torch.parallel.pipeline` runs the schedule.
 
 Every helper that gives or takes a whole tensor (:func:`local_slice`,
 :func:`shard_like`, :func:`full_tensor`, :func:`full_state_dict`, the
@@ -42,7 +47,7 @@ from uurg_torch.parallel.dist import initialize_single, is_initialized
 
 log = logging.getLogger("uurg_torch.parallel")
 
-DATA, MODEL = "data", "model"
+DATA, MODEL, STAGE, SEQ = "data", "model", "stage", "seq"
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None,
@@ -100,6 +105,55 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
 def mesh_shape(mesh) -> dict[str, int]:
     """``{axis name: size}`` in the mesh's order."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class AxisRing(NamedTuple):
+    """This rank's place on a mesh axis: its ``index`` of ``size``, the
+    axis's process group and the global ranks along it (``ranks``, in axis
+    order; ``next`` and ``prev`` this rank's neighbours on the ring)."""
+
+    index: int
+    size: int
+    group: Any
+    ranks: tuple
+
+    @property
+    def next(self) -> int:
+        return self.ranks[(self.index + 1) % self.size]
+
+    @property
+    def prev(self) -> int:
+        return self.ranks[(self.index - 1) % self.size]
+
+
+def axis_ring(mesh, axis: str) -> AxisRing:
+    """This rank's :class:`AxisRing` on ``axis`` of ``mesh`` (a group of
+    the ranks that share every other coordinate with this one), kept on
+    the mesh: every attention call under ring attention asks for it."""
+    rings = mesh.__dict__.setdefault("_axis_rings", {})
+    if axis not in rings:
+        shape = mesh_shape(mesh)
+        if axis not in shape:
+            raise ValueError(f"the mesh {shape} has no {axis!r} axis")
+        group = mesh.get_group(axis)
+        rings[axis] = AxisRing(mesh.get_local_rank(axis), shape[axis], group,
+                               tuple(dist.get_process_group_ranks(group)))
+    return rings[axis]
+
+
+# the axis each mode shards over, and JAX's refusal of a mesh without it
+_MODE_AXES = {"pp": (STAGE, "--mesh stage=4"),
+              "sp": (SEQ, "--mesh seq=4 or --mesh data=2,seq=4")}
+
+
+def require_axis(mesh, parallelism: str) -> None:
+    """JAX's ``ValueError`` when ``parallelism`` is ``pp`` or ``sp`` and
+    ``mesh`` lacks its ``stage`` or ``seq`` axis; nothing otherwise."""
+    if parallelism in _MODE_AXES:
+        axis, example = _MODE_AXES[parallelism]
+        if axis not in mesh_shape(mesh):
+            raise ValueError(f"parallelism={parallelism!r} needs a {axis!r} "
+                             f"mesh axis — pass e.g. {example}")
 
 
 def _resolve_axis(mesh, axis: str) -> str | None:
@@ -276,9 +330,13 @@ def _carry_pieces(t: torch.Tensor, like) -> torch.Tensor:
 
 
 def zeros_like(t: torch.Tensor) -> torch.Tensor:
-    """``torch.zeros_like(t)``, placed as ``t`` is, its pieces too (a
-    gradient buffer)."""
-    return _carry_pieces(torch.zeros_like(t), t)
+    """``torch.zeros_like(t)``, placed as ``t`` is, its pieces or its
+    stage too (a gradient buffer)."""
+    z = _carry_pieces(torch.zeros_like(t), t)
+    owned = stage_owned(t)
+    if owned is not None:
+        setattr(z, _STAGE_OWNED, owned)
+    return z
 
 
 def _piece_slice(full: torch.Tensor, dim: int, pieces: int, n: int,
@@ -304,8 +362,12 @@ def _piece_order(gathered: torch.Tensor, dim: int, pieces: int,
 
 def local_slice(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The part of the whole (one-device layout) tensor ``full`` that this
-    rank holds of the DTensor ``like`` (``full`` when ``like`` is whole).
-    No communication."""
+    rank holds of the DTensor or stage-owned tensor ``like`` (``full`` when
+    ``like`` is whole; an empty tensor on a stage that does not own it). No
+    communication."""
+    owned = stage_owned(like)
+    if owned is not None:
+        return full if owned.here else full.new_empty(0)
     if not is_sharded(like):
         return full
     mesh, coord = like.device_mesh, like.device_mesh.get_coordinate()
@@ -320,10 +382,11 @@ def local_slice(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``full`` placed as the DTensor ``like`` is (its mesh, placements and
-    pieces, this rank's slice, no communication); ``full`` when ``like`` is
-    whole."""
+    pieces, this rank's slice, no communication), or as the stage-owned
+    ``like`` is (whole on its stage, empty on the others); ``full`` when
+    ``like`` is whole."""
     if not is_sharded(like):
-        return full
+        return local_slice(full, like)
     from torch.distributed.tensor import DTensor
 
     part = local_slice(full, like).to(local(like).device).contiguous()
@@ -335,9 +398,18 @@ def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def full_tensor(t: torch.Tensor, like: torch.Tensor | None = None
                 ) -> torch.Tensor:
     """The whole tensor of a DTensor in the one-device layout (a
-    collective: every rank of its mesh calls it), any other tensor itself.
-    The pieces are read from ``like`` when given (an optimizer moment of
-    the parameter ``like``), else from ``t``."""
+    collective: every rank of its mesh calls it), of a stage-owned tensor
+    (broadcast from its stage over the ``stage`` group), any other tensor
+    itself. The pieces and the owner are read from ``like`` when given (an
+    optimizer moment of the parameter ``like``; a state of another shape,
+    Adam's step count, is not placed like it), else from ``t``."""
+    owned = stage_owned(t if like is None else like)
+    if owned is not None and (like is None or t.shape == like.shape):
+        if owned.group is None:
+            return t
+        whole = t if owned.here else t.new_empty(owned.shape)
+        dist.broadcast(whole, src=owned.src, group=owned.group)
+        return whole
     if not is_sharded(t):
         return t
     whole = t.full_tensor()
@@ -350,7 +422,8 @@ def full_tensor(t: torch.Tensor, like: torch.Tensor | None = None
 
 def full_state_dict(module: torch.nn.Module) -> dict[str, torch.Tensor]:
     """``module.state_dict()`` with whole tensors on the CPU in the
-    one-device layout (a collective under FSDP and tensor parallel)."""
+    one-device layout (a collective under FSDP, tensor parallel and the
+    pipeline)."""
     params = dict(module.named_parameters())
     return {k: full_tensor(v.detach(), params.get(k)).cpu()
             for k, v in module.state_dict().items()}
@@ -358,7 +431,7 @@ def full_state_dict(module: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 def full_optimizer_state(opt: torch.optim.Optimizer) -> dict:
     """``opt.state_dict()`` with whole tensors on the CPU in the one-device
-    layout (a collective under FSDP and tensor parallel)."""
+    layout (a collective under FSDP, tensor parallel and the pipeline)."""
     params = [p for g in opt.param_groups for p in g["params"]]
     sd = opt.state_dict()
     sd["state"] = {i: {k: full_tensor(v, params[i]).cpu()
@@ -375,7 +448,8 @@ def shard_optimizer_state(sd: dict, opt: torch.optim.Optimizer) -> dict:
     out = dict(sd)
     out["state"] = {
         i: {k: shard_like(v, params[i])
-            if torch.is_tensor(v) and v.shape == params[i].shape else v
+            if torch.is_tensor(v) and v.shape == whole_shape(params[i])
+            else v
             for k, v in st.items()}
         for i, st in sd["state"].items()}
     return out
@@ -647,14 +721,82 @@ def shard_params_tp(model: torch.nn.Module, mesh, rules=DIT_TP_RULES,
     return model
 
 
+# -- pipeline -----------------------------------------------------------------
+
+# the attribute a stage-owned parameter carries (on every stage)
+_STAGE_OWNED = "_pp_stage"
+
+
+class StageOwned(NamedTuple):
+    """A pipeline parameter's placement: stage ``owner`` of the ``stage``
+    axis holds it (``here`` on that stage), whole shape ``shape``; the
+    other stages hold an empty tensor. ``group`` is the stage axis's group
+    (None on one stage), ``src`` the owner's global rank in it."""
+
+    owner: int
+    shape: tuple
+    here: bool
+    group: Any
+    src: int
+
+
+def stage_owned(t) -> StageOwned | None:
+    """A stage-owned parameter's :class:`StageOwned`, None for any other
+    tensor."""
+    return getattr(t, _STAGE_OWNED, None)
+
+
+def whole_shape(t: torch.Tensor) -> tuple:
+    """The one-device shape of a parameter however it is placed."""
+    owned = stage_owned(t)
+    return tuple(owned.shape if owned is not None else t.shape)
+
+
+def stage_blocks(depth: int, mesh, axis: str = STAGE) -> range:
+    """The blocks this rank's stage owns: ``[s d / S, (s + 1) d / S)``.
+    JAX's ``ValueError`` when the stages do not divide ``depth``."""
+    S = mesh_shape(mesh)[axis]
+    if depth % S:
+        raise ValueError(f"depth {depth} not divisible by {S} stages")
+    s = axis_ring(mesh, axis).index
+    return range(s * depth // S, (s + 1) * depth // S)
+
+
+def shard_params_pp(model: torch.nn.Module, mesh,
+                    axis: str = STAGE) -> torch.nn.Module:
+    """Place ``model`` (a DiT: its ``blocks``) in place for the pipeline:
+    stage s keeps blocks ``[s d / S, (s + 1) d / S)``, and on the other
+    stages their parameters become empty tensors; each block parameter is
+    marked :class:`StageOwned` on every stage. Everything else stays
+    whole (replicated), as JAX's ``shard_params_pp`` leaves it. Returns
+    ``model``."""
+    ring = axis_ring(mesh, axis)
+    mine = stage_blocks(len(model.blocks), mesh, axis)
+    group = ring.group if ring.size > 1 else None
+    for i, block in enumerate(model.blocks):
+        owner = i // len(mine)
+        here = i in mine
+        for mod in block.modules():
+            for leaf, p in list(mod.named_parameters(recurse=False)):
+                new = p if here else torch.nn.Parameter(
+                    p.detach().new_empty(0), requires_grad=p.requires_grad)
+                setattr(new, _STAGE_OWNED, StageOwned(
+                    owner, tuple(p.shape), here, group, ring.ranks[owner]))
+                setattr(mod, leaf, new)
+    log.info("pipeline over %s=%d: stage %d owns blocks %s", axis,
+             ring.size, ring.index, mine)
+    return model
+
+
 def place_model(model: torch.nn.Module, mesh, parallelism: str = "dp",
                 tp_rules=DIT_TP_RULES,
                 tp_fallback: str = "replicate") -> torch.nn.Module:
     """A model on ``mesh`` for ``parallelism``: its weights broadcast from
     rank 0, then, under ``fsdp``, sharded (:func:`shard_params_fsdp` over
     the ``model`` axis, or the largest), under ``tp`` placed by
-    :func:`shard_params_tp` with ``tp_rules`` and ``tp_fallback``. Returns
-    ``model``; nothing happens without a mesh."""
+    :func:`shard_params_tp` with ``tp_rules`` and ``tp_fallback``, under
+    ``pp`` by :func:`shard_params_pp` (``dp`` and ``sp`` keep it whole).
+    Returns ``model``; nothing happens without a mesh."""
     if mesh is None:
         return model
     replicate(model)
@@ -662,13 +804,16 @@ def place_model(model: torch.nn.Module, mesh, parallelism: str = "dp",
         shard_params_fsdp(model, mesh)
     elif parallelism == "tp":
         shard_params_tp(model, mesh, tp_rules, tp_fallback)
+    elif parallelism == "pp":
+        shard_params_pp(model, mesh)
     return model
 
 
 def place_like(tree: Mapping, model: torch.nn.Module) -> dict:
     """``{name: leaf}`` with each tensor leaf placed as ``model``'s
-    parameter of that name is (a dense mask sharded like its parameter);
-    other leaves (a bit-packed mask) stay whole."""
+    parameter of that name is (a dense mask sharded like its parameter, or
+    kept by its parameter's stage); other leaves (a bit-packed mask) stay
+    whole."""
     params = dict(model.named_parameters())
     return {k: shard_like(v, params[k]) if torch.is_tensor(v) else v
             for k, v in tree.items()}

@@ -12,6 +12,7 @@ timesteps are drawn uniformly and the noise normally from ``generator``;
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -34,6 +35,10 @@ class DiTWorkload:
     diffusion: GaussianDiffusion
     device: torch.device
     lambd: float = 0.5
+    # the forward override, (model, x, t, y, cond_keep) -> model output:
+    # the pipelined forward under parallelism="pp"
+    # (parallel/pipeline.py dit_apply_pipelined); None: ``model(...)``
+    apply_fn: Callable | None = None
 
     @classmethod
     def build(cls, name: str = "DiT-XL/2", image_size: int = 256,
@@ -57,6 +62,24 @@ class DiTWorkload:
         """A seeded fresh model on this workload's device."""
         return init_dit(seed, self.cfg, self.device)
 
+    def forward(self, model: DiT, x, t, y, cond_keep=None) -> torch.Tensor:
+        """The model's output through :attr:`apply_fn` when one is set,
+        else ``model(x, t, y, cond_keep)``: every loss and the sampler
+        call the model here."""
+        if self.apply_fn is not None:
+            return self.apply_fn(model, x, t, y, cond_keep)
+        return model(x, t, y, cond_keep)
+
+    @contextlib.contextmanager
+    def applying(self, apply_fn: Callable):
+        """:attr:`apply_fn` set to ``apply_fn`` within the block, restored
+        after it."""
+        before, self.apply_fn = self.apply_fn, apply_fn
+        try:
+            yield self
+        finally:
+            self.apply_fn = before
+
     # -- losses ------------------------------------------------------------
 
     def _draw(self, x: torch.Tensor, generator: torch.Generator):
@@ -70,7 +93,8 @@ class DiTWorkload:
         """The hybrid MSE + VB loss per sample at GIVEN timesteps and noise,
         every label kept."""
         return self.diffusion.training_losses(
-            lambda x_t, tv: model(x_t, tv, y), x, t, noise, keepdim=True)
+            lambda x_t, tv: self.forward(model, x_t, tv, y), x, t, noise,
+            keepdim=True)
 
     def _per_sample(self, model, batch, generator):
         x, y = batch
@@ -124,9 +148,10 @@ class DiTWorkload:
             x, y = batch
             t, noise = self._draw(x, generator)
             x_t = self.diffusion.q_sample(x, t, noise)
-            out = model(x_t, t, y)
+            out = self.forward(model, x_t, t, y)
             with torch.no_grad():
-                target = model(x_t, t, torch.full_like(y, pseudo))
+                target = self.forward(model, x_t, t,
+                                      torch.full_like(y, pseudo))
             return torch.mean(torch.square(out - target))
 
         return fn
@@ -163,7 +188,8 @@ class DiTWorkload:
             keep = torch.arange(2 * n, device=labels.device) < n
 
             def cfg_model(x, t, **kw):
-                out = model(torch.cat([x, x]), torch.cat([t, t]), y2, keep)
+                out = self.forward(model, torch.cat([x, x]),
+                                   torch.cat([t, t]), y2, keep)
                 cond, uncond = out[:n], out[n:]
                 eps_c, rest_c = cond[..., :C], cond[..., C:]
                 eps_u = uncond[..., :C]

@@ -7,9 +7,8 @@ Port of ``uurg_tpu/workloads/dit_runner.py``: ``dit_forget``
 (DiT/generate_mask.py:16-57), ``dit_sample_grid`` (the snapshot sample
 sheets of DiT/forget.py:344-345) and ``dit_sample_fid`` (DiT/sample.py and
 DiT/sample_ddp.py: class-conditional samples, decoded by the VAE).
-``dit_forget`` runs data parallel, FSDP and tensor parallel on a
-``DeviceMesh`` (:mod:`uurg_torch.parallel`); the pipeline and ring
-attention raise (ROADMAP Queue 1 item 8c).
+``dit_forget`` runs data parallel, FSDP, tensor parallel, the pipeline and
+ring attention on a ``DeviceMesh`` (:mod:`uurg_torch.parallel`).
 
 Checkpoints are ``torch.save`` files in the reference DiT layout
 (:mod:`uurg_torch.io.dit_interop`): ``<ckpt_dir>/ckpt_{i:07d}.pt`` and
@@ -21,6 +20,7 @@ Fishers and masks are the port's files of named tensors
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -35,10 +35,13 @@ from uurg_torch.io.checkpoint import save_checkpoint
 from uurg_torch.io.dit_interop import save_dit_checkpoint
 from uurg_torch.models.dit import DiT
 from uurg_torch.parallel.dist import rank, sync_global_devices, world_size
-from uurg_torch.parallel.mesh import (DIT_TP_RULES, data_group,
+from uurg_torch.parallel.mesh import (DIT_TP_RULES, STAGE, data_group,
                                       full_optimizer_state, full_state_dict,
-                                      place_like, place_model, shard_batch,
+                                      mesh_shape, place_like, place_model,
+                                      require_axis, shard_batch,
                                       shard_optimizer_state, split_batches)
+from uurg_torch.parallel.pipeline import dit_apply_pipelined
+from uurg_torch.parallel.sequence import sequence_parallel
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.fisher import accumulate_fisher
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
@@ -134,9 +137,18 @@ def dit_forget(
     ``parallelism="fsdp"`` shards the parameters, the EMA, the Adam
     moments and a dense mask alike (a packed mask stays whole), and
     ``"tp"`` places them alike by :data:`DIT_TP_RULES` over the ``model``
-    axis (the rest whole). The train state is read whole before sharding
-    and written whole by rank 0, as are the checkpoints."""
-    refuse_multi_device(parallelism, pp_microbatches)
+    axis (the rest whole), ``"pp"`` keeps each stage's blocks, their EMA,
+    moments and dense mask on that stage of the ``stage`` axis and runs
+    every forward (the losses' and ``sample_hook``'s) through the
+    pipeline in ``pp_microbatches`` (default: the stage count), and
+    ``"sp"`` runs every attention as ring attention over the ``seq`` axis
+    (the model whole). A mesh without the mode's axis raises JAX's
+    ``ValueError``; without a mesh every mode runs as one device. The
+    train state is read whole before sharding and written whole by rank
+    0, as are the checkpoints."""
+    refuse_multi_device(parallelism)
+    if mesh is not None:
+        require_axis(mesh, parallelism)
     dev = wl.device
     ema_model = make_shadow(model)
     ck, resume = None, None
@@ -178,7 +190,7 @@ def dit_forget(
     gen = torch.Generator(device=dev)
     model.train()
     start = time.time()
-    with split_batches(mesh):
+    with split_batches(mesh), _mode(wl, mesh, parallelism, pp_microbatches):
         for i in range(start_step, n_iters):
             fb = shard_batch(next(forget_batches), mesh, batch_dim=batch_dim)
             rb = shard_batch(next(remain_batches), mesh, batch_dim=batch_dim)
@@ -203,6 +215,24 @@ def dit_forget(
                             state.ema_model)
         sync_global_devices("dit_final")
     return state
+
+
+def _mode(wl: DiTWorkload, mesh, parallelism: str,
+          pp_microbatches: int | None):
+    """The context of a run's loop: every forward of ``wl`` pipelined over
+    the mesh's ``stage`` axis in ``pp_microbatches`` (default: the stage
+    count) under ``pp``, every attention a ring over its ``seq`` axis under
+    ``sp``; nothing without a mesh or under the other modes."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    if parallelism == "sp":
+        return sequence_parallel(mesh)
+    if parallelism == "pp":
+        n_mb = pp_microbatches or mesh_shape(mesh)[STAGE]
+        return wl.applying(lambda m, x, t, y, keep: dit_apply_pipelined(
+            m, wl.cfg, x, t, y, mesh=mesh, n_microbatches=n_mb,
+            cond_keep=keep))
+    return contextlib.nullcontext()
 
 
 def _take(it: Iterable, n: int):

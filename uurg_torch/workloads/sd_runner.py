@@ -13,8 +13,8 @@ from ``(seed, step)`` (:func:`~uurg_torch.core.rng.step_seed`). The
 ``train_method`` subset (``train_method_leaf_mask``) is the only part the
 optimizer holds: frozen parameters get no update and no Adam state, as
 ``optax.set_to_zero`` gives in JAX. ``nsfw_removal`` runs data parallel,
-FSDP and tensor parallel on a ``DeviceMesh`` (:mod:`uurg_torch.parallel`);
-sequence parallel raises.
+FSDP, tensor parallel and ring attention on a ``DeviceMesh``
+(:mod:`uurg_torch.parallel`).
 """
 from __future__ import annotations
 
@@ -31,8 +31,9 @@ from uurg_torch.core.device import refuse_multi_device
 from uurg_torch.core.rng import step_seed
 from uurg_torch.models.sd_unet import SDUNet, train_method_leaf_mask
 from uurg_torch.parallel.mesh import (SD_TP_RULES, data_group, place_like,
-                                      place_model, shard_batch,
+                                      place_model, require_axis, shard_batch,
                                       split_batches)
+from uurg_torch.parallel.sequence import sequence_parallel
 from uurg_torch.train.optim import make_optimizer
 from uurg_torch.unlearn.sfron import (SFRonConfig, SFRonState, init_state,
                                       make_sfron_step, stack_microbatches)
@@ -137,9 +138,19 @@ def nsfw_removal(
     Adam moments and a dense mask alike (a packed mask stays whole), and
     ``"tp"`` places them alike by :data:`SD_TP_RULES` over the ``model``
     axis, FSDP over the same axis taking the convolutions, norms and
-    embeddings as JAX's ``fallback="fsdp"`` does. ``snapshot_hook`` runs
-    on every rank."""
+    embeddings as JAX's ``fallback="fsdp"`` does; ``"sp"`` runs every
+    self-attention that reaches the dispatcher (T % 128 == 0) as ring
+    attention over the ``seq`` axis, the cross-attention over the text's 77
+    tokens staying local. Under a mesh, ``sp`` without a ``seq`` axis
+    raises JAX's ``ValueError``, and ``pp`` its "unknown parallelism" (the
+    JAX runner has no pipeline for the UNet); without a mesh every mode
+    runs as one device.
+    ``snapshot_hook`` runs on every rank."""
     refuse_multi_device(parallelism)
+    if mesh is not None:
+        if parallelism == "pp":
+            raise ValueError(f"unknown parallelism {parallelism!r}")
+        require_axis(mesh, parallelism)
     dev = wl.device
     place_model(model, mesh, parallelism, SD_TP_RULES, tp_fallback="fsdp")
     opt = _method_optimizer(model, train_method, lr, nu_dtype=nu_dtype)
@@ -161,7 +172,9 @@ def nsfw_removal(
     state = init_state(model, opt, mask=mask, group=data_group(mesh))
     batch_dim = 1 if grad_accum > 1 else 0
     gen = torch.Generator(device=dev)
-    with split_batches(mesh):
+    sp = (sequence_parallel(mesh) if mesh is not None and parallelism == "sp"
+          else contextlib.nullcontext())
+    with split_batches(mesh), sp:
         for i in range(n_iters):
             fb = shard_batch(next(forget_batches), mesh, batch_dim=batch_dim)
             rb = shard_batch(next(remain_batches), mesh, batch_dim=batch_dim)

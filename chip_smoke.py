@@ -103,7 +103,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    clock; the probe in bf16 at batch 64. Then the twin of
    ``cli/parity_check.py`` through ``uurg_torch.cli.parity_check.run`` on
    the full-width config and the stand-in artifacts: the Fisher pass, the
-   ``fisher_1.0`` mask, 10 SFR-on steps under it, 288 remaining-class and
+   ``fisher_1.0`` mask, 10 SFR-on steps under it, 144 remaining-class and
    128 forgotten-class samples by DDIM-50 CFG, the metrics against the
    stand-in's remain split (1,858 references) and the UA probe. The launch
    counters are zeroed just before and read just after: one forward and
@@ -121,10 +121,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradients' distance from float64 printed) and in float64 (all within
    1e-9). Then on a CIFAR-10-sized stand-in (50,000 + 10,000 images,
    random 10% forgetting, batch 256, the flip and pad-crop augmentation):
-   ``SFRon`` through the registry in fp32 and in bf16 (the Fisher pass
-   over both splits timed, the mask density, 10 warm-up iterations of
-   which 5 profiled for the device's busy time, 50 timed; cut from 1,500
-   by its ``n_iters`` override), losses finite, parameters and running
+   ``SFRon`` through the registry (the Fisher pass over both splits
+   timed, the mask density; cut from 1,500 iterations by its ``n_iters``
+   override) on its chunked path, chunks of ``make_sfron_scan`` replayed
+   as one CUDA graph each: in bf16 250 iterations at its default chunk of
+   50 (the first chunk eager, the second, after its capture, held against
+   the chunk's plain loop from the same state and seed: parameters,
+   BatchNorm statistics, gradients, optimizer state and losses bit-equal,
+   or within 4 times the plain loop's own run-to-run spread; the third
+   profiled for the device's busy time; two timed on the host clock), in
+   fp32 10 in chunks of 5 without the mask (the warm-up and the compared
+   replay); then in bf16 step by step (``scan_chunk`` 1, 10 warm-up
+   iterations of which 5 profiled, 50 timed; the Fishers read from the
+   chunked run's files, as the method's cache reads them); losses
+   finite, parameters and running
    statistics moved, forget and test accuracy and peak memory printed;
    the other eight methods through the registry at one epoch each in bf16
    on a tenth of the retain and forget splits (4,500 + 500 images; finite,
@@ -133,8 +143,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``uurg_torch.cli.main_random --unlearn_method SFRon --svc_mia --dtype
    bf16`` on its own 2,048 / 512-image stand-in in this process, its SFRon
    cut from 1,500 iterations to 250 (its CSV row, the rate it logs at
-   iteration 250); the SVC attack's fit at 4,000 +
-   4,000 on the host. The float32 attention counters must read 0 too.
+   iteration 250); the SVC attack's fit at 2,000 + 2,000 (the protocol
+   caps it at 4,000 + 4,000) on the host. The float32 attention counters
+   must read 0 too.
 16. The float32 attention kernels (``uurg_torch/csrc/flash_attention_f32.cu``)
    with TF32 off: at ViT-B/16's (64, 12, 197, 64) (the tiled route) and
    main_random's (256, 12, 5, 64) (the packed route), at D = 40 and 160
@@ -150,10 +161,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameter gradients, each side's distance from float64 printed), its
    call exactly 12 + 12 float32 attention launches; ``SFRon`` through the
    registry at batch 64 on a 320-image 224 px stand-in (the Fisher pass,
-   the mask, 3 + 10 of 1,500 iterations) in fp32 (float32 counters exactly
-   12 a forward and 12 a backward, bf16 counters 0) and in bf16 (the
-   reverse); Swin_T card against CPU and 3 SFR-on iterations with no
-   attention launch; then each in this process:
+   the mask) in fp32 (float32 counters exactly 12 a forward and 12 a
+   backward, bf16 counters 0) and in bf16 (the reverse): 25 of 1,500
+   iterations in chunks of 5 replayed as CUDA graphs (checked as phase
+   15's; the launches counted as a capture's times its replays plus the
+   eager warm-up's, and the loop's forwards one an iteration and one a
+   forget step), then 3 + 10 step by step (``scan_chunk`` 1); Swin_T card
+   against CPU and 3 SFR-on iterations with no attention launch; then
+   each in this process:
    ``main_random --unlearn SFRon --model ViT_B`` on its 32 px stand-in
    (SFRon cut from 1,500 iterations to 10),
    ``save_base_dataset --as_npz``, ``train_classifier`` for one epoch (32
@@ -188,7 +203,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    ``dit_generate_mask`` (threshold 1.0), ``forget`` (the mask packed,
    adaga, 3 steps, snapshot and checkpoints at step 3; ``final.pt`` read
    back). ``dit_forget`` at batch 32 + 32 under that mask, 2 warm-up steps
-   and one profiled, then 3 counted and timed, under full and ``attn``
+   and one profiled, then 2 counted and timed, under full and ``attn``
    remat (attention launches exactly 28 + 28 or 28 forwards and 28
    backwards a phase; GroupNorm's 0; steps/s, busy share, peak memory);
    ``dit_sample_grid`` (50 steps, CFG 4.0, 16 labels; 28 forward launches
@@ -311,7 +326,8 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    one-device run (reused, not rerun). It fails unless the rules placed
    every qkv (3 pieces), adaLN (6), GEGLU (2) and other projection they
    name, and gates each run as phase 23 does (relative L2 1e-6, launches
-   equal), with the call's ms, peak memory and the profiled last step.
+   equal), with the call's ms, peak memory and (DiT's; SD's is phase
+   23's) the profiled last step.
 
 25. Ring attention and the DiT pipeline (``uurg_torch/parallel/
    {sequence,pipeline}.py``) on the same one-rank group. (a) The ring's
@@ -327,7 +343,7 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    rank in one microbatch gated as phase 23 (relative L2 1e-6, launches
    equal); 2 microbatches by the update's relative L2 (PP_UPDATE_REL) and
    twice the attention launches; each with the call's ms, peak memory and
-   the profiled last step.
+   (DiT's) the profiled last step.
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -509,10 +525,10 @@ EVAL_CHECK_BATCH = 4
 INCEPTION_BATCH, INCEPTION_IMAGES = 256, 2048
 PROBE_BATCH, PROBE_IMAGES = 64, 512
 # the twin's cuts of the full north-star run: SFR-on 10 of 150 iterations,
-# 32 samples a remaining class (288 of 45,000; the nine classes must
+# 16 samples a remaining class (144 of 45,000; the nine classes must
 # divide it), 128 probe samples of 5,000; DDIM-50 and the references (the
 # stand-in's remain split) uncut
-PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 288, 128
+PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 144, 128
 # classification (phase 15): ResNet-18 with the CIFAR stem at full width on
 # a CIFAR-10-sized stand-in (50,000 train and 10,000 test images of 32 px,
 # 10 classes, noise 0.5), random 10% forgetting (5,000 forget, 45,000
@@ -532,6 +548,22 @@ CLS_F64_REL = 1e-9
 # one epoch each (Finetune, RandomLabel, SalUn, BadTeacher from 10 epochs,
 # Retrain from 200, GradAscent from 9, SCRUB from 6 epochs and 2 max steps)
 CLS_WARMUP, CLS_PROFILED, CLS_TIMED = 10, 5, 50
+# SFRon's chunked path (make_sfron_scan, one CUDA graph replay a chunk):
+# chunk 0 the eager warm-up, chunk 1 the first replay (after its capture)
+# held against the plain chunk loop from the same state and seed, chunk 2
+# under the profiler, the rest timed on the host clock. ResNet-18 bf16 at
+# the method's default scan_chunk (50) over CLS_SCAN_ITERS iterations; fp32
+# CLS_F32_ITERS iterations in chunks of CLS_F32_CHUNK (the warm-up and the
+# compared replay); the per-step path (scan_chunk 1) at bf16 beside it,
+# CLS_WARMUP + CLS_TIMED iterations
+CLS_SCAN_CHUNK, CLS_SCAN_ITERS = 50, 250
+CLS_F32_CHUNK, CLS_F32_ITERS = 5, 10
+SCAN_COMPARED, SCAN_PROFILED = 1, 2
+# graph against plain loop: equal bits expected (the same kernels on the
+# same inputs in the same order); where the plain loop's own run-to-run
+# spread is not 0 (a kernel that sums with atomics), within SCAN_SPREAD
+# times that spread, measured by running the plain loop twice
+SCAN_SPREAD = 4
 CLS_ONE_EPOCH = {"epochs": 1, "sgda_epochs": 1, "msteps": 1}
 # the eight methods' epoch runs over every CLS_METHODS_EVERY-th image of the
 # retain and forget splits (4,500 + 500): depth cut to keep the script in
@@ -553,11 +585,18 @@ VIT_REL, VIT_GRAD_REL = 1e-4, 1e-5
 # SWIN_ITERS iterations without the Fisher mask
 VIT_BATCH, VIT_TRAIN = 64, 320
 VIT_WARMUP, VIT_TIMED, SWIN_ITERS = 3, 10, 3
+# ViT-B/16's chunked path: VIT_SCAN_ITERS iterations in chunks of
+# VIT_SCAN_CHUNK (a multiple of forget_freq 5: one graph), chunks as
+# CLS_SCAN_*'s; the per-step path (scan_chunk 1) at VIT_WARMUP + VIT_TIMED
+VIT_SCAN_CHUNK, VIT_SCAN_ITERS = 5, 25
 # main_random's SFRon in the CLI runs, cut from its 1,500 iterations
 # through the method's n_iters override (sfron_cut): the ResNet-18 run
 # of phase 15 to 250 (where it logs its rate), the ViT-B/16 run of phase 17
 # to 10
 CLS_CLI_ITERS, VIT_CLI_ITERS = 250, 10
+# the SVC attack's fit timed at SVC_N + SVC_N (cut from the protocol's cap
+# of 4,000 + 4,000: the SMO's time grows with the square)
+SVC_N = 2000
 # the remat'd DDPM step (after phase 17): the full-width config at batch 128
 # in train mode (dropout on), remat against no remat from the same weights
 # and generator. The loss must be equal. The recompute runs the same
@@ -593,7 +632,7 @@ DIT_REL, DIT_GRAD_REL = 1e-5, 3e-5
 # CFG 4.0, 16 labels
 DIT_LATENTS, DIT_SHARDS, DIT_STANDIN_CLASSES = 2048, 4, 10
 DIT_FISHER_ITERS, DIT_CLI_ITERS = 2, 3
-DIT_WARMUP, DIT_STEPS = 2, 3
+DIT_WARMUP, DIT_STEPS = 2, 2
 DIT_GRID_STEPS, DIT_COND_SCALE, DIT_GRID_CLASSES = 50, 4.0, 8
 # the frozen VAE (phase 19): VAEConfig(), the CompVis first stage DiT uses
 # (sd-vae-ft-ema), 83,653,863 parameters, fp32 (TF32 off), seeded init, at
@@ -675,7 +714,7 @@ SD_FAMILIES = (
 # denoise cut from 50 DDIM steps to SD_ESD_DDIM (a divisor of the 1,000
 # training steps, as LDM's DDIM grid needs); the prox at the CLI's top
 # ratio
-SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 2, 2
+SD_SFRON_WARMUP, SD_SFRON_TIMED, SD_CLI_ITERS = 2, 1, 2
 SD_BASELINE_ITERS = 1          # gradient ascent, proximal, random label
 SD_ESD_DDIM, SD_TOP_RATIO = 10, 0.01
 
@@ -2752,6 +2791,207 @@ def cls_clock(module, profile_from: int, n_profiled: int):
         module.make_sfron_step = make
 
 
+def _scan_tensors(state) -> dict:
+    """Every tensor an SFR-on chunk moves, by group: parameters, buffers
+    (the BatchNorm statistics), gradients, optimizer state (learning rates
+    included)."""
+    import torch
+
+    params = list(state.model.parameters())
+    opt = [v for st in state.optimizer.state.values() for v in st.values()
+           if torch.is_tensor(v)]
+    return {"parameters": params, "buffers": list(state.model.buffers()),
+            "gradients": [p.grad for p in params],
+            "optimizer": opt + [g["lr"] for g in
+                                state.optimizer.param_groups]}
+
+
+def _scan_gap(got: list, want: list) -> float:
+    """Relative L2 distance of two lists of tensors, concatenated."""
+    import torch
+
+    a = torch.cat([t.detach().double().reshape(-1) for t in got])
+    b = torch.cat([t.detach().double().reshape(-1) for t in want])
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def scan_compare(scan, state, f, r, gen, counters) -> dict:
+    """One chunk through the scan's graph replay and through its plain
+    loop from the same state (the generator is seeded from the state's
+    step by both): parameters, buffers, gradients, optimizer state and the
+    losses compared. The state is left as the plain loop leaves it; the
+    plain loops' counts (launches, forwards) are returned to be taken out
+    of the path's, with the replay's metrics."""
+    import torch
+
+    groups = _scan_tensors(state)
+    tensors = [t for ts in groups.values() for t in ts]
+    start = [t.detach().clone() for t in tensors]
+    step0 = state.step
+    graph_m = {k: v.clone() for k, v in scan(state, f, r, gen).items()}
+    torch.cuda.synchronize()
+    graph_t = [t.detach().clone() for t in tensors]
+
+    def plain():
+        with torch.no_grad():
+            for t, s0 in zip(tensors, start):
+                t.copy_(s0)
+        state.step = step0
+        before = counters()
+        m = scan.plain(state, f, r, gen)
+        torch.cuda.synchronize()
+        after = counters()
+        return m, {k: after[k] - before[k] for k in after}
+
+    plain_m, delta = plain()
+    losses = [torch.stack([m["forget_loss"], m["remain_loss"]])
+              for m in (graph_m, plain_m)]
+    equal = (all(torch.equal(a, b) for a, b in zip(graph_t, tensors))
+             and torch.equal(*losses))
+    by_group, i = {}, 0
+    for name, ts in groups.items():
+        if ts:
+            by_group[name] = _scan_gap(graph_t[i:i + len(ts)],
+                                       tensors[i:i + len(ts)])
+        i += len(ts)
+    out = {"bit_equal": equal, "rel_l2": _scan_gap(graph_t, tensors),
+           "rel_l2_by_group": by_group,
+           "loss_rel_l2": _scan_gap(losses[:1], losses[1:]),
+           "plain_counts": delta, "spread": None}
+    if not equal:
+        # the plain loop's own run-to-run spread: run it once more
+        first = [t.detach().clone() for t in tensors]
+        _, again = plain()
+        delta = {k: delta[k] + again[k] for k in delta}
+        out.update(spread=_scan_gap(first, tensors), plain_counts=delta)
+    return out, graph_m
+
+
+@contextlib.contextmanager
+def scan_clock(module, counters, chunks: int):
+    """Wrap the SFR-on scan that ``module.make_sfron_scan`` builds; the run
+    still goes through the method's own scan and state. Every chunk ends
+    with a wait for the device and a read of the clock; chunk
+    SCAN_COMPARED goes through :func:`scan_compare`, chunk SCAN_PROFILED
+    runs under the profiler (its device time), unless it is the last.
+    ``counters()`` reads the counts to follow (launches, forwards): read at
+    the first chunk and around each capture, whose counts a replay repeats
+    with no Python (``effective`` adds them once a replay after the
+    first)."""
+    import torch
+
+    rec = {"t": [], "loss": [], "busy_ms": None, "compare": None,
+           "captured": {}, "scans": [], "at_first_chunk": None}
+    make = module.make_sfron_scan
+
+    def timed_make(*args, **kwargs):
+        scan = make(*args, **kwargs)
+        rec["scans"].append(scan)
+        capture = scan._capture
+
+        def counted(state, generator, pattern):
+            before = counters()
+            out = capture(state, generator, pattern)
+            after = counters()
+            rec["captured"][pattern] = {k: after[k] - before[k]
+                                        for k in after}
+            return out
+
+        scan._capture = counted
+
+        def run(state, f, r, gen):
+            i = len(rec["t"])
+            if i == 0:
+                rec["at_first_chunk"] = counters()
+            out = {}
+            if i == SCAN_COMPARED:
+                rec["compare"], out = scan_compare(scan, state, f, r, gen,
+                                                   counters)
+            elif i == SCAN_PROFILED and i < chunks - 1:
+                rec["busy_ms"] = device_busy_ms(
+                    "an SFR-on chunk", lambda: out.update(
+                        scan(state, f, r, gen)))
+            else:
+                out = scan(state, f, r, gen)
+            torch.cuda.synchronize()
+            rec["t"].append(time.perf_counter())
+            rec["loss"] += list(zip(out["forget_loss"].tolist(),
+                                    out["remain_loss"].tolist()))
+            return out
+
+        return run
+
+    module.make_sfron_scan = timed_make
+    try:
+        yield rec
+    finally:
+        module.make_sfron_scan = make
+
+
+def effective(raw: dict, rec: dict) -> dict:
+    """The counts a scan's run made on the device: the counters' readings
+    less the compared plain loops', plus each graph's captured counts once
+    more for every replay after its first (capture ran the Python once)."""
+    scan = rec["scans"][-1]
+    plain = (rec["compare"] or {}).get("plain_counts", {})
+    out = {k: v - plain.get(k, 0) for k, v in raw.items()}
+    for pattern, counts in rec["captured"].items():
+        for k, v in counts.items():
+            out[k] += v * (scan.replays.get(pattern, 0) - 1)
+    return out
+
+
+def scan_summary(tag: str, rec: dict, chunk: int, card: str) -> dict:
+    """Host ms an iteration over the timed chunks, the profiled chunk's
+    device ms an iteration, the graph-against-plain result (a fault fails
+    the run)."""
+    import numpy as np
+
+    cmp_ = rec["compare"]
+    if cmp_ is None:
+        fail(f"{tag}: no chunk was held against the plain loop")
+    scan = rec["scans"][-1]
+    if not scan.replays or not rec["captured"]:
+        fail(f"{tag}: no CUDA graph was captured and replayed")
+    spread = cmp_["spread"]
+    ok = cmp_["bit_equal"] or (spread is not None and spread > 0 and
+                               cmp_["rel_l2"] <= SCAN_SPREAD * spread)
+    print(f"  {tag}: graph replay against the plain chunk loop ({chunk} "
+          f"iterations from one state and seed): "
+          f"{'bit-equal' if cmp_['bit_equal'] else 'not bit-equal'} "
+          f"(state rel L2 {cmp_['rel_l2']:.3e}: "
+          + ", ".join(f"{k} {v:.3e}"
+                      for k, v in cmp_["rel_l2_by_group"].items())
+          + f"; losses {cmp_['loss_rel_l2']:.3e}"
+          + (f", the plain loop's own spread {spread:.3e}, gate "
+             f"{SCAN_SPREAD} times it" if spread is not None else "")
+          + f"); graphs {len(rec['captured'])}, replays "
+          f"{sum(scan.replays.values())}", flush=True)
+    if not ok:
+        fail(f"{tag}: the CUDA graph's chunk disagrees with its plain loop")
+    t = np.asarray(rec["t"])
+    timed = [k for k in range(SCAN_PROFILED + 1, len(t))]
+    dt = (np.asarray([t[k] - t[k - 1] for k in timed]) / chunk
+          if timed else np.asarray([]))
+    busy = None if rec["busy_ms"] is None else rec["busy_ms"] / chunk
+    out = {"chunk": chunk, "chunks": len(t), "compare": cmp_,
+           "graphs": len(rec["captured"]),
+           "replays": sum(scan.replays.values()),
+           "iter_ms": (dt * 1e3).tolist(),
+           "mean_iter_ms": float(dt.mean() * 1e3) if len(dt) else None,
+           "busy_ms_per_iter": busy,
+           "busy_share": (float(busy / 1e3 / dt.mean())
+                          if busy is not None and len(dt) else None)}
+    if len(dt):
+        print(f"  {tag} chunked: {out['mean_iter_ms']:.3f} ms an iteration "
+              f"on the host clock ({1e3 / out['mean_iter_ms']:.2f} it/s) "
+              f"over {len(dt)} timed chunks of {chunk}; device busy "
+              f"{busy:.3f} ms an iteration (profiler, one replayed chunk), "
+              f"{out['busy_share']:.1%} of the host's; on {card}",
+              flush=True)
+    return out
+
+
 def _cls_model(dtype, dev, seed: int = SEED):
     import torch
 
@@ -2838,10 +3078,17 @@ def cls_card_vs_cpu(dev) -> dict:
     return errs
 
 
-def cls_sfron(dtype, data, dev, card: str) -> dict:
+def cls_sfron(dtype, data, dev, card: str, n_iters: int,
+              scan_chunk: int | None = None, mask: bool = True,
+              save_path: str | None = None) -> dict:
     """Phase 15: ``SFRon`` through the registry on the stand-in at
-    ``dtype``: the Fisher pass, the mask, CLS_WARMUP + CLS_TIMED
-    iterations."""
+    ``dtype``: the Fisher pass and the mask (unless ``mask`` is off; the
+    two Fishers read from ``save_path`` where an earlier run of the same
+    model left them), ``n_iters`` iterations. Chunked (``scan_chunk``
+    None: the method's default, cut to divide ``n_iters``) under
+    :func:`scan_clock`; ``scan_chunk`` 1 step by step under
+    :func:`cls_clock`, CLS_WARMUP of them untimed (CLS_PROFILED of those
+    profiled)."""
     import numpy as np
     import torch
 
@@ -2852,11 +3099,16 @@ def cls_sfron(dtype, data, dev, card: str) -> dict:
     retain, forget, test, aug = data
     model = _cls_model(dtype, dev)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    n_iters = CLS_WARMUP + CLS_TIMED
+    overrides = {"n_iters": n_iters, "mask": mask}
+    if scan_chunk is not None:
+        overrides["scan_chunk"] = scan_chunk
+    chunk = CLS_SCAN_CHUNK if scan_chunk is None else scan_chunk
+    while chunk > 1 and n_iters % chunk:
+        chunk -= 1
     ctx = TM.UnlearnContext(
         classifier=Classifier(dev), model=model, retain_train=retain,
         forget_train=forget, num_classes=10, batch_size=CLS_BATCH,
-        seed=SEED, transform=aug, overrides={"n_iters": n_iters})
+        seed=SEED, transform=aug, save_path=save_path, overrides=overrides)
     masks = []
     ratio_mask = TM.fisher_ratio_mask
 
@@ -2864,13 +3116,15 @@ def cls_sfron(dtype, data, dev, card: str) -> dict:
         masks.append(ratio_mask(*a, **k))
         return masks[-1]
 
+    clock = (cls_clock(TM, CLS_WARMUP - CLS_PROFILED, CLS_PROFILED)
+             if chunk == 1 else
+             scan_clock(TM, _read_all_launches, n_iters // chunk))
     TM.fisher_ratio_mask = keep_mask
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
         with stage_clock([(TM, "accumulate_fisher", "fisher")]) as seconds, \
-                cls_clock(TM, CLS_WARMUP - CLS_PROFILED,
-                          CLS_PROFILED) as rec:
+                clock as rec:
             t0 = time.perf_counter()
             unlearned = TM.unlearn_method_registry.get("SFRon")(ctx)
             torch.cuda.synchronize()
@@ -2879,9 +3133,9 @@ def cls_sfron(dtype, data, dev, card: str) -> dict:
         TM.fisher_ratio_mask = ratio_mask
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_fisher = sum(-(-len(d) // CLS_BATCH) for d in (forget, retain))
-    mask = masks[0]
-    density = (sum(int(m.sum()) for m in mask.values())
-               / sum(m.numel() for m in mask.values()))
+    density = (sum(int(m.sum()) for m in masks[0].values())
+               / sum(m.numel() for m in masks[0].values())) if mask else None
+    fisher_s = seconds.get("fisher")
     losses = np.asarray(rec["loss"])
     if len(losses) != n_iters or not np.isfinite(losses).all():
         fail(f"SFRon: {len(losses)} iterations or a loss not finite")
@@ -2889,38 +3143,53 @@ def cls_sfron(dtype, data, dev, card: str) -> dict:
     if not dp > 0 or not ds > 0:
         fail(f"SFRon: parameters ({dp}) or running statistics ({ds}) did "
              f"not move")
+    acc, test_acc = (Classifier(dev).validate(
+        unlearned, epoch_batches(d, CLS_BATCH))["acc"] for d in (forget, test))
+    name = str(dtype).removeprefix("torch.")
+    out = {"n_iters": n_iters, "scan_chunk": chunk,
+           "fisher_batches": n_fisher, "fisher_s": fisher_s,
+           "mask_density": density, "peak_gib": peak_gib,
+           "forget_acc": acc, "test_acc": test_acc, "call_s": wall,
+           "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+    if not mask:
+        fisher = "no mask"
+    elif fisher_s is None:
+        fisher = (f"the Fishers read from the last run's files; mask "
+                  f"density {density:.4f}")
+    else:
+        out["fisher_batches_per_s"] = n_fisher / fisher_s
+        fisher = (f"Fisher pass {n_fisher} batches (eval mode, batch "
+                  f"{CLS_BATCH}) in {fisher_s:.3f} s, "
+                  f"{n_fisher / fisher_s:.2f} batches/s on the host clock; "
+                  f"mask density {density:.4f}")
+    head = (f"  SFRon {name}, {n_iters} iterations (cut from 1,500), "
+            f"scan_chunk {chunk}: {fisher}")
+    tail = (f"peak {peak_gib:.3f} GiB; forget accuracy {acc:.2f}%, test "
+            f"{test_acc:.2f}% (random init); the call {wall:.3f} s; on "
+            f"{card}")
+    if chunk > 1:
+        print(f"{head}; {tail}", flush=True)
+        out["scan"] = scan_summary(f"SFRon {name}", rec, chunk, card)
+        return out
     t = np.asarray(rec["t"][-CLS_TIMED - 1:])
     if len(t) != CLS_TIMED + 1:
         fail(f"SFRon: {len(rec['t'])} timed iterations")
     dt = np.diff(t)
     mean_s = (t[-1] - t[0]) / CLS_TIMED
     busy = rec["busy_ms"] / CLS_PROFILED
-    acc, test_acc = (Classifier(dev).validate(
-        unlearned, epoch_batches(d, CLS_BATCH))["acc"] for d in (forget, test))
-    name = str(dtype).removeprefix("torch.")
-    print(f"  SFRon {name}: Fisher pass {n_fisher} batches (eval mode, batch "
-          f"{CLS_BATCH}) in {seconds['fisher']:.3f} s, "
-          f"{n_fisher / seconds['fisher']:.2f} batches/s on the host clock; "
-          f"mask density {density:.4f}; iterations median {np.median(dt) * 1e3:.3f} "
-          f"ms ({1 / np.median(dt):.2f} it/s), mean {mean_s * 1e3:.3f} ms "
+    print(f"{head}; iterations median {np.median(dt) * 1e3:.3f} ms "
+          f"({1 / np.median(dt):.2f} it/s), mean {mean_s * 1e3:.3f} ms "
           f"({1 / mean_s:.2f} it/s) over {CLS_TIMED} after {CLS_WARMUP} "
-          f"warm-up (cut from 1,500); device busy {busy:.3f} ms an iteration "
-          f"(profiler, {CLS_PROFILED} iterations, one a forget step), "
-          f"{busy / 1e3 / mean_s:.1%} of the mean; peak {peak_gib:.3f} GiB; "
-          f"forget accuracy {acc:.2f}%, test {test_acc:.2f}% (random init); "
-          f"the call {wall:.3f} s; "
-          f"on {card}", flush=True)
-    return {"fisher_batches": n_fisher, "fisher_s": seconds["fisher"],
-            "fisher_batches_per_s": n_fisher / seconds["fisher"],
-            "mask_density": density, "iter_ms": (dt * 1e3).tolist(),
-            "median_iter_ms": float(np.median(dt) * 1e3),
-            "median_iters_per_s": float(1 / np.median(dt)),
-            "mean_iter_ms": float(mean_s * 1e3),
-            "mean_iters_per_s": float(1 / mean_s),
-            "busy_ms_per_iter": busy, "busy_share": busy / 1e3 / mean_s,
-            "peak_gib": peak_gib, "forget_acc": acc, "test_acc": test_acc,
-            "call_s": wall,
-            "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+          f"warm-up; device busy {busy:.3f} ms an iteration (profiler, "
+          f"{CLS_PROFILED} iterations, one a forget step), "
+          f"{busy / 1e3 / mean_s:.1%} of the mean; {tail}", flush=True)
+    out.update({"iter_ms": (dt * 1e3).tolist(),
+                "median_iter_ms": float(np.median(dt) * 1e3),
+                "median_iters_per_s": float(1 / np.median(dt)),
+                "mean_iter_ms": float(mean_s * 1e3),
+                "mean_iters_per_s": float(1 / mean_s),
+                "busy_ms_per_iter": busy, "busy_share": busy / 1e3 / mean_s})
+    return out
 
 
 def cls_methods(data, dev, card: str) -> dict:
@@ -3068,21 +3337,23 @@ def cls_cli(card: str) -> dict:
 
 
 def svc_fit_seconds(card: str) -> float:
-    """Phase 15: the SVC attack's fit at the protocol's cap, 4,000 members
-    and 4,000 non-members of 1-D features, on the card's host."""
+    """Phase 15: the SVC attack's fit at SVC_N members and SVC_N
+    non-members of 1-D features (the protocol caps each at 4,000), on the
+    card's host."""
     import numpy as np
 
     from uurg_torch.eval.mia import fit_svc
 
     rng = np.random.default_rng(SEED)
-    x = np.concatenate([rng.normal(0.0, 1.0, 4000), rng.normal(
-        0.8, 1.2, 4000)]).astype(np.float32).reshape(-1, 1)
-    y = np.concatenate([np.ones(4000), np.zeros(4000)])
+    x = np.concatenate([rng.normal(0.0, 1.0, SVC_N), rng.normal(
+        0.8, 1.2, SVC_N)]).astype(np.float32).reshape(-1, 1)
+    y = np.concatenate([np.ones(SVC_N), np.zeros(SVC_N)])
     t0 = time.perf_counter()
     predict = fit_svc(x, y)
     secs = time.perf_counter() - t0
     share = float(predict(x).mean())
-    print(f"  SVC fit, 4,000 + 4,000 1-D features (SMO, numpy): {secs:.3f} s "
+    print(f"  SVC fit, {SVC_N} + {SVC_N} 1-D features (SMO, numpy): "
+          f"{secs:.3f} s "
           f"on the host of {card}; members predicted {share:.3f}",
           flush=True)
     return secs
@@ -3091,6 +3362,8 @@ def svc_fit_seconds(card: str) -> float:
 def classification_path(card: str) -> dict:
     """Phase 15: classification unlearning on ResNet-18, with zero launches
     of the kernels (the four and the float32 attention routes)."""
+    import shutil
+
     import torch
 
     from uurg_torch.core.device import resolve_device
@@ -3115,8 +3388,18 @@ def classification_path(card: str) -> dict:
         return random_flip_batch(pad_crop_batch(x, 4, rng), rng)
 
     data = (retain, forget, test, aug)
-    sfron = {str(dt).removeprefix("torch."): cls_sfron(dt, data, dev, card)
-             for dt in (torch.float32, torch.bfloat16)}
+    fishers = tempfile.mkdtemp(prefix="uurg_cls_fisher_")
+    try:
+        sfron = {
+            "float32": cls_sfron(torch.float32, data, dev, card,
+                                 CLS_F32_ITERS, CLS_F32_CHUNK, mask=False),
+            "bfloat16": cls_sfron(torch.bfloat16, data, dev, card,
+                                  CLS_SCAN_ITERS, save_path=fishers),
+            "bfloat16_per_step": cls_sfron(torch.bfloat16, data, dev, card,
+                                           CLS_WARMUP + CLS_TIMED, 1,
+                                           save_path=fishers)}
+    finally:
+        shutil.rmtree(fishers, ignore_errors=True)
     methods = cls_methods(data, dev, card)
     torch.cuda.empty_cache()
     cli = cls_cli(card)
@@ -3213,13 +3496,17 @@ def vit_stand_in():
 
 
 def vit_sfron(name: str, dtype, data, dev, card: str, n_iters: int,
-              mask: bool = True) -> dict:
+              mask: bool = True, scan_chunk: int | None = None) -> dict:
     """Phase 17: ``SFRon`` through the registry on the 224 px stand-in at
     batch 64: the Fisher pass and mask (unless ``mask`` is off), then
-    ``n_iters`` iterations; the first VIT_WARMUP - 1 untimed, one profiled,
-    the rest timed. The launch counters are zeroed just before and read
-    just after; the model's forwards are counted by a hook, those with
-    grad on (each followed by one backward) apart."""
+    ``n_iters`` iterations. Chunked (``scan_chunk`` None: VIT_SCAN_CHUNK)
+    under :func:`scan_clock`; step by step (``scan_chunk`` 1) with the
+    first VIT_WARMUP - 1 untimed, one profiled, the rest timed. The launch
+    counters are zeroed just before and read just after; the model's
+    forwards are counted by a hook, those with grad on (each followed by
+    one backward) apart. A replay runs no Python: the chunked path's
+    counts are the effective ones (:func:`effective`), and its loop's
+    forwards must be one an iteration and one a forget step."""
     import numpy as np
     import torch
 
@@ -3232,21 +3519,29 @@ def vit_sfron(name: str, dtype, data, dev, card: str, n_iters: int,
     calls = []
     hook = model.register_forward_hook(
         lambda mod, args, out: calls.append(torch.is_grad_enabled()))
+    chunk = VIT_SCAN_CHUNK if scan_chunk is None else scan_chunk
     ctx = TM.UnlearnContext(
         classifier=Classifier(dev), model=model, retain_train=retain,
         forget_train=forget, num_classes=10, batch_size=VIT_BATCH,
         seed=SEED, transform=aug,
-        overrides={"n_iters": n_iters, "mask": mask})
+        overrides={"n_iters": n_iters, "mask": mask, "scan_chunk": chunk})
+
+    def counters():
+        return {**_read_all_launches(), "forwards": len(calls),
+                "grad_forwards": sum(calls)}
+
+    profiled = min(1, n_iters - 1)
+    clock = (cls_clock(TM, VIT_WARMUP - 1, profiled) if chunk == 1 else
+             scan_clock(TM, counters, n_iters // chunk))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    profiled = min(1, n_iters - 1)
-    with cls_clock(TM, VIT_WARMUP - 1, profiled) as rec:
+    with clock as rec:
         _zero_launches()
         t0 = time.perf_counter()
         unlearned = TM.unlearn_method_registry.get("SFRon")(ctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_all_launches()
+        raw = counters()
     hook.remove()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = np.asarray(rec["loss"])
@@ -3259,26 +3554,47 @@ def vit_sfron(name: str, dtype, data, dev, card: str, n_iters: int,
     if any(not torch.equal(v, model.state_dict()[k])
            for k, v in before.items()):
         fail(f"{name} SFRon changed the context's model")
+    tag = f"{name} {str(dtype).removeprefix('torch.')}"
+    counts = raw if chunk == 1 else effective(raw, rec)
+    launches = {k: v for k, v in counts.items() if "forwards" not in k}
+    out = {"launches": launches, "forwards": counts["forwards"],
+           "grad_forwards": counts["grad_forwards"], "call_s": wall,
+           "scan_chunk": chunk, "n_iters": n_iters, "peak_gib": peak_gib,
+           "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+    head = (f"  {tag} SFRon ({n_iters} iterations, scan_chunk {chunk}, "
+            f"batch {VIT_BATCH}, {VIT_RES} px"
+            f"{', Fisher mask' if mask else ', no mask'}): "
+            f"{counts['forwards']} forwards ({counts['grad_forwards']} with "
+            f"a backward), the call {wall:.3f} s; peak {peak_gib:.3f} GiB; "
+            f"launches {launches}")
+    if chunk > 1:
+        loop = counts["grad_forwards"] - rec["at_first_chunk"]["grad_forwards"]
+        want = n_iters + -(-n_iters // 5)
+        print(f"{head} (effective: the counters read {raw}, a replay "
+              f"repeats a capture's {list(rec['captured'].values())}); "
+              f"the loop's forwards {loop} (expected {want}: one an "
+              f"iteration, one a forget step); on {card}", flush=True)
+        if loop != want:
+            fail(f"{tag} SFRon: {loop} forwards in the chunked loop, not "
+                 f"{want}")
+        out["raw_counts"] = raw
+        out["scan"] = scan_summary(f"{tag} SFRon", rec, chunk, card)
+        return out
     # the clock reads after every iteration but the profiled one
     t = np.asarray(rec["t"][VIT_WARMUP - 1:] if n_iters > VIT_WARMUP
                    else rec["t"])
     dt = np.diff(t)
-    tag = f"{name} {str(dtype).removeprefix('torch.')}"
-    print(f"  {tag} SFRon ({n_iters} iterations, batch {VIT_BATCH}, "
-          f"{VIT_RES} px{', Fisher mask' if mask else ', no mask'}): "
-          f"{len(calls)} forwards ({sum(calls)} with a backward), the call "
-          f"{wall:.3f} s; iterations median "
-          f"{np.median(dt) * 1e3 if len(dt) else float('nan'):.3f} ms over "
+    print(f"{head}; iterations median "
+          f"{np.median(dt) * 1e3 if len(dt) else float('nan'):.3f} ms, mean "
+          f"{dt.mean() * 1e3 if len(dt) else float('nan'):.3f} over "
           f"{len(dt)}; device busy {rec['busy_ms'] / max(profiled, 1):.3f} "
-          f"ms in the profiled iteration; peak {peak_gib:.3f} GiB; "
-          f"launches {launches}; on {card}", flush=True)
-    return {"launches": launches, "forwards": len(calls),
-            "grad_forwards": sum(calls), "call_s": wall,
-            "iter_ms": (dt * 1e3).tolist(),
-            "median_iter_ms": float(np.median(dt) * 1e3) if len(dt) else None,
-            "busy_ms_profiled_iter": rec["busy_ms"] / max(profiled, 1),
-            "peak_gib": peak_gib,
-            "losses_first_last": [losses[0].tolist(), losses[-1].tolist()]}
+          f"ms in the profiled iteration; on {card}", flush=True)
+    out.update({"iter_ms": (dt * 1e3).tolist(),
+                "median_iter_ms": (float(np.median(dt) * 1e3) if len(dt)
+                                   else None),
+                "mean_iter_ms": float(dt.mean() * 1e3) if len(dt) else None,
+                "busy_ms_profiled_iter": rec["busy_ms"] / max(profiled, 1)})
+    return out
 
 
 def _expect_launches(tag: str, got: dict, want: dict) -> None:
@@ -3365,19 +3681,23 @@ def vit_path(card: str) -> dict:
     print(f"  stand-in {VIT_TRAIN} images at {VIT_RES} px made in "
           f"{time.perf_counter() - t0:.1f} s; {len(data[1])} forget, "
           f"{len(data[0])} retain", flush=True)
-    n_iters = VIT_WARMUP + VIT_TIMED
     for dtype, route in ((torch.float32, "_f32"), (torch.bfloat16, "")):
-        run = vit_sfron("ViT_B", dtype, data, dev, card, n_iters)
-        want = {k: 0 for k in run["launches"]}
-        want[f"attention_fwd{route}"] = VIT_BLOCKS * run["forwards"]
-        want[f"attention_bwd{route}"] = VIT_BLOCKS * run["grad_forwards"]
-        _expect_launches(f"ViT_B {str(dtype).removeprefix('torch.')} SFRon",
-                         run["launches"], want)
-        out[f"vit_sfron{route or '_bf16'}"] = run
-    torch.cuda.empty_cache()
+        for n_iters, chunk, kind in (
+                (VIT_SCAN_ITERS, None, ""),
+                (VIT_WARMUP + VIT_TIMED, 1, "_per_step")):
+            run = vit_sfron("ViT_B", dtype, data, dev, card, n_iters,
+                            scan_chunk=chunk)
+            want = {k: 0 for k in run["launches"]}
+            want[f"attention_fwd{route}"] = VIT_BLOCKS * run["forwards"]
+            want[f"attention_bwd{route}"] = VIT_BLOCKS * run["grad_forwards"]
+            _expect_launches(f"ViT_B {str(dtype).removeprefix('torch.')} "
+                             f"SFRon{kind.replace('_', ' ')}",
+                             run["launches"], want)
+            out[f"vit_sfron{route or '_bf16'}{kind}"] = run
+            torch.cuda.empty_cache()
     swin = vit_card_vs_cpu("Swin_T", dev)
     run = vit_sfron("Swin_T", torch.float32, data, dev, card, SWIN_ITERS,
-                    mask=False)
+                    mask=False, scan_chunk=1)
     for tag, launches in (("Swin_T card check", swin["card_launches"]),
                           ("Swin_T SFRon", run["launches"])):
         _expect_launches(tag, launches, {k: 0 for k in launches})
@@ -6418,14 +6738,16 @@ def dp_sd(card: str, mesh, gen) -> dict:
     kw = dict(n_iters=DP_SD_STEPS, lr=1e-5, saliency_mask=mask, seed=SEED,
               snapshot_freq=10 ** 6)
 
-    def call(place: dict):
+    def call(place: dict, profile: bool = True):
         """The run on a fresh seeded UNet placed by ``place``, collected
-        before the next run."""
+        before the next run; its last step profiled unless ``profile`` is
+        off (a profiled SD step costs ~10 s of wall time)."""
         unet = wl.init_unet(SEED)
         res = _dp_call(
             lambda: TR.nsfw_removal(wl, unet, fb, rb, **place, **kw), TR,
             lambda st: {"model": _host_params(st.model),
-                        "pieces": _tp_pieces(st.model)}, DP_SD_STEPS - 1)
+                        "pieces": _tp_pieces(st.model)},
+            DP_SD_STEPS - 1 if profile else None)
         del unet
         _collect()
         return res
@@ -6485,8 +6807,9 @@ def tp_dit(card: str, mesh, one: tuple, call) -> dict:
 def tp_sd(card: str, mesh, one: tuple, call) -> dict:
     """Phase 24 (b): ``nsfw_removal`` under ``parallelism="tp"`` on
     ``mesh`` (SD_TP_RULES over a one-rank ``model`` axis, FSDP over it
-    for the rest), against phase 23's one-device run."""
-    grp = call({"mesh": mesh, "parallelism": "tp"})
+    for the rest), against phase 23's one-device run; unprofiled (phase
+    23 profiles SD's step)."""
+    grp = call({"mesh": mesh, "parallelism": "tp"}, profile=False)
     blocks = sorted({n.rsplit(".", 3)[0] for n in one[0]["model"]
                      if n and n.endswith("ff_geglu.proj.weight")})
     want = {f"{b}.{name}": k for b in blocks for name, k in (
@@ -6498,7 +6821,6 @@ def tp_sd(card: str, mesh, one: tuple, call) -> dict:
     out = _dp_compare(f"nsfw_removal tp ({DP_SD_STEPS} steps at {SD_BATCH} "
                       f"+ {SD_BATCH})", card, one, grp)
     out["tp_params"], out["sharded_params"] = len(want), grp[0]["model"][None]
-    out["profiled_step"] = _dp_profiled("nsfw_removal tp", one, grp)
     return out
 
 
@@ -6691,15 +7013,15 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
 def sp_sd(card: str, one: tuple, call) -> dict:
     """Phase 25 (c): ``nsfw_removal`` under ``sp`` on seq=1 (SD's
     self-attention sites, T % 128 == 0, through the ring's path), against
-    phase 23's one-device run."""
+    phase 23's one-device run; unprofiled (phase 23 profiles SD's
+    step)."""
     from uurg_torch.parallel import make_mesh
 
-    grp = call({"mesh": make_mesh({"seq": 1}), "parallelism": "sp"})
+    grp = call({"mesh": make_mesh({"seq": 1}), "parallelism": "sp"},
+               profile=False)
     tag = f"nsfw_removal sp (seq=1, {DP_SD_STEPS} steps at {SD_BATCH} + " \
           f"{SD_BATCH})"
-    out = _dp_compare(tag, card, one, grp)
-    out["profiled_step"] = _dp_profiled(tag, one, grp)
-    return out
+    return _dp_compare(tag, card, one, grp)
 
 
 def parallel_path(card: str, gen) -> dict:
@@ -6918,9 +7240,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     banner(f"main path: classification, ResNet-18 (CIFAR stem, full width) "
           f"on a {CLS_TRAIN}-image stand-in, random 10% forgetting, batch "
-          f"{CLS_BATCH}: card vs CPU, SFRon fp32 and bf16 ({CLS_WARMUP} + "
-          f"{CLS_TIMED} of 1,500 iterations), the other eight methods at one "
-          f"epoch, the main_random CLI")
+          f"{CLS_BATCH}: card vs CPU, SFRon chunked as CUDA graphs (bf16 "
+          f"{CLS_SCAN_ITERS}, fp32 {CLS_F32_ITERS} of 1,500 "
+          f"iterations) and bf16 step by step ({CLS_WARMUP} + "
+          f"{CLS_TIMED}), the other eight methods at one epoch, the "
+          f"main_random CLI")
     classification = classification_path(card)
 
     banner("float32 attention kernels vs plain versions (TF32 off): "
@@ -6928,7 +7252,9 @@ def main() -> int:
     rows_f32, f32_detail = attention_f32_path(gen)
     banner(f"main path: ViT-B/16 (fp32 and bf16) and Swin-T classification "
           f"at {VIT_RES} px: card vs CPU, SFRon at batch {VIT_BATCH} "
-          f"({VIT_WARMUP} + {VIT_TIMED} of 1,500 iterations), main_random "
+          f"({VIT_SCAN_ITERS} of 1,500 iterations in CUDA-graph chunks of "
+          f"{VIT_SCAN_CHUNK}, {VIT_WARMUP} + {VIT_TIMED} step by step), "
+          f"main_random "
           f"--model ViT_B, save_base_dataset, train_classifier, "
           f"classifier_evaluation")
     vit = vit_path(card)
@@ -7045,7 +7371,10 @@ def main() -> int:
                   "dp_sampling": par["launches"]["sampling"]}
     all_paths = {"classification": classification["launches"],
                  "vit_f32": vit["vit_sfron_f32"]["launches"],
+                 "vit_f32_per_step": vit["vit_sfron_f32_per_step"]["launches"],
                  "vit_bf16": vit["vit_sfron_bf16"]["launches"],
+                 "vit_bf16_per_step":
+                     vit["vit_sfron_bf16_per_step"]["launches"],
                  "swin": vit["swin_sfron"]["launches"],
                  "remat": remat["launches"], **dit["launches"]}
     by_path = {}

@@ -10,8 +10,8 @@ JAX package (CPU):
   ``train_esd``, ``gradient_ascent``, ``proximal_gradient`` and
   ``random_label`` read back with ``--ckpt_path``; each writes a finite
   ``final.pt`` that moved;
-- the flag the port refuses (``--profile_dir``) and the default device,
-  CUDA; ``--parallelism sp`` reaches the runner; ``--mesh`` with
+- ``--profile_dir`` writes a trace, the default device is CUDA;
+  ``--parallelism sp`` reaches the runner; ``--mesh`` with
   ``--parallelism`` fsdp, tp or sp on one rank writes the default run's
   weights;
 - the ``sd_data`` streams equal the JAX package's on a seeded PNG tree."""
@@ -186,11 +186,25 @@ def test_nsfw_removal_cli_passes_sp_to_the_runner(monkeypatch, tmp_path,
 @pytest.mark.parametrize("flags,match", [
     (["--profile_dir", "trace"], "profile_dir"),
 ])
-def test_nsfw_removal_refuses_what_the_port_cannot_do(flags, match):
+def test_nsfw_removal_refuses_what_the_port_cannot_do(
+        flags, match, monkeypatch, tmp_path, tiny_cli):  # noqa: F811
+    """The flag the port refused until it had its own profiler
+    (``uurg_torch/utils/profiling.py``): ``--profile_dir`` now reaches the
+    runner inside a trace and writes ``trace.json``."""
     from uurg_torch.cli import nsfw_removal
+    from uurg_torch.workloads import sd_runner
 
-    with pytest.raises(NotImplementedError, match=match):
-        nsfw_removal.main([*flags, "--n_iters", "1", "--device", "cpu"])
+    seen = {}
+    monkeypatch.setattr(sd_runner, "nsfw_removal",
+                        lambda wl, unet, fb, rb, **kw: seen.update(kw))
+    monkeypatch.chdir(tmp_path)
+    nsfw_removal.main([*COMMON, *flags, "--n_iters", "1",
+                       "--nsfw_data", str(tmp_path / "none"),
+                       "--not_nsfw_data", str(tmp_path / "none"),
+                       "--save_path", str(tmp_path / "out")])
+    assert seen["n_iters"] == 1
+    assert (tmp_path / flags[flags.index(f"--{match}") + 1]
+            / "trace.json").is_file()
 
 
 @pytest.mark.parametrize("cli", ["nsfw_removal", "train_esd",

@@ -31,7 +31,6 @@ Rank 0 writes the files.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import os
 
@@ -108,25 +107,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-@contextlib.contextmanager
-def maybe_trace(profile_dir: str):
-    """A torch.profiler trace of the block, written to
-    ``<profile_dir>/trace.json``; nothing when ``profile_dir`` is empty."""
-    if not profile_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-
-
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -137,6 +117,7 @@ def main(argv=None):
     from uurg_torch.core.device import refuse_multi_device
     from uurg_torch.parallel import (initialize_distributed, make_mesh,
                                      parse_mesh_spec)
+    from uurg_torch.utils.profiling import maybe_trace
     from uurg_torch.workloads import ddpm_runner
     from uurg_torch.workloads.dit_runner import dit_forget, dit_sample_grid
 

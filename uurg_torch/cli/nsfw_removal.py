@@ -20,7 +20,8 @@ diffusers ``UNet2DConditionModel`` keys; the run ends with ``final.pt``.
 model=2 --parallelism tp ...``: the transformers' projections over
 ``model``, ``SD_TP_RULES``, the rest FSDP-sharded over it; ``--mesh seq=2
 --parallelism sp``: the self-attention as a ring over ``seq``); rank 0
-writes the files. ``--profile_dir`` raises.
+writes the files. ``--profile_dir DIR`` writes a ``torch.profiler`` trace
+of the run to ``DIR/trace.json``.
 """
 from __future__ import annotations
 
@@ -69,8 +70,8 @@ def parse_args(argv=None):
     p.add_argument("--pack_mask", action="store_true",
                    help="bit-pack the saliency mask (8x less memory)")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="a jax.profiler trace in the JAX package: not "
-                        "ported")
+                   help="write a torch.profiler trace of the run there "
+                        "(trace.json, Chrome/Perfetto); empty = off")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
     return p.parse_args(argv)
@@ -82,11 +83,6 @@ def main(argv=None):
     from uurg_torch.core.device import refuse_multi_device
 
     refuse_multi_device(args.parallelism)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir (a jax.profiler trace) is not ported: the port "
-            "times with CUDA events and torch.profiler in chip_smoke.py and "
-            "scripts/profile_torch_*.py (ROADMAP 'Not queued')")
     import numpy as np
     import torch
 
@@ -98,6 +94,7 @@ def main(argv=None):
     from uurg_torch.parallel import (initialize_distributed, make_mesh,
                                      parse_mesh_spec, rank)
     from uurg_torch.parallel.mesh import full_state_dict
+    from uurg_torch.utils.profiling import maybe_trace
     from uurg_torch.workloads.sd_runner import nsfw_removal
 
     initialize_distributed(device=args.device)
@@ -125,15 +122,16 @@ def main(argv=None):
             np.savez(os.path.join(args.save_path,
                                   f"step_{step}_diffusers.npz"), **weights)
 
-    nsfw_removal(
-        wl, unet, fb, rb, n_iters=args.n_iters, lr=args.lr,
-        train_method=args.train_method, saliency_mask=mask,
-        forget_alpha=args.forget_alpha, remain_alpha=args.remain_alpha,
-        seed=args.seed, snapshot_hook=snapshot,
-        snapshot_freq=args.snapshot_freq, mesh=mesh,
-        parallelism=args.parallelism, grad_accum=args.grad_accum,
-        nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None,
-        pack_mask=args.pack_mask)
+    with maybe_trace(args.profile_dir):
+        nsfw_removal(
+            wl, unet, fb, rb, n_iters=args.n_iters, lr=args.lr,
+            train_method=args.train_method, saliency_mask=mask,
+            forget_alpha=args.forget_alpha, remain_alpha=args.remain_alpha,
+            seed=args.seed, snapshot_hook=snapshot,
+            snapshot_freq=args.snapshot_freq, mesh=mesh,
+            parallelism=args.parallelism, grad_accum=args.grad_accum,
+            nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None,
+            pack_mask=args.pack_mask)
     save_unet(os.path.join(args.save_path, "final.pt"), unet)
     print(f"done: {args.save_path}")
 

@@ -88,8 +88,8 @@ def parse_args(argv=None):
                    help="JAX PRNG choice; the port draws from torch "
                         "generators and takes only auto")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="jax.profiler trace in the JAX package; the port's "
-                        "profiler is scripts/profile_torch_sfron.py")
+                   help="write a torch.profiler trace of the run there "
+                        "(trace.json, Chrome/Perfetto); empty = off")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
     return p.parse_args(argv)
@@ -99,10 +99,9 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.rng_impl != "auto" or args.profile_dir:
+    if args.rng_impl != "auto":
         raise NotImplementedError(
-            "--rng_impl and --profile_dir are JAX-only; the port uses torch "
-            "generators and scripts/profile_torch_sfron.py")
+            "--rng_impl is JAX-only: the port draws from torch generators")
     unread = [f"--{k}" for k, default in _UNREAD.items()
               if getattr(args, k) != default]
     if unread:
@@ -159,33 +158,38 @@ def main(argv=None):
 
     hook = sample_hook if config.training.get("visualization_samples") \
         else None
-    if args.mode == "pretrain":
-        R.pretrain(args, config, ckpt_dir, device=args.device)
-    elif args.mode == "retrain":
-        # exact unlearning: pretraining on the remain split only
-        from uurg_torch.data.splits import class_forget_split
+    from uurg_torch.utils.profiling import maybe_trace
 
-        remain, _ = class_forget_split(R._load_train_dataset(args, config),
-                                       args.label_to_forget)
-        R.pretrain(args, config, ckpt_dir, dataset=remain, device=args.device)
-    elif args.mode == "generate_fisher":
-        out = os.path.join(args.ckpt_folder or run_dir,
-                           f"mask_{args.label_to_forget}")
-        R.generate_fisher(args, config, out, device=args.device)
-        R.generate_fisher_mask(out, args.threshold, device=args.device)
-    elif args.mode == "generate_mask":
-        out = os.path.join(args.ckpt_folder or run_dir,
-                           f"salun_mask_{args.label_to_forget}")
-        R.generate_salun_mask(args, config, out, args.mask_ratio,
-                              device=args.device)
-    elif args.mode == "sa":
-        R.sa_forget(args, config, ckpt_dir, device=args.device)
-    else:
-        if args.mode == "salun":
-            # SalUn = RandomLabel loss + top-k mask, through the same engine
-            args.unlearn_loss = "rl"
-        R.sfron_forget(args, config, ckpt_dir, sample_hook=hook,
+    with maybe_trace(args.profile_dir):
+        if args.mode == "pretrain":
+            R.pretrain(args, config, ckpt_dir, device=args.device)
+        elif args.mode == "retrain":
+            # exact unlearning: pretraining on the remain split only
+            from uurg_torch.data.splits import class_forget_split
+
+            remain, _ = class_forget_split(
+                R._load_train_dataset(args, config), args.label_to_forget)
+            R.pretrain(args, config, ckpt_dir, dataset=remain,
                        device=args.device)
+        elif args.mode == "generate_fisher":
+            out = os.path.join(args.ckpt_folder or run_dir,
+                               f"mask_{args.label_to_forget}")
+            R.generate_fisher(args, config, out, device=args.device)
+            R.generate_fisher_mask(out, args.threshold, device=args.device)
+        elif args.mode == "generate_mask":
+            out = os.path.join(args.ckpt_folder or run_dir,
+                               f"salun_mask_{args.label_to_forget}")
+            R.generate_salun_mask(args, config, out, args.mask_ratio,
+                                  device=args.device)
+        elif args.mode == "sa":
+            R.sa_forget(args, config, ckpt_dir, device=args.device)
+        else:
+            if args.mode == "salun":
+                # SalUn = RandomLabel loss + top-k mask, through the same
+                # engine
+                args.unlearn_loss = "rl"
+            R.sfron_forget(args, config, ckpt_dir, sample_hook=hook,
+                           device=args.device)
     print(f"done: {run_dir}")
 
 

@@ -16,6 +16,17 @@ Adam and AdamW are :class:`OptaxAdam`.
 The learning rate is settable per step with :func:`set_lr` (the JAX package
 injects it as a hyperparameter): the SFR-on step applies the optimizer twice
 per iteration while the reference's scheduler ticks once per iteration.
+
+``make_optimizer(..., capturable=True)`` gives the capture-safe forms that
+a CUDA graph of SFR-on steps replays (:func:`uurg_torch.unlearn.sfron.
+make_sfron_scan`): :class:`CapturableSGD` and :class:`CapturableAdam`.
+Their learning rate is a 0-d float32 tensor on the parameters' device that
+:func:`set_lr` writes in place, their step counts live on the device, and
+a step reads nothing back to the host. Their arithmetic is torch.optim's
+``foreach`` one but for the rounding of ``lr * update`` (two roundings
+where SGD's ``add_(alpha=-lr)`` takes one; Adam's is torch's own
+``capturable`` form, which torch runs on CUDA only). :class:`OptaxAdam`
+keeps its count on the host and has no such form.
 """
 from __future__ import annotations
 
@@ -38,9 +49,142 @@ def cosine_annealing(base_lr: float, total_steps: int):
     return sched
 
 
-def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Every group's learning rate to ``lr`` (a float, or a 0-d tensor for
+    a capture-safe optimizer, whose device tensor is written in place)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def _lr_tensors(optimizer: torch.optim.Optimizer) -> None:
+    """Each group's learning rate as its own 0-d float32 tensor on the
+    device of the group's parameters."""
+    for group in optimizer.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                   device=group["params"][0].device)
+
+
+class CapturableSGD(torch.optim.Optimizer):
+    """torch's SGD (momentum, coupled weight decay ``grad += wd * p``,
+    no dampening) as multi-tensor ops whose learning rate is a device
+    tensor: ``p -= lr * buf``. The first step of a parameter sets its
+    buffer to the gradient, as torch's does."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay))
+        _lr_tensors(self)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            if group["momentum"]:
+                states = [self.state[p] for p in params]
+                if all("momentum_buffer" in st for st in states):
+                    bufs = [st["momentum_buffer"] for st in states]
+                    torch._foreach_mul_(bufs, group["momentum"])
+                    torch._foreach_add_(bufs, grads)
+                else:
+                    bufs = []
+                    for st, g in zip(states, grads):
+                        if "momentum_buffer" in st:
+                            st["momentum_buffer"].mul_(
+                                group["momentum"]).add_(g)
+                        else:
+                            st["momentum_buffer"] = g.detach().clone()
+                        bufs.append(st["momentum_buffer"])
+                grads = bufs
+            torch._foreach_sub_(params, torch._foreach_mul(grads,
+                                                           group["lr"]))
+        return loss
+
+
+class CapturableAdam(torch.optim.Optimizer):
+    """torch's Adam (``decoupled``: AdamW) in torch's own ``capturable``
+    multi-tensor form, which torch.optim runs only on CUDA: a float32 step
+    count a parameter on its device, the bias corrections and the step
+    size ``lr / (1 - b1 ** t)`` computed there."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0, *,
+                 decoupled: bool = False):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.decoupled = decoupled
+        _lr_tensors(self)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            lr, wd = group["lr"], group["weight_decay"]
+            grads = [p.grad for p in params]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32,
+                                             device=p.device)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            states = [self.state[p] for p in params]
+            steps = [st["step"] for st in states]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            torch._foreach_add_(steps, 1)
+            if wd and self.decoupled:
+                torch._foreach_mul_(params, 1 - lr * wd)
+            elif wd:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+            torch._foreach_lerp_(mus, grads, 1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+            # step_size = -lr / (1 - b1 ** t), bc2 = sqrt(1 - b2 ** t)
+            step_size = torch._foreach_pow(b1, steps)
+            bc2 = torch._foreach_pow(b2, steps)
+            torch._foreach_sub_(step_size, 1)
+            torch._foreach_sub_(bc2, 1)
+            torch._foreach_neg_(bc2)
+            torch._foreach_div_(step_size, lr)
+            torch._foreach_reciprocal_(step_size)
+            torch._foreach_sqrt_(bc2)
+            den = torch._foreach_sqrt(nus)
+            torch._foreach_div_(den, bc2)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(den, step_size)
+            torch._foreach_addcdiv_(params, mus, den)
+        return loss
+
+
+def is_capturable(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether a CUDA graph can replay ``optimizer.step()``."""
+    return isinstance(optimizer, (CapturableSGD, CapturableAdam))
 
 
 def _bias_corrections(b1: float, b2: float, count: int):
@@ -164,22 +308,40 @@ def make_optimizer(
     amsgrad: bool = False,
     mu_dtype=None,
     nu_dtype=None,
+    capturable: bool = False,
 ) -> torch.optim.Optimizer:
     """``mu_dtype``/``nu_dtype`` (torch dtypes: the JAX package's
     moment-memory knobs) and ``amsgrad`` make Adam an :class:`OptaxAdam`,
     as do ``mu_dtype``/``nu_dtype`` for AdamW. Only ``"adam"`` reads
     ``amsgrad``: the JAX package's AdamW ignores it, and so does this one;
-    SGD ignores the moment dtypes. ``amsgrad`` with ``nu_dtype`` raises."""
+    SGD ignores the moment dtypes. ``amsgrad`` with ``nu_dtype`` raises.
+    ``capturable`` gives :class:`CapturableSGD` or :class:`CapturableAdam`
+    over whole parameters; an optimizer that would be an
+    :class:`OptaxAdam` raises ValueError."""
     name = name.lower()
     params = list(params)
-    if name == "sgd":
-        return _torch_optimizer(torch.optim.SGD, params, lr=lr,
-                                momentum=momentum, weight_decay=weight_decay)
-    if name not in ("adam", "adamw"):
+    if name not in ("sgd", "adam", "adamw"):
         raise NotImplementedError(f"Optimizer {name!r}")
     decoupled = name == "adamw"
     amsgrad = amsgrad and not decoupled
-    if amsgrad or mu_dtype is not None or nu_dtype is not None:
+    optax_rule = name != "sgd" and (amsgrad or mu_dtype is not None
+                                    or nu_dtype is not None)
+    if capturable:
+        if optax_rule:
+            raise ValueError(
+                "OptaxAdam (mu_dtype, nu_dtype, amsgrad) keeps its step "
+                "count on the host and has no capture-safe form")
+        if any(is_sharded(p) for p in params):
+            raise ValueError("the capture-safe optimizers take whole "
+                             "parameters on one device")
+        if name == "sgd":
+            return CapturableSGD(params, lr, momentum, weight_decay)
+        return CapturableAdam(params, lr, (beta1, beta2), eps, weight_decay,
+                              decoupled=decoupled)
+    if name == "sgd":
+        return _torch_optimizer(torch.optim.SGD, params, lr=lr,
+                                momentum=momentum, weight_decay=weight_decay)
+    if optax_rule:
         return OptaxAdam(params, lr, (beta1, beta2), eps, weight_decay,
                          decoupled=decoupled, amsgrad=amsgrad,
                          mu_dtype=mu_dtype, nu_dtype=nu_dtype)

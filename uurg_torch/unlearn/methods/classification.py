@@ -11,8 +11,14 @@ as it was, so a comparison runs every method from the same weights.
 The host streams (``infinite_batches``, ``epoch_batches``, the relabelling
 and BadTeacher's permutation) are the JAX package's numpy streams, so the
 same seed gives the same batches on both sides. SFR-on draws its batches on
-the device by default (:func:`device_batcher`); ``overrides={
-"device_data": False}`` keeps the host stream.
+the device by default (:func:`device_batcher`) and runs ``scan_chunk``
+iterations (50, cut as the JAX package cuts it until it divides
+``n_iters``) a call of :func:`uurg_torch.unlearn.sfron.make_sfron_scan`:
+one CUDA graph replay on the card. Its stream seeds the generator once a
+chunk from ``step_seed(seed, first step)`` and draws each step's forget
+batch, then its remain batch. ``scan_chunk: 1`` steps one iteration at a
+time, seeding the generator every iteration; ``device_data: False`` keeps
+the host stream, one iteration at a time.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from uurg_torch.io.checkpoint import restore_checkpoint, save_checkpoint
 from uurg_torch.train.optim import cosine_annealing, make_optimizer, set_lr
 from uurg_torch.unlearn.fisher import accumulate_fisher, sum_gradients
 from uurg_torch.unlearn.saliency import fisher_ratio_mask, topk_saliency_mask
-from uurg_torch.unlearn.sfron import SFRonConfig, init_state, make_sfron_step
+from uurg_torch.unlearn.sfron import (SFRonConfig, init_state,
+                                      make_sfron_scan, make_sfron_step)
 from uurg_torch.workloads.classification import Classifier, cross_entropy
 
 unlearn_method_registry = Registry("unlearn method")
@@ -405,17 +412,22 @@ def sfron(ctx: UnlearnContext) -> torch.nn.Module:
     (lambda 0.5, alpha 25 cosine-decayed, clip 7.0, no remain clip), the
     Fisher-ratio mask at threshold 1, no fast-slow mix (ema_beta 1). Both
     phases run the model in train mode, so the BatchNorm statistics move in
-    each. Batches are drawn on the device from a generator seeded from
-    ``step_seed(seed, iteration)`` unless ``device_data`` is False."""
+    each. Batches are drawn on the device, ``scan_chunk`` iterations a
+    chunk (see the module's docstring), unless ``device_data`` is False."""
     cls = ctx.classifier
     n_iters = ctx.hp("n_iters", 1500)
     model = _copy(ctx.model)
     dev = next(model.parameters()).device
     mask = _fisher_mask(ctx, model) if ctx.hp("mask", True) else None
 
+    chunk = ctx.hp("scan_chunk", 50)
+    while chunk > 1 and n_iters % chunk:
+        chunk -= 1
+    device_data = ctx.hp("device_data", True)
+    scan = chunk > 1 and device_data
     opt = make_optimizer(ctx.hp("opt", "sgd"), model.parameters(),
                          ctx.hp("retain_lr", 0.01), momentum=0.9,
-                         weight_decay=5e-4)
+                         weight_decay=5e-4, capturable=scan)
     cfg = SFRonConfig(
         n_iters=n_iters,
         forget_alpha=ctx.hp("forget_alpha", 25.0),
@@ -429,14 +441,16 @@ def sfron(ctx: UnlearnContext) -> torch.nn.Module:
     forget_loss = (cls.neg_adaptive_ce_loss_fn(ctx.hp("lambd", 0.5))
                    if ctx.hp("unlearn_loss", "adaga") == "adaga"
                    else cls.neg_ce_loss_fn())
-    step = make_sfron_step(cfg, forget_loss, cls.ce_loss_fn(),
-                           lr_schedule=cosine_annealing(
-                               ctx.hp("retain_lr", 0.01), n_iters))
+    sched = cosine_annealing(ctx.hp("retain_lr", 0.01), n_iters)
     state = init_state(model, opt, mask=mask)
     gen = torch.Generator(device=dev)
     start = time.time()
 
-    if ctx.hp("device_data", True):
+    def logged(done: int, remain_loss) -> None:
+        log.info("sfron iter %d/%d remain L %.4f (%.1f it/s)", done,
+                 n_iters, float(remain_loss), done / (time.time() - start))
+
+    if device_data:
         # each split uploaded once, every batch drawn, converted and
         # augmented on the device: no host-to-device copy a step
         draw = device_batcher(ctx.batch_size,
@@ -444,7 +458,20 @@ def sfron(ctx: UnlearnContext) -> torch.nn.Module:
         f_data, r_data = ((torch.as_tensor(ds.images).to(dev),
                            torch.as_tensor(ds.labels).to(dev, torch.long))
                           for ds in (ctx.forget_train, ctx.retain_train))
+    if scan:
+        run = make_sfron_scan(cfg, forget_loss, cls.ce_loss_fn(), chunk,
+                              device_batcher=draw, lr_schedule=sched,
+                              seed=ctx.seed)
+        for outer in range(n_iters // chunk):
+            metrics = run(state, f_data, r_data, gen)
+            done = (outer + 1) * chunk
+            if done % 250 < chunk:
+                logged(done, metrics["remain_loss"][-1])
+        return state.model
 
+    step = make_sfron_step(cfg, forget_loss, cls.ce_loss_fn(),
+                           lr_schedule=sched)
+    if device_data:
         def batches(i):
             gen.manual_seed(step_seed(ctx.seed, i))
             return draw(f_data, gen), draw(r_data, gen)
@@ -461,7 +488,5 @@ def sfron(ctx: UnlearnContext) -> torch.nn.Module:
     for i in range(n_iters):
         metrics = step(state, *batches(i), gen)
         if (i + 1) % 250 == 0:
-            log.info("sfron iter %d/%d remain L %.4f (%.1f it/s)", i + 1,
-                     n_iters, float(metrics["remain_loss"]),
-                     (i + 1) / (time.time() - start))
+            logged(i + 1, metrics["remain_loss"])
     return state.model

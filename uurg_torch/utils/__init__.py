@@ -1,0 +1,1 @@
+from uurg_torch.utils.profiling import StepTimer, timed, trace

@@ -103,14 +103,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    clock; the probe in bf16 at batch 64. Then the twin of
    ``cli/parity_check.py`` through ``uurg_torch.cli.parity_check.run`` on
    the full-width config and the stand-in artifacts: the Fisher pass, the
-   ``fisher_1.0`` mask, 10 SFR-on steps under it, 144 remaining-class and
-   128 forgotten-class samples by DDIM-50 CFG, the metrics against the
+   ``fisher_1.0`` mask, 2 SFR-on steps under it, 9 remaining-class and
+   16 forgotten-class samples by DDIM-50 CFG, the metrics against the
    stand-in's remain split (1,858 references) and the UA probe. The launch
    counters are zeroed just before and read just after: one forward and
    backward of every site a Fisher batch, two a step, one forward a
    sampling step. Every metric finite, precision, recall and UA in [0, 1],
    IS at least 1, every band SKIPPED, the report and both npz files
    written; host seconds by stage and peak device memory printed.
+14b. The north-star pipeline through the port's CLIs, as README.md gives
+   the commands, each ``python -m uurg_torch.cli.<name>`` in a process of
+   its own that reads what the one before it wrote (the processes share
+   one bytecode cache, filled while the kernels build; each imports torch
+   while the stage before it runs and gets its arguments when that stage
+   has exited; phase 14's twin runs in this process meanwhile), at the
+   config's full width on the stand-in data: ``train --mode
+   pretrain`` (2 iterations), ``--mode generate_fisher --threshold 1.0``
+   on its run, ``--mode sfron --method ron --unlearn_loss adaga
+   --mask_path`` that mask (2 steps), ``sample --mode sample_fid`` (8 a
+   class of the 9 kept, DDIM-50) on the forget run, ``evaluator`` on those
+   samples against ``save_base_dataset``'s references (the seeded
+   InceptionV3), ``classifier_evaluation`` with the probe that
+   ``train_classifier`` writes in 2 steps at 32 px. Every process exits 0;
+   the DDPM ones report their kernel launches (exact counts: a Fisher
+   batch, a step, a DDIM step); the SFR-on process's ``ckpt.pth`` is held
+   bit for bit to ``sfron_forget`` run in this process from the same
+   checkpoint, mask, config and seed (else within SCAN_SPREAD times two
+   in-process runs' own spread); the evaluator and classifier_evaluation
+   run on beside phases 15-17 (EVAL_THREADS host threads each) and are
+   reaped after phase 17: the evaluator's metrics finite and UA in
+   [0, 1].
 15. Classification unlearning on ResNet-18 (CIFAR stem, full width,
    seeded flax-style init), none of the four kernels on its path: the
    launch counters are zeroed at the start and must read 0 at the end.
@@ -232,6 +254,24 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    from phase 18's perturbed DiT-XL/2, then ``uurg_torch.cli.dit_sample
    --mode fid_npz`` in this process (64 labels, 32 a batch, 4 respaced
    steps): 64 uint8 256 px images, not constant.
+19b. The ``xwide`` kernels at the padded head widths 320-512 in both
+   dtypes: the float32 forward and backward and the bfloat16 forward and
+   backward at D = 320, 384, 448, 512 and T = 100, 256 and 16 (batch 2 x
+   1 head) against the plain versions (float32: relative L2 1e-5 forward,
+   1e-4 backward; bf16: ATOL / RTOL forward, BWD_REL_L2 backward), the
+   log-sum-exp, three runs with equal bits and one launch a call on the
+   route's counter; timed at the wide CondUNet's CFG forward (256, 1, 256,
+   512) and training forward and backward (128, 1, 256, 512) in bf16 and
+   the VAE's backward (32, 1, 1024, 512) in fp32 beside the plain version
+   and SDPA (the backend its dispatcher picks). Then the CondUNet of
+   ``configs/cifar10_sfron.yml`` at ``model.ch: 256`` (154,400,515
+   parameters; six attention sites of width 512, five at T = 256 and the
+   mid site at T = 16): a forward and a backward at batch 8 with the
+   kernels against its plain path (phases 4 and 7's gates), every site on
+   the bf16 ``xwide`` route (12 forward and 6 backward launches, none on
+   the TMA kernels); and a VAE encode's gradient at 256 px (its mid
+   attention's backward on the float32 ``xwide`` route, one launch)
+   against its plain path (1e-4).
 20. Stable Diffusion (the CompVis v1 UNet, 859,520,964 parameters, bf16,
    remat on; CLIP ViT-L/14's text tower, fp32; phase 19's VAE at 512 px;
    seeded init). (a) The bf16 attention kernels at the UNet's three
@@ -326,8 +366,8 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    one-device run (reused, not rerun). It fails unless the rules placed
    every qkv (3 pieces), adaLN (6), GEGLU (2) and other projection they
    name, and gates each run as phase 23 does (relative L2 1e-6, launches
-   equal), with the call's ms, peak memory and (DiT's; SD's is phase
-   23's) the profiled last step.
+   equal), with the call's ms and peak memory (unprofiled: phase 23
+   profiles DiT's step and phase 21 SD's).
 
 25. Ring attention and the DiT pipeline (``uurg_torch/parallel/
    {sequence,pipeline}.py``) on the same one-rank group. (a) The ring's
@@ -342,8 +382,8 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    under ``sp`` on seq=1, each against phase 23's one-device run: one
    rank in one microbatch gated as phase 23 (relative L2 1e-6, launches
    equal); 2 microbatches by the update's relative L2 (PP_UPDATE_REL) and
-   twice the attention launches; each with the call's ms, peak memory and
-   (DiT's) the profiled last step.
+   twice the attention launches; each with the call's ms and peak memory
+   (unprofiled).
 
 Each phase's heading carries the seconds since the start. Prints the
 kernels JSON line and the card's name and power limit, then as the last
@@ -360,6 +400,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -380,25 +421,26 @@ SEED = 0
 WARMUP_STEPS, TRAIN_STEPS = 2, 10
 FORGET_ALPHA = 10.0      # cli/train.py --forget_alpha default
 
-# configs/cifar10_sfron.yml, the sections the sampling and training paths
-# read (held equal to the YAML by tests/test_torch_sampling.py; PyYAML is
-# not needed here)
-SFRON_CONFIG = {
-    "data": {"dataset": "CIFAR10", "path": "./data", "image_size": 32,
-             "channels": 3, "n_classes": 10, "rescaled": True,
-             "random_flip": True},
-    "model": {"in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2, 2, 2],
-              "num_res_blocks": 2, "attn_resolutions": [16], "dropout": 0.1,
-              "var_type": "fixedlarge", "resamp_with_conv": True,
-              "cond_drop_prob": 0.1, "ema": True, "ema_rate": 0.0001},
-    "diffusion": {"beta_schedule": "linear", "beta_start": 0.0001,
-                  "beta_end": 0.02, "num_diffusion_timesteps": 1000},
-    "training": {"batch_size": TRAIN_BATCH, "n_iters": 150,
-                 "snapshot_freq": 10, "log_freq": 10, "lambd": 0.5},
-    "sampling": {"batch_size": SAMPLING_BATCH},
-    "optim": {"optimizer": "Adam", "lr": 0.0001, "beta1": 0.9, "eps": 1e-08,
-              "weight_decay": 0.0, "amsgrad": False, "grad_clip": 1.0},
-}
+# the DDPM paths' configs, read by the port's own YAML reader (the card's
+# machine has no PyYAML)
+SFRON_YML = os.path.join(ROOT, "configs", "cifar10_sfron.yml")
+SA_YML = os.path.join(ROOT, "configs", "cifar10_sa.yml")
+
+
+def sfron_config():
+    """configs/cifar10_sfron.yml as the CLIs load it (a fresh Config: the
+    phases cut their copies)."""
+    from uurg_torch.core.config import load_config
+
+    return load_config(SFRON_YML)
+
+
+def sa_config():
+    """configs/cifar10_sa.yml, the Selective Amnesia sections."""
+    from uurg_torch.core.config import load_config
+
+    return load_config(SA_YML)
+
 
 # kernel tolerances against the plain version in bf16:
 # |kernel - plain| <= ATOL + RTOL * |plain|. Both round their output to bf16
@@ -500,21 +542,10 @@ MASKED_STEPS = 2
 # one Fisher batch, kernels vs plain path: relative L2 of the squared
 # gradients concatenated; a square doubles the gradient's relative error
 FISHER_REL_L2 = 2 * MODEL_GRAD_REL_L2
-# Selective Amnesia: configs/cifar10_sa.yml, the sections sa_forget and
-# generate_fim read (held equal to the YAML by tests/test_torch_sa.py)
-SA_CONFIG = {
-    **SFRON_CONFIG,
-    "model": {**SFRON_CONFIG["model"], "ema_rate": 0.9999},
-    "training": {"batch_size": TRAIN_BATCH, "n_iters": 20000,
-                 "snapshot_freq": 1000, "log_freq": 50, "gamma": 1,
-                 "lmbda": 10},
-}
-# the SA Fisher at cli/fim.py's --n_chunks default, n_samples cut from 256
-# to 4 (batch 4): 80 examples, each a forward and a backward at batch
-# T / FIM_CHUNKS = 50
+# Selective Amnesia (sa_config()): the SA Fisher at cli/fim.py's
+# --n_chunks default, n_samples cut from 256 to 4 (batch 4): 80 examples,
+# each a forward and a backward at batch T / FIM_CHUNKS = 50
 FIM_CHUNKS, FIM_SAMPLES, FIM_BATCH = 20, 4, 4
-FIM_EXAMPLE_BATCH = (SA_CONFIG["diffusion"]["num_diffusion_timesteps"]
-                     // FIM_CHUNKS)
 SA_WARMUP_STEPS, SA_STEPS = 2, 5
 # evaluation and the twin of cli/parity_check.py (phase 14). The networks on
 # the card against the same weights on the CPU, fp32 with TF32 off: relative
@@ -524,11 +555,26 @@ EVAL_REL = 1e-3
 EVAL_CHECK_BATCH = 4
 INCEPTION_BATCH, INCEPTION_IMAGES = 256, 2048
 PROBE_BATCH, PROBE_IMAGES = 64, 512
-# the twin's cuts of the full north-star run: SFR-on 10 of 150 iterations,
-# 16 samples a remaining class (144 of 45,000; the nine classes must
-# divide it), 128 probe samples of 5,000; DDIM-50 and the references (the
-# stand-in's remain split) uncut
-PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 10, 144, 128
+# the twin's cuts of the full north-star run: SFR-on 2 of 150 iterations,
+# one sample a remaining class (9 of 45,000; the nine classes must divide
+# it), 16 probe samples of 5,000; DDIM-50 and the references (the
+# stand-in's remain split) uncut (the pipeline phase runs the same stages
+# through the CLIs)
+PARITY_ITERS, PARITY_SAMPLES, PARITY_PROBE = 2, 9, 16
+# the north-star pipeline through the port's CLIs (README.md's commands),
+# each in a process of its own, at configs/cifar10_sfron.yml's full width on
+# the stand-in data: pretrain PIPE_ITERS iterations (of 800,000),
+# generate_fisher at threshold 1.0 (one pass of the splits, uncut), sfron
+# PIPE_ITERS (of 150), sample_fid PIPE_SAMPLES a class (of 500) of the nine
+# kept classes, DDIM-50; the evaluator on the random-init InceptionV3 against
+# save_base_dataset's references; classifier_evaluation with a probe that
+# train_classifier trains for PIPE_PROBE_STEPS steps at 32 px
+PIPE_ITERS, PIPE_SAMPLES = 2, 8
+PIPE_PROBE_BATCH, PIPE_PROBE_RES = 1024, 32
+PIPE_TIMEOUT = 300
+# the evaluator's and classifier_evaluation's host threads: they run on
+# beside the script's next phases, which keep the other cores
+EVAL_THREADS = 2
 # classification (phase 15): ResNet-18 with the CIFAR stem at full width on
 # a CIFAR-10-sized stand-in (50,000 train and 10,000 test images of 32 px,
 # 10 classes, noise 0.5), random 10% forgetting (5,000 forget, 45,000
@@ -649,6 +695,19 @@ XWIDE_SHAPES = tuple((T, D) for T in (16, 100, 1024, 4096)
                      for D in (512, 320, 300))
 # timed: the VAE's shape, and SD's VAE at 512 px (T = 4096) at batch 2
 XWIDE_TIMED = (VAE_ATTN_SHAPE, (2, 1, 4096, 512))
+# the xwide kernels in both dtypes and their backward (the width phase): the
+# padded widths 320-512 at batch 2 x 1 head, a ragged T, a T that every
+# tile divides and the mid site's T = 16; then timed: the wide CondUNet's
+# (model.ch 256: one head of 512 at 16 x 16) CFG forward and training
+# forward and backward in bf16, and the VAE's backward in fp32
+XW_WIDTHS = (320, 384, 448, 512)
+XW_TS = (100, 256, 16)
+XW_UNET_CFG = (256, 1, 256, 512)
+XW_UNET_TRAIN = (128, 1, 256, 512)
+# the CondUNet of configs/cifar10_sfron.yml at model.ch 256 (parameters
+# counted on the CPU): six attention sites of width 512, five at 16 x 16 and
+# the mid site at 4 x 4
+WIDE_CH, WIDE_PARAMS, WIDE_SITES = 256, 154_400_515, ((256, 5), (16, 1))
 # SD's bf16 UNet GroupNorm sites that fit no cluster (H, W, C), off the
 # path, at nsfw_removal's batch 4
 SD_GN_SITES, SD_GN_BATCH = ((64, 64, 320), (64, 64, 640), (64, 64, 960),
@@ -1680,6 +1739,7 @@ def _zero_launches() -> None:
 
     attention.launches = attention_bwd.launches = 0
     attention.launches_f32 = attention_bwd.launches_f32 = 0
+    attention.launches_xwide = attention_bwd.launches_xwide = 0
     group_norm.launches = group_norm_bwd.launches = 0
 
 
@@ -2230,7 +2290,7 @@ def fisher_path(config, card: str, n_attn: int, n_gn: int, gen) -> dict:
             "salun_k": k, "salun_losses": salun_losses}
 
 
-def per_sample_grad_check(model, wl, gen) -> float:
+def per_sample_grad_check(model, wl, gen, example_batch: int) -> float:
     """One example's SA Fisher gradient (batch 50: its 50 timesteps) with
     the kernels against the same model on its plain path."""
     import torch
@@ -2241,8 +2301,8 @@ def per_sample_grad_check(model, wl, gen) -> float:
     dev = torch.device("cuda")
     x = torch.rand(32, 32, 3, generator=gen, device=dev) * 2 - 1
     c = torch.randint(0, 10, (), generator=gen, device=dev)
-    ts = torch.arange(500, 500 + FIM_EXAMPLE_BATCH, device=dev)
-    noise = torch.randn(FIM_EXAMPLE_BATCH, 32, 32, 3, generator=gen,
+    ts = torch.arange(500, 500 + example_batch, device=dev)
+    noise = torch.randn(example_batch, 32, 32, 3, generator=gen,
                         device=dev)
     model.eval()
     params = list(model.parameters())
@@ -2263,7 +2323,7 @@ def per_sample_grad_check(model, wl, gen) -> float:
     if not torch.isfinite(got).all():
         fail("the per-sample gradient with kernels is not finite")
     rel = ((got - want).norm() / want.norm()).item()
-    print(f"  one example's gradient (batch {FIM_EXAMPLE_BATCH}, "
+    print(f"  one example's gradient (batch {example_batch}, "
           f"{got.numel()} values), kernels vs plain path: rel L2 err "
           f"{rel:.3e} (tolerance {MODEL_GRAD_REL_L2:g})", flush=True)
     if rel > MODEL_GRAD_REL_L2:
@@ -2320,12 +2380,13 @@ def sa_path(card: str, n_attn: int, n_gn: int, gen) -> dict:
     import torch
 
     from uurg_torch.cli import fim
-    from uurg_torch.core.config import Config
     from uurg_torch.io.checkpoint import restore_checkpoint
     from uurg_torch.workloads import ddpm_runner as R
     from uurg_torch.workloads.ddpm import DDPMWorkload, ewc_penalty
 
-    config = Config(SA_CONFIG)
+    config = sa_config()
+    # an example's batch: its timesteps in chunks
+    example_batch = config.diffusion.num_diffusion_timesteps // FIM_CHUNKS
     wl = DDPMWorkload.from_config(config)
     folder = tempfile.mkdtemp(prefix="uurg_sa_")
 
@@ -2343,12 +2404,12 @@ def sa_path(card: str, n_attn: int, n_gn: int, gen) -> dict:
 
     try:
         model = R.load_params(Args, config, wl)
-        print(f"  kernels vs plain versions at batch {FIM_EXAMPLE_BATCH}",
+        print(f"  kernels vs plain versions at batch {example_batch}",
               flush=True)
         kernel_errs = check_batch_kernels(
-            collect_sites(model, wl.device), gen, (FIM_EXAMPLE_BATCH,),
-            (FIM_EXAMPLE_BATCH,))
-        grad_rel = per_sample_grad_check(model, wl, gen)
+            collect_sites(model, wl.device), gen, (example_batch,),
+            (example_batch,))
+        grad_rel = per_sample_grad_check(model, wl, gen, example_batch)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2380,8 +2441,8 @@ def sa_path(card: str, n_attn: int, n_gn: int, gen) -> dict:
                        device=wl.device) * 2 - 1
         c = torch.randint(0, 10, (FIM_BATCH,), generator=gen,
                           device=wl.device)
-        ts = torch.arange(FIM_EXAMPLE_BATCH, device=wl.device).expand(
-            FIM_BATCH, FIM_EXAMPLE_BATCH)
+        ts = torch.arange(example_batch, device=wl.device).expand(
+            FIM_BATCH, example_batch)
         zeros = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
         fim_busy = device_busy_ms(
             "a per-sample Fisher batch",
@@ -2751,6 +2812,419 @@ def parity_path(config, card: str, n_attn: int, n_gn: int) -> dict:
             "stage_s": seconds, "peak_gib": peak_gib, "metrics": m,
             "fisher_batches": n_fisher, "sampling_unet_calls": n_sample,
             "references": len(remain)}
+
+
+# a CLI process of the pipeline: imports torch and the CLI's modules at
+# once, reads its arguments (a JSON list) from its standard input when the
+# stage before it has written what it reads, then runs ``python -m <module>
+# ARGS`` as ``-m`` does (runpy, with sys.argv and __main__ set) and writes
+# the kernel counters of uurg_torch/ops to OUT
+_STAGED_MAIN = """
+import importlib, json, runpy, sys
+out, mod, warm = sys.argv[1], sys.argv[2], sys.argv[3:]
+for m in warm:
+    if m != mod:
+        importlib.import_module(m)
+sys.argv = [mod] + json.loads(sys.stdin.readline())
+runpy.run_module(mod, run_name="__main__", alter_sys=True)
+from uurg_torch.ops.flash_attention import attention, attention_bwd
+from uurg_torch.ops.group_norm import group_norm, group_norm_bwd
+with open(out, "w") as f:
+    json.dump({"attention_fwd": attention.launches,
+               "attention_bwd": attention_bwd.launches,
+               "group_norm_fwd": group_norm.launches,
+               "group_norm_bwd": group_norm_bwd.launches}, f)
+"""
+
+
+# the modules the pipeline's CLIs import, compiled once into the shared
+# bytecode cache while the kernels build
+_WARM_IMPORTS = ("torch", "scipy.linalg", "PIL.Image",
+                 "uurg_torch.workloads.ddpm_runner", "uurg_torch.cli.train",
+                 "uurg_torch.cli.sample", "uurg_torch.cli.evaluator",
+                 "uurg_torch.cli.classifier_evaluation",
+                 "uurg_torch.cli.train_classifier",
+                 "uurg_torch.cli.save_base_dataset",
+                 "uurg_torch.eval.generative", "uurg_torch.eval.inception",
+                 "uurg_torch.eval.classifier_eval", "uurg_torch.models",
+                 "uurg_torch.utils.images", "uurg_torch.utils.profiling")
+PYCACHE = os.path.join(tempfile.gettempdir(), f"uurg_pycache_{os.getpid()}")
+
+
+def cli_env() -> dict:
+    """The environment of the CLI processes: this checkout first on the
+    path, and one bytecode cache (PYCACHE) that they share: the card's
+    machine keeps none for its packages (PYTHONDONTWRITEBYTECODE), and an
+    ``import torch`` there took 10.5 s filling the cache and 4.3-5.1 s from
+    it (scripts/profile_torch_cli_startup.py)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), PYTHONPYCACHEPREFIX=PYCACHE)
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    return env
+
+
+def bytecode_warmup() -> subprocess.Popen:
+    """Start a process that imports _WARM_IMPORTS into PYCACHE (removed at
+    exit), so that the pipeline's first processes find it filled."""
+    import atexit
+    import shutil
+
+    atexit.register(shutil.rmtree, PYCACHE, True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import importlib, sys\n"
+         "for m in sys.argv[1:]: importlib.import_module(m)",
+         *_WARM_IMPORTS], env=cli_env(), cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    atexit.register(proc.kill)       # a run that fails before phase 14b
+    return proc
+
+
+def cli_stage(name: str, work: str, threads: int | None = None
+              ) -> subprocess.Popen:
+    """Start the process of ``python -m uurg_torch.cli.<name>`` in ``work``
+    (no ./data there: the CLIs take the stand-in) in :func:`cli_env`: it
+    imports torch and _WARM_IMPORTS now, and runs the CLI once
+    :func:`cli_go` hands it its arguments; it then writes its kernel
+    launches to ``<log>.launches.json``. Its output goes to a log of its
+    own under ``work``. ``threads`` caps its host threads (BLAS, OpenMP)."""
+    n = len([f for f in os.listdir(work) if f.endswith(".log")])
+    log = open(os.path.join(work, f"{n:02d}_{name}.log"), "w")
+    env = cli_env()
+    if threads:
+        env.update({v: str(threads) for v in (
+            "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _STAGED_MAIN, log.name + ".launches.json",
+         f"uurg_torch.cli.{name}", *_WARM_IMPORTS], cwd=work, env=env,
+        stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT,
+        text=True)
+    proc.name, proc.log, proc.t0 = name, log, None
+    return proc
+
+
+def cli_go(proc: subprocess.Popen, args: list[str]) -> subprocess.Popen:
+    """Hand a process of :func:`cli_stage` its arguments: the CLI starts."""
+    proc.t0 = time.time()
+    try:
+        proc.stdin.write(json.dumps(args) + "\n")
+        proc.stdin.close()
+    except BrokenPipeError:
+        pass                    # it died while importing: cli_wait says why
+    return proc
+
+
+def cli_wait(proc: subprocess.Popen) -> tuple[float, str, dict]:
+    """Wait for a process of :func:`cli_stage`; fails unless it exits 0.
+    Returns (seconds from its arguments to its exit, its output, its
+    kernel launches)."""
+    try:
+        rc = proc.wait(timeout=PIPE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at the time limit"
+    secs = time.time() - proc.t0
+    proc.log.close()
+    with open(proc.log.name) as f:
+        text = f.read()
+    if rc != 0:
+        fail(f"python -m uurg_torch.cli.{proc.name} exited {rc}:\n"
+             f"{text[-3000:]}")
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    print(f"  python -m uurg_torch.cli.{proc.name}: exit 0 in {secs:.1f} s "
+          f"[at {time.time() - STARTED:.1f} s]; {last[:200]}", flush=True)
+    return secs, text, _json(proc.log.name + ".launches.json")
+
+
+def run_dir_of(text: str) -> str:
+    """The run directory that ``uurg_torch.cli.train`` prints last."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("done: ")]
+    if not lines:
+        fail("the trainer CLI printed no run directory")
+    return lines[-1][len("done: "):].strip()
+
+
+def _ckpt_tensors(obj, prefix: str = "") -> dict:
+    """Every tensor of a checkpoint (nested lists and dicts), by path."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    items = (obj.items() if isinstance(obj, dict) else enumerate(obj)
+             if isinstance(obj, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(_ckpt_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def _cli_chain(work: str, common: list[str], state: dict,
+               fisher_done: threading.Event) -> dict:
+    """The pipeline's processes in order (run on a thread of its own):
+    pretrain, generate_fisher (``state["sfron_argv"]`` is set and
+    ``fisher_done`` signalled once its mask is written), sfron beside
+    train_classifier and save_base_dataset, sample, then the evaluator and
+    classifier_evaluation, which are started and returned running (their
+    host work, the Fréchet distance's ``sqrtm``, on EVAL_THREADS threads
+    beside the script's next phases). Each process starts (and imports
+    torch) while the stage before it runs, and gets its arguments when that
+    stage has exited. Returns the run directories, seconds, the DDPM
+    processes' launches and the two running processes."""
+    none = os.path.join(work, "no_data")
+    seconds, launches, procs = {}, {}, []
+
+    def stage(name, threads=None):
+        procs.append(cli_stage(name, work, threads))
+        return procs[-1]
+
+    ok = False
+    try:
+        pre = cli_go(stage("train"), common + [
+            "--mode", "pretrain", "--n_iters", str(PIPE_ITERS)])
+        nxt = stage("train")
+        seconds["pretrain"], text, launches["pretrain"] = cli_wait(pre)
+        pre = run_dir_of(text)
+        fisher = cli_go(nxt, common + [
+            "--mode", "generate_fisher", "--ckpt_folder", pre, "--threshold",
+            "1.0"])
+        nxt = stage("train")
+        seconds["generate_fisher"], _, launches["generate_fisher"] = \
+            cli_wait(fisher)
+        state["sfron_argv"] = sfron_argv = common + [
+            "--mode", "sfron", "--ckpt_folder", pre, "--forget_alpha",
+            "10.0", "--decay_forget_alpha", "--remain_alpha", "1.0",
+            "--method", "ron", "--unlearn_loss", "adaga", "--mask_path",
+            os.path.join(pre, "mask_0", "fisher_1.0"), "--n_iters",
+            str(PIPE_ITERS)]
+        fisher_done.set()
+        sfron = cli_go(nxt, sfron_argv)
+        # the probe and the references need no DDPM run: beside sfron
+        side = [cli_go(stage("train_classifier"), [
+                    "--data_path", none, "--epochs", "1", "--batch_size",
+                    str(PIPE_PROBE_BATCH), "--image_size",
+                    str(PIPE_PROBE_RES), "--save_path",
+                    os.path.join(work, "probe")]),
+                cli_go(stage("save_base_dataset"), [
+                    "--data_path", none, "--label_to_forget", "0",
+                    "--as_npz", "--out", os.path.join(work, "ref")])]
+        nxt = stage("sample")
+        seconds["sfron"], text, launches["sfron"] = cli_wait(sfron)
+        forget = run_dir_of(text)
+        samples = os.path.join(work, "samples")
+        sample = cli_go(nxt, [
+            "--config", SFRON_YML, "--mode", "sample_fid", "--ckpt_folder",
+            forget, "--n_samples_per_class", str(PIPE_SAMPLES),
+            "--classes_to_generate", "x0", "--seed", str(SEED), "--out",
+            samples])
+        evals = [stage("evaluator", EVAL_THREADS),
+                 stage("classifier_evaluation", EVAL_THREADS)]
+        for proc in side:
+            seconds[proc.name] = cli_wait(proc)[0]
+        seconds["sample"], _, launches["sample"] = cli_wait(sample)
+        cli_go(evals[0], [os.path.join(work, "ref.npz"), samples, "--csv",
+                          os.path.join(work, "eval.csv")])
+        cli_go(evals[1], [samples, "--classifier_ckpt", os.path.join(
+                              work, "probe", "cifar10_resnet34.pth"),
+                          "--label_of_forgotten_class", "0", "--image_size",
+                          str(PIPE_PROBE_RES), "--csv",
+                          os.path.join(work, "ua.csv")])
+        ok = True
+    finally:
+        for proc in procs:              # what a failure left running
+            if not ok and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"forget": forget, "samples": samples, "seconds": seconds,
+            "launches": launches, "evals": evals}
+
+
+def pipeline_path(card: str, n_attn: int, n_gn: int, warmup=None,
+                  alongside=None) -> tuple[dict, object, object]:
+    """The north-star pipeline through the port's CLIs, each a process of
+    its own reading the files the one before it wrote (README.md's
+    commands): train --mode pretrain, --mode generate_fisher, --mode sfron
+    with the Fisher mask, sample --mode sample_fid on the forget run, the
+    evaluator on those samples against save_base_dataset's references, and
+    classifier_evaluation with a probe from train_classifier. The SFR-on
+    process's checkpoint is held bit for bit to sfron_forget run in this
+    process from the same pretrain checkpoint, mask, config and seed, and
+    the DDPM processes' kernel launches are read back and checked
+    (``n_attn`` and ``n_gn`` sites a UNet pass). The processes are driven
+    from a thread while this one runs ``alongside()`` (the twin of
+    cli/parity_check.py: its launch counters are this process's own) and
+    then the in-process SFR-on run. ``warmup`` is :func:`bytecode_warmup`'s
+    process, waited for first. Returns (this phase's record, ``alongside()``'s
+    result, ``finish``): the evaluator and classifier_evaluation run on
+    after this returns, and ``finish()`` waits for them, checks what they
+    wrote into the record and removes the phase's files (at exit if it is
+    not called)."""
+    import atexit
+    import csv
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from uurg_torch.cli import train as train_cli
+    from uurg_torch.data.splits import class_forget_split
+    from uurg_torch.workloads import ddpm_runner as R
+
+    _collect()
+    if warmup is not None:
+        warmup.wait(timeout=PIPE_TIMEOUT)
+    work = tempfile.mkdtemp(prefix="uurg_pipeline_")
+    common = ["--config", SFRON_YML, "--exp", os.path.join(work, "exp"),
+              "--label_to_forget", "0", "--seed", str(SEED)]
+    state, fisher_done, evals = {}, threading.Event(), []
+
+    def cleanup():
+        for proc in evals:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(cleanup)
+    with ThreadPoolExecutor(1) as pool:
+        chain = pool.submit(_cli_chain, work, common, state, fisher_done)
+        beside = alongside() if alongside is not None else None
+        # the same SFR-on run in this process, once the mask is written
+        while not fisher_done.wait(1.0):
+            if chain.done():
+                chain.result()          # the chain failed before it
+        args = train_cli.parse_args(state["sfron_argv"])
+        config = sfron_config()
+        config.training.n_iters = PIPE_ITERS
+        twin = sfron_twin(args, config, os.path.join(work, "twin"))
+        run = chain.result()
+    evals += run["evals"]
+    seconds, launches = run["seconds"], run["launches"]
+    seconds["sfron_in_process"] = twin["seconds"]
+    got = _ckpt_tensors(torch.load(
+        os.path.join(run["forget"], "ckpts", "ckpt.pth"),
+        map_location="cpu", weights_only=True))
+    want = twin["tensors"]
+    if set(got) != set(want) or len(got) < 100:
+        fail(f"the SFR-on CLI's checkpoint holds other tensors than the "
+             f"in-process run's ({len(got)} and {len(want)})")
+    differ = [k for k in got if not torch.equal(got[k], want[k])]
+    print(f"  sfron CLI checkpoint vs in-process sfron_forget: "
+          f"{len(got) - len(differ)} of {len(got)} tensors bit-equal",
+          flush=True)
+    spread = None
+    if differ:
+        # not bit-equal: gate within SCAN_SPREAD times the spread of two
+        # in-process runs of the same inputs
+        again = sfron_twin(args, config, os.path.join(work, "twin2"))
+        spread = _ckpt_gap(again["tensors"], want)
+        gap = _ckpt_gap(got, want)
+        print(f"  not bit-equal at {len(differ)} tensors ({differ[:3]}): "
+              f"relative L2 {gap:.3e} against two in-process runs' "
+              f"{spread:.3e}", flush=True)
+        if not gap <= SCAN_SPREAD * spread:
+            fail("the SFR-on CLI's checkpoint differs from the in-process "
+                 "run's beyond their own spread")
+    pngs = sorted(f for f in os.listdir(run["samples"]) if f.endswith(".png"))
+    if len(pngs) != 9 * PIPE_SAMPLES:
+        fail(f"sample wrote {len(pngs)} PNG files, not {9 * PIPE_SAMPLES}")
+
+    # a forward and a backward a Fisher batch (the stand-in's splits at the
+    # training batch, the ragged last kept), one of each a pretrain step,
+    # two a SFR-on step, one forward a DDIM step of the one sampling batch
+    remain, forget_split = class_forget_split(R._load_train_dataset(
+        args, config.merged({"data": {"path": os.path.join(
+            work, "no_data")}})), 0)
+    bs = config.training.batch_size
+    n_fisher = sum(-(-len(x) // bs) for x in (forget_split, remain))
+    want_launches = {
+        "generate_fisher": _pass_launches(n_fisher, n_fisher, n_attn, n_gn),
+        "pretrain": _pass_launches(PIPE_ITERS, PIPE_ITERS, n_attn, n_gn),
+        "sfron": _pass_launches(2 * PIPE_ITERS, 2 * PIPE_ITERS, n_attn,
+                                n_gn),
+        "sample": _pass_launches(DDIM_STEPS, 0, n_attn, n_gn)}
+    print(f"  launches by process: {json.dumps(launches)}", flush=True)
+    for name, want_l in want_launches.items():
+        if launches[name] != want_l:
+            fail(f"the {name} process launched {launches[name]}, not "
+                 f"{want_l}")
+    record = {"seconds": seconds, "launches": launches,
+              "expected": want_launches, "sfron_bit_equal": not differ,
+              "sfron_differ": len(differ), "sfron_spread": spread,
+              "samples": len(pngs)}
+
+    def finish() -> None:
+        print(f"  phase 14b's evaluator and classifier_evaluation, begun at "
+              f"{evals[0].t0 - STARTED:.1f} s:", flush=True)
+        for proc in evals:
+            seconds[proc.name] = cli_wait(proc)[0]
+        with open(os.path.join(work, "eval.csv")) as f:
+            metrics = list(csv.DictReader(f))
+        with open(os.path.join(work, "ua.csv")) as f:
+            ua = list(csv.DictReader(f))
+        keys = ("inception_score", "fid", "sfid", "precision", "recall")
+        if len(metrics) != 1 or not all(
+                np.isfinite(float(metrics[0][k])) for k in keys):
+            fail(f"the evaluator wrote {metrics}")
+        if len(ua) != 1 or not 0.0 <= float(ua[0]["forget_accuracy"]) <= 1:
+            fail(f"classifier_evaluation wrote {ua}")
+        record.update(metrics=metrics[0], ua=ua[0])
+        print(f"  evaluator row {json.dumps({k: metrics[0][k] for k in keys})}"
+              f"; UA row {json.dumps(ua[0])}; seconds "
+              f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+              f"on {card}", flush=True)
+        cleanup()
+
+    return record, beside, finish
+
+
+def sfron_twin(args, config, ckpt_dir: str) -> dict:
+    """``sfron_forget`` in this process as the SFR-on CLI runs it (PyTorch's
+    default TF32 settings, which earlier phases change): its seconds and
+    its checkpoint's tensors."""
+    import torch
+
+    from uurg_torch.workloads import ddpm_runner as R
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.time()
+        R.sfron_forget(args, config, ckpt_dir, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    tensors = _ckpt_tensors(torch.load(
+        os.path.join(ckpt_dir, "ckpt.pth"), map_location="cpu",
+        weights_only=True))
+    _collect()
+    return {"seconds": secs, "tensors": tensors}
+
+
+def _ckpt_gap(got: dict, want: dict) -> float:
+    """Relative L2 of the floating tensors of two checkpoints, all of them
+    concatenated."""
+    import torch
+
+    keys = [k for k in want if want[k].is_floating_point()]
+    a = torch.cat([got[k].double().reshape(-1) for k in keys])
+    b = torch.cat([want[k].double().reshape(-1) for k in keys])
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _pass_launches(fwd: int, bwd: int, n_attn: int, n_gn: int) -> dict:
+    return {"attention_fwd": fwd * n_attn, "attention_bwd": bwd * n_attn,
+            "group_norm_fwd": fwd * n_gn, "group_norm_bwd": bwd * n_gn}
 
 
 @contextlib.contextmanager
@@ -4528,6 +5002,249 @@ def xwide_attention(gen) -> dict:
               f"{r['kernels_per_call']} kernel(s) a call", flush=True)
         del q, k, v
     return {**rows[0], "timed": rows[1:]}
+
+
+def xwide_width_path(card: str, gen) -> dict:
+    """The width phase: the xwide kernels at padded widths 320-512 in both
+    dtypes, forward and backward, against their plain versions (float32:
+    relative L2 F32_FWD_REL / F32_BWD_REL; bf16: ATOL / RTOL forward,
+    BWD_REL_L2 backward), three runs with equal bits and one count a call on
+    the route's counter; timed at the wide CondUNet's and the VAE's shapes
+    beside the plain version and SDPA; then the CondUNet at model.ch 256
+    (every attention site on the bf16 xwide route) and a gradient through
+    the VAE's width-512 attention (the float32 xwide backward), each
+    against its plain path, with the launches counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from uurg_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    A, AB = FA.attention, FA.attention_bwd
+
+    def counters(dtype):
+        return (("launches_f32", "launches_f32") if dtype == torch.float32
+                else ("launches_xwide", "launches_xwide"))
+
+    def check(B, H, T, D, dtype, lse_too: bool = True):
+        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device="cuda",
+                                  dtype=dtype) for _ in range(4))
+        fname, bname = counters(dtype)
+        if FA._kernel_width(q) not in FA._XWIDE_D:
+            fail(f"attention at D = {D} does not take the xwide route")
+        tag = f"xwide {str(dtype)[6:]} B={B} H={H} T={T} D={D}"
+        outs = []
+        for _ in range(RAGGED_REPEATS):
+            f0, b0 = getattr(A, fname), getattr(AB, bname)
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            grads = FA.attention_bwd(q, k, v, o, lse, g)
+            if (getattr(A, fname) - f0, getattr(AB, bname) - b0) != (1, 1):
+                fail(f"attention {tag}: not one launch a call on "
+                     f"{fname}")
+            outs.append((o, lse, *grads))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for other in outs[1:]
+                   for a, b in zip(outs[0], other)):
+            fail(f"attention {tag}: repeated runs differ in their bits")
+        o, lse, *grads = outs[0]
+        want = FA.attention_plain(q, k, v)
+        if dtype == torch.float32:
+            err = rel_l2(f"attention {tag}", o, want, F32_FWD_REL)
+        else:
+            err = compare(f"attention {tag}", o, want)
+        check_lse(f"attention {tag}", lse, q, k)
+        tol = F32_BWD_REL if dtype == torch.float32 else BWD_REL_L2
+        err = max([err] + [rel_l2(f"attention bwd d{n} {tag}", a, b, tol)
+                           for n, a, b in zip(
+                               "qkv", grads,
+                               FA.attention_bwd_plain(q, k, v, g))])
+        return err, (q, k, v, g, o, lse)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in XW_WIDTHS:
+            for T in XW_TS:
+                err = check(2, 1, T, D, dtype)[0]
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+    print(f"  {len(XW_WIDTHS) * len(XW_TS)} shapes a dtype, "
+          f"{RAGGED_REPEATS} runs each with equal bits", flush=True)
+
+    def timed(name, shape, dtype, backward):
+        B, H, T, D = shape
+        err, (q, k, v, g, o, lse) = check(B, H, T, D, dtype)
+        n = B * H * T * D
+        size = 2 if dtype == torch.bfloat16 else 4
+        if backward:
+            run = lambda: FA.attention_bwd(q, k, v, o, lse, g)  # noqa: E731
+            plain = lambda: FA.attention_bwd_plain(q, k, v, g)  # noqa: E731
+            lib, stream = library_bwd(F.scaled_dot_product_attention,
+                                      (q, k, v), g)
+            nbytes, ops = 7 * n * size, 10 * n * T
+            backend = sdpa_backend_names(q, k, v, g)
+        else:
+            run = lambda: FA._attention_kernel(  # noqa: E731
+                q, k, v, with_lse=False)
+            plain = lambda: FA.attention_plain(q, k, v)  # noqa: E731
+            lib, stream = (lambda: F.scaled_dot_product_attention(q, k, v),
+                           None)
+            nbytes, ops = 4 * n * size, 4 * n * T
+            backend = sdpa_backend_names(q, k, v)
+        ms, eager = time_ms(run, 10)
+        plain_ms = time_ms(plain, 5)[0]
+        lib_ms = time_ms(lib, 10, stream=stream)[0]
+        peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        row = {"name": name, "shape": {"B": B, "H": H, "T": T, "D": D},
+               "dtype": str(dtype)[6:], "ms": ms, "eager_ms": eager,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_backend": backend["backend"],
+               "library_kernels": backend["kernels"],
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "kernels_per_call": kernels_a_call(run),
+               "max_abs_err": max(err, errs[dtype])}
+        print(f"  {name} {row['shape']} {row['dtype']}: kernel {ms:.4f} ms "
+              f"(eager {eager:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms ({backend['backend']}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['kernels_per_call']} kernel(s) a call", flush=True)
+        del q, k, v, g, o, lse
+        return row
+
+    rows = [timed("attention_fwd_xwide", XW_UNET_CFG, torch.bfloat16, False),
+            timed("attention_fwd_xwide", XW_UNET_TRAIN, torch.bfloat16,
+                  False),
+            timed("attention_bwd_xwide", XW_UNET_TRAIN, torch.bfloat16, True),
+            timed("attention_bwd_f32_xwide", VAE_ATTN_SHAPE, torch.float32,
+                  True)]
+    _collect()
+    out = {"rows": rows, "unet": wide_unet_check(gen),
+           "vae_grad": vae_grad_check(gen)}
+    _collect()
+    return out
+
+
+def wide_unet_check(gen) -> dict:
+    """The CondUNet of configs/cifar10_sfron.yml at model.ch 256 (bf16,
+    seeded): its parameters and attention sites, then a forward and a
+    backward at batch 8 with the kernels against its plain path (phases 4
+    and 6's gates), every attention site on the bf16 xwide route."""
+    from uurg_torch.ops.flash_attention import attention, attention_bwd
+    from uurg_torch.workloads.ddpm import DDPMWorkload
+
+    config = sfron_config()
+    config.model.ch = WIDE_CH
+    wl = DDPMWorkload.from_config(config)
+    model = wl.init_params(SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != WIDE_PARAMS:
+        fail(f"the ch {WIDE_CH} CondUNet has {n_params} parameters, not "
+             f"{WIDE_PARAMS}")
+    sites = collect_sites(model, wl.device)
+    attn = sorted(((s[1][1] * s[1][2], s[1][0]) for s in sites
+                   if s[0] == "attn"), reverse=True)
+    want = [(T, 512) for T, n in WIDE_SITES for _ in range(n)]
+    if attn != want:
+        fail(f"the ch {WIDE_CH} CondUNet's attention sites (T, D) are "
+             f"{attn}, not {want}")
+    print(f"  CondUNet ch {WIDE_CH}: {n_params} parameters, attention "
+          f"sites {attn}", flush=True)
+    _zero_launches()
+    fwd_rel = model_check(model, gen)
+    fwd = attention.launches_xwide
+    grad_rel = grad_check(model, wl, gen)
+    launches = {"attention_fwd_xwide": attention.launches_xwide,
+                "attention_bwd_xwide": attention_bwd.launches_xwide,
+                "attention_fwd": attention.launches,
+                "attention_bwd": attention_bwd.launches}
+    # model_check: one forward on the kernels; grad_check: one forward and
+    # one backward on the kernels (its plain pass counts nothing)
+    expect = {"attention_fwd_xwide": 2 * len(attn),
+              "attention_bwd_xwide": len(attn),
+              "attention_fwd": 0, "attention_bwd": 0}
+    print(f"  launches {launches} (expected {expect}; {fwd} in the "
+          f"forward check)", flush=True)
+    if launches != expect or fwd != len(attn):
+        fail(f"the ch {WIDE_CH} CondUNet did not run every attention site "
+             f"on the xwide route")
+    del model, wl
+    return {"params": n_params, "sites": attn, "model_rel_l2": fwd_rel,
+            "grad_rel_l2": grad_rel, "launches": launches}
+
+
+def vae_grad_check(gen) -> dict:
+    """The gradient of a VAE encode (VAEConfig, fp32, 256 px, batch 2) with
+    respect to its images: its mid attention is one head of width 512 at
+    T = 1024, whose backward takes the float32 xwide route; against the
+    plain path (relative L2 VAE_REL)."""
+    import torch
+
+    from uurg_torch.models.autoencoder_kl import init_vae
+    from uurg_torch.ops.flash_attention import attention_bwd
+
+    vae = init_vae(SEED, device="cuda")
+    x = torch.rand(2, VAE_RES, VAE_RES, 3, generator=gen,
+                   device="cuda") * 2 - 1
+
+    def grad():
+        xl = x.detach().requires_grad_()
+        (vae.encode(xl) ** 2).sum().backward()
+        return xl.grad
+
+    before = attention_bwd.launches_f32
+    got = grad()
+    launches = attention_bwd.launches_f32 - before
+    with plain_layers():
+        want = grad()
+    if launches != 1:
+        fail(f"a VAE encode's gradient made {launches} float32 attention "
+             f"backward launches, not 1")
+    err = rel_l2("VAE encode gradient, kernels vs plain path", got, want,
+                 VAE_REL)
+    del vae
+    return {"launches": {"attention_bwd_f32_xwide": launches},
+            "max_abs_err": err}
+
+
+def xwide_kernel_rows(width: dict, meta: dict) -> list[dict]:
+    """The ``kernels`` rows of the width phase's three entry points, a
+    launch at the shape the main path gives each: the bf16 forward at the
+    wide CondUNet's CFG batch, the bf16 backward at its training batch, the
+    float32 backward at the VAE's batch 32; launches from the wide CondUNet
+    and the VAE gradient."""
+    by_name = {}
+    for r in width["rows"]:
+        by_name.setdefault(r["name"], r)           # the first shape of each
+    launches = {**width["unet"]["launches"],
+                **width["vae_grad"]["launches"]}
+    out = []
+    for name, counter, per in (
+            ("attention_fwd_xwide", "attention_fwd",
+             f"one launch at {XW_UNET_CFG} bf16 (a CondUNet model.ch "
+             f"{WIDE_CH} attention at CFG batch 256)"),
+            ("attention_bwd_xwide", "attention_bwd",
+             f"one call (delta, key pass, query pass) at {XW_UNET_TRAIN} bf16 "
+             f"(a CondUNet model.ch {WIDE_CH} attention at training batch "
+             f"128)"),
+            ("attention_bwd_f32_xwide", "attention_bwd_f32",
+             f"one call (delta, key pass, query pass) at {VAE_ATTN_SHAPE} "
+             f"fp32 (the VAE's attention at batch {VAE_BATCH})")):
+        r = by_name[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "uurg_torch/csrc/flash_attention_f32.cu",
+            "replaces": meta[counter]["replaces"],
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "library_backend",
+                                 "kernels_per_call")},
+            "per": per + ", device ms by CUDA-graph replay; library: SDPA "
+                   "at that dtype, the backend its dispatcher picks"})
+    return out
 
 
 @contextlib.contextmanager
@@ -6689,14 +7406,15 @@ def dp_dit(card: str, mesh) -> dict:
                 "ema": _host_params(st.ema_model),
                 "pieces": _tp_pieces(st.model)}
 
-    def call(place: dict):
-        """The run on a fresh seeded model placed by ``place``; the model
-        collected before the next run (FSDP2's state holds it in a
-        reference cycle)."""
+    def call(place: dict, profile: bool = True):
+        """The run on a fresh seeded model placed by ``place``, its last
+        step profiled with ``profile`` (phase 23's runs; a profiled DiT step
+        held 2-3 s of wall time); the model collected before the next run
+        (FSDP2's state holds it in a reference cycle)."""
         model = perturb_dit_(wl.init_params(SEED))
         res = _dp_call(lambda: DR.dit_forget(
             wl, model, iter(fbs), iter(rbs), **place, **kw), DR, keep,
-            DP_DIT_STEPS - 1)
+            DP_DIT_STEPS - 1 if profile else None)
         del model
         _collect()
         return res
@@ -6738,16 +7456,15 @@ def dp_sd(card: str, mesh, gen) -> dict:
     kw = dict(n_iters=DP_SD_STEPS, lr=1e-5, saliency_mask=mask, seed=SEED,
               snapshot_freq=10 ** 6)
 
-    def call(place: dict, profile: bool = True):
+    def call(place: dict):
         """The run on a fresh seeded UNet placed by ``place``, collected
-        before the next run; its last step profiled unless ``profile`` is
-        off (a profiled SD step costs ~10 s of wall time)."""
+        before the next run; unprofiled (a profiled SD step held ~13 s of
+        wall time a run; phase 21 profiles SD's step)."""
         unet = wl.init_unet(SEED)
         res = _dp_call(
             lambda: TR.nsfw_removal(wl, unet, fb, rb, **place, **kw), TR,
             lambda st: {"model": _host_params(st.model),
-                        "pieces": _tp_pieces(st.model)},
-            DP_SD_STEPS - 1 if profile else None)
+                        "pieces": _tp_pieces(st.model)})
         del unet
         _collect()
         return res
@@ -6762,7 +7479,6 @@ def dp_sd(card: str, mesh, gen) -> dict:
     out = _dp_compare(f"nsfw_removal fsdp ({DP_SD_STEPS} steps at "
                       f"{SD_BATCH} + {SD_BATCH})", card, one, grp)
     out["sharded_params"] = sharded
-    out["profiled_step"] = _dp_profiled("nsfw_removal fsdp", one, grp)
     return out, one, call
 
 
@@ -6784,7 +7500,7 @@ def tp_dit(card: str, mesh, one: tuple, call) -> dict:
     """Phase 24 (a): ``dit_forget`` under ``parallelism="tp"`` on
     ``mesh`` (DIT_TP_RULES over a one-rank ``model`` axis), against phase
     23's one-device run of the same weights, batches and mask."""
-    grp = call({"mesh": mesh, "parallelism": "tp"})
+    grp = call({"mesh": mesh, "parallelism": "tp"}, profile=False)
     want = {f"blocks.{i}.{name}": k for i in range(DIT_BLOCKS)
             for name, k in (("attn.qkv.weight", 3), ("attn.qkv.bias", 3),
                             ("adaLN_modulation.1.weight", 6),
@@ -6800,16 +7516,14 @@ def tp_dit(card: str, mesh, one: tuple, call) -> dict:
     if not ema[1] <= DP_REL:
         fail("dit_forget's EMA under tp differs from one device")
     out["ema_rel_l2"], out["tp_params"] = ema[1], len(want)
-    out["profiled_step"] = _dp_profiled("dit_forget tp", one, grp)
     return out
 
 
 def tp_sd(card: str, mesh, one: tuple, call) -> dict:
     """Phase 24 (b): ``nsfw_removal`` under ``parallelism="tp"`` on
     ``mesh`` (SD_TP_RULES over a one-rank ``model`` axis, FSDP over it
-    for the rest), against phase 23's one-device run; unprofiled (phase
-    23 profiles SD's step)."""
-    grp = call({"mesh": mesh, "parallelism": "tp"}, profile=False)
+    for the rest), against phase 23's one-device run."""
+    grp = call({"mesh": mesh, "parallelism": "tp"})
     blocks = sorted({n.rsplit(".", 3)[0] for n in one[0]["model"]
                      if n and n.endswith("ff_geglu.proj.weight")})
     want = {f"{b}.{name}": k for b in blocks for name, k in (
@@ -6963,7 +7677,7 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
     for key, place in (("sp", {"mesh": seq, "parallelism": "sp"}),
                        ("pp1", {"mesh": stage, "parallelism": "pp",
                                 "pp_microbatches": 1})):
-        grp = call(place)
+        grp = call(place, profile=False)
         tag = (f"dit_forget {place['parallelism']} "
                f"({'seq=1' if key == 'sp' else 'stage=1, 1 microbatch'}, "
                f"{DP_DIT_STEPS} steps at {DIT_BATCH} + {DIT_BATCH})")
@@ -6974,7 +7688,6 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
         if not ema[1] <= DP_REL:
             fail(f"dit_forget's EMA under {key} differs from one device")
         res["ema_rel_l2"] = ema[1]
-        res["profiled_step"] = _dp_profiled(tag, one, grp)
         out[key] = res
         del grp
         _collect()
@@ -6982,7 +7695,8 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
                                       .init_params(SEED)))
     _collect()
     M = PP_MICROBATCHES
-    grp = call({"mesh": stage, "parallelism": "pp", "pp_microbatches": M})
+    grp = call({"mesh": stage, "parallelism": "pp", "pp_microbatches": M},
+               profile=False)
     tag = (f"dit_forget pp (stage=1, {M} microbatches, {DP_DIT_STEPS} steps "
            f"at {DIT_BATCH} + {DIT_BATCH})")
     big, rel = _param_diff(grp[0]["model"], one[0]["model"])
@@ -7003,8 +7717,7 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
     out["pp2"] = {"update_rel_l2": upd, "max_abs": big, "rel_l2": rel,
                   "launches": grp[1], "ms": grp[2], "one_device_ms": one[2],
                   "peak_gib": grp[3], "one_device_peak_gib": one[3],
-                  "step_ends_ms": grp[4], "one_device_step_ends_ms": one[4],
-                  "profiled_step": _dp_profiled(tag, one, grp)}
+                  "step_ends_ms": grp[4], "one_device_step_ends_ms": one[4]}
     del grp, start
     _collect()
     return out
@@ -7013,12 +7726,10 @@ def sp_pp_dit(card: str, one: tuple, call) -> dict:
 def sp_sd(card: str, one: tuple, call) -> dict:
     """Phase 25 (c): ``nsfw_removal`` under ``sp`` on seq=1 (SD's
     self-attention sites, T % 128 == 0, through the ring's path), against
-    phase 23's one-device run; unprofiled (phase 23 profiles SD's
-    step)."""
+    phase 23's one-device run."""
     from uurg_torch.parallel import make_mesh
 
-    grp = call({"mesh": make_mesh({"seq": 1}), "parallelism": "sp"},
-               profile=False)
+    grp = call({"mesh": make_mesh({"seq": 1}), "parallelism": "sp"})
     tag = f"nsfw_removal sp (seq=1, {DP_SD_STEPS} steps at {SD_BATCH} + " \
           f"{SD_BATCH})"
     return _dp_compare(tag, card, one, grp)
@@ -7031,7 +7742,6 @@ def parallel_path(card: str, gen) -> dict:
     import torch
     import torch.distributed as dist
 
-    from uurg_torch.core.config import Config
     from uurg_torch.parallel import initialize_distributed, make_mesh
     from uurg_torch.parallel.dist import free_port
 
@@ -7041,14 +7751,14 @@ def parallel_path(card: str, gen) -> dict:
               f"{dist.get_world_size()}", flush=True)
 
     try:
-        out = {"ddpm": dp_ddpm(Config(SFRON_CONFIG), card, group)}
+        out = {"ddpm": dp_ddpm(sfron_config(), card, group)}
         torch.cuda.empty_cache()
         mesh = make_mesh({"data": 1, "model": 1})
         out["dit"], dit_one, dit_call = dp_dit(card, mesh)
         torch.cuda.empty_cache()
         out["sd"], sd_one, sd_call = dp_sd(card, mesh, gen)
         torch.cuda.empty_cache()
-        out["draws"] = dp_draw_cost(Config(SFRON_CONFIG), card)
+        out["draws"] = dp_draw_cost(sfron_config(), card)
         banner(f"tensor parallel (uurg_torch/parallel, DIT_TP_RULES and "
                f"SD_TP_RULES) on the one-rank NCCL group, mesh data=1,"
                f"model=1, each against phase 23's one-device run: "
@@ -7104,7 +7814,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from uurg_torch.core.config import Config
     from uurg_torch.ops import _build
     from uurg_torch.ops.flash_attention import attention
     from uurg_torch.ops.group_norm import group_norm
@@ -7121,6 +7830,7 @@ def main() -> int:
 
     banner("build")
     t0 = time.time()
+    warmup = bytecode_warmup()        # beside nvcc, for phase 14b's CLIs
     _build.build_all()
     print(f"  built {len(_build.sources())} sources in "
           f"{time.time() - t0:.1f} s", flush=True)
@@ -7131,7 +7841,7 @@ def main() -> int:
             if re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
                 fail(f"ptxas reports register spills in {name}")
 
-    config = Config(SFRON_CONFIG)
+    config = sfron_config()
     wl = DDPMWorkload.from_config(config)          # CUDA, bf16 compute
 
     class Args:
@@ -7232,10 +7942,18 @@ def main() -> int:
           "throughput")
     evaluation = eval_networks(card)
     torch.cuda.empty_cache()
-    banner(f"main path: the five stages end to end (the twin of "
-          f"cli/parity_check.py) at full width, {PARITY_ITERS} SFR-on steps, "
-          f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}")
-    parity = parity_path(config, card, n_attn, n_gn)
+    banner(f"main path: the north-star pipeline through the CLIs, each "
+           f"python -m uurg_torch.cli.<name> in a process of its own at full "
+           f"width: train pretrain ({PIPE_ITERS} iterations), "
+           f"generate_fisher, sfron ({PIPE_ITERS} steps, held to the "
+           f"in-process run bit for bit), sample ({PIPE_SAMPLES} a class of "
+           f"9, DDIM-{DDIM_STEPS}), evaluator, classifier_evaluation; beside "
+           f"them in this process the five stages end to end (the twin of "
+           f"cli/parity_check.py) at full width, {PARITY_ITERS} SFR-on steps, "
+           f"{PARITY_SAMPLES} + {PARITY_PROBE} samples DDIM-{DDIM_STEPS}")
+    pipeline, parity, pipeline_finish = pipeline_path(
+        card, n_attn, n_gn, warmup,
+        alongside=lambda: parity_path(config, card, n_attn, n_gn))
     del config, wl
     torch.cuda.empty_cache()
     banner(f"main path: classification, ResNet-18 (CIFAR stem, full width) "
@@ -7259,9 +7977,10 @@ def main() -> int:
           f"classifier_evaluation")
     vit = vit_path(card)
     torch.cuda.empty_cache()
+    pipeline_finish()                  # phase 14b's evaluation, long done
     banner(f"main path: the remat'd DDPM step (full width, batch "
           f"{TRAIN_BATCH}, Adam nu in bf16) against no remat")
-    remat = remat_path(Config(SFRON_CONFIG), card, n_attn, n_gn)
+    remat = remat_path(sfron_config(), card, n_attn, n_gn)
     rows += rows_f32
     torch.cuda.empty_cache()
     banner(f"main path: {DIT_NAME} class forgetting on {DIT_LATENTS} "
@@ -7280,6 +7999,12 @@ def main() -> int:
            f"folder, dit_sample --mode fid_npz")
     vae = vae_path(card, gen)
     torch.cuda.empty_cache()
+    banner(f"the xwide attention kernels at padded head widths "
+           f"{XW_WIDTHS[0]}-{XW_WIDTHS[-1]} (bf16 forward, fp32 and bf16 "
+           f"backward) vs plain, timed at {XW_UNET_CFG}, {XW_UNET_TRAIN} "
+           f"bf16 and {VAE_ATTN_SHAPE} fp32; the CondUNet at model.ch "
+           f"{WIDE_CH} and a VAE encode's gradient vs their plain paths")
+    width = xwide_width_path(card, gen)
     banner(f"main path: Stable Diffusion (the CompVis v1 UNet, bf16, remat; "
            f"CLIP ViT-L/14 text; the VAE at {SD_RES} px; seeded init): the "
            f"attention kernels at its three (T, D) and GroupNorm at its site "
@@ -7367,6 +8092,7 @@ def main() -> int:
     ddpm_paths = {"training": train["launches"], "fisher": fisher["launches"],
                   "sa_fim": sa["fim_launches"], "sa": sa["sa_launches"],
                   "parity": parity["launches"],
+                  **{f"cli_{k}": v for k, v in pipeline["launches"].items()},
                   "dp_training": par["launches"]["ddpm"],
                   "dp_sampling": par["launches"]["sampling"]}
     all_paths = {"classification": classification["launches"],
@@ -7410,6 +8136,7 @@ def main() -> int:
                    f"same views",
         })
     kernels += vae_kernel_rows(vae, meta)
+    kernels += xwide_kernel_rows(width, meta)
     kernels += sd_kernel_rows(sd, meta)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
@@ -7427,7 +8154,8 @@ def main() -> int:
                    "sa": sa, "evaluation": evaluation, "parity": parity,
                    "classification": classification,
                    "attention_f32": f32_detail, "vit": vit,
-                   "remat": remat, "dit": dit, "vae": vae, "sd": sd,
+                   "pipeline": pipeline, "remat": remat, "dit": dit,
+                   "vae": vae, "width": width, "sd": sd,
                    "sd_methods": sd_methods, "sd_eval": sd_eval,
                    "parallel": par,
                    "phase_starts": PHASE_STARTS,

@@ -1,0 +1,179 @@
+"""The attention at padded head widths 320-512 (the ``xwide`` kernels, both
+dtypes, forward and backward) on the CPU: the port's plain versions against
+the JAX package's Pallas pair in interpret mode at widths 320 and 512, the
+dispatcher's routes and refusals, the CPU dispatcher's gradients, a model
+of the backward kernels' arithmetic (P from the log-sum-exp, delta from
+dO o, 16-row tiles, bf16 roundings) against the plain version, and the
+wide CondUNet's parameter count. The kernels themselves are held on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s width phase)."""
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from uurg_torch.core.config import load_config  # noqa: E402
+from uurg_torch.models import unet_cond as TU  # noqa: E402
+from uurg_torch.ops import flash_attention as FA  # noqa: E402
+from uurg_tpu.ops.flash_attention import fused_attention  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# float32: the same arithmetic in another order (relative L2 of the output,
+# and of each gradient, whose dS = P (dP - delta) cancels where dP is close
+# to delta). bfloat16: both sides round P (normalised) to bf16 before P V,
+# dS and P before the gradients' products, and each output once (2**-8 of
+# relative step); the sums over T differ in order and in where they round
+REL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _inputs(T, D, seed, B=2, H=1):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, T, D), dtype=np.float32)
+            for _ in range(4)]
+
+
+def _f32(t) -> np.ndarray:
+    return np.asarray(torch.as_tensor(t).float().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [320, 512])
+def test_plain_matches_pallas_interpret(D, dtype):
+    """The plain versions against ``fused_attention(..., interpret=True)``
+    and its gradients, on the same bf16- or fp32-valued inputs."""
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _inputs(64, D, D))
+    jq, jk, jv, jg = (jnp.asarray(_f32(t)).astype(JNP[dtype])
+                      for t in (q, k, v, g))
+    import jax
+    want, vjp = jax.vjp(lambda a, b, c: fused_attention(a, b, c, 64, True),
+                        jq, jk, jv)
+    want_grads = vjp(jg)
+    fwd_tol, bwd_tol = REL[dtype]
+    got = FA.attention_plain(q, k, v)
+    assert got.dtype == dtype
+    assert _rel(_f32(got), np.asarray(want, np.float32)) <= fwd_tol
+    for name, a, b in zip("qkv", FA.attention_bwd_plain(q, k, v, g),
+                          want_grads):
+        assert a.dtype == dtype, name
+        assert _rel(_f32(a), np.asarray(b, np.float32)) <= bwd_tol, name
+
+
+@pytest.mark.parametrize("D,Dp", [(320, 320), (300, 320), (384, 384),
+                                  (448, 448), (512, 512), (260, 320)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_widths_320_to_512_take_the_xwide_route(dtype, D, Dp):
+    q = torch.empty(1, 1, 4, D, dtype=dtype)
+    assert FA._kernel_width(q) == Dp
+    assert FA._xwide_bf16(q) == (dtype == torch.bfloat16)
+    assert FA._f32_plan(2, 1, 100, D) == ("xwide", None)
+    assert FA._f32_plan(2, 1, 100, D, backward=True) == ("xwide", None)
+
+
+def test_bf16_tma_plan_keeps_to_256_and_widths_to_512():
+    # the TMA bf16 kernels' plan takes up to 256; wider bf16 heads take the
+    # xwide kernels, and above 512 both dtypes raise naming ROADMAP.md
+    ts = [torch.empty(1, 1, 4, 256, dtype=torch.bfloat16) for _ in range(3)]
+    assert FA._bf16_plan(*ts).Dp == 256
+    assert not FA._xwide_bf16(ts[0])
+    with pytest.raises(ValueError, match="xwide"):
+        FA._bf16_plan(*(torch.empty(1, 1, 4, 320, dtype=torch.bfloat16)
+                        for _ in range(3)))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            FA._kernel_width(torch.empty(1, 1, 4, 513, dtype=dtype))
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        FA._f32_plan(1, 1, 16, 640, backward=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_dispatcher_at_width_512_is_the_plain_pair(dtype):
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _inputs(16, 512, 3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (FA.attention.launches_xwide, FA.attention_bwd.launches_xwide,
+                FA.attention.launches_f32, FA.attention_bwd.launches_f32)
+    out = FA.attention(*leaves)
+    out.backward(g)
+    assert (FA.attention.launches_xwide, FA.attention_bwd.launches_xwide,
+            FA.attention.launches_f32,
+            FA.attention_bwd.launches_f32) == counters
+    assert torch.equal(out.detach(), FA.attention_plain(q, k, v))
+    for t, w in zip(leaves, FA.attention_bwd_plain(q, k, v, g)):
+        assert torch.equal(t.grad, w)
+
+
+def _round(x, dtype):
+    return x.to(dtype).float()
+
+
+def _xwide_bwd_model(q, k, v, g, tile: int = 16):
+    """What the xwide backward kernels compute, in torch on 16-row tiles:
+    the forward's log-sum-exp and output (the output in the input dtype),
+    delta = rowsum(dO o), then per (query tile, key tile) S and dP, P =
+    exp(s scale - lse), dS = P (dP - delta) scale, P and dS rounded to the
+    input dtype, fp32 sums; dk and dv summed over the query tiles of a key
+    tile, dq over the key tiles of a query tile."""
+    dtype = q.dtype
+    T, D = q.shape[-2:]
+    scale = D ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s_full = qf @ kf.transpose(-1, -2) * scale
+    lse = torch.logsumexp(s_full, -1, keepdim=True)
+    o = _round(torch.softmax(s_full, -1) @ vf, dtype)
+    delta = (gf * o).sum(-1, keepdim=True)
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for q0 in range(0, T, tile):
+        qs = slice(q0, q0 + tile)
+        for k0 in range(0, T, tile):
+            ks = slice(k0, k0 + tile)
+            s = qf[..., qs, :] @ kf[..., ks, :].transpose(-1, -2)
+            dp = gf[..., qs, :] @ vf[..., ks, :].transpose(-1, -2)
+            p = torch.exp(s * scale - lse[..., qs, :])
+            ds = _round(p * (dp - delta[..., qs, :]) * scale, dtype)
+            p = _round(p, dtype)
+            dv[..., ks, :] += p.transpose(-1, -2) @ gf[..., qs, :]
+            dk[..., ks, :] += ds.transpose(-1, -2) @ qf[..., qs, :]
+            dq[..., qs, :] += ds @ kf[..., ks, :]
+    return tuple(t.to(dtype) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D", [(40, 320), (16, 512), (33, 448)])
+def test_backward_kernels_arithmetic_matches_plain(T, D, dtype):
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _inputs(T, D, T))
+    tol = REL[dtype][1]
+    for name, a, b in zip("qkv", _xwide_bwd_model(q, k, v, g),
+                          FA.attention_bwd_plain(q, k, v, g)):
+        assert _rel(_f32(a), _f32(b)) < tol, name
+
+
+def test_wide_condunet_parameters_counted_on_the_cpu():
+    # configs/cifar10_sfron.yml at model.ch 256, as chip_smoke.py's width
+    # phase builds it on the card: the count it holds that model to
+    cfg = load_config(os.path.join(ROOT, "configs", "cifar10_sfron.yml"))
+    cfg.model.ch = chip_smoke.WIDE_CH
+    with torch.device("meta"):
+        model = TU.CondUNet(TU.UNetConfig.from_config(cfg))
+    assert sum(p.numel() for p in model.parameters()) == \
+        chip_smoke.WIDE_PARAMS == 154_400_515
+    # its attention: one head of ch * 2 = 512 at 16 x 16, and the mid site
+    assert cfg.model.ch * max(cfg.model.ch_mult) == 512
+    assert list(cfg.model.attn_resolutions) == [16]

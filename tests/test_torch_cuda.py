@@ -505,11 +505,71 @@ def test_attention_xwide_forward_matches_plain(gen, T, D):
     want = attention_plain(q, k, v)
     rel = ((got - want).double().norm() / want.double().norm()).item()
     assert rel <= 1e-5, rel
-    # no backward at these widths (ROADMAP.md): it raises, it does not fall
-    # back to a plain version
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention(*leaves).sum().backward()
+    # the refusal that remains (ROADMAP.md): a width above 512 raises, it
+    # does not fall back to a plain version
+    wide = torch.zeros(2, 1, T, 576, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        attention(wide, wide, wide)
+
+
+# the xwide kernels' new entry points: the bf16 forward, and the backward in
+# both dtypes, at the padded widths 320-512, a ragged T, a T every tile
+# divides and the mid site's T = 16 (width 300 is zero-padded to 320)
+XWIDE_BWD_SHAPES = [(100, 320), (256, 384), (16, 448), (256, 512),
+                    (100, 512), (65, 300)]
+
+
+def _xwide_calls(q, k, v, g):
+    o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    return (o, lse, *attention_bwd(q, k, v, o, lse, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D", XWIDE_BWD_SHAPES)
+def test_attention_xwide_pair_matches_plain(gen, T, D, dtype):
+    q, k, v, g = (torch.randn(2, 1, T, D, generator=gen, device="cuda",
+                              dtype=dtype) for _ in range(4))
+    counter = "launches_f32" if dtype == torch.float32 else "launches_xwide"
+    before = (getattr(attention, counter), getattr(attention_bwd, counter))
+    got = _xwide_calls(q, k, v, g)
+    again = _xwide_calls(q, k, v, g)
+    torch.cuda.synchronize()
+    assert (getattr(attention, counter), getattr(attention_bwd, counter)) \
+        == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o, lse, *grads = got
+    want = attention_plain(q, k, v)
+    if dtype == torch.float32:
+        # fp32 in another order: the forward 1e-5, the backward 1e-4
+        assert _rel_l2(o, want) <= 1e-5
+        tol = 1e-4
+    else:
+        torch.testing.assert_close(o.float(), want.float(), atol=ATOL,
+                                   rtol=RTOL)
+        tol = BWD_REL_L2
+    for a, b in zip(grads, attention_bwd_plain(q, k, v, g)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_l2(a, b) < tol
+
+
+def test_attention_xwide_bf16_gradients_through_the_dispatcher(gen):
+    # the CondUNet at model.ch 256: one head of 512 at 16 x 16, training
+    # batch; autograd takes the bf16 xwide pair, nothing else
+    q, k, v = (torch.randn(8, 1, 256, 512, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    g = torch.randn(8, 1, 256, 512, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    before = (attention.launches, attention_bwd.launches,
+              attention.launches_xwide, attention_bwd.launches_xwide)
+    attention(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_bwd.launches,
+            attention.launches_xwide, attention_bwd.launches_xwide) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    for t, w in zip((q, k, v), attention_bwd_plain(q.detach(), k.detach(),
+                                                   v.detach(), g)):
+        assert _rel_l2(t.grad, w) < BWD_REL_L2
 
 
 def test_attention_xwide_forward_takes_more_heads_than_a_grid_row(gen):

@@ -511,11 +511,13 @@ def test_train_cli_sa_on_cpu(tmp_path, caplog):
 
 
 def test_chip_smoke_carries_the_sa_config():
-    # chip_smoke.py runs without PyYAML: its copy of the sections it reads
-    # must be the YAML's
+    # chip_smoke.py runs without PyYAML: it reads the SA config with the
+    # port's reader, which must give what PyYAML gives
     import chip_smoke
 
-    full = load_config(SA).to_dict()
-    for section, values in chip_smoke.SA_CONFIG.items():
-        for k, v in values.items():
-            assert full[section][k] == v, (section, k)
+    yaml = pytest.importorskip("yaml")
+    with open(SA) as f:
+        want = yaml.safe_load(f)
+    assert chip_smoke.sa_config().to_dict() == want
+    assert load_config(SA).to_dict() == want
+    assert chip_smoke.SA_YML == SA

@@ -258,12 +258,17 @@ def test_f32_plan_takes_xwide_at_more_heads_than_a_grid_row():
 
 
 def test_width_512_backward_and_bf16_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FA._f32_plan(32, 1, 1024, 512, backward=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FA._kernel_width(torch.empty(1, 1, 4, 512, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FA._bf16_plan(*(torch.empty(1, 1, 4, 512, dtype=torch.bfloat16)
+    # width 512 now runs both ways in both dtypes (the xwide kernels); the
+    # refusal that remains, naming ROADMAP.md, is a width above 512
+    assert FA._f32_plan(32, 1, 1024, 512, backward=True) == ("xwide", None)
+    assert FA._kernel_width(torch.empty(1, 1, 4, 512,
+                                        dtype=torch.bfloat16)) == 512
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        FA._f32_plan(32, 1, 1024, 576, backward=True)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        FA._kernel_width(torch.empty(1, 1, 4, 576, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        FA._bf16_plan(*(torch.empty(1, 1, 4, 576, dtype=torch.bfloat16)
                         for _ in range(3)))
     # the backward up to 256 keeps its routes
     assert FA._f32_plan(2, 3, 197, 256, backward=True).route == "wide"

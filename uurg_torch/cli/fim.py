@@ -4,7 +4,7 @@ full-ELBO Fisher information of Selective Amnesia, chunked over timesteps.
 Run as ``python -m uurg_torch.cli.fim --config configs/cifar10_sa.yml
 --ckpt_folder RUN_DIR``; writes ``<ckpt_folder>/fisher_dict``, which
 ``python -m uurg_torch.cli.train --mode sa --ckpt_folder RUN_DIR`` reads.
-Needs PyYAML (config).
+The config is read by the port's own YAML reader (no PyYAML).
 
 The model is ``<ckpt_folder>/ckpts/ckpt.pth`` (a seeded fresh model when
 there is none). The timesteps are cut into ``n_chunks`` chunks of ``T //

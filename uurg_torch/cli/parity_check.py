@@ -29,7 +29,7 @@ Writes <out>/fisher/, <out>/unlearned/ckpt.pth, <out>/samples.npz,
 <out>/probe_samples.npz and <out>/parity_report.json, and prints the table.
 Exit code: 1 iff a band check FAILS; SKIPPED never fails the run. Runs on
 the card (``--device cuda``, the default, raises without one) or on the
-CPU with ``--device cpu``; the config YAML needs PyYAML.
+CPU with ``--device cpu``; the config YAML is read without PyYAML.
 """
 from __future__ import annotations
 

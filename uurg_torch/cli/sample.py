@@ -1,7 +1,8 @@
 """DDPM sampling CLI, the flags of ``cli/sample.py`` (DDPM/sample.py:15-103).
 
 Run as ``python -m uurg_torch.cli.sample --config configs/cifar10_sfron.yml
---ckpt_folder RUN_DIR``. Needs PyYAML (config) and Pillow (PNG output).
+--ckpt_folder RUN_DIR``. Needs Pillow (PNG output); the config is read
+without PyYAML.
 
 Modes:
   sample_fid       — n_samples per remaining class -> PNG folder for FID

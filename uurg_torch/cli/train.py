@@ -1,8 +1,9 @@
 """DDPM train/unlearn CLI, the flags of ``cli/train.py`` (DDPM/train.py:15-172).
 
 Run as ``python -m uurg_torch.cli.train --config configs/cifar10_sfron.yml
---mode sfron --ckpt_folder RUN_DIR --label_to_forget 0``. Needs PyYAML
-(config, run-dir dump); the snapshot grids need Pillow.
+--mode sfron --ckpt_folder RUN_DIR --label_to_forget 0``. The config and
+the run directory's ``logs/config.yaml`` go through the port's own YAML
+reader and writer (no PyYAML); the snapshot grids need Pillow.
 
 Modes: pretrain | retrain | sfron | sa | salun | generate_fisher |
 generate_mask. ``sa`` (Selective Amnesia) reads ``<ckpt_folder>/fisher_dict``

@@ -11,7 +11,9 @@ through one ``torch.autograd.Function`` whose backward is
 :func:`attention_bwd`: the kernels of ``uurg_torch/csrc/flash_attention_bwd.cu``
 (bfloat16) or ``flash_attention_f32.cu`` (float32), which replace the Pallas
 ``_attn_bwd_kernel``, for a CUDA tensor, :func:`attention_bwd_plain` for a
-CPU tensor. Nothing falls back from a kernel to a plain version, and no
+CPU tensor. Head widths whose padded value is 320-512 take the ``xwide``
+kernels of ``flash_attention_f32.cu`` in either dtype (its only bfloat16
+kernels). Nothing falls back from a kernel to a plain version, and no
 other dtype reaches a kernel: a CUDA tensor of any other dtype raises.
 Inside :func:`uurg_torch.parallel.sequence.sequence_parallel` the
 dispatcher hands a call whose token counts divide by the ``seq`` axis to
@@ -27,15 +29,22 @@ FFMA on the CUDA cores: ``tiled`` (head width 64: warps own 16 whole rows,
 the streamed operand in a cp.async ring, five products backward with dS^T
 through fp32 scratch for dq), ``packed`` (width 64 and T <= 16: several
 heads share a warp's rows), ``wide`` (padded widths 128-256: the first
-register-tiled design) and ``xwide`` (padded widths 320-512, the forward
-only: the VAE's one head of width 512; 64 resident query rows, K and V
-streamed in chunks, both products on the tensor cores as three TF32
-products of split operands, "3xTF32"). A launcher
+register-tiled design) and ``xwide`` (padded widths 320-512: the VAE's
+one head of width 512; forward: 64 resident query rows, K and V streamed
+in chunks, both products on the tensor cores as three TF32 products of
+split operands, "3xTF32"; backward: FFMA in 16-row tiles, a key pass for
+dk and dv and a query pass for dq). The ``xwide`` pair is also built for
+bfloat16 (the CondUNet at ``model.ch: 256``, the Pallas pair at those
+widths in bf16): one exact TF32 product of bf16 operands where float32
+takes three, P and dS rounded to bf16 as the other bfloat16 kernels round
+them. A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for
-bfloat16, ``attention.launches_f32`` and ``attention_bwd.launches_f32`` for
-float32 (one a call, whatever the route).
+bfloat16 up to width 256, ``attention.launches_xwide`` and
+``attention_bwd.launches_xwide`` for bfloat16 at 320-512,
+``attention.launches_f32`` and ``attention_bwd.launches_f32`` for float32
+(one a call, whatever the route).
 
 Head widths and layouts. The bfloat16 kernels take any head width D that
 is a multiple of 8, up to 256, as it is: their tensor maps have the true
@@ -46,13 +55,13 @@ in any layout whose last dimension is contiguous: DiT's heads are views of
 its fused qkv projection, and for such token-major q the output is written
 into a (B, T, H, D) buffer, so that merging the heads back is a view too.
 Only a width that is not a multiple of 8 (no model of the repository has
-one) is zero-padded to the next multiple of 64 first. The float32 kernels
-take contiguous tensors of a width that is a multiple of 64, up to 256 (up
-to 512 forward; ROADMAP.md lists the wider backward and a bfloat16 forward
-above 256 as capability items, which raise here): their dispatcher
-copies strided inputs and zero-pads other widths (padded k columns add zero
-to the scores, padded v columns and gradient columns are zero and sliced
-off). Every kernel is given the true ``D ** -0.5`` scale.
+one) is zero-padded to the next multiple of 64 first. The float32 kernels,
+and the ``xwide`` kernels in either dtype, take contiguous tensors of a
+width that is a multiple of 64, up to 512: their dispatcher copies strided
+inputs and zero-pads other widths (padded k columns add zero to the
+scores, padded v columns and gradient columns are zero and sliced off).
+Widths above 512 raise ``ValueError`` (ROADMAP.md, Queue 2). Every kernel
+is given the true ``D ** -0.5`` scale.
 """
 from __future__ import annotations
 
@@ -65,10 +74,10 @@ import torch.nn.functional as F
 from uurg_torch.ops import _build
 
 _KERNEL_D = (64, 128, 192, 256)
-# the float32 forward's extra-wide widths (the xwide route)
+# the extra-wide widths (the xwide route, float32 and bfloat16)
 _XWIDE_D = (320, 384, 448, 512)
-_WIDE_ITEM = ("is a capability item of ROADMAP.md (Queue 2); no path of the "
-              "port needs it (the VAE is frozen)")
+_WIDE_ITEM = ("head widths above 512 are a capability item of ROADMAP.md "
+              "(Queue 2)")
 # the bfloat16 kernels' tensor maps: every stride a multiple of 16 bytes
 _STRIDE_ELEMS = 8
 # float32 routes (the launchers' route codes) and their bounds: heads of
@@ -92,20 +101,16 @@ def _f32_plan(B: int, H: int, T: int, D: int,
     launchers would refuse the shape. The tiled backward writes dS^T there
     ([head][key][query], T padded to Tp), which a second kernel reads for
     dq = dS K: B*H*Tp^2 floats, 154 MB at ViT-B/16's (64, 12, 197, 64).
-    Widths above 256 have a forward only (``xwide``)."""
+    Padded widths 320-512 take ``xwide`` both ways (no scratch)."""
     if min(B, H, T, D) < 1:
         raise ValueError(f"attention needs a non-empty (B, H, T, D), got "
                          f"{(B, H, T, D)}")
     Dp = -(-D // 64) * 64
     if Dp in _XWIDE_D:
-        if backward:
-            raise NotImplementedError(
-                f"the float32 attention backward at head width {D} (above "
-                f"256) {_WIDE_ITEM}")
         return F32Plan("xwide", None)
     if Dp not in _KERNEL_D:
         raise ValueError(f"the float32 attention kernels take head width "
-                         f"<= 512, got {D}")
+                         f"<= 512, got {D}: {_WIDE_ITEM}")
     if Dp > 64:
         return F32Plan("wide", None)
     if T <= _PACK_T:
@@ -222,6 +227,9 @@ def _bf16_plan(*ts) -> Bf16Plan:
     _check_layout(ts)
     B, H, T, D = ts[0].shape
     Dp = _kernel_width(ts[0])
+    if Dp in _XWIDE_D:
+        raise ValueError(f"the bfloat16 TMA kernels take head width <= 256, "
+                         f"got {D} (wider heads take the xwide kernels)")
     pad = D % _STRIDE_ELEMS != 0
     width = Dp if pad else D
     dense = (width, T * width, H * T * width)
@@ -245,15 +253,9 @@ def _kernel_width(q: torch.Tensor) -> int:
         raise TypeError(f"the attention kernels take bfloat16 or float32, "
                         f"not {q.dtype}")
     Dp = -(-q.shape[-1] // 64) * 64
-    if Dp in _XWIDE_D:
-        if q.dtype == torch.float32:
-            return Dp
-        raise NotImplementedError(
-            f"the bfloat16 attention kernels at head width {q.shape[-1]} "
-            f"(above 256) {_WIDE_ITEM}")
-    if Dp not in _KERNEL_D:
-        raise ValueError(f"the attention kernels take head width <= 256 "
-                         f"(float32 forward: <= 512), got {q.shape[-1]}")
+    if Dp not in _KERNEL_D + _XWIDE_D:
+        raise ValueError(f"the attention kernels take head width <= 512, got "
+                         f"{q.shape[-1]}: {_WIDE_ITEM}")
     return Dp
 
 
@@ -304,6 +306,25 @@ def _bwd_f32_fn():
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+def _fwd_xwide_bf16_fn():
+    return _build.function(
+        "flash_attention_f32", "uurg_attention_fwd_xwide_bf16",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _bwd_xwide_bf16_fn():
+    return _build.function(
+        "flash_attention_f32", "uurg_attention_bwd_xwide_bf16",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _xwide_bf16(q: torch.Tensor) -> bool:
+    """bfloat16 at a padded width of 320-512: the xwide kernels' bf16 form."""
+    return q.dtype == torch.bfloat16 and _kernel_width(q) in _XWIDE_D
+
+
 def _attention_kernel(q, k, v, with_lse: bool):
     """Launch the forward kernel of q's dtype: (o, lse or None), lse fp32
     (B*H, T)."""
@@ -313,15 +334,22 @@ def _attention_kernel(q, k, v, with_lse: bool):
            if with_lse else None)
     lse_ptr = lse.data_ptr() if with_lse else None
     f32 = q.dtype == torch.float32
-    if f32:
-        # the float32 kernels take contiguous tensors of the template width
-        # until their redesign at the true width: strided inputs are copied
+    xwide = _xwide_bf16(q)
+    if f32 or xwide:
+        # the float32 and xwide kernels take contiguous tensors of the
+        # template width until their redesign at the true width: strided
+        # inputs are copied
         q, k, v = _padded([t.contiguous() for t in (q, k, v)], Dp)
         o = torch.empty_like(q)
-        route = _F32_ROUTES[_f32_plan(B, H, T, D).route]
-        err = _fwd_f32_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse_ptr, B * H, T, Dp, D ** -0.5,
-                            route, _stream(q))
+        if xwide:
+            err = _fwd_xwide_bf16_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse_ptr, B * H, T, Dp, D ** -0.5, _stream(q))
+        else:
+            route = _F32_ROUTES[_f32_plan(B, H, T, D).route]
+            err = _fwd_f32_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), lse_ptr, B * H, T, Dp,
+                                D ** -0.5, route, _stream(q))
     else:
         plan = _bf16_plan(q, k, v)
         if plan.pad:
@@ -339,6 +367,8 @@ def _attention_kernel(q, k, v, with_lse: bool):
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     if f32:
         attention.launches_f32 += 1
+    elif xwide:
+        attention.launches_xwide += 1
     else:
         attention.launches += 1
     return (o if o.shape[-1] == D else o[..., :D]), lse
@@ -364,7 +394,17 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Dp = _kernel_width(q)
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
-    if f32:
+    xwide = _xwide_bf16(q)
+    if xwide:
+        # contiguous tensors of the template width, as in the forward
+        q, k, v, o, g = _padded([t.contiguous() for t in (q, k, v, o, g)], Dp)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        err = _bwd_xwide_bf16_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B * H, T, Dp, D ** -0.5,
+            _stream(q))
+    elif f32:
         plan = _f32_plan(B, H, T, D, backward=True)
         # contiguous tensors of the template width, as in the forward
         q, k, v, o, g = _padded([t.contiguous() for t in (q, k, v, o, g)], Dp)
@@ -393,6 +433,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"attention backward kernel launch failed: CUDA error {err}")
     if f32:
         attention_bwd.launches_f32 += 1
+    elif xwide:
+        attention_bwd.launches_xwide += 1
     else:
         attention_bwd.launches += 1
     if dq.shape[-1] != D:
@@ -453,5 +495,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
 attention.launches = 0
 attention.launches_f32 = 0
+attention.launches_xwide = 0
 attention_bwd.launches = 0
 attention_bwd.launches_f32 = 0
+attention_bwd.launches_xwide = 0

@@ -256,7 +256,8 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    steps): 64 uint8 256 px images, not constant.
 19b. The ``xwide`` kernels at the padded head widths 320-512 in both
    dtypes: the float32 forward and backward and the bfloat16 forward and
-   backward at D = 320, 384, 448, 512 and T = 100, 256 and 16 (batch 2 x
+   backward (the backward's source ``flash_attention_xwide_bwd.cu``, on the
+   tensor cores) at D = 320, 384, 448, 512 and T = 100, 256 and 16 (batch 2 x
    1 head) against the plain versions (float32: relative L2 1e-5 forward,
    1e-4 backward; bf16: ATOL / RTOL forward, BWD_REL_L2 backward), the
    log-sum-exp, three runs with equal bits and one launch a call on the
@@ -5093,9 +5094,12 @@ def xwide_width_path(card: str, gen) -> dict:
         ms, eager = time_ms(run, 10)
         plain_ms = time_ms(plain, 5)[0]
         lib_ms = time_ms(lib, 10, stream=stream)[0]
-        peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / peak * 1e3
+        # operations at the design's rate: one bf16 tensor-core product, or
+        # for float32 three TF32 products (3xTF32), with the FFMA rate's
+        # bound beside it
+        ops_ms = (ops / BF16_TC_FLOPS if dtype == torch.bfloat16
+                  else 3 * ops / TF32_TC_FLOPS) * 1e3
         row = {"name": name, "shape": {"B": B, "H": H, "T": T, "D": D},
                "dtype": str(dtype)[6:], "ms": ms, "eager_ms": eager,
                "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -5106,11 +5110,16 @@ def xwide_width_path(card: str, gen) -> dict:
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "kernels_per_call": kernels_a_call(run),
                "max_abs_err": max(err, errs[dtype])}
+        if dtype == torch.float32:
+            row["ffma_bound_ms"] = max(bytes_ms, ops / FP32_FLOPS * 1e3)
         print(f"  {name} {row['shape']} {row['dtype']}: kernel {ms:.4f} ms "
               f"(eager {eager:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
               f"{lib_ms:.4f} ms ({backend['backend']}), bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"{row['kernels_per_call']} kernel(s) a call", flush=True)
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}"
+              + (f"; at the FFMA rate {row['ffma_bound_ms']:.4f} ms"
+                 if "ffma_bound_ms" in row else "")
+              + f"), {row['kernels_per_call']} kernel(s) a call",
+              flush=True)
         del q, k, v, g, o, lse
         return row
 
@@ -5226,22 +5235,26 @@ def xwide_kernel_rows(width: dict, meta: dict) -> list[dict]:
              f"one launch at {XW_UNET_CFG} bf16 (a CondUNet model.ch "
              f"{WIDE_CH} attention at CFG batch 256)"),
             ("attention_bwd_xwide", "attention_bwd",
-             f"one call (delta, key pass, query pass) at {XW_UNET_TRAIN} bf16 "
+             f"one call (delta, key pass, dq pass) at {XW_UNET_TRAIN} bf16 "
              f"(a CondUNet model.ch {WIDE_CH} attention at training batch "
              f"128)"),
             ("attention_bwd_f32_xwide", "attention_bwd_f32",
-             f"one call (delta, key pass, query pass) at {VAE_ATTN_SHAPE} "
-             f"fp32 (the VAE's attention at batch {VAE_BATCH})")):
+             f"one call (delta, key pass, dq pass) at {VAE_ATTN_SHAPE} "
+             f"fp32 (the VAE's attention at batch {VAE_BATCH}; bound_ms "
+             f"three TF32 products, ffma_bound_ms at the FFMA rate)")):
         r = by_name[name]
         out.append({
             "name": name, "route": "cuda",
-            "source": "uurg_torch/csrc/flash_attention_f32.cu",
+            "source": ("uurg_torch/csrc/flash_attention_f32.cu"
+                       if name == "attention_fwd_xwide" else
+                       "uurg_torch/csrc/flash_attention_xwide_bwd.cu"),
             "replaces": meta[counter]["replaces"],
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             **{k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "library_backend",
-                                 "kernels_per_call")},
+                                 "kernels_per_call", "ffma_bound_ms")
+               if k in r},
             "per": per + ", device ms by CUDA-graph replay; library: SDPA "
                    "at that dtype, the backend its dispatcher picks"})
     return out
@@ -7833,7 +7846,10 @@ def main() -> int:
     warmup = bytecode_warmup()        # beside nvcc, for phase 14b's CLIs
     _build.build_all()
     print(f"  built {len(_build.sources())} sources in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"{time.time() - t0:.1f} s (nvcc, one a source: "
+          + ", ".join(f"{n} {t:.1f} s"
+                      for n, t in sorted(_build.build_seconds.items()))
+          + ")", flush=True)
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
@@ -8159,6 +8175,7 @@ def main() -> int:
                    "sd_methods": sd_methods, "sd_eval": sd_eval,
                    "parallel": par,
                    "phase_starts": PHASE_STARTS,
+                   "build_seconds": _build.build_seconds,
                    "profiler_misses": PROFILER_MISSES,
                    "total_seconds": time.time() - t_start}, f, indent=1,
                   default=str)

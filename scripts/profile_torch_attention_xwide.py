@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""The float32 attention forward at head widths above 256 (the ``xwide``
-route, the VAE's one head of width 512) alone, on one GPU: build, check,
-time.
+"""The attention at padded head widths 320-512 (the ``xwide`` kernels: the
+float32 and bf16 forward, and the backward in both dtypes) alone, on one
+GPU: build, check, time.
 
     python3 scripts/profile_torch_attention_xwide.py [--tree CHECKOUT]
+        [--backward]
 
-Builds the kernels and prints the ptxas lines of the float32 source (its
-registers and spills), holds the forward and its log-sum-exp against the
+Builds the kernels and prints the ptxas lines of the xwide forward (in
+``flash_attention_f32.cu``) and of every kernel of
+``flash_attention_xwide_bwd.cu`` (registers, spills). Unless
+``--backward``: holds the float32 forward and its log-sum-exp against the
 plain version at T = 16 to 4096 and D = 300 to 512 (relative L2 printed;
-two runs compared bit for bit), then times the kernel by CUDA-graph replay
-(and eagerly) at the VAE's (32, 1, 1024, 512) and SD's VAE's
-(2, 1, 4096, 512), beside the plain version and float32 SDPA (TF32 off)
-under each backend that takes the shape, with the FFMA bound and the floor
-of three TF32 products. Last, the GroupNorm forward at the VAE's largest
-site (32, 256, 256, 256) fp32, 2^31 bytes, against its plain version.
+two runs compared bit for bit) and times it by CUDA-graph replay (and
+eagerly) at the VAE's (32, 1, 1024, 512) and SD's VAE's (2, 1, 4096, 512)
+beside the plain version and float32 SDPA (TF32 off) under each backend
+that takes the shape, with the FFMA bound and the floor of three TF32
+products; last, the GroupNorm forward at the VAE's largest site (32, 256,
+256, 256) fp32, 2^31 bytes, against its plain version. Always: holds the
+backward in both dtypes against ``attention_bwd_plain`` at widths 320-512
+and T from 16 to 1024 (ragged ones too; two runs bit for bit), then times
+it at the CondUNet's (128, 1, 256, 512) bf16 and the VAE's (32, 1, 1024,
+512) float32 beside the plain path and SDPA's backward under each backend
+that takes the shape, with the bound and the design's floor (bf16: one
+bf16 product at 989 TFLOP/s, float32: three TF32 products at 495).
 ``--tree`` imports ``uurg_torch`` from another checkout (an earlier commit
 unpacked by ``git archive``), so that two versions can be timed in turns on
 one card, each in its own process. A quick check for work on the route;
-``chip_smoke.py`` phase 19 stays the whole proof.
+``chip_smoke.py`` phases 19 and 19b stay the whole proof. Exits 1 if a
+check fails.
 """
 from __future__ import annotations
 
@@ -25,11 +35,50 @@ import argparse
 import os
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (B, T, D) at one head
 CHECK_SHAPES = ((2, 16, 512), (2, 100, 512), (2, 1024, 512), (2, 4096, 512),
                 (2, 100, 320), (2, 1024, 300), (3, 65, 384), (2, 33, 448))
+BWD_CHECK = ((2, 16, 512), (2, 100, 512), (2, 256, 512), (2, 1024, 512),
+             (2, 77, 320), (2, 256, 320), (3, 65, 384), (2, 33, 448),
+             (2, 200, 448), (2, 130, 300))
+BWD_TIMED = (((128, 1, 256, 512), "bfloat16"), ((32, 1, 1024, 512), "float32"))
+
+
+def ptxas_lines(log: str, match) -> list[str]:
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Function properties" in line and match(line):
+            out.append(line.strip()[-60:] + " | " + lines[i + 1].strip()
+                       + " | " + lines[i + 2].strip()[:70])
+    return out
+
+
+def kernel_ms(fn, iters: int = 5) -> dict:
+    """Device ms a call of ``fn`` by kernel (the name cut at its template
+    arguments), from torch.profiler over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
 
 
 def main() -> int:
@@ -38,6 +87,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=None,
                     help="import uurg_torch from this checkout instead")
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -54,56 +105,138 @@ def main() -> int:
     print(cs.card_line(), FA.__file__, flush=True)
     t0 = time.time()
     _build.build_all()
-    print(f"build {time.time() - t0:.1f} s")
-    lines = _build.build_logs.get("flash_attention_f32", "").splitlines()
-    for i, line in enumerate(lines):
-        if "Function properties" in line and "xwide" in line:
-            print(line.strip()[-40:], "|", lines[i + 1].strip(), "|",
-                  lines[i + 2].strip()[:60])
+    print(f"build {time.time() - t0:.1f} s; nvcc a source: "
+          + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(
+              getattr(_build, "build_seconds", {}).items())))
+    for name in sorted(_build.build_logs):
+        log = _build.build_logs[name]
+        pick = (lambda line: True) if name == "flash_attention_xwide_bwd" \
+            else (lambda line: "xwide" in line)
+        for line in ptxas_lines(log, pick):
+            print(f"{name}: {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
+    failed = []
 
     def rel(a, b):
         return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
-    for B, T, D in CHECK_SHAPES:
-        q, k, v = (torch.randn(B, 1, T, D, generator=g, device="cuda")
-                   for _ in range(3))
+    if not args.backward:
+        for B, T, D in CHECK_SHAPES:
+            q, k, v = (torch.randn(B, 1, T, D, generator=g, device="cuda")
+                       for _ in range(3))
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            o2, _ = FA._attention_kernel(q, k, v, with_lse=True)
+            torch.cuda.synchronize()
+            p = FA.attention_plain(q, k, v)
+            s = torch.matmul(q, k.transpose(-1, -2)) * D ** -0.5
+            lref = torch.logsumexp(s, -1).reshape(B, T)
+            r = rel(o, p)
+            if not (r <= cs.F32_FWD_REL and torch.equal(o, o2)):
+                failed.append(f"forward {(B, T, D)}")
+            print(f"B={B} T={T} D={D}: rel {r:.3e} lse "
+                  f"{(lse - lref).abs().max().item():.3e} equal "
+                  f"{torch.equal(o, o2)} finite "
+                  f"{torch.isfinite(o).all().item()}", flush=True)
+        for B, H, T, D in cs.XWIDE_TIMED:
+            q, k, v = (torch.randn(B, H, T, D, generator=g, device="cuda")
+                       for _ in range(3))
+            ms, eager = cs.time_ms(
+                lambda: FA._attention_kernel(q, k, v, with_lse=False), 10)
+            plain = cs.time_ms(lambda: FA.attention_plain(q, k, v), 10)[0]
+            sdpa = cs.sdpa_by_backend(q, k, v)
+            flops = 4 * B * H * T * T * D
+            print(f"({B}, {H}, {T}, {D}): kernel {ms:.4f} ms (eager "
+                  f"{eager:.4f}), plain {plain:.4f}, fp32 SDPA "
+                  + ", ".join(f"{b} {t:.4f}" for b, t in sdpa.items())
+                  + f"; FFMA bound {flops / cs.FP32_FLOPS * 1e3:.4f}, three "
+                  f"TF32 products {3 * flops / cs.TF32_TC_FLOPS * 1e3:.4f}; "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+            del q, k, v
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = cs.F32_BWD_REL if dtype == torch.float32 else cs.BWD_REL_L2
+        for B, T, D in BWD_CHECK:
+            q, k, v, gr = (torch.randn(B, 1, T, D, generator=g, device="cuda",
+                                       dtype=dtype) for _ in range(4))
+            o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+            got = FA.attention_bwd(q, k, v, o, lse, gr)
+            again = FA.attention_bwd(q, k, v, o, lse, gr)
+            torch.cuda.synchronize()
+            want = FA.attention_bwd_plain(q, k, v, gr)
+            errs = [rel(a, b) for a, b in zip(got, want)]
+            equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not (max(errs) <= tol and equal):
+                failed.append(f"backward {str(dtype)[6:]} {(B, T, D)}")
+            print(f"bwd {str(dtype)[6:]} B={B} T={T} D={D}: rel dq dk dv "
+                  + " ".join(f"{e:.3e}" for e in errs)
+                  + f" (tolerance {tol:g}) equal {equal}", flush=True)
+            del q, k, v, gr, o, lse, got, again, want
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for (B, H, T, D), name in BWD_TIMED:
+        dtype = getattr(torch, name)
+        q, k, v, gr = (torch.randn(B, H, T, D, generator=g, device="cuda",
+                                   dtype=dtype) for _ in range(4))
         o, lse = FA._attention_kernel(q, k, v, with_lse=True)
-        o2, _ = FA._attention_kernel(q, k, v, with_lse=True)
+        def run():
+            return FA.attention_bwd(q, k, v, o, lse, gr)
+
+        ms, eager = cs.time_ms(run, 10)
+        plain = cs.time_ms(lambda: FA.attention_bwd_plain(q, k, v, gr), 5)[0]
+        lib = {}
+        for backend in cs.SDPA_BACKENDS:
+            be = getattr(SDPBackend, backend, None)
+
+            def fwd(*a, be=be):
+                with sdpa_kernel([be]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        *a)
+
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    fn, stream = cs.library_bwd(fwd, (q, k, v), gr)
+                    fn()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            lib[backend.lower()] = cs.time_ms(fn, 10, stream=stream)[0]
+        flops = 10 * B * H * T * T * D
+        size = 2 if dtype == torch.bfloat16 else 4
+        bytes_ms = 7 * B * H * T * D * size / cs.HBM_BYTES_PER_S * 1e3
+        if dtype == torch.bfloat16:
+            floor = flops / cs.BF16_TC_FLOPS * 1e3
+            what = "one bf16 product"
+        else:
+            floor = 3 * flops / cs.TF32_TC_FLOPS * 1e3
+            what = (f"three TF32 products; FFMA bound "
+                    f"{flops / cs.FP32_FLOPS * 1e3:.4f}")
+        print(f"bwd {name} ({B}, {H}, {T}, {D}): kernel {ms:.4f} ms (eager "
+              f"{eager:.4f}), plain {plain:.4f}, SDPA backward "
+              + ", ".join(f"{b} {t:.4f}" for b, t in lib.items())
+              + f"; bytes {bytes_ms:.4f}, floor {floor:.4f} ({what}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; kernels a call "
+              f"{cs.kernels_a_call(run)}", flush=True)
+        print("  by kernel: " + ", ".join(
+            f"{n} {t:.4f}" for n, t in kernel_ms(run).items()), flush=True)
+        del q, k, v, gr, o, lse
+
+    if not args.backward:
+        x = torch.randn(32, 256, 256, 256, generator=g, device="cuda")
+        sc = torch.rand(256, generator=g, device="cuda") + 0.5
+        bi = torch.randn(256, generator=g, device="cuda")
+        y, m, r = GN._group_norm_kernel(x, sc, bi, 32, 1e-6)
         torch.cuda.synchronize()
-        p = FA.attention_plain(q, k, v)
-        s = torch.matmul(q, k.transpose(-1, -2)) * D ** -0.5
-        lref = torch.logsumexp(s, -1).reshape(B, T)
-        print(f"B={B} T={T} D={D}: rel {rel(o, p):.3e} lse "
-              f"{(lse - lref).abs().max().item():.3e} equal "
-              f"{torch.equal(o, o2)} finite {torch.isfinite(o).all().item()}",
-              flush=True)
-    for B, H, T, D in cs.XWIDE_TIMED:
-        q, k, v = (torch.randn(B, H, T, D, generator=g, device="cuda")
-                   for _ in range(3))
-        ms, eager = cs.time_ms(
-            lambda: FA._attention_kernel(q, k, v, with_lse=False), 10)
-        plain = cs.time_ms(lambda: FA.attention_plain(q, k, v), 10)[0]
-        sdpa = cs.sdpa_by_backend(q, k, v)
-        flops = 4 * B * H * T * T * D
-        print(f"({B}, {H}, {T}, {D}): kernel {ms:.4f} ms (eager "
-              f"{eager:.4f}), plain {plain:.4f}, fp32 SDPA "
-              + ", ".join(f"{b} {t:.4f}" for b, t in sdpa.items())
-              + f"; FFMA bound {flops / cs.FP32_FLOPS * 1e3:.4f}, three TF32 "
-              f"products {3 * flops / cs.TF32_TC_FLOPS * 1e3:.4f}; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-        del q, k, v
-    x = torch.randn(32, 256, 256, 256, generator=g, device="cuda")
-    sc = torch.rand(256, generator=g, device="cuda") + 0.5
-    bi = torch.randn(256, generator=g, device="cuda")
-    y, m, r = GN._group_norm_kernel(x, sc, bi, 32, 1e-6)
-    torch.cuda.synchronize()
-    yp, mp, rp = GN.group_norm_plain(x, sc, bi, 32, 1e-6, True)
-    print("gn 2^31:", x.numel() * 4 == 2 ** 31, "y rel", rel(y, yp), "mean",
-          rel(m, mp), "rstd", rel(r, rp), "last rows",
-          (y[-1, -1] - yp[-1, -1]).abs().max().item())
+        yp, mp, rp = GN.group_norm_plain(x, sc, bi, 32, 1e-6, True)
+        print("gn 2^31:", x.numel() * 4 == 2 ** 31, "y rel", rel(y, yp),
+              "mean", rel(m, mp), "rstd", rel(r, rp), "last rows",
+              (y[-1, -1] - yp[-1, -1]).abs().max().item())
     print(cs.card_line())
+    if failed:
+        print("FAILED:", ", ".join(failed))
+        return 1
     return 0
 
 

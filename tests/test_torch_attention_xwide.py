@@ -3,8 +3,9 @@ dtypes, forward and backward) on the CPU: the port's plain versions against
 the JAX package's Pallas pair in interpret mode at widths 320 and 512, the
 dispatcher's routes and refusals, the CPU dispatcher's gradients, a model
 of the backward kernels' arithmetic (P from the log-sum-exp, delta from
-dO o, 16-row tiles, bf16 roundings) against the plain version, and the
-wide CondUNet's parameter count. The kernels themselves are held on the
+dO o, their tiles and order of sums, the dS scratch, bf16 roundings)
+against the plain version, the float32 kernels' TF32 split, and the wide
+CondUNet's parameter count. The kernels themselves are held on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s width phase)."""
 import os
 
@@ -124,13 +125,24 @@ def _round(x, dtype):
     return x.to(dtype).float()
 
 
-def _xwide_bwd_model(q, k, v, g, tile: int = 16):
-    """What the xwide backward kernels compute, in torch on 16-row tiles:
+# the backward kernels' tiles (csrc/flash_attention_xwide_bwd.cu): a key
+# pass block's keys, its query tiles, the column chunks over which the
+# float32 scores are summed in the tensor cores, a dq pass tile's keys
+XB_KEYS, XB_QUERIES, XB_CHUNK, XB_DQ_KEYS = 32, 64, 64, 32
+
+
+def _xwide_bwd_model(q, k, v, g, keys: int = XB_KEYS,
+                     queries: int = XB_QUERIES, chunk: int = XB_CHUNK,
+                     dq_keys: int = XB_DQ_KEYS):
+    """What the xwide backward kernels compute, in torch on their tiles:
     the forward's log-sum-exp and output (the output in the input dtype),
-    delta = rowsum(dO o), then per (query tile, key tile) S and dP, P =
-    exp(s scale - lse), dS = P (dP - delta) scale, P and dS rounded to the
-    input dtype, fp32 sums; dk and dv summed over the query tiles of a key
-    tile, dq over the key tiles of a query tile."""
+    delta = rowsum(dO o); the key pass per (key block, query tile): S^T and
+    dP^T summed over ``chunk``-wide column chunks, a fp32 term a chunk,
+    P = exp(s scale - lse), dS = P (dP - delta) scale, P and dS rounded to
+    the input dtype, dK and dV of the block summed over its query tiles in
+    order (a fp32 term a tile), dS stored in the input dtype; the dq pass
+    per query block: dq = dS K summed over key tiles of ``dq_keys`` in
+    order. Rows past T are absent (the kernels' zeros add nothing)."""
     dtype = q.dtype
     T, D = q.shape[-2:]
     scale = D ** -0.5
@@ -140,29 +152,77 @@ def _xwide_bwd_model(q, k, v, g, tile: int = 16):
     o = _round(torch.softmax(s_full, -1) @ vf, dtype)
     delta = (gf * o).sum(-1, keepdim=True)
     dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
-    for q0 in range(0, T, tile):
-        qs = slice(q0, q0 + tile)
-        for k0 in range(0, T, tile):
-            ks = slice(k0, k0 + tile)
-            s = qf[..., qs, :] @ kf[..., ks, :].transpose(-1, -2)
-            dp = gf[..., qs, :] @ vf[..., ks, :].transpose(-1, -2)
+    ds_scratch = torch.zeros(q.shape[:-1] + (T,))
+    for k0 in range(0, T, keys):
+        ks = slice(k0, k0 + keys)
+        for q0 in range(0, T, queries):
+            qs = slice(q0, q0 + queries)
+            s = dp = 0
+            for c0 in range(0, D, chunk):
+                cs = slice(c0, c0 + chunk)
+                s = s + qf[..., qs, cs] @ kf[..., ks, cs].transpose(-1, -2)
+                dp = dp + gf[..., qs, cs] @ vf[..., ks, cs].transpose(-1, -2)
             p = torch.exp(s * scale - lse[..., qs, :])
             ds = _round(p * (dp - delta[..., qs, :]) * scale, dtype)
             p = _round(p, dtype)
+            ds_scratch[..., qs, ks] = ds
             dv[..., ks, :] += p.transpose(-1, -2) @ gf[..., qs, :]
             dk[..., ks, :] += ds.transpose(-1, -2) @ qf[..., qs, :]
-            dq[..., qs, :] += ds @ kf[..., ks, :]
+    for k0 in range(0, T, dq_keys):
+        ks = slice(k0, k0 + dq_keys)
+        dq += ds_scratch[..., ks] @ kf[..., ks, :]
     return tuple(t.to(dtype) for t in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,D", [(40, 320), (16, 512), (33, 448)])
+@pytest.mark.parametrize("T,D", [(40, 320), (16, 512), (33, 448),
+                                 (64, 512), (100, 320), (130, 384)])
 def test_backward_kernels_arithmetic_matches_plain(T, D, dtype):
+    # T below a key block (16), a query tile exactly (64), and ragged ones
+    # that end inside a key block and a query tile (33, 40, 100, 130)
     q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _inputs(T, D, T))
     tol = REL[dtype][1]
     for name, a, b in zip("qkv", _xwide_bwd_model(q, k, v, g),
                           FA.attention_bwd_plain(q, k, v, g)):
         assert _rel(_f32(a), _f32(b)) < tol, name
+
+
+@pytest.mark.parametrize("T", [1, 16, 32, 33, 100, 1024])
+def test_backward_scratch_pads_the_keys_to_a_key_block(T):
+    # the dS scratch the wrapper hands the kernels: (B*H, T, Tk), Tk the
+    # key pass's blocks of XB_KEYS keys, each of which writes all its keys
+    assert FA._XWIDE_KEYS == XB_KEYS
+    BH, rows, Tk = FA._xwide_ds_shape(6, T)
+    assert (BH, rows) == (6, T)
+    assert Tk % XB_KEYS == 0 and T <= Tk < T + XB_KEYS
+
+
+def _tf32_round(x: np.ndarray) -> np.ndarray:
+    """x rounded to TF32 (11 significant bits), ties away from zero, as
+    cvt.rna.tf32.f32 rounds it, in float64 arithmetic."""
+    m, e = np.frexp(x.astype(np.float64))
+    return np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5) * 2.0 ** (e - 11)
+
+
+def test_tf32_split_by_add_and_mask_rounds_to_nearest():
+    # the float32 kernels' split x = hi + lo: hi = (bits + 0x1000) & ~0x1fff,
+    # the bits of cvt.rna.tf32.f32 for finite x, and lo = x - hi exactly
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.standard_normal(100_000).astype(np.float32),
+        (rng.standard_normal(1000) * 1e30).astype(np.float32),
+        (rng.standard_normal(1000) * 1e-30).astype(np.float32),
+        # ties in [1, 2) and (-2, -1]: bit 12 set, bits 0-11 clear
+        ((rng.integers(0, 2 ** 10, 1000, dtype=np.uint32) << 13)
+         | rng.choice(np.array([0, 2 ** 31], np.uint32), 1000)
+         | np.uint32(0x3f801000)).view(np.float32)])
+    assert np.isfinite(x).all()
+    hi = ((x.view(np.uint32) + np.uint32(0x1000))
+          & np.uint32(0xffffe000)).view(np.float32)
+    np.testing.assert_array_equal(hi.astype(np.float64), _tf32_round(x))
+    lo = x - hi
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo, x)
+    assert np.all(np.abs(lo) <= np.abs(x) * 2.0 ** -11)
 
 
 def test_wide_condunet_parameters_counted_on_the_cpu():

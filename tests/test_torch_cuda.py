@@ -512,11 +512,12 @@ def test_attention_xwide_forward_matches_plain(gen, T, D):
         attention(wide, wide, wide)
 
 
-# the xwide kernels' new entry points: the bf16 forward, and the backward in
-# both dtypes, at the padded widths 320-512, a ragged T, a T every tile
-# divides and the mid site's T = 16 (width 300 is zero-padded to 320)
+# the xwide kernels' entry points: the bf16 forward, and the backward in
+# both dtypes, at the padded widths 320-512, ragged T, a T every tile
+# divides, the mid site's T = 16 and the VAE's T = 1024 at width 512 (width
+# 300 is zero-padded to 320)
 XWIDE_BWD_SHAPES = [(100, 320), (256, 384), (16, 448), (256, 512),
-                    (100, 512), (65, 300)]
+                    (100, 512), (65, 300), (1024, 512), (77, 320)]
 
 
 def _xwide_calls(q, k, v, g):
@@ -593,6 +594,29 @@ def test_attention_xwide_forward_takes_more_heads_than_a_grid_row(gen):
     s = torch.matmul(q, k.transpose(-1, -2)).reshape(-1, 16, 16) * 320 ** -0.5
     torch.testing.assert_close(lse[tail], torch.logsumexp(s[tail], -1),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_xwide_backward_takes_more_heads_than_a_grid_row(gen,
+                                                                  dtype):
+    # B * H = 65538 heads: the key pass and the dq pass of the second
+    # launch take the heads past 65535 and their rows of the dS scratch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = (torch.randn(2, 32769, 16, 320, generator=gen, device="cuda",
+                              dtype=dtype) for _ in range(4))
+    o, lse = FA._attention_kernel(q, k, v, with_lse=True)
+    before = (attention_bwd.launches_f32, attention_bwd.launches_xwide)
+    got = attention_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert (attention_bwd.launches_f32, attention_bwd.launches_xwide) == (
+        before[0] + f32, before[1] + (not f32))
+    tol = 1e-4 if f32 else BWD_REL_L2
+    tail = slice(65530, None)          # the heads of the second launch
+    for a, b in zip(got, attention_bwd_plain(q, k, v, g)):
+        assert _rel_l2(a, b) < tol
+        assert _rel_l2(a.reshape(-1, 16, 320)[tail],
+                       b.reshape(-1, 16, 320)[tail]) < tol
 
 
 def test_vae_on_the_card_matches_the_cpu_and_counts_its_launches(gen):

@@ -54,6 +54,18 @@ def test_no_jax_import_in_port_sources():
     assert not found, found
 
 
+def test_every_kernel_source_is_bound_by_a_port_module():
+    # each csrc/*.cu is built and bound by a module of uurg_torch/ops (which
+    # the two tests above hold to importing no JAX), by its stem
+    csrc = os.path.join(ROOT, "uurg_torch", "csrc")
+    ops = [p for p in _port_files()
+           if os.sep + os.path.join("uurg_torch", "ops") + os.sep in p]
+    text = "".join(open(p).read() for p in ops)
+    stems = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
+    assert "flash_attention_xwide_bwd" in stems
+    assert [s for s in stems if f'"{s}"' not in text] == []
+
+
 def test_chip_smoke_refuses_to_run_outside_a_checkout(tmp_path):
     # the script alone in a directory: non-zero exit, no result line
     (tmp_path / "chip_smoke.py").write_text(

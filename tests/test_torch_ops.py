@@ -265,4 +265,30 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("group_norm")
     assert {p.name for p in _build.sources()} == {
         "group_norm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
-        "flash_attention_f32.cu"}
+        "flash_attention_f32.cu", "flash_attention_xwide_bwd.cu"}
+
+
+def test_kernel_build_runs_one_nvcc_a_source_and_keeps_its_log_and_time(
+        monkeypatch, tmp_path):
+    # a stand-in nvcc that writes its -o target and a ptxas line: every
+    # source is built once, its output and wall time kept by its stem
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then out=$2; fi; shift\n"
+                    "done\n"
+                    "echo 'ptxas info    : Used 10 registers'\n"
+                    ": > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "build_seconds", {})
+    monkeypatch.setenv("PATH", str(fake.parent))
+    _build.build_all()
+    stems = {p.stem for p in _build.sources()}
+    assert set(_build.build_logs) == set(_build.build_seconds) == stems
+    assert all("Used 10 registers" in log
+               for log in _build.build_logs.values())
+    assert all(t >= 0 for t in _build.build_seconds.values())
+    assert all(_build._target(p).exists() for p in _build.sources())

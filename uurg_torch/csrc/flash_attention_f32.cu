@@ -28,10 +28,11 @@
 //   under __syncthreads, dq recomputing S and dP in a third kernel). No ViT
 //   or Swin configuration of the repository has heads wider than 64.
 // - xwide (D = 320, 384, 448, 512): the VAE's one head of width 512, which
-//   no tile of the wide route fits; the forward 3xTF32 on the tensor cores,
-//   the backward FFMA in 16-row tiles (see their sections). These two are
-//   also built for bfloat16 (the only bf16 kernels of this file): the
-//   bfloat16 kernels of flash_attention_{fwd,bwd}.cu stop at width 256.
+//   no tile of the wide route fits; the forward 3xTF32 on the tensor cores
+//   (see its section), also built for bfloat16 (the only bf16 kernel of
+//   this file: the bfloat16 kernels of flash_attention_{fwd,bwd}.cu stop at
+//   width 256). The xwide backward, in both dtypes, is
+//   flash_attention_xwide_bwd.cu.
 //
 // What the first design lost at T = 197 and what the D = 64 routes do:
 // - Padding. 64-row tiles on both sides and a thread map that spread every
@@ -1412,21 +1413,6 @@ __device__ __forceinline__ float4 load4(const In* src) {
   }
 }
 
-// four float32 values to dst in the output's type
-template <typename In>
-__device__ __forceinline__ void store4(In* dst, float4 x) {
-  if constexpr (kIsBf16<In>) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
-  } else {
-    *reinterpret_cast<float4*>(dst) = x;
-  }
-}
-
 // two float32 values to dst (4-byte aligned bf16, 8-byte float32)
 template <typename In>
 __device__ __forceinline__ void store2(In* dst, float a, float b) {
@@ -1823,272 +1809,6 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
     }
 }
 
-// ---------------------------------------------------------------------------
-// The xwide backward (D = 320, 384, 448, 512), float32 and bfloat16
-// ---------------------------------------------------------------------------
-//
-// dq, dk, dv of heads of width 320-512 in three passes, as the wide route:
-//   1. delta = rowsum(dO o), a warp a row (for bf16 from the bf16 forward
-//      output, as flash_attention_bwd.cu takes it; the Pallas kernel sums
-//      P dP, equal in exact arithmetic);
-//   2. a key pass: a block owns 16 keys of a head (K and V resident) and
-//      walks the queries in tiles of 16 (Q, dO, the log-sum-exp and delta
-//      streamed): S and dP of the 16 x 16 tile, P = exp(s * scale - lse)
-//      from the forward's log-sum-exp, dS = P (dP - delta) * scale, then
-//      dV += P^T dO and dK += dS^T Q;
-//   3. a query pass: a block owns 16 queries (Q and dO resident) and walks
-//      the keys in tiles of 16: S, dP and dS again, then dQ += dS K.
-// Every product is FFMA on the CUDA cores with fp32 accumulation: float32
-// keeps float32 precision (phase 16's 1e-4 relative L2). For bf16 the inputs
-// are widened to fp32 in shared memory, P is rounded to bf16 before dV and
-// dS before dK and dQ, as the Pallas kernel rounds them, and the gradients
-// are written as bf16.
-//
-// Thread maps (256 threads). The 16 x 16 scores: thread t owns query t / 16
-// and key t % 16 and takes two D-long dot products (s = q k, dp = dO v) over
-// float4 loads of rows of stride D + 4, so the 16 key rows of a warp fall
-// on distinct bank quads and its two query rows are broadcasts. The
-// accumulators: thread t owns row t / 16 of the block's 16 (keys for dK and
-// dV, queries for dQ) and columns 4 (t % 16) + 64 c, c < D / 64: D / 16
-// floats each (32 at D = 512), against float4 rows of the streamed tile (a
-// warp reads 16 consecutive chunks). Shared memory: four 16-row tiles
-// (132 KB at D = 512), the P and dS tiles, the row vectors: one block an SM.
-// Rows past T are read as zeros and their P and dS set to 0; no atomics, so
-// a launch repeats its bits.
-//
-// Bound: operations, 10 T^2 D flops a head on 28 T D bytes (fp32); the
-// table's bound is the FFMA rate (67 TFLOP/s) for float32 and the bf16
-// tensor-core rate for bf16. This simple design reads both operands of every
-// product from shared memory (1.5 bytes of shared memory a flop in the score
-// products) and runs one block of 8 warps an SM; speed is later work.
-
-constexpr int kXB = 16;                   // rows of a backward tile
-constexpr int kXBLdP = kXB + 1;           // row stride of the P and dS tiles
-
-template <int D>
-constexpr size_t xwide_bwd_smem() {
-  return sizeof(float) * (4 * kXB * (D + 4) + 2 * kXB * kXBLdP + 2 * kXB);
-}
-
-// rows [row0, row0 + 16) of a (T, D) head into a tile of stride D + 4, as
-// float32, zeros past T; two rows at a time, a thread a 4-column chunk
-template <int D, typename In>
-__device__ __forceinline__ void xb_load(float* dst, const In* __restrict__ src,
-                                        int row0, int T) {
-  static_assert(D / 4 <= 128, "a row in one pass of 128 threads");
-  const int col = (threadIdx.x % 128) * 4;
-  if (col >= D) return;
-  for (int r = threadIdx.x / 128; r < kXB; r += kXThreads / 128) {
-    const float4 x = row0 + r < T
-                         ? load4<In>(src + static_cast<size_t>(row0 + r) * D + col)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + col) = x;
-  }
-}
-
-// rows [row0, row0 + 16) of a (T) row vector into dst, zeros past T
-__device__ __forceinline__ void xb_load_vec(float* dst,
-                                            const float* __restrict__ src,
-                                            int row0, int T) {
-  if (threadIdx.x < kXB)
-    dst[threadIdx.x] = row0 + threadIdx.x < T ? src[row0 + threadIdx.x] : 0.f;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// (s, dp) of query row qr and key row kr (with dO row gr, V row vr): two
-// D-long dot products from shared memory
-template <int D>
-__device__ __forceinline__ float2 xb_scores(const float* qr, const float* kr,
-                                            const float* gr, const float* vr) {
-  float s = 0.f, dp = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 a = lds4(qr + d), b = lds4(kr + d);
-    s = fmaf(a.x, b.x, s);
-    s = fmaf(a.y, b.y, s);
-    s = fmaf(a.z, b.z, s);
-    s = fmaf(a.w, b.w, s);
-    const float4 x = lds4(gr + d), y = lds4(vr + d);
-    dp = fmaf(x.x, y.x, dp);
-    dp = fmaf(x.y, y.y, dp);
-    dp = fmaf(x.z, y.z, dp);
-    dp = fmaf(x.w, y.w, dp);
-  }
-  return make_float2(s, dp);
-}
-
-// delta[r] = sum_d g[r][d] o[r][d], a warp a row
-template <typename In>
-__global__ void __launch_bounds__(kXThreads)
-attn_delta_xwide(const In* __restrict__ o, const In* __restrict__ g,
-                 float* __restrict__ delta, long long rows, int D) {
-  const long long r = static_cast<long long>(blockIdx.x) * (kXThreads / 32) +
-                      threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  float sum = 0.f;
-  for (int d = 4 * lane; d < D; d += 128) {
-    const float4 x = load4<In>(g + r * D + d), y = load4<In>(o + r * D + d);
-    sum = fmaf(x.x, y.x, sum);
-    sum = fmaf(x.y, y.y, sum);
-    sum = fmaf(x.z, y.z, sum);
-    sum = fmaf(x.w, y.w, sum);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(kFull, sum, off);
-  if (lane == 0) delta[r] = sum;
-}
-
-// grid: (ceil(T / 16), heads); block (x, y) owns keys 16 x .. + 15 of head y
-template <int D, typename In>
-__global__ void __launch_bounds__(kXThreads, 1)
-attn_bwd_xwide_dkdv(const In* __restrict__ q, const In* __restrict__ k,
-                    const In* __restrict__ v, const In* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, In* __restrict__ dk,
-                    In* __restrict__ dv, int T, float scale,
-                    float scale_log2) {
-  constexpr int LD = D + 4, NC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kXB * LD;
-  float* Qs = Vs + kXB * LD;
-  float* Gs = Qs + kXB * LD;
-  float* Ps = Gs + kXB * LD;                 // [query][key]
-  float* Ss = Ps + kXB * kXBLdP;             // dS, [query][key]
-  float* lse_s = Ss + kXB * kXBLdP;
-  float* del_s = lse_s + kXB;
-
-  const size_t head = static_cast<size_t>(blockIdx.y) * T;
-  q += head * D;
-  k += head * D;
-  v += head * D;
-  g += head * D;
-  lse += head;
-  delta += head;
-  const int k0 = blockIdx.x * kXB;
-  const int tid = threadIdx.x;
-  const int si = tid / kXB, sj = tid % kXB;          // score (query, key)
-  const int row = tid / kXB, col = (tid % kXB) * 4;  // accumulator rows
-  xb_load<D, In>(Ks, k, k0, T);
-  xb_load<D, In>(Vs, v, k0, T);
-  float4 dka[NC], dva[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    dka[c] = dva[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const bool key_live = k0 + sj < T;
-
-#pragma unroll 1
-  for (int q0 = 0; q0 < T; q0 += kXB) {
-    __syncthreads();                          // the last tile is read
-    xb_load<D, In>(Qs, q, q0, T);
-    xb_load<D, In>(Gs, g, q0, T);
-    xb_load_vec(lse_s, lse, q0, T);
-    xb_load_vec(del_s, delta, q0, T);
-    __syncthreads();
-    const float2 sd = xb_scores<D>(Qs + si * LD, Ks + sj * LD, Gs + si * LD,
-                                   Vs + sj * LD);
-    float p = 0.f, ds = 0.f;
-    if (key_live && q0 + si < T) {
-      p = exp2f(sd.x * scale_log2 - lse_s[si] * kLog2e);
-      ds = p * (sd.y - del_s[si]) * scale;
-    }
-    Ps[si * kXBLdP + sj] = round_to<In>(p);
-    Ss[si * kXBLdP + sj] = round_to<In>(ds);
-    __syncthreads();
-#pragma unroll 2
-    for (int i = 0; i < kXB; ++i) {
-      const float pv = Ps[i * kXBLdP + row], sv = Ss[i * kXBLdP + row];
-      const float* gi = Gs + i * LD + col;
-      const float* qi = Qs + i * LD + col;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        fma4(dva[c], pv, lds4(gi + 64 * c));
-        fma4(dka[c], sv, lds4(qi + 64 * c));
-      }
-    }
-  }
-  if (k0 + row < T) {
-    const size_t at = (head + k0 + row) * D + col;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store4<In>(dk + at + 64 * c, dka[c]);
-      store4<In>(dv + at + 64 * c, dva[c]);
-    }
-  }
-}
-
-// grid: (ceil(T / 16), heads); block (x, y) owns queries 16 x .. + 15 of
-// head y
-template <int D, typename In>
-__global__ void __launch_bounds__(kXThreads, 1)
-attn_bwd_xwide_dq(const In* __restrict__ q, const In* __restrict__ k,
-                  const In* __restrict__ v, const In* __restrict__ g,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, In* __restrict__ dq, int T,
-                  float scale, float scale_log2) {
-  constexpr int LD = D + 4, NC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + kXB * LD;
-  float* Ks = Gs + kXB * LD;
-  float* Vs = Ks + kXB * LD;
-  float* Ss = Vs + kXB * LD;                 // dS, [query][key]
-  float* lse_s = Ss + 2 * kXB * kXBLdP;
-  float* del_s = lse_s + kXB;
-
-  const size_t head = static_cast<size_t>(blockIdx.y) * T;
-  q += head * D;
-  k += head * D;
-  v += head * D;
-  g += head * D;
-  const int q0 = blockIdx.x * kXB;
-  const int tid = threadIdx.x;
-  const int si = tid / kXB, sj = tid % kXB;
-  const int row = tid / kXB, col = (tid % kXB) * 4;
-  xb_load<D, In>(Qs, q, q0, T);
-  xb_load<D, In>(Gs, g, q0, T);
-  xb_load_vec(lse_s, lse + head, q0, T);
-  xb_load_vec(del_s, delta + head, q0, T);
-  float4 dqa[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) dqa[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const bool query_live = q0 + si < T;
-
-#pragma unroll 1
-  for (int k0 = 0; k0 < T; k0 += kXB) {
-    __syncthreads();                          // the last tile is read
-    xb_load<D, In>(Ks, k, k0, T);
-    xb_load<D, In>(Vs, v, k0, T);
-    __syncthreads();
-    const float2 sd = xb_scores<D>(Qs + si * LD, Ks + sj * LD, Gs + si * LD,
-                                   Vs + sj * LD);
-    float ds = 0.f;
-    if (query_live && k0 + sj < T) {
-      const float p = exp2f(sd.x * scale_log2 - lse_s[si] * kLog2e);
-      ds = p * (sd.y - del_s[si]) * scale;
-    }
-    Ss[si * kXBLdP + sj] = round_to<In>(ds);
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kXB; ++j) {
-      const float sv = Ss[row * kXBLdP + j];
-      const float* kj = Ks + j * LD + col;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) fma4(dqa[c], sv, lds4(kj + 64 * c));
-    }
-  }
-  if (q0 + row < T) {
-    const size_t at = (head + q0 + row) * D + col;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) store4<In>(dq + at + 64 * c, dqa[c]);
-  }
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -2132,40 +1852,6 @@ int launch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
   return 0;
 }
 
-// delta, then per run of at most 65535 heads the key pass and the query pass
-template <int D, typename In>
-int launch_bwd_xwide(const In* q, const In* k, const In* v, const In* o,
-                     const In* g, const float* lse, float* delta, In* dq,
-                     In* dk, In* dv, int BH, int T, float scale,
-                     cudaStream_t stream) {
-  const long long rows = static_cast<long long>(BH) * T;
-  const unsigned blocks = static_cast<unsigned>(
-      (rows + kXThreads / 32 - 1) / (kXThreads / 32));
-  attn_delta_xwide<In><<<blocks, kXThreads, 0, stream>>>(o, g, delta, rows, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t smem = xwide_bwd_smem<D>();
-  err = allow_smem(attn_bwd_xwide_dkdv<D, In>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(attn_bwd_xwide_dq<D, In>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int h0 = 0; h0 < BH; h0 += kMaxGridY) {
-    const size_t at = static_cast<size_t>(h0) * T;
-    const dim3 grid((T + kXB - 1) / kXB, min(BH - h0, kMaxGridY));
-    attn_bwd_xwide_dkdv<D, In><<<grid, kXThreads, smem, stream>>>(
-        q + at * D, k + at * D, v + at * D, g + at * D, lse + at, delta + at,
-        dk + at * D, dv + at * D, T, scale, scale * kLog2e);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_xwide_dq<D, In><<<grid, kXThreads, smem, stream>>>(
-        q + at * D, k + at * D, v + at * D, g + at * D, lse + at, delta + at,
-        dq + at * D, T, scale, scale * kLog2e);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
 template <typename In>
 int dispatch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
                        float* lse, int BH, int T, int D, float scale,
@@ -2175,27 +1861,6 @@ int dispatch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
     case 384: return launch_fwd_xwide<384, In>(q, k, v, o, lse, BH, T, scale, s);
     case 448: return launch_fwd_xwide<448, In>(q, k, v, o, lse, BH, T, scale, s);
     default: return launch_fwd_xwide<512, In>(q, k, v, o, lse, BH, T, scale, s);
-  }
-}
-
-template <typename In>
-int dispatch_bwd_xwide(const In* q, const In* k, const In* v, const In* o,
-                       const In* g, const float* lse, float* delta, In* dq,
-                       In* dk, In* dv, int BH, int T, int D, float scale,
-                       cudaStream_t s) {
-  switch (D) {
-    case 320:
-      return launch_bwd_xwide<320, In>(q, k, v, o, g, lse, delta, dq, dk, dv,
-                                       BH, T, scale, s);
-    case 384:
-      return launch_bwd_xwide<384, In>(q, k, v, o, g, lse, delta, dq, dk, dv,
-                                       BH, T, scale, s);
-    case 448:
-      return launch_bwd_xwide<448, In>(q, k, v, o, g, lse, delta, dq, dk, dv,
-                                       BH, T, scale, s);
-    default:
-      return launch_bwd_xwide<512, In>(q, k, v, o, g, lse, delta, dq, dk, dv,
-                                       BH, T, scale, s);
   }
 }
 
@@ -2322,10 +1987,10 @@ extern "C" int uurg_attention_fwd_f32(const void* q, const void* k,
 
 // q, k, v, o, g, dq, dk, dv: contiguous float32 (BH, T, D); lse (the
 // forward's) and delta (scratch): float32 (BH, T); scratch: float32
-// (ceil(T / 64), BH, T, 64) for the tiled route, else unused. Launches in
-// stream order: delta, then dk/dv and dq (wide, and xwide a run of 65535
-// heads), the key-tile kernel and the dq sum (tiled), or the key-tile kernel
-// alone (packed).
+// (ceil(T / 64), BH, T, 64) for the tiled route, else unused; route 0, 1 or
+// 2 (the xwide backward is flash_attention_xwide_bwd.cu's). Launches in
+// stream order: delta, then dk/dv and dq (wide), the key-tile kernel and the
+// dq sum (tiled), or the key-tile kernel alone (packed).
 extern "C" int uurg_attention_bwd_f32(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* g, const void* lse,
@@ -2343,11 +2008,9 @@ extern "C" int uurg_attention_bwd_f32(const void* q, const void* k,
         *dqf = static_cast<float*>(dq), *dkf = static_cast<float*>(dk),
         *dvf = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!route_ok(route, T, D) || (route == kRouteTiled && sf == nullptr))
+  if (!route_ok(route, T, D) || route == kRouteXWide ||
+      (route == kRouteTiled && sf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteXWide)
-    return dispatch_bwd_xwide<float>(qf, kf, vf, of, gf, lf, df, dqf, dkf, dvf,
-                                     BH, T, D, scale, s);
   const int err = launch_delta(of, gf, df, BH, T, D, s);
   if (err != 0) return err;
   if (route != kRouteWide)
@@ -2381,26 +2044,5 @@ extern "C" int uurg_attention_fwd_xwide_bf16(const void* q, const void* k,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), BH, T, D, scale,
-      static_cast<cudaStream_t>(stream));
-}
-
-// q, k, v, o, g, dq, dk, dv: contiguous bf16 (BH, T, D) as above; lse (the
-// forward's) and delta (scratch): float32 (BH, T). Launches delta, then the
-// key pass and the query pass a run of 65535 heads.
-extern "C" int uurg_attention_bwd_xwide_bf16(const void* q, const void* k,
-                                             const void* v, const void* o,
-                                             const void* g, const void* lse,
-                                             void* delta, void* dq, void* dk,
-                                             void* dv, int BH, int T, int D,
-                                             float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
-  if (!route_ok(kRouteXWide, T, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bwd_xwide<bf16>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, T, D, scale,
       static_cast<cudaStream_t>(stream));
 }

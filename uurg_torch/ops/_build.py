@@ -4,8 +4,9 @@ Each ``<name>.cu`` exports plain C functions and is compiled by ``nvcc`` on
 its own into ``build/uurg_torch_kernels/<name>-<hash>.so`` (the hash covers
 the source, the shared ``*.cuh`` headers beside it and the flags, so an
 edited source rebuilds), then loaded with ``ctypes``. All missing libraries
-are compiled at once, one ``nvcc`` process per source. A failed build raises;
-nothing falls back.
+are compiled at once, one ``nvcc`` process per source (``build_logs`` and
+``build_seconds`` keep each one's output and wall time). A failed build
+raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -26,6 +28,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 build_logs: dict[str, str] = {}   # nvcc output (ptxas register/spill report)
+build_seconds: dict[str, float] = {}   # each nvcc's wall time
 
 
 def _nvcc() -> str:
@@ -57,16 +60,27 @@ def build_all() -> None:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
+        t0 = time.monotonic()
         for src, out in todo:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
             procs.append((src, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+
+        def reap(src, proc):
+            build_logs[src.stem] = proc.communicate()[0]
+            build_seconds[src.stem] = time.monotonic() - t0
+
+        reapers = [threading.Thread(target=reap, args=(src, proc))
+                   for src, _, _, proc in procs]
+        for r in reapers:
+            r.start()
+        for r in reapers:
+            r.join()
         failed = []
         for src, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            build_logs[src.stem] = log
+            log = build_logs[src.stem]
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {src.name} "
                               f"(exit {proc.returncode}):\n{log}")

@@ -12,9 +12,11 @@ through one ``torch.autograd.Function`` whose backward is
 (bfloat16) or ``flash_attention_f32.cu`` (float32), which replace the Pallas
 ``_attn_bwd_kernel``, for a CUDA tensor, :func:`attention_bwd_plain` for a
 CPU tensor. Head widths whose padded value is 320-512 take the ``xwide``
-kernels of ``flash_attention_f32.cu`` in either dtype (its only bfloat16
-kernels). Nothing falls back from a kernel to a plain version, and no
-other dtype reaches a kernel: a CUDA tensor of any other dtype raises.
+kernels in either dtype: the forward of ``flash_attention_f32.cu`` (its
+only bfloat16 kernel), the backward of
+``uurg_torch/csrc/flash_attention_xwide_bwd.cu``. Nothing falls back from
+a kernel to a plain version, and no other dtype reaches a kernel: a CUDA
+tensor of any other dtype raises.
 Inside :func:`uurg_torch.parallel.sequence.sequence_parallel` the
 dispatcher hands a call whose token counts divide by the ``seq`` axis to
 ring attention, which runs these kernels a chunk.
@@ -32,12 +34,13 @@ heads share a warp's rows), ``wide`` (padded widths 128-256: the first
 register-tiled design) and ``xwide`` (padded widths 320-512: the VAE's
 one head of width 512; forward: 64 resident query rows, K and V streamed
 in chunks, both products on the tensor cores as three TF32 products of
-split operands, "3xTF32"; backward: FFMA in 16-row tiles, a key pass for
-dk and dv and a query pass for dq). The ``xwide`` pair is also built for
+split operands, "3xTF32"; backward: mma.sync on the tensor cores, 3xTF32,
+a key pass over 32-key blocks for dk and dv that writes dS to a scratch
+and a dq pass that reads it). The ``xwide`` pair is also built for
 bfloat16 (the CondUNet at ``model.ch: 256``, the Pallas pair at those
-widths in bf16): one exact TF32 product of bf16 operands where float32
-takes three, P and dS rounded to bf16 as the other bfloat16 kernels round
-them. A launcher
+widths in bf16): the forward one exact TF32 product of bf16 operands
+where float32 takes three, the backward bf16 products, P and dS rounded
+to bf16 as the other bfloat16 kernels round them. A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for
@@ -76,6 +79,9 @@ from uurg_torch.ops import _build
 _KERNEL_D = (64, 128, 192, 256)
 # the extra-wide widths (the xwide route, float32 and bfloat16)
 _XWIDE_D = (320, 384, 448, 512)
+# keys of an xwide backward key-pass block (flash_attention_xwide_bwd.cu's
+# kKeys): the dS scratch's rows are padded to a multiple of it
+_XWIDE_KEYS = 32
 _WIDE_ITEM = ("head widths above 512 are a capability item of ROADMAP.md "
               "(Queue 2)")
 # the bfloat16 kernels' tensor maps: every stride a multiple of 16 bytes
@@ -313,11 +319,20 @@ def _fwd_xwide_bf16_fn():
         + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _bwd_xwide_bf16_fn():
+def _bwd_xwide_fn(dtype: torch.dtype):
+    symbol = ("uurg_attention_bwd_xwide_f32" if dtype == torch.float32
+              else "uurg_attention_bwd_xwide_bf16")
     return _build.function(
-        "flash_attention_f32", "uurg_attention_bwd_xwide_bf16",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+        "flash_attention_xwide_bwd", symbol,
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _xwide_ds_shape(BH: int, T: int) -> tuple[int, int, int]:
+    """The xwide backward's dS scratch, (B*H, T, Tk) in the input dtype:
+    the key pass writes dS of every query at its 32 keys (zeros at keys
+    past T), the dq pass reads it; Tk is T rounded up to those 32 keys."""
+    return (BH, T, -(-T // _XWIDE_KEYS) * _XWIDE_KEYS)
 
 
 def _xwide_bf16(q: torch.Tensor) -> bool:
@@ -394,16 +409,18 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Dp = _kernel_width(q)
     delta = torch.empty_like(lse)
     f32 = q.dtype == torch.float32
-    xwide = _xwide_bf16(q)
-    if xwide:
-        # contiguous tensors of the template width, as in the forward
+    if Dp in _XWIDE_D:
+        # either dtype: contiguous tensors of the template width, as in the
+        # forward, and the key pass's dS scratch
         q, k, v, o, g = _padded([t.contiguous() for t in (q, k, v, o, g)], Dp)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        err = _bwd_xwide_bf16_fn()(
+        ds = torch.empty(_xwide_ds_shape(B * H, T), dtype=q.dtype,
+                         device=q.device)
+        err = _bwd_xwide_fn(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, T, Dp, D ** -0.5,
-            _stream(q))
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), ds.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, T, Dp,
+            D ** -0.5, _stream(q))
     elif f32:
         plan = _f32_plan(B, H, T, D, backward=True)
         # contiguous tensors of the template width, as in the forward
@@ -433,7 +450,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"attention backward kernel launch failed: CUDA error {err}")
     if f32:
         attention_bwd.launches_f32 += 1
-    elif xwide:
+    elif Dp in _XWIDE_D:
         attention_bwd.launches_xwide += 1
     else:
         attention_bwd.launches += 1

@@ -255,9 +255,10 @@ Then the remat'd DDPM step: the full-width config in train mode at batch
    --mode fid_npz`` in this process (64 labels, 32 a batch, 4 respaced
    steps): 64 uint8 256 px images, not constant.
 19b. The ``xwide`` kernels at the padded head widths 320-512 in both
-   dtypes: the float32 forward and backward and the bfloat16 forward and
-   backward (the backward's source ``flash_attention_xwide_bwd.cu``, on the
-   tensor cores) at D = 320, 384, 448, 512 and T = 100, 256 and 16 (batch 2 x
+   dtypes: the float32 forward and backward, the bfloat16 forward (its
+   source ``flash_attention_xwide_fwd.cu``, TMA and wgmma) and the backward
+   in both (``flash_attention_xwide_bwd.cu``, on the tensor cores) at
+   D = 320, 384, 448, 512 and T = 100, 256 and 16 (batch 2 x
    1 head) against the plain versions (float32: relative L2 1e-5 forward,
    1e-4 backward; bf16: ATOL / RTOL forward, BWD_REL_L2 backward), the
    log-sum-exp, three runs with equal bits and one launch a call on the
@@ -5245,7 +5246,7 @@ def xwide_kernel_rows(width: dict, meta: dict) -> list[dict]:
         r = by_name[name]
         out.append({
             "name": name, "route": "cuda",
-            "source": ("uurg_torch/csrc/flash_attention_f32.cu"
+            "source": ("uurg_torch/csrc/flash_attention_xwide_fwd.cu"
                        if name == "attention_fwd_xwide" else
                        "uurg_torch/csrc/flash_attention_xwide_bwd.cu"),
             "replaces": meta[counter]["replaces"],

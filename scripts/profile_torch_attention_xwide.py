@@ -4,25 +4,37 @@ float32 and bf16 forward, and the backward in both dtypes) alone, on one
 GPU: build, check, time.
 
     python3 scripts/profile_torch_attention_xwide.py [--tree CHECKOUT]
-        [--backward]
+        [--backward | --forward]
 
-Builds the kernels and prints the ptxas lines of the xwide forward (in
-``flash_attention_f32.cu``) and of every kernel of
-``flash_attention_xwide_bwd.cu`` (registers, spills). Unless
-``--backward``: holds the float32 forward and its log-sum-exp against the
-plain version at T = 16 to 4096 and D = 300 to 512 (relative L2 printed;
-two runs compared bit for bit) and times it by CUDA-graph replay (and
-eagerly) at the VAE's (32, 1, 1024, 512) and SD's VAE's (2, 1, 4096, 512)
-beside the plain version and float32 SDPA (TF32 off) under each backend
-that takes the shape, with the FFMA bound and the floor of three TF32
-products; last, the GroupNorm forward at the VAE's largest site (32, 256,
-256, 256) fp32, 2^31 bytes, against its plain version. Always: holds the
-backward in both dtypes against ``attention_bwd_plain`` at widths 320-512
-and T from 16 to 1024 (ragged ones too; two runs bit for bit), then times
-it at the CondUNet's (128, 1, 256, 512) bf16 and the VAE's (32, 1, 1024,
-512) float32 beside the plain path and SDPA's backward under each backend
-that takes the shape, with the bound and the design's floor (bf16: one
-bf16 product at 989 TFLOP/s, float32: three TF32 products at 495).
+Builds the kernels and prints the ptxas lines of the xwide forwards (the
+float32 one in ``flash_attention_f32.cu``, the bf16 one in
+``flash_attention_xwide_fwd.cu``) and of every kernel of
+``flash_attention_xwide_bwd.cu`` (registers, spills). Then, in order:
+
+- unless ``--backward``: the bf16 forward against the plain version
+  (chip_smoke's ATOL and RTOL) and its log-sum-exp against
+  ``torch.logsumexp`` at widths 320-512 and T from 16 to 1024 (ragged ones
+  too; three runs bit for bit), timed by CUDA-graph replay (and eagerly)
+  at the CondUNet's (256, 1, 256, 512) and (128, 1, 256, 512)
+  (``model.ch: 256`` at its CFG and training batches) beside the plain
+  version and bf16 SDPA (the backend its dispatcher picks), with the bytes
+  and operations bounds; ``--forward`` stops here;
+- unless ``--backward``: the float32 forward and its log-sum-exp against
+  the plain version at T = 16 to 4096 and D = 300 to 512 (relative L2
+  printed; two runs compared bit for bit), timed at the VAE's (32, 1, 1024,
+  512) and SD's VAE's (2, 1, 4096, 512) beside the plain version and
+  float32 SDPA (TF32 off) under each backend that takes the shape, with
+  the FFMA bound and the floor of three TF32 products;
+- the backward in both dtypes against ``attention_bwd_plain`` at widths
+  320-512 and T from 16 to 1024 (ragged ones too; two runs bit for bit),
+  timed at the CondUNet's (128, 1, 256, 512) bf16 and the VAE's (32, 1,
+  1024, 512) float32 beside the plain path and SDPA's backward under each
+  backend that takes the shape, with the bound and the design's floor
+  (bf16: one bf16 product at 989 TFLOP/s, float32: three TF32 products at
+  495);
+- unless ``--backward``: the GroupNorm forward at the VAE's largest site
+  (32, 256, 256, 256) fp32, 2^31 bytes, against its plain version.
+
 ``--tree`` imports ``uurg_torch`` from another checkout (an earlier commit
 unpacked by ``git archive``), so that two versions can be timed in turns on
 one card, each in its own process. A quick check for work on the route;
@@ -38,6 +50,8 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (B, T) of the bf16 forward's checks at each width 320-512
+BF16_FWD_CHECK = ((2, 16), (2, 100), (2, 256), (3, 65), (2, 1024))
 # (B, T, D) at one head
 CHECK_SHAPES = ((2, 16, 512), (2, 100, 512), (2, 1024, 512), (2, 4096, 512),
                 (2, 100, 320), (2, 1024, 300), (3, 65, 384), (2, 33, 448))
@@ -81,14 +95,76 @@ def kernel_ms(fn, iters: int = 5) -> dict:
     return out
 
 
+def bf16_forward(cs, FA, g, failed: list) -> None:
+    """The bf16 xwide forward: checks at BF16_FWD_CHECK and every width,
+    then the CondUNet's two shapes timed beside SDPA and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    for D in cs.XW_WIDTHS:
+        for B, T in BF16_FWD_CHECK:
+            q, k, v = (torch.randn(B, 1, T, D, generator=g, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(3))
+            runs = [FA._attention_kernel(q, k, v, with_lse=True)
+                    for _ in range(cs.RAGGED_REPEATS)]
+            torch.cuda.synchronize()
+            o, lse = runs[0]
+            equal = all(torch.equal(o, r[0]) and torch.equal(lse, r[1])
+                        for r in runs[1:])
+            want = FA.attention_plain(q, k, v).float()
+            err = (o.float() - want).abs()
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+                * D ** -0.5
+            lse_err = (lse - torch.logsumexp(s, -1).reshape(B, T)) \
+                .abs().max().item()
+            ok = (bool(torch.isfinite(o).all()) and equal
+                  and not (err > cs.ATOL + cs.RTOL * want.abs()).any()
+                  and lse_err <= cs.LSE_ATOL)
+            if not ok:
+                failed.append(f"bf16 forward {(B, T, D)}")
+            print(f"bf16 fwd B={B} T={T} D={D}: max abs {err.max().item():.3e}"
+                  f" (tolerance {cs.ATOL:g} + {cs.RTOL:g}|plain|), lse "
+                  f"{lse_err:.3e}, {cs.RAGGED_REPEATS} runs equal {equal}",
+                  flush=True)
+            del q, k, v, runs, o, lse, want, err, s
+    for B, H, T, D in (cs.XW_UNET_CFG, cs.XW_UNET_TRAIN):
+        q, k, v = (torch.randn(B, H, T, D, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+
+        def run():
+            return FA._attention_kernel(q, k, v, with_lse=False)
+
+        ms, eager = cs.time_ms(run, 10)
+        lse_ms = cs.time_ms(
+            lambda: FA._attention_kernel(q, k, v, with_lse=True), 10)[0]
+        plain = cs.time_ms(lambda: FA.attention_plain(q, k, v), 5)[0]
+        sdpa = cs.time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 10)[0]
+        backend = cs.sdpa_backend_names(q, k, v)["backend"]
+        n = B * H * T * D
+        bytes_ms = 4 * n * 2 / cs.HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * n * T / cs.BF16_TC_FLOPS * 1e3
+        print(f"bf16 fwd ({B}, {H}, {T}, {D}): kernel {ms:.4f} ms (eager "
+              f"{eager:.4f}; with the log-sum-exp {lse_ms:.4f}), plain "
+              f"{plain:.4f}, bf16 SDPA {sdpa:.4f} ({backend}); bound "
+              f"{max(bytes_ms, ops_ms):.4f} (bytes {bytes_ms:.4f}, operations "
+              f"{ops_ms:.4f}); {4 * n * T / ms / 1e9:.1f} TFLOP/s, "
+              f"{4 * n * 2 / ms / 1e6:.1f} GB/s of the bound's bytes; kernels "
+              f"a call {cs.kernels_a_call(run)}", flush=True)
+        del q, k, v
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=None,
                     help="import uurg_torch from this checkout instead")
-    ap.add_argument("--backward", action="store_true",
-                    help="the backward alone")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--backward", action="store_true",
+                       help="the backward alone")
+    group.add_argument("--forward", action="store_true",
+                       help="the bf16 forward alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -110,7 +186,7 @@ def main() -> int:
               getattr(_build, "build_seconds", {}).items())))
     for name in sorted(_build.build_logs):
         log = _build.build_logs[name]
-        pick = (lambda line: True) if name == "flash_attention_xwide_bwd" \
+        pick = (lambda line: True) if name.startswith("flash_attention_xwide") \
             else (lambda line: "xwide" in line)
         for line in ptxas_lines(log, pick):
             print(f"{name}: {line}")
@@ -120,6 +196,14 @@ def main() -> int:
 
     def rel(a, b):
         return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    if not args.backward:
+        bf16_forward(cs, FA, g, failed)
+    if args.forward:
+        print(cs.card_line())
+        if failed:
+            print("FAILED:", ", ".join(failed))
+        return 1 if failed else 0
 
     if not args.backward:
         for B, T, D in CHECK_SHAPES:

@@ -2,12 +2,18 @@
 dtypes, forward and backward) on the CPU: the port's plain versions against
 the JAX package's Pallas pair in interpret mode at widths 320 and 512, the
 dispatcher's routes and refusals, the CPU dispatcher's gradients, a model
+of the bf16 forward kernel's arithmetic (its key tiles, the online softmax,
+P rounded unnormalised) against the plain version, the Pallas kernel and
+``torch.logsumexp``, the bf16 forward's binding to its own source, a model
 of the backward kernels' arithmetic (P from the log-sum-exp, delta from
 dO o, their tiles and order of sums, the dS scratch, bf16 roundings)
 against the plain version, the float32 kernels' TF32 split, and the wide
 CondUNet's parameter count. The kernels themselves are held on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s width phase)."""
+import ctypes
+import math
 import os
+import re
 
 import pytest
 
@@ -19,6 +25,7 @@ import numpy as np  # noqa: E402
 import chip_smoke  # noqa: E402
 from uurg_torch.core.config import load_config  # noqa: E402
 from uurg_torch.models import unet_cond as TU  # noqa: E402
+from uurg_torch.ops import _build  # noqa: E402
 from uurg_torch.ops import flash_attention as FA  # noqa: E402
 from uurg_tpu.ops.flash_attention import fused_attention  # noqa: E402
 
@@ -123,6 +130,99 @@ def test_cpu_dispatcher_at_width_512_is_the_plain_pair(dtype):
 
 def _round(x, dtype):
     return x.to(dtype).float()
+
+
+# the bf16 forward kernel's key tile (csrc/flash_attention_xwide_fwd.cu's
+# kBK): the online softmax takes the keys in tiles of it
+XF_KEYS = 64
+_XF_SOURCE = os.path.join(ROOT, "uurg_torch", "csrc",
+                          "flash_attention_xwide_fwd.cu")
+
+
+def _xwide_fwd_model(q, k, v, keys: int = XF_KEYS):
+    """What the bf16 xwide forward kernel computes, in torch on its tiles:
+    per key tile of ``keys`` in order, fp32 scores scaled by scale * log2 e,
+    the running max and the rescale of O and of the row sum, P = 2^(s - m)
+    rounded to bf16 unnormalised before P V (fp32 sums), the row sum from
+    the unrounded P; O divided by the row sum and rounded once. Returns
+    (o in q's dtype, the natural log-sum-exp fp32 (B*H, T)). Keys past T
+    are absent (the kernel's -inf adds nothing)."""
+    T, D = q.shape[-2:]
+    scale_log2 = D ** -0.5 * math.log2(math.e)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    o = torch.zeros(qf.shape)
+    for k0 in range(0, T, keys):
+        ks = slice(k0, k0 + keys)
+        s = qf @ kf[..., ks, :].transpose(-1, -2) * scale_log2
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _round(p, q.dtype) @ vf[..., ks, :]
+        m = m_new
+    lse = (m + torch.log2(l)) * math.log(2.0)
+    return (o / l).to(q.dtype), lse.reshape(-1, T)
+
+
+@pytest.mark.parametrize("T", [16, 33, 64, 100, 130, 256])
+@pytest.mark.parametrize("D", [320, 384, 448, 512])
+def test_forward_kernel_arithmetic_matches_plain(D, T):
+    # T below a key tile (16, 33), a tile exactly (64), ragged ends (100,
+    # 130) and the CondUNet's 16 x 16 site (256)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(T, D, D + T)[:3])
+    got, lse = _xwide_fwd_model(q, k, v)
+    assert got.dtype == torch.bfloat16
+    assert _rel(_f32(got), _f32(FA.attention_plain(q, k, v))) \
+        <= REL[torch.bfloat16][0]
+    s = q.float() @ k.float().transpose(-1, -2) * D ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(-1, T),
+                               atol=chip_smoke.LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_forward_model_matches_pallas_interpret(D):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(100, D, D)[:3])
+    want = fused_attention(*(jnp.asarray(_f32(t)).astype(jnp.bfloat16)
+                             for t in (q, k, v)), 64, True)
+    got = _xwide_fwd_model(q, k, v)[0]
+    assert _rel(_f32(got), np.asarray(want, np.float32)) \
+        <= REL[torch.bfloat16][0]
+
+
+def test_forward_model_tile_is_the_sources():
+    # the model's key tile is the one the kernel states
+    with open(_XF_SOURCE) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int kBK = (\d+);", text).group(1)) \
+        == XF_KEYS
+
+
+def test_bf16_forward_binds_its_own_source(monkeypatch):
+    # uurg_attention_fwd_xwide_bf16 is defined in one source, its own; the
+    # wrapper binds it there (five pointers, three ints, the scale, the
+    # stream) and the build compiles it; flash_attention_f32.cu holds no
+    # bf16 kernel
+    defining = sorted(p.name for p in _build.CSRC.glob("*.cu")
+                      if re.search(r'extern "C" int uurg_attention_fwd_xwide_bf16\(',
+                                   p.read_text()))
+    assert defining == ["flash_attention_xwide_fwd.cu"]
+    assert _build.CSRC / "flash_attention_xwide_fwd.cu" in _build.sources()
+    calls = []
+    monkeypatch.setattr(_build, "function",
+                        lambda *a: calls.append(a) or "bound")
+    assert FA._fwd_xwide_bf16_fn() == "bound"
+    (name, symbol, argtypes), = calls
+    assert (name, symbol) == ("flash_attention_xwide_fwd",
+                              "uurg_attention_fwd_xwide_bf16")
+    assert argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    f32 = (_build.CSRC / "flash_attention_f32.cu").read_text()
+    assert "__nv_bfloat16" not in f32
+    assert "uurg_attention_fwd_xwide_bf16" not in f32
 
 
 # the backward kernels' tiles (csrc/flash_attention_xwide_bwd.cu): a key

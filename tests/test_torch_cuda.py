@@ -553,6 +553,27 @@ def test_attention_xwide_pair_matches_plain(gen, T, D, dtype):
         assert _rel_l2(a, b) < tol
 
 
+def test_attention_xwide_bf16_forward_repeats_its_bits_at_the_condunet_site(
+        gen):
+    # the CondUNet at model.ch 256: one head of 512 at 16 x 16; three runs
+    # of the bf16 xwide forward with its log-sum-exp give the same bits,
+    # one launch each, within the plain version's tolerance
+    q, k, v = (torch.randn(8, 1, 256, 512, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = attention.launches_xwide
+    runs = [FA._attention_kernel(q, k, v, with_lse=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert attention.launches_xwide == before + 3
+    o, lse = runs[0]
+    for other in runs[1:]:
+        assert torch.equal(o, other[0]) and torch.equal(lse, other[1])
+    torch.testing.assert_close(o.float(), attention_plain(q, k, v).float(),
+                               atol=ATOL, rtol=RTOL)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 512 ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(8, 256),
+                               atol=1e-4, rtol=0)
+
+
 def test_attention_xwide_bf16_gradients_through_the_dispatcher(gen):
     # the CondUNet at model.ch 256: one head of 512 at 16 x 16, training
     # batch; autograd takes the bf16 xwide pair, nothing else

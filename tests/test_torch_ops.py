@@ -265,7 +265,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("group_norm")
     assert {p.name for p in _build.sources()} == {
         "group_norm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
-        "flash_attention_f32.cu", "flash_attention_xwide_bwd.cu"}
+        "flash_attention_f32.cu", "flash_attention_xwide_bwd.cu",
+        "flash_attention_xwide_fwd.cu"}
 
 
 def test_kernel_build_runs_one_nvcc_a_source_and_keeps_its_log_and_time(

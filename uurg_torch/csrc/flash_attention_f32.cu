@@ -29,9 +29,8 @@
 //   or Swin configuration of the repository has heads wider than 64.
 // - xwide (D = 320, 384, 448, 512): the VAE's one head of width 512, which
 //   no tile of the wide route fits; the forward 3xTF32 on the tensor cores
-//   (see its section), also built for bfloat16 (the only bf16 kernel of
-//   this file: the bfloat16 kernels of flash_attention_{fwd,bwd}.cu stop at
-//   width 256). The xwide backward, in both dtypes, is
+//   (see its section). The xwide forward in bfloat16 is
+//   flash_attention_xwide_fwd.cu, the xwide backward, in both dtypes,
 //   flash_attention_xwide_bwd.cu.
 //
 // What the first design lost at T = 197 and what the D = 64 routes do:
@@ -81,7 +80,6 @@
 // forward, P = 0 backward), rows past T are computed on zeros and not
 // stored. D is one of 64, 128, 192, 256, 320, 384, 448, 512 (the wrapper
 // pads other widths with zeros and passes the true D^-0.5 scale).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -1282,17 +1280,6 @@ attn_bwd_dq_d64(const float* __restrict__ ds, const float* __restrict__ k,
 // at T = 1024), far above the card's 20 float32 flops a byte. The table's
 // bound is the FFMA rate (67 TFLOP/s); this design's own floor is three TF32
 // products at 495 TFLOP/s.
-//
-// bfloat16 (In = __nv_bfloat16; the CondUNet's heads wider than 256, the
-// Pallas kernel at those widths in bf16). A bf16 value has 8 significant
-// bits and TF32 11, so a product of two bf16 operands is one exact TF32
-// mma.sync with fp32 accumulation: no split, one product where float32
-// takes three. Q, K and V are read as bf16 and widened to fp32 in shared
-// memory (the same tiles and fragments as float32; a load and a store where
-// float32 has cp.async, which copies bytes, not types). P is rounded to bf16
-// before P V, unnormalised, as flash_attention_fwd.cu rounds it (the Pallas
-// kernel rounds the normalised P; either is one bf16 rounding of each
-// probability); the row sums take the unrounded P. O is written as bf16.
 
 constexpr int kXThreads = 256;
 constexpr int kXRows = 64;               // query rows of a block
@@ -1378,72 +1365,16 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// an A fragment of values that TF32 holds exactly (bf16 ones): no split
-__device__ __forceinline__ void tf32_a(float2 x0, float2 x1, uint32_t (&a)[4]) {
-  a[0] = __float_as_uint(x0.x);
-  a[1] = __float_as_uint(x1.x);
-  a[2] = __float_as_uint(x0.y);
-  a[3] = __float_as_uint(x1.y);
-}
-
-template <typename In>
-constexpr bool kIsBf16 = false;
-template <>
-constexpr bool kIsBf16<__nv_bfloat16> = true;
-
-// x as the nearest bf16, in float32 (x itself for float32 kernels)
-template <typename In>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (kIsBf16<In>) return __bfloat162float(__float2bfloat16(x));
-  return x;
-}
-
-// four consecutive elements at src (16-byte aligned float32 or 8-byte
-// aligned bf16), as float32
-template <typename In>
-__device__ __forceinline__ float4 load4(const In* src) {
-  if constexpr (kIsBf16<In>) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
-    return make_float4(__uint_as_float(raw.x << 16),
-                       __uint_as_float(raw.x & 0xffff0000u),
-                       __uint_as_float(raw.y << 16),
-                       __uint_as_float(raw.y & 0xffff0000u));
-  } else {
-    return __ldg(reinterpret_cast<const float4*>(src));
-  }
-}
-
-// two float32 values to dst (4-byte aligned bf16, 8-byte float32)
-template <typename In>
-__device__ __forceinline__ void store2(In* dst, float a, float b) {
-  if constexpr (kIsBf16<In>)
-    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-  else
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-// four elements at src into 16 bytes of shared memory as float32 (zeros
-// where !live): a cp.async for float32, a load, widen and store for bf16
-template <typename In>
-__device__ __forceinline__ void copy4(float* dst, const In* src, bool live) {
-  if constexpr (kIsBf16<In>) {
-    *reinterpret_cast<float4*>(dst) =
-        live ? load4<In>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    cp_async16(dst, src, live);
-  }
-}
-
 // chunk c of the key tile at k0 of head blockIdx.y into `buf`: K columns
 // 64 c .. + 63 of keys k0 .. k0 + 127 for c < NK (swizzled), else V rows
 // k0 + 16 (c - NK) .. + 15 (stride D + 4); zeros past T. The head's offset
 // is recomputed here and no index is divided by a width that is not a power
 // of two: registers held across the key walk, or that index arithmetic
 // unrolled, cost spills
-template <int D, typename In>
+template <int D>
 __device__ __forceinline__ void xwide_issue(float* buf,
-                                            const In* __restrict__ k,
-                                            const In* __restrict__ v,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
                                             int c, int k0, int T) {
   using S = XShape<D>;
   const size_t head = static_cast<size_t>(blockIdx.y) * T * D;
@@ -1456,10 +1387,10 @@ __device__ __forceinline__ void xwide_issue(float* buf,
       const int i = threadIdx.x + n * kXThreads;
       const int r = i / V4, col = (i % V4) * 4;
       const bool ok = k0 + r < T;
-      copy4<In>(buf + xsw(r, col, kXKc),
-                ok ? k + static_cast<long long>(k0 + r) * D + c * kXKc + col
-                   : k,
-                ok);
+      cp_async16(buf + xsw(r, col, kXKc),
+                 ok ? k + static_cast<long long>(k0 + r) * D + c * kXKc + col
+                    : k,
+                 ok);
     }
   } else {
     // two rows at a time, a thread a 16-byte column chunk of each
@@ -1470,8 +1401,8 @@ __device__ __forceinline__ void xwide_issue(float* buf,
 #pragma unroll
       for (int r = r0; r < kXVKeys; r += kXThreads / 128) {
         const bool ok = kv0 + r < T;
-        copy4<In>(buf + r * S::LDV + col,
-                  ok ? v + static_cast<long long>(kv0 + r) * D + col : v, ok);
+        cp_async16(buf + r * S::LDV + col,
+                   ok ? v + static_cast<long long>(kv0 + r) * D + col : v, ok);
       }
     }
     static_assert(V4 <= 128, "a V row in one pass of 128 threads");
@@ -1480,13 +1411,12 @@ __device__ __forceinline__ void xwide_issue(float* buf,
 
 // grid: (ceil(T / 64), BH) blocks; block (x, y) owns query rows 64 x ..
 // + 63 of head y
-template <int D, typename In>
+template <int D>
 __global__ void __launch_bounds__(kXThreads, 1)
-attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
-               const In* __restrict__ v, In* __restrict__ o,
+attn_fwd_xwide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int T, float scale_log2) {
   using S = XShape<D>;
-  constexpr bool kBf16 = kIsBf16<In>;
   constexpr int NK = S::NK, NS = S::NS, LDV = S::LDV, NJ = S::NJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -1520,18 +1450,18 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
 
   {
     // two rows at a time, as xwide_issue copies V
-    const In* qh = q + static_cast<size_t>(blockIdx.y) * T * D;
+    const float* qh = q + static_cast<size_t>(blockIdx.y) * T * D;
     const int col = (tid % 128) * 4;
     if (col < D) {
       for (int r = tid / 128; r < kXRows; r += kXThreads / 128) {
         const bool ok = q0 + r < T;
-        copy4<In>(Qs + xsw(r, col, D),
-                  ok ? qh + static_cast<size_t>(q0 + r) * D + col : q, ok);
+        cp_async16(Qs + xsw(r, col, D),
+                   ok ? qh + static_cast<size_t>(q0 + r) * D + col : q, ok);
       }
     }
   }
   if (tid < kXRows) row_l[tid] = 0.f;
-  xwide_issue<D, In>(ring, k, v, 0, 0, T);
+  xwide_issue<D>(ring, k, v, 0, 0, T);
   cp_async_commit();
 
   float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
@@ -1559,7 +1489,7 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
       nk0 += kXKeys;
     }
     if (nk0 < T) {
-      xwide_issue<D, In>(ring + nb * S::BUF, k, v, nc, nk0, T);
+      xwide_issue<D>(ring + nb * S::BUF, k, v, nc, nk0, T);
       cp_async_commit();
     }
     return buf;
@@ -1585,39 +1515,22 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll 1
       for (int p = 0; p < kXKc / 8; ++p) {
         const int off = 8 * (p ^ gq);
-        if constexpr (kBf16) {
-          // exact in TF32: one product
-          uint32_t a[2][4];
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            tf32_a(ld2(A + 16 * i * D + off), ld2(A + (16 * i + 8) * D + off),
-                   a[i]);
+        for (int i = 0; i < 2; ++i)
+          split_a(ld2(A + 16 * i * D + off), ld2(A + (16 * i + 8) * D + off),
+                  ah[i], al[i]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 b = ld2(B + 8 * j * kXKc + off);
+        for (int j = 0; j < 4; ++j) {
+          const float2 b = ld2(B + 8 * j * kXKc + off);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b.x, bh0, bl0);
+          split_tf32(b.y, bh1, bl1);
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-              mma_tf32(sacc[i][j], a[i], __float_as_uint(b.x),
-                       __float_as_uint(b.y));
-          }
-        } else {
-          uint32_t ah[2][4], al[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            split_a(ld2(A + 16 * i * D + off), ld2(A + (16 * i + 8) * D + off),
-                    ah[i], al[i]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 b = ld2(B + 8 * j * kXKc + off);
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(b.x, bh0, bl0);
-            split_tf32(b.y, bh1, bl1);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mma_tf32(sacc[i][j], al[i], bh0, bh1);
-              mma_tf32(sacc[i][j], ah[i], bl0, bl1);
-              mma_tf32(sacc[i][j], ah[i], bh0, bh1);
-            }
+          for (int i = 0; i < 2; ++i) {
+            mma_tf32(sacc[i][j], al[i], bh0, bh1);
+            mma_tf32(sacc[i][j], ah[i], bl0, bl1);
+            mma_tf32(sacc[i][j], ah[i], bh0, bh1);
           }
         }
       }
@@ -1676,7 +1589,7 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
           const float p1 = exp2f(sacc[i][j][2 * h + 1] - m_new);
           sum += p0 + p1;
           *reinterpret_cast<float2*>(Ps + xsw(r, skey + 8 * j + 2 * t, kXKeys)) =
-              make_float2(round_to<In>(p0), round_to<In>(p1));
+              make_float2(p0, p1);
         }
         sum += __shfl_xor_sync(kFull, sum, 1);
         sum += __shfl_xor_sync(kFull, sum, 2);
@@ -1710,72 +1623,53 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll 1
       for (int ks = 0; ks < kXVKeys / 8; ++ks) {
         const int key = vc * kXVKeys + 8 * ks + 2 * t;
-        if constexpr (kBf16) {
-          // P rounded to bf16 and V bf16: one exact product into O
-          uint32_t a[2][4];
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = row0 + 16 * i;
-            tf32_a(ld2(Ps + xsw(r, key, kXKeys)),
-                   ld2(Ps + xsw(r + 8, key, kXKeys)), a[i]);
-          }
-          const float* vb = B + (8 * ks + 2 * t) * LDV + ocol + g;
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + 16 * i;
+          split_a(ld2(Ps + xsw(r, key, kXKeys)),
+                  ld2(Ps + xsw(r + 8, key, kXKeys)), ah[i], al[i]);
+        }
+        // V rows 8 ks + 2 t and + 1 (logical k = t, t + 4), column
+        // ocol + 8 j + g; two n-blocks at a time, the next two loaded while
+        // these are multiplied. The products are issued in program order
+        // (mma_tf32_seq): left to itself ptxas interleaved all 32 of a
+        // k-step and spilled their accumulators.
+        const float* vb = B + (8 * ks + 2 * t) * LDV + ocol + g;
+        float x[2][2] = {{vb[0], vb[LDV]}, {vb[8], vb[LDV + 8]}};
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            const uint32_t b0 = __float_as_uint(vb[8 * j]);
-            const uint32_t b1 = __float_as_uint(vb[LDV + 8 * j]);
+        for (int j = 0; j < NJ; j += 2) {
+          uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-            for (int i = 0; i < 2; ++i) mma_tf32(oacc[i][j], a[i], b0, b1);
-          }
-        } else {
-          uint32_t ah[2][4], al[2][4];
+          for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = row0 + 16 * i;
-            split_a(ld2(Ps + xsw(r, key, kXKeys)),
-                    ld2(Ps + xsw(r + 8, key, kXKeys)), ah[i], al[i]);
-          }
-          // V rows 8 ks + 2 t and + 1 (logical k = t, t + 4), column
-          // ocol + 8 j + g; two n-blocks at a time, the next two loaded while
-          // these are multiplied. The products are issued in program order
-          // (mma_tf32_seq): left to itself ptxas interleaved all 32 of a
-          // k-step and spilled their accumulators.
-          const float* vb = B + (8 * ks + 2 * t) * LDV + ocol + g;
-          float x[2][2] = {{vb[0], vb[LDV]}, {vb[8], vb[LDV + 8]}};
+            for (int w = 0; w < 2; ++w) split_tf32(x[u][w], bh[u][w], bl[u][w]);
+          if (j + 2 < NJ) {
 #pragma unroll
-          for (int j = 0; j < NJ; j += 2) {
-            uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int w = 0; w < 2; ++w) split_tf32(x[u][w], bh[u][w], bl[u][w]);
-            if (j + 2 < NJ) {
-#pragma unroll
-              for (int u = 0; u < 2; ++u) {
-                x[u][0] = vb[8 * (j + 2 + u)];
-                x[u][1] = vb[LDV + 8 * (j + 2 + u)];
-              }
+            for (int u = 0; u < 2; ++u) {
+              x[u][0] = vb[8 * (j + 2 + u)];
+              x[u][1] = vb[LDV + 8 * (j + 2 + u)];
             }
-            float c4[2][2][4];
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], al[i], bh[u][0], bh[u][1], true);
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bl[u][0], bl[u][1], false);
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bh[u][0], bh[u][1], false);
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-#pragma unroll
-              for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) oacc[i][j + u][e] += c4[u][i][e];
           }
+          float c4[2][2][4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], al[i], bh[u][0], bh[u][1], true);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bl[u][0], bl[u][1], false);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32_seq(c4[u][i], ah[i], bh[u][0], bh[u][1], false);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) oacc[i][j + u][e] += c4[u][i][e];
         }
       }
     }
@@ -1800,12 +1694,12 @@ attn_fwd_xwide(const In* __restrict__ q, const In* __restrict__ k,
       const int row = row0 + 16 * i + 8 * h;
       if (q0 + row >= T) continue;
       const float inv = 1.f / row_l[row];
-      In* dst = o + (static_cast<size_t>(blockIdx.y) * T + q0 + row) * D +
-                ocol + 2 * t;
+      float* dst = o + (static_cast<size_t>(blockIdx.y) * T + q0 + row) * D +
+                   ocol + 2 * t;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        store2<In>(dst + 8 * j, oacc[i][j][2 * h] * inv,
-                   oacc[i][j][2 * h + 1] * inv);
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(oacc[i][j][2 * h] * inv, oacc[i][j][2 * h + 1] * inv);
     }
 }
 
@@ -1832,18 +1726,18 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename In>
-int launch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
+template <int D>
+int launch_fwd_xwide(const float* q, const float* k, const float* v, float* o,
                      float* lse, int BH, int T, float scale,
                      cudaStream_t stream) {
   constexpr size_t smem = xwide_smem<D>();
-  cudaError_t err = allow_smem(attn_fwd_xwide<D, In>, smem);
+  cudaError_t err = allow_smem(attn_fwd_xwide<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // heads on blockIdx.y, whose limit is 65535: more heads take more launches
   for (int h0 = 0; h0 < BH; h0 += kMaxGridY) {
     const size_t at = static_cast<size_t>(h0) * T;
     const dim3 grid((T + kXRows - 1) / kXRows, min(BH - h0, kMaxGridY));
-    attn_fwd_xwide<D, In><<<grid, kXThreads, smem, stream>>>(
+    attn_fwd_xwide<D><<<grid, kXThreads, smem, stream>>>(
         q + at * D, k + at * D, v + at * D, o + at * D,
         lse ? lse + at : nullptr, T, scale * kLog2e);
     err = cudaGetLastError();
@@ -1852,15 +1746,14 @@ int launch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
   return 0;
 }
 
-template <typename In>
-int dispatch_fwd_xwide(const In* q, const In* k, const In* v, In* o,
-                       float* lse, int BH, int T, int D, float scale,
+int dispatch_fwd_xwide(const float* q, const float* k, const float* v,
+                       float* o, float* lse, int BH, int T, int D, float scale,
                        cudaStream_t s) {
   switch (D) {
-    case 320: return launch_fwd_xwide<320, In>(q, k, v, o, lse, BH, T, scale, s);
-    case 384: return launch_fwd_xwide<384, In>(q, k, v, o, lse, BH, T, scale, s);
-    case 448: return launch_fwd_xwide<448, In>(q, k, v, o, lse, BH, T, scale, s);
-    default: return launch_fwd_xwide<512, In>(q, k, v, o, lse, BH, T, scale, s);
+    case 320: return launch_fwd_xwide<320>(q, k, v, o, lse, BH, T, scale, s);
+    case 384: return launch_fwd_xwide<384>(q, k, v, o, lse, BH, T, scale, s);
+    case 448: return launch_fwd_xwide<448>(q, k, v, o, lse, BH, T, scale, s);
+    default: return launch_fwd_xwide<512>(q, k, v, o, lse, BH, T, scale, s);
   }
 }
 
@@ -1974,7 +1867,7 @@ extern "C" int uurg_attention_fwd_f32(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!route_ok(route, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteXWide)
-    return dispatch_fwd_xwide<float>(qf, kf, vf, of, lf, BH, T, D, scale, s);
+    return dispatch_fwd_xwide(qf, kf, vf, of, lf, BH, T, D, scale, s);
   if (route != kRouteWide)
     return launch_fwd_d64(qf, kf, vf, of, lf, BH, T, scale,
                           route == kRoutePacked, s);
@@ -2027,22 +1920,4 @@ extern "C" int uurg_attention_bwd_f32(const void* q, const void* k,
       return launch_bwd<256>(qf, kf, vf, gf, lf, df, dqf, dkf, dvf, BH, T,
                              scale, s);
   }
-}
-
-// The bfloat16 forms of the xwide route (padded head widths 320-512): q, k,
-// v, o contiguous bf16 (BH, T, D), 16-byte aligned, D one of 320, 384, 448,
-// 512; lse float32 (BH, T) or null. Returns the CUDA error code of the
-// launch (0 on success).
-extern "C" int uurg_attention_fwd_xwide_bf16(const void* q, const void* k,
-                                             const void* v, void* o,
-                                             void* lse, int BH, int T, int D,
-                                             float scale, void* stream) {
-  using bf16 = __nv_bfloat16;
-  if (!route_ok(kRouteXWide, T, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_fwd_xwide<bf16>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), BH, T, D, scale,
-      static_cast<cudaStream_t>(stream));
 }

@@ -12,11 +12,11 @@ through one ``torch.autograd.Function`` whose backward is
 (bfloat16) or ``flash_attention_f32.cu`` (float32), which replace the Pallas
 ``_attn_bwd_kernel``, for a CUDA tensor, :func:`attention_bwd_plain` for a
 CPU tensor. Head widths whose padded value is 320-512 take the ``xwide``
-kernels in either dtype: the forward of ``flash_attention_f32.cu`` (its
-only bfloat16 kernel), the backward of
-``uurg_torch/csrc/flash_attention_xwide_bwd.cu``. Nothing falls back from
-a kernel to a plain version, and no other dtype reaches a kernel: a CUDA
-tensor of any other dtype raises.
+kernels in either dtype: the forward of ``flash_attention_f32.cu`` for
+float32 and of ``uurg_torch/csrc/flash_attention_xwide_fwd.cu`` for
+bfloat16, the backward of ``uurg_torch/csrc/flash_attention_xwide_bwd.cu``
+for both. Nothing falls back from a kernel to a plain version, and no
+other dtype reaches a kernel: a CUDA tensor of any other dtype raises.
 Inside :func:`uurg_torch.parallel.sequence.sequence_parallel` the
 dispatcher hands a call whose token counts divide by the ``seq`` axis to
 ring attention, which runs these kernels a chunk.
@@ -36,11 +36,13 @@ one head of width 512; forward: 64 resident query rows, K and V streamed
 in chunks, both products on the tensor cores as three TF32 products of
 split operands, "3xTF32"; backward: mma.sync on the tensor cores, 3xTF32,
 a key pass over 32-key blocks for dk and dv that writes dS to a scratch
-and a dq pass that reads it). The ``xwide`` pair is also built for
-bfloat16 (the CondUNet at ``model.ch: 256``, the Pallas pair at those
-widths in bf16): the forward one exact TF32 product of bf16 operands
-where float32 takes three, the backward bf16 products, P and dS rounded
-to bf16 as the other bfloat16 kernels round them. A launcher
+and a dq pass that reads it). The ``xwide`` pair also takes bfloat16 (the
+CondUNet at ``model.ch: 256``, the Pallas pair at those widths in bf16):
+the forward is a TMA and ``wgmma`` design of its own (64 query rows an
+item; two warpgroups sum the item's scores over half of the width each,
+add each other's halves and hold half of the output's columns each), the
+backward bf16 products, P and dS rounded to bf16 as the other bfloat16
+kernels round them. A launcher
 returns the CUDA error code of its launch, or -1 if a tensor map could not
 be encoded; the wrappers raise on either. Each wrapper counts its launches
 per route: ``attention.launches`` and ``attention_bwd.launches`` for
@@ -314,7 +316,7 @@ def _bwd_f32_fn():
 
 def _fwd_xwide_bf16_fn():
     return _build.function(
-        "flash_attention_f32", "uurg_attention_fwd_xwide_bf16",
+        "flash_attention_xwide_fwd", "uurg_attention_fwd_xwide_bf16",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p])
 
@@ -351,9 +353,9 @@ def _attention_kernel(q, k, v, with_lse: bool):
     f32 = q.dtype == torch.float32
     xwide = _xwide_bf16(q)
     if f32 or xwide:
-        # the float32 and xwide kernels take contiguous tensors of the
-        # template width until their redesign at the true width: strided
-        # inputs are copied
+        # the float32 kernels and the bf16 xwide forward take contiguous
+        # (B*H, T, Dp) tensors of the template width (the latter reads them
+        # through tensor maps of that shape): strided inputs are copied
         q, k, v = _padded([t.contiguous() for t in (q, k, v)], Dp)
         o = torch.empty_like(q)
         if xwide:
